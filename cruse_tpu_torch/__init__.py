@@ -1,0 +1,18 @@
+"""cruse_tpu_torch: the PyTorch + CUDA port of cruse_tpu, for NVIDIA Hopper.
+
+It sits beside the JAX package, which stays the reference each module is
+tested against, and mirrors its module paths:
+
+- ``cruse_tpu_torch.dsp``    -- STFT/iSTFT on torch.stft/istft, windows
+- ``cruse_tpu_torch.ops``    -- hand-written CUDA kernels with their plain versions
+- ``cruse_tpu_torch.nn``     -- causal conv block, grouped GRU bottleneck
+- ``cruse_tpu_torch.models`` -- CRUSE
+- ``cruse_tpu_torch.infer``  -- batch inference and its CLI
+- ``cruse_tpu_torch.data``   -- wav IO
+- ``cruse_tpu_torch.utils``  -- the weight bridge from flax variables
+
+The package imports torch and numpy, never jax or flax. From cruse_tpu it
+shares only the jax-free ``cruse_tpu.utils`` (config loading, logging).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,1 @@
+"""Data IO of the port: wav read/write."""

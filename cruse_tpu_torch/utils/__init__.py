@@ -1,0 +1,1 @@
+"""Utilities of the port: the weight bridge from cruse_tpu flax variables."""

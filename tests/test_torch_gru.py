@@ -1,0 +1,157 @@
+"""Port parity: the grouped-GRU recurrence and layers of cruse_tpu_torch
+against cruse_tpu, on the CPU (the wrapper's plain version).
+
+Inputs come from a numpy seed and go through both packages. Tolerances:
+1e-5 for float32 (two float32 implementations of the same sums); 1e-3 for
+bf16 recurrent weights, because bf16 rounds at other places in the two
+frameworks.
+"""
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from cruse_tpu.nn.gru import GGRUBottleneck as JaxGGRU
+from cruse_tpu.nn.gru import GroupedGRULayer as JaxGroupedGRULayer
+from cruse_tpu.nn.gru import channel_shuffle as jax_channel_shuffle
+from cruse_tpu.nn.gru import gru_scan as jax_gru_scan
+from cruse_tpu.ops.gru_kernel import gru_sequence_pallas
+
+from cruse_tpu_torch.nn.gru import GGRUBottleneck, GroupedGRULayer, channel_shuffle, gru_scan
+from cruse_tpu_torch.ops import _build
+from cruse_tpu_torch.ops.gru_kernel import gru_sequence, gru_sequence_reference
+
+
+def _gru_inputs(rng, b, t, g, h):
+    return (rng.standard_normal((b, t, g, 3 * h)).astype(np.float32),
+            rng.standard_normal((b, g, h)).astype(np.float32),
+            (rng.standard_normal((g, 3 * h, h)) * 0.3).astype(np.float32),
+            (rng.standard_normal((g, 3 * h)) * 0.1).astype(np.float32))
+
+
+def _torch(arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+def _jax(arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+@pytest.mark.parametrize("t", [10, 13])
+def test_reference_matches_gru_scan(rng, t):
+    args = _gru_inputs(rng, 2, t, 2, 8)
+    y_ref, h_ref = jax_gru_scan(*_jax(args))
+    y, h = gru_sequence_reference(*_torch(args))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), atol=1e-5)
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_ref), atol=1e-5)
+
+
+@pytest.mark.parametrize("t", [10, 13])  # 13: the TPU kernel pads its tail to 16
+def test_reference_matches_pallas_interpret(rng, t):
+    args = _gru_inputs(rng, 3, t, 2, 8)
+    y_pal, h_pal = gru_sequence_pallas(*_jax(args), interpret=True)
+    y, h = gru_sequence(*_torch(args))  # CPU tensors: the plain version
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_pal), atol=1e-5)
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_pal), atol=1e-5)
+
+
+def test_bf16_weights_match_pallas_interpret(rng):
+    args = _gru_inputs(rng, 2, 13, 2, 8)
+    y_pal, h_pal = gru_sequence_pallas(*_jax(args), interpret=True, weight_dtype=jnp.bfloat16)
+    y, h = gru_sequence(*_torch(args), weight_dtype=torch.bfloat16)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_pal), atol=1e-3)
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_pal), atol=1e-3)
+    # and bf16 really is applied: it moves the result off the f32 recurrence
+    y32, _ = gru_sequence(*_torch(args))
+    assert np.abs(y.numpy() - y32.numpy()).max() > 1e-5
+
+
+def test_wrapper_on_cpu_counts_no_launch(rng):
+    args = _torch(_gru_inputs(rng, 2, 5, 2, 4))
+    before = gru_sequence.launches
+    y, h = gru_sequence(*args)
+    y_ref, h_ref = gru_scan(*args)
+    assert gru_sequence.launches == before
+    torch.testing.assert_close(y, y_ref, rtol=0, atol=0)
+    torch.testing.assert_close(h, h_ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", ["h0_shape", "w_hh_shape", "weight_dtype", "meta_device"])
+def test_wrapper_rejects(rng, case):
+    x, h0, w, b = _torch(_gru_inputs(rng, 2, 5, 2, 4))
+    kwargs = {}
+    if case == "h0_shape":
+        h0 = h0[:, :1]
+    elif case == "w_hh_shape":
+        w = w[:, :, :3]
+    elif case == "weight_dtype":
+        kwargs["weight_dtype"] = torch.float16
+    else:  # neither cpu nor cuda: no path runs the plain version instead
+        x, h0, w, b = (a.to("meta") for a in (x, h0, w, b))
+    with pytest.raises(ValueError):
+        gru_sequence(x, h0, w, b, **kwargs)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "DEFAULT_NVCC", str(tmp_path / "nvcc"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
+    cmd = _build.nvcc_command("nvcc", _build.SRC_DIR / "gru_sequence.cu", tmp_path / "lib.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd and "-O3" in cmd
+    assert "--use_fast_math" not in cmd
+    with pytest.raises(RuntimeError, match="source missing"):
+        _build.load_library("no_such_kernel")
+
+
+def _layer_params(variables):
+    p = variables["params"]
+    return {k: torch.from_numpy(np.array(v)) for k, v in p.items()}
+
+
+def test_grouped_gru_layer_matches_jax(rng):
+    b, t, i, hid, g = 2, 9, 12, 16, 4
+    x = rng.standard_normal((b, t, i)).astype(np.float32)
+    h0 = rng.standard_normal((b, g, hid // g)).astype(np.float32)
+    jl = JaxGroupedGRULayer(hid, g)
+    variables = jl.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    y_ref, h_ref = jl.apply(variables, jnp.asarray(x), jnp.asarray(h0))
+
+    layer = GroupedGRULayer(i, hid, g)
+    layer.load_state_dict(_layer_params(variables), strict=True)
+    with torch.no_grad():
+        y, h = layer(torch.from_numpy(x), torch.from_numpy(h0))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), atol=1e-5)
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_ref), atol=1e-5)
+
+
+def test_channel_shuffle_matches_jax(rng):
+    x = rng.standard_normal((2, 3, 12)).astype(np.float32)
+    np.testing.assert_array_equal(channel_shuffle(torch.from_numpy(x), 4).numpy(),
+                                  np.asarray(jax_channel_shuffle(jnp.asarray(x), 4)))
+
+
+def test_ggru_bottleneck_matches_jax(rng):
+    from cruse_tpu_torch.utils.weights import flatten_tree
+
+    b, t, d, g = 2, 7, 16, 4
+    x = rng.standard_normal((b, t, d)).astype(np.float32)
+    state = tuple(rng.standard_normal((b, g, d // g)).astype(np.float32) for _ in range(2))
+    jm = JaxGGRU(groups=g)
+    variables = jm.init(jax.random.PRNGKey(1), jnp.asarray(x))
+    # non-default LayerNorm affine, so a missed copy shows
+    variables = jax.tree_util.tree_map(
+        lambda a: np.asarray(a) + rng.uniform(0.1, 0.3, a.shape).astype(np.float32), variables)
+    y_ref, (h1_ref, h2_ref) = jm.apply(variables, jnp.asarray(x), tuple(map(jnp.asarray, state)))
+
+    module = GGRUBottleneck(d, g)
+    sd = {k.replace("/", ".").replace(".scale", ".weight"): torch.from_numpy(np.asarray(v))
+          for k, v in flatten_tree(variables["params"]).items()}
+    module.load_state_dict(sd, strict=True)
+    with torch.no_grad():
+        y, (h1, h2) = module(torch.from_numpy(x), tuple(map(torch.from_numpy, state)))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), atol=1e-5)
+    np.testing.assert_allclose(h1.numpy(), np.asarray(h1_ref), atol=1e-5)
+    np.testing.assert_allclose(h2.numpy(), np.asarray(h2_ref), atol=1e-5)
