@@ -3,11 +3,14 @@
 It sits beside the JAX package, which stays the reference each module is
 tested against, and mirrors its module paths:
 
-- ``cruse_tpu_torch.dsp``    -- STFT/iSTFT on torch.stft/istft, windows
+- ``cruse_tpu_torch.dsp``    -- STFT/iSTFT (torch.stft/istft; the JAX overlap-add
+  for center=False), windows, the windowed DFT bases
 - ``cruse_tpu_torch.ops``    -- hand-written CUDA kernels with their plain versions
+  (grouped-GRU recurrence, deep filter)
 - ``cruse_tpu_torch.nn``     -- causal conv block, grouped GRU bottleneck
-- ``cruse_tpu_torch.models`` -- CRUSE
-- ``cruse_tpu_torch.infer``  -- batch inference and its CLI
+- ``cruse_tpu_torch.models`` -- CRUSE, CRUSE+DF, the deep filter
+- ``cruse_tpu_torch.train``  -- the forward adapters (eval mode)
+- ``cruse_tpu_torch.infer``  -- batch and streaming inference, and their CLI
 - ``cruse_tpu_torch.data``   -- wav IO
 - ``cruse_tpu_torch.utils``  -- the weight bridge from flax variables
 

@@ -1,11 +1,17 @@
 """Batch inferencer (counterpart of ``cruse_tpu/infer/batch.py``), single device.
 
-Enhances (noisy, name) pairs with the ``mag_to_mag`` strategy: STFT ->
-compressed magnitude -> model mask -> masked magnitude with the noisy phase
--> iSTFT. Outputs are scaled to int16 at 0.8 of full scale, logged with their
+Enhances (noisy, name) pairs with one of two strategies:
+
+- ``mag_to_mag``: STFT -> compressed magnitude -> model mask -> masked
+  magnitude with the noisy phase -> iSTFT (mask models: CRUSE);
+- ``auto``: STFT -> the model family's forward adapter
+  (``train.step.forward_for_model``) on the RI spectrum -> iSTFT (CRUSE,
+  and CRUSE+DF, whose deep filter runs on the low bins).
+
+Outputs are scaled to int16 at 0.8 of full scale, logged with their
 real-time factor and optionally written as wavs.
 
-Not ported yet, and refused rather than ignored: the ``auto``, complex and
+Not ported yet, and refused rather than ignored: the complex and
 multi-channel strategies, mask post-filters, the device mesh,
 ``enhance_long`` and int8 weights.
 """
@@ -21,12 +27,14 @@ import torch
 
 from cruse_tpu.utils.logger import log
 from cruse_tpu_torch.data.wavio import to_int16_scaled, write_wav
-from cruse_tpu_torch.dsp.stft import StftConfig, istft_mag_phase, stft
+from cruse_tpu_torch.dsp.stft import StftConfig, istft, istft_mag_phase, stft
+from cruse_tpu_torch.models.cruse_df import CruseDfNet
+from cruse_tpu_torch.train.step import forward_for_model
 
 
 @dataclasses.dataclass
 class InferencerConfig:
-    type: str = "mag_to_mag"  # strategy method name
+    type: str = "mag_to_mag"  # strategy method name: "mag_to_mag" or "auto"
     sr: int = 16000
     stft: StftConfig = StftConfig(n_fft=320, hop_length=160)
     output_dir: str = "enhanced"
@@ -39,13 +47,17 @@ class BatchInferencer:
 
     def __init__(self, model: torch.nn.Module, config: InferencerConfig,
                  device: torch.device | str = "cpu"):
-        if config.type != "mag_to_mag":
+        if config.type not in ("mag_to_mag", "auto"):
             raise NotImplementedError(f"inferencer strategy {config.type!r} is not ported "
-                                      "(ported: mag_to_mag)")
+                                      "(ported: mag_to_mag, auto)")
         if config.postfilter is not None:
             raise NotImplementedError(f"mask post-filter {config.postfilter!r} is not ported")
+        if config.type == "mag_to_mag" and isinstance(model, CruseDfNet):
+            raise ValueError("mag_to_mag takes a mask model; CruseDfNet runs with type='auto'")
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
+        self._forward = forward_for_model(self.model) if config.type == "auto" else None
+        self._strategy = getattr(self, config.type)
         self.cfg = config
         self.enhanced_dir = Path(config.output_dir).expanduser().absolute()
         self.rtf_history: list[float] = []
@@ -58,11 +70,20 @@ class BatchInferencer:
         return istft_mag_phase(spec.abs() * mask, spec.angle(), self.cfg.stft,
                                length=noisy.shape[-1])
 
+    @torch.inference_mode()
+    def auto(self, noisy: torch.Tensor) -> torch.Tensor:
+        """[B, L] noisy -> [B, L] enhanced through the model family's
+        forward adapter (mask models and CRUSE+DF)."""
+        spec = stft(noisy, self.cfg.stft)
+        enhanced_ri = self._forward(torch.stack([spec.real, spec.imag], dim=-1))
+        return istft((enhanced_ri[..., 0], enhanced_ri[..., 1]), self.cfg.stft,
+                     length=noisy.shape[-1])
+
     def _enhance(self, noisy: np.ndarray) -> tuple[np.ndarray, float]:
         """Enhance on the device; returns (enhanced, wall seconds)."""
         x = torch.from_numpy(np.ascontiguousarray(noisy, np.float32)).to(self.device)
         t1 = time.perf_counter()
-        enhanced = self.mag_to_mag(x).cpu().numpy()  # the copy waits for the device
+        enhanced = self._strategy(x).cpu().numpy()  # the copy waits for the device
         return enhanced, time.perf_counter() - t1
 
     def _emit(self, name: str, out: np.ndarray, rtf: float, write: bool):

@@ -1,0 +1,174 @@
+"""Frame-by-frame streaming enhancement (counterpart of
+``cruse_tpu/infer/streaming.py``), the low-latency causal path.
+
+Each hop carries:
+
+- the last ``n_fft - hop`` input samples (the analysis frame);
+- the model's state (conv histories and GRU states; for CRUSE+DF also the
+  deep filter's last ``2*t_dim`` masked low-bin frames);
+- the overlap-add tail of the synthesis frames.
+
+A step assembles the frame, takes its windowed DFT (one small matrix
+product), runs the model at T = 1, applies the mask (and, for CRUSE+DF, the
+deep filter over the carried frames), takes the windowed inverse DFT,
+overlap-adds, and emits ``hop`` samples divided by the steady-state window
+envelope. Primed with the first ``n_fft - hop`` samples, the stream equals
+the offline ``center=False`` path after the overlap-add warm-up.
+
+On the card a hop launches the grouped-GRU kernel twice (one per bank) and,
+for CRUSE+DF, the deep-filter kernel once; the rest is PyTorch's own
+kernels. ``run`` is a host loop over hops (the JAX package runs it as one
+``lax.scan`` dispatch, which eager PyTorch has no counterpart of).
+
+Ported for CruseNet and CruseDfNet only; the other families' streaming
+(MTFAA, multi-mic McCruse, FullSubNet, BSRNN) comes with their models.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from cruse_tpu_torch.dsp.stft import StftConfig, _analysis_kernel, _padded_window, _synthesis_kernel
+from cruse_tpu_torch.models.cruse import CruseNet, cruse_init_state
+from cruse_tpu_torch.models.cruse_df import CruseDfNet, apply_cruse_df_streaming, df_stream_init
+
+
+class StreamState(NamedTuple):
+    """Per-hop streaming carry."""
+
+    input_tail: Any  # [B, n_fft - hop] analysis-buffer samples
+    ola_tail: Any  # [B, n_fft - hop] synthesis overlap-add tail
+    model_state: Any  # the model family's state
+
+
+def _steady_envelope(cfg: StftConfig) -> np.ndarray:
+    """Steady-state overlap-add of the squared window, periodic over one hop."""
+    w2 = _padded_window(cfg) ** 2
+    env = np.array([w2[j :: cfg.hop_length].sum() for j in range(cfg.hop_length)])
+    return np.where(env > 1e-11, env, 1.0).astype(np.float32)
+
+
+class StreamingEnhancer:
+    """Drives a causal model frame by frame on the device its weights are
+    on: CruseNet applies its magnitude mask per frame; CruseDfNet also runs
+    its complex deep filter over the rolling masked-spectrum history
+    (benchmark config 3's streaming path)."""
+
+    def __init__(self, model: torch.nn.Module, cfg: StftConfig):
+        if cfg.center:
+            raise ValueError("the streaming path takes a center=False StftConfig")
+        if isinstance(model, CruseNet) and model.config.emit_features:
+            raise ValueError("stream CRUSE+DF as a CruseDfNet, not as its emit_features trunk")
+        if not isinstance(model, (CruseNet, CruseDfNet)):
+            raise NotImplementedError(
+                f"streaming {type(model).__name__} is not ported (ported: CruseNet, CruseDfNet); "
+                "MTFAA, multi-mic McCruse, FullSubNet and BSRNN streaming come with their models")
+        self.model = model.eval()
+        self.cfg = cfg
+        self.device = next(model.parameters()).device
+        self._is_df = isinstance(model, CruseDfNet)
+        self._num_bins = cfg.num_bins
+        self._ana = torch.from_numpy(_analysis_kernel(cfg).T.copy()).to(self.device)  # [N, 2F]
+        self._syn = torch.from_numpy(_synthesis_kernel(cfg)).to(self.device)  # [2F, N]
+        self._env_hop = torch.from_numpy(_steady_envelope(cfg)).to(self.device)
+
+    def init_state(self, batch_size: int) -> StreamState:
+        keep = self.cfg.n_fft - self.cfg.hop_length
+        if self._is_df:
+            model_state = (self.model.init_state(batch_size, self.device),
+                           df_stream_init(batch_size, self.model.config, self.device))
+        else:
+            model_state = cruse_init_state(self.model.config, batch_size, self.device)
+        return StreamState(input_tail=torch.zeros(batch_size, keep, device=self.device),
+                           ola_tail=torch.zeros(batch_size, keep, device=self.device),
+                           model_state=model_state)
+
+    def prime(self, state: StreamState, samples: torch.Tensor) -> StreamState:
+        """Pre-fill the analysis buffer with the utterance's first
+        ``n_fft - hop`` samples. After priming, the stream equals the offline
+        center=False path (without it, the stream starts from a zero buffer
+        and its output is one hop late, the usual real-time behaviour)."""
+        keep = self.cfg.n_fft - self.cfg.hop_length
+        if samples.shape[-1] != keep:
+            raise ValueError(f"prime takes the first {keep} samples, got {samples.shape[-1]}")
+        return state._replace(input_tail=samples.to(state.input_tail))
+
+    @torch.inference_mode()
+    def step(self, state: StreamState, hop_samples: torch.Tensor):
+        """One real-time hop: hop_samples [B, hop] -> ([B, hop], new state)."""
+        f = self._num_bins
+        frame = torch.cat([state.input_tail, hop_samples.to(state.input_tail)], dim=-1)  # [B, n]
+        ri = frame @ self._ana  # [B, 2F] windowed DFT
+        real, imag = ri[:, :f], ri[:, f:]
+        mag = torch.sqrt(real ** 2 + imag ** 2 + 1e-12)
+        feat = self.model.compress(mag)[:, None, :]  # [B, 1, F]
+        if self._is_df:
+            net_state, df_state = state.model_state
+            (mask, coefs), net_state = self.model(feat, net_state)
+            enhanced, df_state = apply_cruse_df_streaming(
+                df_state, torch.complex(real, imag), mask[:, 0], coefs[:, 0], self.model.config,
+                self.model.filter_fn)
+            enh_ri = torch.cat([enhanced.real, enhanced.imag], dim=-1)
+            model_state = (net_state, df_state)
+        else:
+            mask, model_state = self.model(feat, state.model_state)
+            m = mask[:, 0]
+            enh_ri = torch.cat([real * m, imag * m], dim=-1)  # [B, 2F]
+        return self._finish(state, frame, enh_ri, model_state)
+
+    def _finish(self, state, frame, enh_ri, model_state):
+        """Windowed inverse frame, overlap-add, and the hop's output."""
+        hop = self.cfg.hop_length
+        synth = enh_ri @ self._syn  # [B, n]
+        ola = torch.nn.functional.pad(state.ola_tail, (0, hop)) + synth
+        out = ola[:, :hop] / self._env_hop
+        return out, StreamState(input_tail=frame[:, hop:], ola_tail=ola[:, hop:],
+                                model_state=model_state)
+
+    def step_multi(self, state: StreamState, samples: torch.Tensor):
+        """k consecutive hops, samples [B, k*hop] -> ([B, k*hop], new state):
+        the same as k ``step`` calls (the JAX package makes them one
+        dispatch; here they are k steps)."""
+        hop = self.cfg.hop_length
+        if samples.shape[-1] % hop:
+            raise ValueError(f"{samples.shape[-1]} samples are not whole {hop}-sample hops")
+        outs = []
+        for i in range(samples.shape[-1] // hop):
+            out, state = self.step(state, samples[:, i * hop : (i + 1) * hop])
+            outs.append(out)
+        return torch.cat(outs, dim=-1), state
+
+    def run(self, wav: torch.Tensor) -> torch.Tensor:
+        """Enhance whole utterances [B, L] hop by hop, primed with the first
+        ``n_fft - hop`` samples so that the output aligns with the offline
+        center=False path. Returns [B, hop * num_hops], num_hops =
+        (L - (n_fft - hop)) // hop."""
+        keep = self.cfg.n_fft - self.cfg.hop_length
+        wav = wav.to(self.device)
+        state = self.prime(self.init_state(wav.shape[0]), wav[:, :keep])
+        num_hops = (wav.shape[-1] - keep) // self.cfg.hop_length
+        out, _ = self.step_multi(state, wav[:, keep : keep + num_hops * self.cfg.hop_length])
+        return out
+
+    def measure_rtf(self, wav: np.ndarray, sr: int = 16000, num_frames: int = 50) -> float:
+        """Per-hop real-time factor of the streaming step: wall time per hop,
+        device synchronised, over the hop's audio duration (< 1 is faster
+        than real time). The first hop is a warm-up."""
+        hop = self.cfg.hop_length
+        x = torch.from_numpy(np.ascontiguousarray(wav, np.float32)).to(self.device)
+        state = self.init_state(x.shape[0])
+        out, state = self.step(state, x[:, :hop])
+        self._synchronize()
+        num = min(num_frames, x.shape[-1] // hop - 1)
+        t0 = time.perf_counter()
+        for i in range(1, num + 1):
+            out, state = self.step(state, x[:, i * hop : (i + 1) * hop])
+        self._synchronize()
+        return (time.perf_counter() - t0) / num / (hop / sr)
+
+    def _synchronize(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)

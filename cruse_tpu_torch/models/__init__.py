@@ -1,6 +1,10 @@
-"""Model zoo of the port. CRUSE is ported; the other families are not yet."""
+"""Model zoo of the port. CRUSE and CRUSE+DF are ported; the other families are not yet."""
 
 from cruse_tpu_torch.models.cruse import CruseConfig, CruseNet  # noqa: F401
+from cruse_tpu_torch.models.cruse_df import CruseDfConfig, CruseDfNet  # noqa: F401
+from cruse_tpu_torch.models.deep_filter import DeepFilterHead, deep_filter_apply  # noqa: F401
+
+_NETWORKS = {"CruseConfig": (CruseConfig, CruseNet), "CruseDfConfig": (CruseDfConfig, CruseDfNet)}
 
 
 def build_from_config(model_section: dict, generator=None):
@@ -8,12 +12,15 @@ def build_from_config(model_section: dict, generator=None):
 
     The class named by the last component of ``path`` (for example
     ``cruse_tpu.models.cruse.CruseConfig``) selects the port's counterpart;
-    the path itself is never imported. ``generator`` seeds the weights.
+    the path itself is never imported. A nested table (CRUSE+DF's
+    ``[model.args.cruse]``) arrives as a dict, which the config coerces.
+    ``generator`` seeds the weights.
     """
     name = model_section["path"].rsplit(".", 1)[-1]
-    if name != "CruseConfig":
+    if name not in _NETWORKS:
         raise NotImplementedError(f"model config {name!r} is not ported to PyTorch yet "
-                                  "(ported: CruseConfig)")
+                                  f"(ported: {', '.join(_NETWORKS)})")
+    config_cls, network_cls = _NETWORKS[name]
     args = {k: tuple(v) if isinstance(v, list) else v
             for k, v in (model_section.get("args") or {}).items()}
-    return CruseNet(CruseConfig(**args), generator=generator)
+    return network_cls(config_cls(**args), generator=generator)

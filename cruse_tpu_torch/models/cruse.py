@@ -43,7 +43,7 @@ class CruseConfig:
     mask_activation: str = "sigmoid"  # "sigmoid" | "relu" | "none"
     feature_compression: str = "pow"  # "pow" | "log1p" | "none"
     compression_exponent: float = 0.3
-    emit_features: bool = False  # CRUSE+DF's bottleneck tap: not ported yet
+    emit_features: bool = False  # also return the bottleneck output (CRUSE+DF's tap)
 
     @property
     def num_levels(self) -> int:
@@ -122,13 +122,12 @@ class CausalConvTranspose2dTimeMajor(nn.Module):
 
 class CruseNet(nn.Module):
     """Mask-estimating CRUSE network: compressed magnitude ``[B, T, F]`` ->
-    (mask ``[B, T, F]``, state)."""
+    (mask ``[B, T, F]``, state), or ((mask, y), state) with
+    ``emit_features``, y being the bottleneck output ``[B, T, D]``."""
 
     def __init__(self, config: CruseConfig = CruseConfig(), generator: torch.Generator | None = None):
         super().__init__()
         c = self.config = config
-        if c.emit_features:
-            raise NotImplementedError("emit_features (the CRUSE+DF bottleneck tap) is not ported")
         if c.decoder_mode not in ("transposed", "upsample"):
             raise ValueError(f"unknown decoder_mode {c.decoder_mode!r}")
         if c.mask_activation not in ("sigmoid", "relu", "none"):
@@ -174,7 +173,8 @@ class CruseNet(nn.Module):
         return compress_mag(mag, self.config)
 
     def forward(self, feat: torch.Tensor, state=None):
-        """feat: [B, T, F] compressed magnitude. Returns (mask [B, T, F], state).
+        """feat: [B, T, F] compressed magnitude. Returns (mask [B, T, F], state),
+        or ((mask, y [B, T, D]), state) with ``emit_features``.
 
         state: None for a fresh utterance, else the tuple returned by the
         previous call (conv histories + GRU states), to continue it.
@@ -228,7 +228,10 @@ class CruseNet(nn.Module):
             mask = torch.sigmoid(mask)
         elif c.mask_activation == "relu":
             mask = torch.relu(mask)
-        return mask, (tuple(conv_hist_out), gru_state, tuple(dec_hist_out))
+        new_state = (tuple(conv_hist_out), gru_state, tuple(dec_hist_out))
+        if c.emit_features:
+            return (mask, y), new_state  # y: the bottleneck output after ln2
+        return mask, new_state
 
 
 def enhance_spectrum(model: CruseNet, spec: torch.Tensor, state=None):

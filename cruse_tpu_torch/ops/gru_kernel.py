@@ -13,6 +13,7 @@ steps) for tensors on a CUDA device; on a CUDA device it launches or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -64,6 +65,39 @@ def _check_shapes(x_proj, h0, w_hh, b_hh, weight_dtype):
         raise ValueError(f"x_proj {tuple(x_proj.shape)}: need B, T >= 1 and 3H gates")
 
 
+@functools.lru_cache(maxsize=None)
+def _kernels() -> dict:
+    """Build and load the library once and declare its entries' prototypes."""
+    lib = _build.load_library("gru_sequence")
+    kernels = {}
+    for name in set(_WEIGHT_DTYPES.values()):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        kernels[name] = fn
+    return kernels
+
+
+def transposed_weight(w_hh: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``w_hh [G, 3H, H]`` as the kernel reads it, ``[G, H, 3H]`` in ``dtype``.
+
+    The copy is kept on the weight tensor itself and made again only when
+    the tensor's storage (``data_ptr``), its version counter (bumped by every
+    in-place write, ``load_state_dict`` included) or the dtype changes, so a
+    streaming step (T = 1) does not re-transpose the same weight on every
+    hop. Inference tensors have no version counter and are not cached.
+    """
+    if w_hh.is_inference():
+        return w_hh.transpose(1, 2).contiguous().to(dtype)
+    key = (w_hh.data_ptr(), w_hh._version, dtype)
+    cached = getattr(w_hh, "_gru_transposed", None)
+    if cached is None or cached[0] != key:
+        with torch.no_grad():
+            cached = (key, w_hh.transpose(1, 2).contiguous().to(dtype))
+        w_hh._gru_transposed = cached
+    return cached[1]
+
+
 def _launch(x_proj, h0, w_hh, b_hh, weight_dtype):
     tensors = {"x_proj": x_proj, "h0": h0, "w_hh": w_hh, "b_hh": b_hh}
     device = x_proj.device
@@ -82,13 +116,8 @@ def _launch(x_proj, h0, w_hh, b_hh, weight_dtype):
     if h > MAX_HIDDEN:
         raise ValueError(f"hidden size per group {h} > {MAX_HIDDEN}, the kernel's limit")
 
-    lib = _build.load_library("gru_sequence")
-    fn = getattr(lib, _WEIGHT_DTYPES[weight_dtype])
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-    # transpose once per sequence, not per step: [G, 3H, H] -> [G, H, 3H]
-    w_t = w_hh.transpose(1, 2).contiguous().to(weight_dtype or torch.float32)
+    fn = _kernels()[_WEIGHT_DTYPES[weight_dtype]]
+    w_t = transposed_weight(w_hh, weight_dtype or torch.float32)
     y = torch.empty((b, t, g, h), dtype=torch.float32, device=device)
     h_last = torch.empty((b, g, h), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream

@@ -1,15 +1,20 @@
-"""Weight bridge: cruse_tpu flax variables -> the port's ``CruseNet`` state_dict.
+"""Weight bridge: cruse_tpu flax variables -> the port's ``CruseNet`` and
+``CruseDfNet`` state_dicts.
 
 The JAX side's ``{"params", "batch_stats"}`` tree, as numpy arrays, maps onto
 the port by path, because the port names its submodules after the flax ones
-(``enc_0/conv/kernel`` -> ``enc_0.conv.weight``). Three layouts differ:
+(``enc_0/conv/kernel`` -> ``enc_0.conv.weight``,
+``cruse/enc_0/conv/kernel`` -> ``cruse.enc_0.conv.weight``). A kernel's
+layout follows the module nearest the leaf that names it (so the same rule
+holds at any depth), and four layouts differ:
 
 - the encoder conv is a ``(1, kf)`` flax conv over ``kt`` time taps stacked on
   channels (kernel ``[1, kf, kt*cin, out]``, older tap first); it becomes one
   ``(kt, kf)`` ``Conv2d`` weight ``[out, cin, kt, kf]``;
 - flax ``ConvTranspose`` kernels ``[kt, kf, in, out]`` are flipped in both
   spatial axes for ``ConvTranspose2d`` (``[in, out, kt, kf]``);
-- ``batch_stats`` ``mean``/``var`` become ``running_mean``/``running_var``.
+- ``batch_stats`` ``mean``/``var`` become ``running_mean``/``running_var``;
+- a 2-D Dense kernel ``[in, out]`` becomes a ``Linear`` weight ``[out, in]``.
 
 ``save_flax_npz`` / ``load_flax_npz`` store such a tree in one ``.npz`` with
 ``/``-joined keys, so a weight file written next to JAX loads where there is
@@ -63,16 +68,19 @@ def load_flax_npz(path: str) -> Dict[str, Any]:
 
 
 def _convert(flax_path: str, value: np.ndarray, cfg) -> np.ndarray:
-    """One flax leaf -> its torch layout."""
+    """One flax leaf -> its torch layout; ``cfg`` is the CRUSE trunk's config."""
     if not flax_path.endswith("kernel"):
         return value
-    module = flax_path.split("/")[0]
-    if re.fullmatch(r"enc_\d+", module):  # [1, kf, kt*cin, out] -> [out, cin, kt, kf]
+    if value.ndim == 2:  # Dense [in, out] -> Linear [out, in]
+        return np.ascontiguousarray(value.T)
+    modules = flax_path.split("/")[:-1]
+    module = next((m for m in reversed(modules) if re.fullmatch(r"(enc|dec)_\d+", m)), "")
+    if module.startswith("enc_"):  # [1, kf, kt*cin, out] -> [out, cin, kt, kf]
         kt = cfg.kernel[0]
         _, kf, kcin, out = value.shape
         taps = value[0].reshape(kf, kt, kcin // kt, out)  # channel index = tap*cin + c
         return np.ascontiguousarray(np.transpose(taps, (3, 2, 1, 0)))
-    if re.fullmatch(r"dec_\d+", module):  # ConvTranspose: flip, [kt, kf, in, out] -> [in, out, kt, kf]
+    if module.startswith("dec_"):  # ConvTranspose: flip, [kt, kf, in, out] -> [in, out, kt, kf]
         return np.ascontiguousarray(np.transpose(value[::-1, ::-1], (2, 3, 0, 1)))
     return np.ascontiguousarray(np.transpose(value, (3, 2, 0, 1)))  # Conv: -> [out, in, kh, kw]
 
@@ -90,3 +98,11 @@ def cruse_state_dict_from_flax(variables_np: Mapping[str, Any], cfg) -> Dict[str
     for key in [k for k in state if k.endswith(".running_mean")]:
         state[key.replace(".running_mean", ".num_batches_tracked")] = torch.tensor(0)
     return state
+
+
+def state_dict_from_flax(variables_np: Mapping[str, Any], model) -> Dict[str, torch.Tensor]:
+    """cruse_tpu variables -> state_dict of the port's ``model``: a CruseNet,
+    or a CruseDfNet, whose trunk is under ``cruse.`` and head is ``df_head``.
+    The CRUSE trunk's config (``config.cruse`` of a CruseDfNet) fixes the
+    encoder kernels' layout."""
+    return cruse_state_dict_from_flax(variables_np, getattr(model.config, "cruse", model.config))

@@ -93,6 +93,32 @@ def test_wrapper_rejects(rng, case):
         gru_sequence(x, h0, w, b, **kwargs)
 
 
+def test_transposed_weight_cache_invalidates():
+    """The kernel's [G, H, 3H] copy of w_hh is made once per weight and made
+    again after any in-place write (load_state_dict included) or for another
+    dtype."""
+    from cruse_tpu_torch.ops.gru_kernel import transposed_weight
+
+    layer = GroupedGRULayer(8, 8, 2)
+    w = layer.w_hh
+    first = transposed_weight(w, torch.float32)
+    assert transposed_weight(w, torch.float32) is first
+    torch.testing.assert_close(first, w.detach().transpose(1, 2), rtol=0, atol=0)
+    assert transposed_weight(w, torch.bfloat16).dtype == torch.bfloat16
+    new_state = {k: v + 1.0 for k, v in layer.state_dict().items()}
+    layer.load_state_dict(new_state)
+    again = transposed_weight(w, torch.float32)
+    assert again is not first
+    torch.testing.assert_close(again, new_state["w_hh"].transpose(1, 2), rtol=0, atol=0)
+    with torch.no_grad():
+        w.mul_(2.0)
+    torch.testing.assert_close(transposed_weight(w, torch.float32), w.detach().transpose(1, 2),
+                               rtol=0, atol=0)
+    with torch.inference_mode():  # inference tensors have no version counter: no cache
+        frozen = torch.ones(2, 6, 2)
+        assert transposed_weight(frozen, torch.float32) is not transposed_weight(frozen, torch.float32)
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))

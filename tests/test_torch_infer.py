@@ -92,6 +92,20 @@ def test_cli_enhances_a_directory_with_bridged_weights(rng, tmp_path):
     _assert_same_outputs(ours, ref)
 
 
+def test_auto_on_cruse_matches_jax(rng, tmp_path):
+    """The ``auto`` strategy on a mask model: the forward adapter's
+    sqrt(re^2 + im^2 + 1e-12) magnitude, the mask on the RI spectrum."""
+    jax_model, variables, model = make_pair(SMALL, rng)
+    wavs = [noisy_batch(rng, 1, n)[0] for n in LENGTHS]
+    names = [f"utt{i}" for i in range(len(wavs))]
+    ref = JaxBatchInferencer(jax_model, variables, JaxInferencerConfig(
+        type="auto", stft=JaxStftConfig(n_fft=320, hop_length=160),
+        output_dir=str(tmp_path / "jax"))).run_batched(wavs, names, batch_size=2, write=False)
+    inf = BatchInferencer(model, InferencerConfig(type="auto", stft=StftConfig(n_fft=320, hop_length=160),
+                                                  output_dir=str(tmp_path / "torch")))
+    _assert_same_outputs(inf.run_batched(wavs, names, batch_size=2, write=False), ref)
+
+
 def test_cli_cuda_without_a_card_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -104,6 +118,11 @@ def test_cli_cuda_without_a_card_raises(monkeypatch, tmp_path):
     dict(postfilter="sin"),
 ], ids=["auto", "complex_mask", "multi_channel", "postfilter"])
 def test_unported_strategies_are_refused(cfg):
+    """``auto`` is ported for CRUSE and CRUSE+DF (tests/test_torch_cruse_df.py);
+    for a model family whose forward adapter is not ported it is refused."""
     model = CruseNet(CruseConfig(**SMALL))
+    if cfg.get("type") == "auto":
+        BatchInferencer(model, InferencerConfig(**cfg))
+        model = torch.nn.Linear(2, 2)
     with pytest.raises(NotImplementedError):
         BatchInferencer(model, InferencerConfig(**cfg))

@@ -77,6 +77,42 @@ def test_istft_length_tails_match_jax(rng, length):
         assert not ours[:, available:].any() and not ref[:, available:].any()
 
 
+@pytest.mark.parametrize("length", [None, 7900, 8200])
+def test_istft_uncentred_matches_jax(rng, length):
+    """center=False (the streaming contract): the JAX package's own
+    overlap-add with the 1e-11 envelope guard, where torch.istft raises on
+    a Hann window's zero first sample. As in the tail test above, the 1e-5
+    holds for the difference times the envelope: at the first samples the
+    envelope falls to w[1]^2 ~ 1e-8 and magnifies float32 rounding."""
+    geometry = dict(GEOMETRIES[0], center=False)
+    cfg, jcfg = _pair(geometry)
+    y = (rng.standard_normal((2, 8000)) * 0.5).astype(np.float32)
+    spec = jax_stft_mod.stft(jnp.asarray(y), jcfg)
+    spec = spec * (1.0 + 0.5 * jnp.asarray(rng.uniform(size=spec.shape).astype(np.float32)))
+    ref = np.asarray(jax_stft_mod.istft(spec, jcfg, length=length))
+    ours = istft(torch.from_numpy(np.array(spec)), cfg, length=length).numpy()
+    assert ours.shape == ref.shape == (2, length or cfg.n_fft + cfg.hop_length * (spec.shape[1] - 1))
+    env = jax_stft_mod._ola_envelope(jcfg, spec.shape[1])[: ref.shape[-1]]
+    env = np.pad(env, (0, ref.shape[-1] - env.shape[0]), constant_values=1.0)
+    np.testing.assert_allclose((ours - ref) * np.minimum(env, 1.0), 0.0, atol=1e-5)
+    np.testing.assert_allclose(ours[:, 320:7680], ref[:, 320:7680], atol=1e-5)  # envelope >= 0.5
+    # without the spectrum's perturbation, the frames reconstruct the input
+    back = istft(stft(torch.from_numpy(y), cfg), cfg).numpy()
+    np.testing.assert_allclose(back[:, 320:7680], y[:, 320:7680], atol=1e-5)
+
+
+@pytest.mark.parametrize("geometry", GEOMETRIES, ids=IDS)
+def test_dft_bases_and_envelope_match_jax(geometry):
+    from cruse_tpu_torch.dsp import stft as ours
+
+    cfg, jcfg = _pair(geometry)
+    np.testing.assert_array_equal(ours._padded_window(cfg), jax_stft_mod._padded_window(jcfg))
+    np.testing.assert_array_equal(ours._analysis_kernel(cfg), jax_stft_mod._analysis_kernel(jcfg)[:, 0])
+    np.testing.assert_array_equal(ours._synthesis_kernel(cfg),
+                                  jax_stft_mod._synthesis_kernel(jcfg)[:, 0])
+    np.testing.assert_array_equal(ours._ola_envelope(cfg, 7), jax_stft_mod._ola_envelope(jcfg, 7))
+
+
 def test_mag_phase_round_trip_matches_jax(rng):
     cfg, jcfg = _pair(GEOMETRIES[0])
     y = (rng.standard_normal((2, 4000)) * 0.5).astype(np.float32)
