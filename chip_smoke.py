@@ -24,7 +24,8 @@ needed). In order, and any failure exits non-zero:
 6. holds the deep-filter kernel against its plain version within 1e-5 at
    config 3's offline shape (B=64, T=1001, F=96, t=2, f=1, the low bins of a
    161-bin spectrum), the streaming hop's (B=256, T=1, with history), and
-   ragged ones (T < 2*t_dim, a symmetric layout);
+   ragged ones (T < 2*t_dim, a symmetric layout) and MTFAA's (B=16, T=626,
+   all 257 bins, t=1, f=1);
 7. drives config 3's streaming path: full-width CRUSE+DF (``CruseDfConfig()``,
    seeded weights and BatchNorm statistics), ``StreamingEnhancer.run`` on
    B=8 synthetic 4 s utterances; checks 2 GRU and 1 deep-filter launches per
@@ -41,7 +42,28 @@ needed). In order, and any failure exits non-zero:
    and with the plain versions (x-realtime), and one hop at B=1; profiles
    B=256 streaming hops (kernels per hop, device time by kernel, the
    device's busy time and idle share);
-10. prints a JSON line of the kernels, then ``{"ok": true, "device": ...}``.
+10. holds the MTFAA kernels against their plain versions on the card: the
+    eval TFCM stack at config 5b's four stage shapes (B=16, 10 s: [16,64,24,626],
+    [16,32,32,626], [16,16,48,626], [16,128,4,626]) within 1e-4, the one-block
+    case at d=1 and d=8 within 1e-5, ragged shapes (T=19 with a time tile of
+    8, K not a multiple of the band tile, C=4), and the temporal attention at
+    the three stage geometries (BF=1024/512/256, c=6/8/12, C=24/32/48, T=626)
+    with window 126, without one, with T < window, T off the tile and
+    non-causal, within 1e-5; tolerances scale with max(1, max|ref|);
+11. drives config 5b's path: full-width MTFAA from
+    ``configs/mtfaa_windowed.toml`` (seeded weights, BatchNorm statistics and
+    PReLU slopes), ``BatchInferencer(type="auto").run_batched`` on the six
+    utterances in batches of 4; checks 6 TFCM-stack, 3 attention and 1
+    deep-filter launches per forward, the outputs, and the waveform against
+    the same batch through all plain versions within 1e-4; then config 5
+    (``MtfaaConfig()``, full-causal attention) at B=4 x 4 s the same way, and
+    a lone ``TFCMBlock`` (one block launch);
+12. times the TFCM stack at the four stage shapes and one block (ms, GB/s
+    over the least bytes), the attention at stage 0 with and without the
+    window, the deep filter at MTFAA's shape, and one B=16 x 10 s config-5b enhancement with the kernels and
+    with the plain versions (x-realtime); profiles one B=16 forward (kernels
+    per forward, device time by kernel, busy time and idle share);
+13. prints a JSON line of the kernels, then ``{"ok": true, "device": ...}``.
 
 TF32 is off for matmuls and convolutions throughout, so every comparison is
 in full float32.
@@ -60,36 +82,58 @@ import numpy as np
 import torch
 
 import cruse_tpu_torch
-from cruse_tpu.utils.config import load_config
 from cruse_tpu_torch.dsp.stft import StftConfig, istft, stft
 from cruse_tpu_torch.infer.batch import BatchInferencer, InferencerConfig
 from cruse_tpu_torch.infer.streaming import StreamingEnhancer
-from cruse_tpu_torch.models import CruseDfConfig, CruseDfNet, build_from_config
+from cruse_tpu_torch.models import CruseDfConfig, CruseDfNet, MtfaaConfig, MtfaaNet, build_from_config
 from cruse_tpu_torch.models.cruse_df import apply_cruse_df
+from cruse_tpu_torch.models.mtfaa import (
+    AxialSelfAttention, BatchNormC, PReLUc, TFCM, TFCMBlock)
 from cruse_tpu_torch.nn.gru import GroupedGRULayer
 from cruse_tpu_torch.ops import _build
+from cruse_tpu_torch.ops.asa_kernel import flash_tattn_tm, tattn_reference
 from cruse_tpu_torch.ops.deep_filter_kernel import deep_filter, deep_filter_reference
 from cruse_tpu_torch.ops.gru_kernel import gru_sequence, gru_sequence_reference
+from cruse_tpu_torch.ops.tfcm_kernel import (
+    PARAM_KEYS, fold_eval_params, fused_tfcm_block_eval, fused_tfcm_stack_eval,
+    tfcm_stack_reference)
+from cruse_tpu_torch.utils.config import load_config
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
-KERNELS = ("gru_sequence", "deep_filter")  # csrc/<name>.cu
+KERNELS = ("gru_sequence", "deep_filter", "tfcm_eval", "tattn")  # csrc/<name>.cu
 CONFIG1_GRU = (256, 1001, 4, 176)  # B, T, G, H of config 1's bottleneck banks
 STREAM_GRU = ((256, 1, 4, 176), (8, 1, 4, 176))  # config 3's streaming hop
 RAGGED_GRU = ((3, 7, 4, 176), (3, 7, 3, 50))
 # B, T, F, t_dim, f_dim, causal, spectrum bins (>= F: the low bins of a wider one), history
 CONFIG3_DF = (256, 1001, 96, 2, 1, True, 161, False)
+MTFAA_DF = (16, 626, 257, 1, 1, True, 257, False)  # config 5b, B=16 x 10 s: every bin, K=9
 DF_SHAPES = ((64, 1001, 96, 2, 1, True, 161, False),  # config 3 offline
              (256, 1, 96, 2, 1, True, 161, True),  # config 3 streaming hop
              (3, 7, 24, 1, 1, True, 24, False),  # ragged
              (3, 3, 24, 2, 1, True, 24, True),  # T < 2 * t_dim, with history
              (3, 3, 24, 2, 1, True, 24, False),  # T < 2 * t_dim, zero fill
-             (3, 9, 20, 1, 2, False, 20, False))  # symmetric layout
+             (3, 9, 20, 1, 2, False, 20, False),  # symmetric layout
+             MTFAA_DF)
 F32_TOL, BF16_TOL, DF_TOL, WAV_TOL = 1e-4, 1e-3, 1e-5, 1e-4
 SR = 16000
 UTTERANCE_SAMPLES = (32017, 59123, 81611, 105777, 132941, 160000)  # 2 .. 10 s
 BATCH = 4
 STREAM_BATCH, STREAM_SECONDS = 8, 4
+# config 5b at B=16 x 10 s (626 frames): the TFCM stacks' [B, K, C, T] and the
+# temporal attention's (BF, c, C) per encoder stage
+DILATIONS = (1, 2, 4, 8)
+TFCM_STAGES = ((16, 64, 24, 626), (16, 32, 32, 626), (16, 16, 48, 626), (16, 128, 4, 626))
+# B, K, C, T, dilations, time tile, band tile
+TFCM_RAGGED = ((2, 10, 24, 19, DILATIONS, 8, None),  # tile 1's halo reaches before t=0
+               (2, 13, 32, 100, DILATIONS, None, 4),  # K not a multiple of the band tile
+               (3, 7, 4, 19, DILATIONS, 8, 3),  # C=4, both ragged
+               (2, 5, 12, 9, (1, 2), None, None))
+ATTN_STAGES = ((1024, 6, 24), (512, 8, 32), (256, 12, 48))
+WINDOW = 126
+TFCM_TOL, TFCM_BLOCK_TOL, ATTN_TOL = 1e-4, 1e-5, 1e-5
+MTFAA_BATCH, MTFAA_SECONDS = 16, 10
+CAUSAL_BATCH, CAUSAL_SECONDS = 4, 4
 
 
 def require(ok: bool, what: str) -> None:
@@ -173,8 +217,9 @@ def set_plain(model, plain: bool) -> None:
 
 
 def reset_counts() -> None:
-    gru_sequence.launches = 0
-    deep_filter.launches = 0
+    for kernel in (gru_sequence, deep_filter, fused_tfcm_stack_eval, fused_tfcm_block_eval,
+                   flash_tattn_tm):
+        kernel.launches = 0
 
 
 def seed_batch_norm_stats(model, gen) -> None:
@@ -373,27 +418,295 @@ def stream_seconds(enh, wav) -> float:
 
 
 def profile_stream(enh, wav, hops: int = 20) -> None:
-    """torch.profiler over `hops` streaming hops: device time by kernel, the
-    device's busy time per hop (union of kernel intervals) and its idle share
-    against the hop's wall time measured without the profiler."""
+    """torch.profiler over `hops` streaming hops (see ``profile_calls``)."""
+    hop = enh.cfg.hop_length
+    keep = enh.cfg.n_fft - hop
+    x = wav[:, keep : keep + (2 * hops + 1) * hop]
+    carry = {"state": enh.prime(enh.init_state(wav.shape[0]), wav[:, :keep]), "i": 0}
+
+    def one_hop():
+        i = carry["i"]
+        _, carry["state"] = enh.step(carry["state"], x[:, i * hop : (i + 1) * hop])
+        carry["i"] = i + 1
+
+    profile_calls(one_hop, hops, f"B={wav.shape[0]} streaming hop (a call is one hop)")
+
+
+def enhancement_seconds(strategy, x, reps: int = 3) -> float:
+    """Wall seconds of one synchronised strategy(x) call (an inferencer's
+    ``mag_to_mag`` or ``auto``), after a warm-up."""
+    strategy(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        strategy(x)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def scaled_err(got, want) -> tuple[float, float]:
+    """(max-abs error, its bound's scale max(1, max|want|))."""
+    return float((got - want).abs().max()), max(1.0, float(want.abs().max()))
+
+
+def tfcm_inputs(b, k, c, t, n_layers, device, seed):
+    """Seeded x [B, K, C, T] and folded parameters of n_layers blocks with
+    non-default BatchNorm statistics and PReLU slopes."""
+    rng = np.random.default_rng(seed)
+    shapes = {"w1": (c, c), "w2": (c, c), "wd": (3, 3, c), "a1": (), "a2": ()}
+    blocks = []
+    for _ in range(n_layers):
+        p = {key: rng.standard_normal(shapes.get(key, (c,))) * c ** -0.5 for key in PARAM_KEYS}
+        p.update(g1=1 + 0.2 * rng.standard_normal(c), g2=1 + 0.2 * rng.standard_normal(c),
+                 v1=rng.uniform(0.5, 1.5, c), v2=rng.uniform(0.5, 1.5, c),
+                 a1=rng.uniform(0.05, 0.3), a2=rng.uniform(0.05, 0.3),
+                 wd=rng.standard_normal((3, 3, c)) / 3)
+        blocks.append({key: torch.tensor(np.float32(v)) for key, v in p.items()})
+    x = torch.from_numpy(rng.standard_normal((b, k, c, t)).astype(np.float32)).to(device)
+    return x, fold_eval_params(blocks).to(device)
+
+
+def check_tfcm_kernel(device) -> tuple[float, float]:
+    """TFCM stack and block kernels vs the plain version on the card; returns
+    the largest max-abs error of the stack and of the block."""
+    worst = {"stack": 0.0, "block": 0.0}
+    cases = [(*shape, DILATIONS, None, None, TFCM_TOL, "stack") for shape in TFCM_STAGES]
+    cases += [(*TFCM_STAGES[0], (d,), None, None, TFCM_BLOCK_TOL, "block") for d in (1, 8)]
+    cases += [(*shape, TFCM_TOL, "ragged stack") for shape in TFCM_RAGGED]
+    for b, k, c, t, dils, t_chunk, k_chunk, tol, what in cases:
+        x, params = tfcm_inputs(b, k, c, t, len(dils), device, SEED)
+        with torch.inference_mode():
+            if len(dils) == 1:
+                got = fused_tfcm_block_eval(x, params, dilation=dils[0], t_chunk=t_chunk, k_chunk=k_chunk)
+            else:
+                got = fused_tfcm_stack_eval(x, params, dilations=dils, t_chunk=t_chunk, k_chunk=k_chunk)
+            torch.cuda.synchronize()
+            want = tfcm_stack_reference(x, params, dils)
+        err, scale = scaled_err(got, want)
+        require(bool(torch.isfinite(got).all()) and err <= tol * scale,
+                f"tfcm {what} {(b, k, c, t)} dilations {dils} tiles ({k_chunk}, {t_chunk}): "
+                f"max-abs {err:.3g} <= {tol} x {scale:.3g}")
+        kind = "block" if len(dils) == 1 else "stack"
+        worst[kind] = max(worst[kind], err)
+    return worst["stack"], worst["block"]
+
+
+def attn_inputs(bf, c, cv, t, device, seed):
+    gen = torch.Generator(device).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=device) for shape in ((bf, c, t), (bf, c, t), (bf, cv, t))]
+
+
+def check_attn_kernel(device) -> float:
+    """Temporal-attention kernel vs the plain version on the card; returns
+    the largest max-abs error."""
+    worst = 0.0
+    cases = [(bf, c, cv, 626, w, True) for bf, c, cv in ATTN_STAGES for w in (WINDOW, None)]
+    cases += [(bf, c, cv, 626, None, False) for bf, c, cv in ATTN_STAGES]
+    cases += [(64, 6, 24, 100, WINDOW, True),  # T < window
+              (64, 8, 32, 200, WINDOW, True), (64, 12, 48, 200, 50, True),  # T off the 128 tile
+              (64, 6, 24, 200, None, False), (5, 3, 12, 37, 7, True)]
+    for bf, c, cv, t, window, causal in cases:
+        q, k, v = attn_inputs(bf, c, cv, t, device, SEED)
+        with torch.inference_mode():
+            got = flash_tattn_tm(q, k, v, window, causal=causal)
+            torch.cuda.synchronize()
+            want = tattn_reference(q, k, v, window, causal)
+        err, scale = scaled_err(got, want)
+        require(bool(torch.isfinite(got).all()) and err <= ATTN_TOL * scale,
+                f"tattn BF={bf} c={c} C={cv} T={t} window={window} causal={causal}: "
+                f"max-abs {err:.3g} <= {ATTN_TOL} x {scale:.3g}")
+        worst = max(worst, err)
+    return worst
+
+
+def mtfaa_counts() -> tuple[int, int, int, int]:
+    """(tfcm stack, tfcm block, attention, deep filter) launches."""
+    return (fused_tfcm_stack_eval.launches, fused_tfcm_block_eval.launches,
+            flash_tattn_tm.launches, deep_filter.launches)
+
+
+def plain_block(x, params, dilation):
+    return tfcm_stack_reference(x, params, (dilation,))
+
+
+def set_plain_mtfaa(model, plain: bool) -> None:
+    """Put every plain version (or every kernel) in an MTFAA model's path."""
+    for m in model.modules():
+        if isinstance(m, TFCM):
+            m.stack_fn = tfcm_stack_reference if plain else fused_tfcm_stack_eval
+        elif isinstance(m, TFCMBlock):
+            m.block_fn = plain_block if plain else fused_tfcm_block_eval
+        elif isinstance(m, AxialSelfAttention):
+            m.attn_fn = tattn_reference if plain else flash_tattn_tm
+    model.filter_fn = deep_filter_reference if plain else deep_filter
+
+
+def seed_mtfaa_stats(model, gen) -> None:
+    """Seeded non-default BatchNorm statistics and affines, and PReLU slopes."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNormC):
+                n = m.mean.numel()
+                m.mean.copy_(torch.randn(n, generator=gen) * 0.1)
+                m.var.copy_(torch.rand(n, generator=gen) + 0.5)
+                m.scale.copy_(1 + 0.1 * torch.randn(n, generator=gen))
+                m.bias.copy_(0.1 * torch.randn(n, generator=gen))
+            elif isinstance(m, PReLUc):
+                m.negative_slope.fill_(float(torch.rand((), generator=gen)) * 0.3)
+
+
+def build_mtfaa(config: MtfaaConfig | None, device, seed: int):
+    """Config 5b from configs/mtfaa_windowed.toml (config=None) or the given
+    config, with seeded weights and statistics, on the card in eval mode."""
+    gen = torch.Generator().manual_seed(seed)
+    if config is None:
+        model = build_from_config(load_config(str(ROOT / "configs" / "mtfaa_windowed.toml"))["model"],
+                                  generator=gen)
+    else:
+        model = MtfaaNet(config, generator=gen)
+    seed_mtfaa_stats(model, gen)
+    return model.to(device).eval()
+
+
+def mtfaa_inferencer(model, device):
+    ac = load_config(str(ROOT / "configs" / "mtfaa_windowed.toml"))["acoustics"]
+    return BatchInferencer(model, InferencerConfig(
+        type="auto", sr=int(ac["sr"]),
+        stft=StftConfig(n_fft=int(ac["n_fft"]), hop_length=int(ac["hop_length"]))), device)
+
+
+def check_mtfaa_forward(inferencer, x, what: str) -> None:
+    """One auto forward on x [B, L]: one launch of each path kernel per stage
+    (6 TFCM stacks, 3 attentions, 1 deep filter), and the waveform against the
+    same batch through every plain version."""
+    reset_counts()
+    with_kernels = inferencer.auto(x)
+    torch.cuda.synchronize()
+    counts = mtfaa_counts()
+    require(counts == (6, 0, 3, 1), f"{what}: one forward launched (tfcm stack, tfcm block, "
+            f"tattn, deep_filter) = {counts} = (6, 0, 3, 1)")
+    set_plain_mtfaa(inferencer.model, True)
+    with_plain = inferencer.auto(x)
+    set_plain_mtfaa(inferencer.model, False)
+    torch.cuda.synchronize()
+    err = float((with_kernels - with_plain).abs().max())
+    require(tuple(with_kernels.shape) == tuple(x.shape) and bool(torch.isfinite(with_kernels).all())
+            and err <= WAV_TOL, f"{what}: enhanced wav finite, shape {tuple(x.shape)}, kernels vs "
+            f"plain versions max-abs {err:.3g} <= {WAV_TOL}")
+
+
+def check_mtfaa_path(inferencer) -> tuple[int, int, int]:
+    """Drive BatchInferencer(type="auto").run_batched with config 5b once;
+    returns its (tfcm stack, tattn, deep_filter) launches."""
+    wavs = noisy_utterances(SEED)
+    names = [f"utt{i}" for i in range(len(wavs))]
+    forwards = math.ceil(len(wavs) / BATCH)
+
+    reset_counts()
+    results = inferencer.run_batched(wavs, names, batch_size=BATCH, write=False)
+    torch.cuda.synchronize()
+    stack, block, attn, df = mtfaa_counts()
+    gru = gru_sequence.launches
+    require((stack, block, attn, df, gru) == (6 * forwards, 0, 3 * forwards, forwards, 0),
+            f"config-5b path launched tfcm stack {stack} = 6 x {forwards} forwards, tattn {attn} "
+            f"= 3 x {forwards}, deep_filter {df} = 1 x {forwards}, tfcm block {block} = 0, "
+            f"gru_sequence {gru} = 0")
+    require([r[0] for r in results] == names
+            and all(r[1].shape == w.shape for r, w in zip(results, wavs))
+            and all(0 < np.abs(r[1]).max() <= 32767 for r in results),
+            "config-5b run_batched returned every utterance at its length")
+
+    hop = inferencer.cfg.stft.hop_length
+    padded = -(-max(len(w) for w in wavs) // hop) * hop
+    x = torch.from_numpy(np.stack([np.pad(w, (0, padded - len(w))) for w in wavs[:BATCH]]))
+    check_mtfaa_forward(inferencer, x.to(inferencer.device), "config-5b batch of 4 x 10 s")
+    return stack, attn, df
+
+
+def check_tfcm_block_path(device) -> int:
+    """A lone TFCMBlock (eval) at stage 0's shape: one block launch, equal to
+    its plain version; returns its block launches."""
+    gen = torch.Generator().manual_seed(SEED + 5)
+    block = TFCMBlock(24, dilation=4, generator=gen)
+    seed_mtfaa_stats(block, gen)
+    block = block.to(device).eval()
+    x = torch.from_numpy(np.random.default_rng(SEED + 5).standard_normal(TFCM_STAGES[0])
+                         .astype(np.float32)).to(device)
+    reset_counts()
+    with torch.inference_mode():
+        got = block(x)
+        torch.cuda.synchronize()
+        counts = mtfaa_counts()
+        block.block_fn = plain_block
+        want = block(x)
+        block.block_fn = fused_tfcm_block_eval
+    err, scale = scaled_err(got, want)
+    require(counts == (0, 1, 0, 0) and err <= TFCM_BLOCK_TOL * scale,
+            f"TFCMBlock(24, d=4) forward: launches {counts} = (0, 1, 0, 0), vs plain max-abs "
+            f"{err:.3g} <= {TFCM_BLOCK_TOL} x {scale:.3g}")
+    return counts[1]
+
+
+def time_mtfaa_kernels(device, smi) -> dict:
+    """Kernel vs plain times (ms) at the main path's shapes; prints them."""
+    times = {}
+    with torch.inference_mode():
+        for shape in TFCM_STAGES:
+            x, params = tfcm_inputs(*shape, len(DILATIONS), device, SEED + 1)
+            ms = cuda_ms(lambda: fused_tfcm_stack_eval(x, params, dilations=DILATIONS), reps=20)
+            plain = cuda_ms(lambda: tfcm_stack_reference(x, params, DILATIONS), reps=5)
+            nbytes = 2 * x.numel() * 4  # x read once, y written once
+            print(f"tfcm stack {list(shape)} dilations {DILATIONS} on {smi}: kernel {ms:.3f} ms = "
+                  f"{nbytes / ms / 1e6:.1f} GB/s of {nbytes / 1e9:.3f} GB, plain {plain:.3f} ms = "
+                  f"{nbytes / plain / 1e6:.1f} GB/s ({'kernel faster' if ms < plain else 'KERNEL SLOWER'})")
+            times.setdefault("tfcm_stack", (ms, plain))
+        x, params = tfcm_inputs(*TFCM_STAGES[0], 1, device, SEED + 1)
+        ms = cuda_ms(lambda: fused_tfcm_block_eval(x, params, dilation=1), reps=20)
+        plain = cuda_ms(lambda: tfcm_stack_reference(x, params, (1,)), reps=5)
+        nbytes = 2 * x.numel() * 4
+        print(f"tfcm block {list(TFCM_STAGES[0])} d=1 on {smi}: kernel {ms:.3f} ms = "
+              f"{nbytes / ms / 1e6:.1f} GB/s, plain {plain:.3f} ms = {nbytes / plain / 1e6:.1f} GB/s "
+              f"({'kernel faster' if ms < plain else 'KERNEL SLOWER'})")
+        times["tfcm_block"] = (ms, plain)
+        del x, params
+        bf, c, cv = ATTN_STAGES[0]
+        q, k, v = attn_inputs(bf, c, cv, 626, device, SEED + 1)
+        for window in (WINDOW, None):
+            ms = cuda_ms(lambda: flash_tattn_tm(q, k, v, window), reps=20)
+            plain = cuda_ms(lambda: tattn_reference(q, k, v, window), reps=5)
+            print(f"tattn BF={bf} c={c} C={cv} T=626 window={window} on {smi}: kernel {ms:.3f} ms, "
+                  f"plain {plain:.3f} ms ({'kernel faster' if ms < plain else 'KERNEL SLOWER'}; "
+                  f"the plain logits are {bf * 626 * 626 * 4 / 1e9:.3f} GB)")
+            times.setdefault("tattn", (ms, plain))
+        del q, k, v
+        b, t, f, t_dim, f_dim = MTFAA_DF[:5]
+        spec, coefs, _ = df_inputs(*MTFAA_DF, device, SEED + 1)
+        ms = cuda_ms(lambda: deep_filter(spec, coefs, t_dim, f_dim), reps=20)
+        plain = cuda_ms(lambda: deep_filter_reference(spec, coefs, t_dim, f_dim), reps=5)
+        nbytes = coefs.numel() * 4 + 2 * spec.numel() * 8
+        print(f"deep_filter B={b} T={t} F={f} K={coefs.shape[3]} (config 5b) on {smi}: kernel "
+              f"{ms:.3f} ms = {nbytes / ms / 1e6:.1f} GB/s, plain {plain:.3f} ms "
+              f"({'kernel faster' if ms < plain else 'KERNEL SLOWER'})")
+    return times
+
+
+def profile_calls(fn, calls: int, label: str) -> None:
+    """torch.profiler over `calls` calls of fn: device time by kernel, the
+    device's busy time per call (union of kernel intervals) and its idle
+    share against the call's wall time measured without the profiler."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
 
-    hop = enh.cfg.hop_length
-    keep = enh.cfg.n_fft - hop
-    x = wav[:, keep : keep + 2 * hops * hop]
-    state = enh.prime(enh.init_state(wav.shape[0]), wav[:, :keep])
-    for i in range(hops):  # warm-up, then the hops timed without the profiler
-        _, state = enh.step(state, x[:, i * hop : (i + 1) * hop])
+    fn()  # warm-up, then the calls timed without the profiler
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for i in range(hops):
-        _, state = enh.step(state, x[:, i * hop : (i + 1) * hop])
+    for _ in range(calls):
+        fn()
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) / hops * 1e3
+    wall_ms = (time.perf_counter() - t0) / calls * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(hops):
-            _, state = enh.step(state, x[:, i * hop : (i + 1) * hop])
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         prof.export_chrome_trace(f"{tmp}/trace.json")
@@ -402,28 +715,18 @@ def profile_stream(enh, wav, hops: int = 20) -> None:
     kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
     by_name: dict = {}
     for e in kernels:
-        total, calls = by_name.get(e["name"], (0.0, 0))
-        by_name[e["name"]] = (total + e["dur"], calls + 1)
+        total, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (total + e["dur"], n + 1)
     busy, end = 0.0, -math.inf
     for start, dur in sorted((e["ts"], e["dur"]) for e in kernels):
         busy += max(0.0, start + dur - max(start, end))
         end = max(end, start + dur)
-    busy_ms = busy / hops / 1e3
-    print(f"profile, B={wav.shape[0]} streaming hop: {len(kernels) / hops:.1f} kernels per hop, "
-          f"device busy {busy_ms:.4f} ms per hop of {wall_ms:.4f} ms wall (without the "
-          f"profiler): idle {1 - busy_ms / wall_ms:.1%}")
-    for name, (total, calls) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]:
-        print(f"  {total / hops:9.2f} us/hop  {calls / hops:5.1f}/hop  {name[:100]}")
-
-
-def enhancement_seconds(inferencer, x, reps: int = 3) -> float:
-    inferencer.mag_to_mag(x)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        inferencer.mag_to_mag(x)
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / reps
+    busy_ms = busy / calls / 1e3
+    print(f"profile, {label}: {len(kernels) / calls:.1f} kernels per call, device busy "
+          f"{busy_ms:.4f} ms per call of {wall_ms:.4f} ms wall (without the profiler): "
+          f"idle {1 - busy_ms / wall_ms:.1%}")
+    for name, (total, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]:
+        print(f"  {total / calls:10.2f} us/call  {n / calls:5.1f}/call  {name[:100]}")
 
 
 def main() -> int:
@@ -462,9 +765,9 @@ def main() -> int:
     seconds = 10
     x = torch.from_numpy(np.random.default_rng(SEED).standard_normal((256, seconds * SR))
                          .astype(np.float32) * 0.1).to(device)
-    kernel_s = enhancement_seconds(inferencer, x)
+    kernel_s = enhancement_seconds(inferencer.mag_to_mag, x)
     set_recurrence(inferencer.model, gru_sequence_reference)
-    plain_s = enhancement_seconds(inferencer, x, reps=1)
+    plain_s = enhancement_seconds(inferencer.mag_to_mag, x, reps=1)
     set_recurrence(inferencer.model, gru_sequence)
     print(f"enhancement B=256 x {seconds} s on {smi}: {kernel_s * 1e3:.1f} ms = "
           f"{256 * seconds / kernel_s:.1f}x realtime with the kernel; plain recurrence "
@@ -505,6 +808,35 @@ def main() -> int:
     print(f"streaming CRUSE+DF B=1 on {smi}: {rtf * hop / SR * 1e3:.4f} ms per {hop}-sample hop, "
           f"rtf {rtf:.4f}")
     profile_stream(enh, wav)
+    del enh, wav, model
+    torch.cuda.empty_cache()
+
+    tfcm_err, block_err = check_tfcm_kernel(device)
+    attn_err = check_attn_kernel(device)
+    mtfaa = build_mtfaa(None, device, SEED + 4)
+    inferencer = mtfaa_inferencer(mtfaa, device)
+    stack_launches, attn_launches, mtfaa_df = check_mtfaa_path(inferencer)
+    causal_inferencer = mtfaa_inferencer(build_mtfaa(MtfaaConfig(), device, SEED + 6), device)
+    x = torch.from_numpy(np.stack(noisy_utterances(
+        SEED + 2, (CAUSAL_SECONDS * SR,) * CAUSAL_BATCH))).to(device)
+    check_mtfaa_forward(causal_inferencer, x, f"config 5 (full-causal attention) "
+                        f"B={CAUSAL_BATCH} x {CAUSAL_SECONDS} s")
+    del causal_inferencer
+    block_launches = check_tfcm_block_path(device)
+    torch.cuda.empty_cache()
+
+    times = time_mtfaa_kernels(device, smi)
+    b, seconds = MTFAA_BATCH, MTFAA_SECONDS
+    x = torch.from_numpy(np.random.default_rng(SEED).standard_normal((b, seconds * SR))
+                         .astype(np.float32) * 0.1).to(device)
+    kernel_s = enhancement_seconds(inferencer.auto, x)
+    set_plain_mtfaa(mtfaa, True)
+    plain_s = enhancement_seconds(inferencer.auto, x, reps=2)
+    set_plain_mtfaa(mtfaa, False)
+    print(f"MTFAA config 5b auto enhancement B={b} x {seconds} s on {smi}: {kernel_s * 1e3:.1f} ms = "
+          f"{b * seconds / kernel_s:.1f}x realtime with the kernels; plain versions "
+          f"{plain_s * 1e3:.1f} ms = {b * seconds / plain_s:.1f}x realtime")
+    profile_calls(lambda: inferencer.auto(x), 3, f"B={b} x {seconds} s config-5b auto forward")
 
     print(json.dumps({"kernels": [{
         "name": "gru_sequence", "route": "cuda",
@@ -516,8 +848,26 @@ def main() -> int:
         "name": "deep_filter", "route": "cuda",
         "source": "cruse_tpu_torch/ops/csrc/deep_filter.cu",
         "replaces": "cruse_tpu/ops/deep_filter_kernel.py:91",
-        "launches": stream_df + auto_df, "max_abs_err": df_err,
+        "launches": stream_df + auto_df + mtfaa_df, "max_abs_err": df_err,
         "ms": df_ms, "plain_ms": df_plain_ms,
+    }, {
+        "name": "tfcm_stack", "route": "cuda",
+        "source": "cruse_tpu_torch/ops/csrc/tfcm_eval.cu",
+        "replaces": "cruse_tpu/ops/tfcm_kernel.py:212",
+        "launches": stack_launches, "max_abs_err": tfcm_err,
+        "ms": times["tfcm_stack"][0], "plain_ms": times["tfcm_stack"][1],
+    }, {
+        "name": "tfcm_block", "route": "cuda",
+        "source": "cruse_tpu_torch/ops/csrc/tfcm_eval.cu",
+        "replaces": "cruse_tpu/ops/tfcm_kernel.py:103",
+        "launches": block_launches, "max_abs_err": block_err,
+        "ms": times["tfcm_block"][0], "plain_ms": times["tfcm_block"][1],
+    }, {
+        "name": "tattn", "route": "cuda",
+        "source": "cruse_tpu_torch/ops/csrc/tattn.cu",
+        "replaces": "cruse_tpu/ops/asa_kernel.py:190",
+        "launches": attn_launches, "max_abs_err": attn_err,
+        "ms": times["tattn"][0], "plain_ms": times["tattn"][1],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -8,7 +8,8 @@
 Weights come from a bridge ``.npz`` written by
 ``cruse_tpu_torch.utils.weights.save_flax_npz`` from cruse_tpu variables, or,
 without ``--weights``, are made from ``--seed``. The offline mode uses the
-config's ``[inferencer] type`` (``mag_to_mag`` or ``auto``); ``--batch N``
+config's ``[inferencer] type`` (``mag_to_mag``, or ``auto``, the default as in
+``tools/infer.py``); ``--batch N``
 (N > 1) enhances N utterances per forward, otherwise one per forward.
 ``--streaming`` runs each file as one stream (B=1) frame by frame through
 ``StreamingEnhancer`` with a ``center=False`` STFT, logging the per-hop
@@ -44,11 +45,11 @@ def main(argv=None):
 
     import torch
 
-    from cruse_tpu.utils.config import load_config
     from cruse_tpu_torch.data.wavio import read_wav
     from cruse_tpu_torch.dsp.stft import StftConfig
     from cruse_tpu_torch.infer.batch import BatchInferencer, InferencerConfig
     from cruse_tpu_torch.models import build_from_config
+    from cruse_tpu_torch.utils.config import load_config
     from cruse_tpu_torch.utils.weights import load_flax_npz, state_dict_from_flax
 
     device = torch.device(args.device)
@@ -74,7 +75,7 @@ def main(argv=None):
         return
 
     icfg = InferencerConfig(
-        type=config.get("inferencer", {}).get("type", "mag_to_mag"),
+        type=config.get("inferencer", {}).get("type", "auto"),
         sr=sr,
         stft=StftConfig(n_fft=int(ac["n_fft"]), hop_length=int(ac["hop_length"])),
         output_dir=args.output_dir,
@@ -93,10 +94,10 @@ def stream(model, files, args, ac: dict, sr: int, device) -> None:
     import numpy as np
     import torch
 
-    from cruse_tpu.utils.logger import log
     from cruse_tpu_torch.data.wavio import read_wav, to_int16_scaled, write_wav
     from cruse_tpu_torch.dsp.stft import StftConfig
     from cruse_tpu_torch.infer.streaming import StreamingEnhancer
+    from cruse_tpu_torch.utils.config import log
 
     cfg = StftConfig(n_fft=int(ac["n_fft"]), hop_length=int(ac["hop_length"]), center=False)
     enhancer = StreamingEnhancer(model.to(device), cfg)

@@ -5,8 +5,9 @@ Enhances (noisy, name) pairs with one of two strategies:
 - ``mag_to_mag``: STFT -> compressed magnitude -> model mask -> masked
   magnitude with the noisy phase -> iSTFT (mask models: CRUSE);
 - ``auto``: STFT -> the model family's forward adapter
-  (``train.step.forward_for_model``) on the RI spectrum -> iSTFT (CRUSE,
-  and CRUSE+DF, whose deep filter runs on the low bins).
+  (``train.step.forward_for_model``) on the RI spectrum -> iSTFT (CRUSE;
+  CRUSE+DF, whose deep filter runs on the low bins; MTFAA, which emits the
+  enhanced complex spectrum).
 
 Outputs are scaled to int16 at 0.8 of full scale, logged with their
 real-time factor and optionally written as wavs.
@@ -25,11 +26,12 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
-from cruse_tpu.utils.logger import log
 from cruse_tpu_torch.data.wavio import to_int16_scaled, write_wav
 from cruse_tpu_torch.dsp.stft import StftConfig, istft, istft_mag_phase, stft
 from cruse_tpu_torch.models.cruse_df import CruseDfNet
+from cruse_tpu_torch.models.mtfaa import MtfaaNet
 from cruse_tpu_torch.train.step import forward_for_model
+from cruse_tpu_torch.utils.config import log
 
 
 @dataclasses.dataclass
@@ -52,8 +54,9 @@ class BatchInferencer:
                                       "(ported: mag_to_mag, auto)")
         if config.postfilter is not None:
             raise NotImplementedError(f"mask post-filter {config.postfilter!r} is not ported")
-        if config.type == "mag_to_mag" and isinstance(model, CruseDfNet):
-            raise ValueError("mag_to_mag takes a mask model; CruseDfNet runs with type='auto'")
+        if config.type == "mag_to_mag" and isinstance(model, (CruseDfNet, MtfaaNet)):
+            raise ValueError(f"mag_to_mag takes a mask model; {type(model).__name__} runs "
+                             "with type='auto'")
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self._forward = forward_for_model(self.model) if config.type == "auto" else None
@@ -73,7 +76,7 @@ class BatchInferencer:
     @torch.inference_mode()
     def auto(self, noisy: torch.Tensor) -> torch.Tensor:
         """[B, L] noisy -> [B, L] enhanced through the model family's
-        forward adapter (mask models and CRUSE+DF)."""
+        forward adapter (mask models, CRUSE+DF and MTFAA)."""
         spec = stft(noisy, self.cfg.stft)
         enhanced_ri = self._forward(torch.stack([spec.real, spec.imag], dim=-1))
         return istft((enhanced_ri[..., 0], enhanced_ri[..., 1]), self.cfg.stft,

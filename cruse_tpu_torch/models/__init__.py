@@ -1,10 +1,13 @@
-"""Model zoo of the port. CRUSE and CRUSE+DF are ported; the other families are not yet."""
+"""Model zoo of the port. CRUSE, CRUSE+DF and MTFAA (offline eval) are
+ported; the other families are not yet."""
 
 from cruse_tpu_torch.models.cruse import CruseConfig, CruseNet  # noqa: F401
 from cruse_tpu_torch.models.cruse_df import CruseDfConfig, CruseDfNet  # noqa: F401
 from cruse_tpu_torch.models.deep_filter import DeepFilterHead, deep_filter_apply  # noqa: F401
+from cruse_tpu_torch.models.mtfaa import MtfaaConfig, MtfaaNet  # noqa: F401
 
-_NETWORKS = {"CruseConfig": (CruseConfig, CruseNet), "CruseDfConfig": (CruseDfConfig, CruseDfNet)}
+_NETWORKS = {"CruseConfig": (CruseConfig, CruseNet), "CruseDfConfig": (CruseDfConfig, CruseDfNet),
+             "MtfaaConfig": (MtfaaConfig, MtfaaNet)}
 
 
 def build_from_config(model_section: dict, generator=None):

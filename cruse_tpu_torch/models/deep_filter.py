@@ -7,8 +7,9 @@ card the whole sum is one launch of the hand-written kernel
 reference's symmetric one (time offsets in [-t, t]) and the causal,
 DeepFilterNet-style one (time offsets in [0, 2t], past only).
 
-Not ported yet: ``deep_filter_apply_tm``, the T-minor layout of MTFAA's
-coefficient head, whose GPU layout is chosen with MTFAA.
+``deep_filter_apply_tm``, the reference's T-minor apply for MTFAA's
+coefficient head, has no counterpart: the port's MTFAA computes its
+coefficients T-major, in the ``[B, T, F, K, 2]`` layout the kernel takes.
 """
 from __future__ import annotations
 

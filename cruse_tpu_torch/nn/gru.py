@@ -35,10 +35,10 @@ class GroupedGRULayer(nn.Module):
         self.input_size = input_size // groups
         self.hidden_size = hidden_size // groups
         g, i, h = groups, self.input_size, self.hidden_size
-        self.w_ih = nn.Parameter(torch.empty(g, 3 * h, i))
-        self.w_hh = nn.Parameter(torch.empty(g, 3 * h, h))
-        self.b_ih = nn.Parameter(torch.empty(g, 3 * h))
-        self.b_hh = nn.Parameter(torch.empty(g, 3 * h))
+        self.w_ih = nn.Parameter(torch.zeros(g, 3 * h, i))
+        self.w_hh = nn.Parameter(torch.zeros(g, 3 * h, h))
+        self.b_ih = nn.Parameter(torch.zeros(g, 3 * h))
+        self.b_hh = nn.Parameter(torch.zeros(g, 3 * h))
         self.recurrence = gru_sequence
 
     def reset_parameters(self, generator: torch.Generator) -> None:

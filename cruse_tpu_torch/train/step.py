@@ -56,14 +56,29 @@ def cruse_df_model_forward(model) -> Callable:
     return forward
 
 
+def complex_model_forward(model) -> Callable:
+    """Models that take the RI spectrum and emit the enhanced complex
+    spectrum directly (MtfaaNet): enhanced RI [B, T, F, 2]."""
+
+    def forward(noisy_ri: torch.Tensor, train: bool = False) -> torch.Tensor:
+        _check_eval(model, train)
+        (enhanced, _mask), _ = model(noisy_ri)
+        return torch.stack([enhanced.real, enhanced.imag], dim=-1)
+
+    return forward
+
+
 def forward_for_model(model) -> Callable:
     """The forward adapter for a ported model."""
     from cruse_tpu_torch.models.cruse import CruseNet
     from cruse_tpu_torch.models.cruse_df import CruseDfNet
+    from cruse_tpu_torch.models.mtfaa import MtfaaNet
 
+    if isinstance(model, MtfaaNet):
+        return complex_model_forward(model)
     if isinstance(model, CruseDfNet):
         return cruse_df_model_forward(model)
     if isinstance(model, CruseNet) and not model.config.emit_features:
         return mask_model_forward(model)
     raise NotImplementedError(f"no forward adapter for {type(model).__name__} is ported "
-                              "(ported: CruseNet, CruseDfNet)")
+                              "(ported: CruseNet, CruseDfNet, MtfaaNet)")

@@ -1,1 +1,2 @@
-"""Utilities of the port: the weight bridge from cruse_tpu flax variables."""
+"""Utilities of the port: the weight bridge from cruse_tpu flax variables,
+config files and log lines."""

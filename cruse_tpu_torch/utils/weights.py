@@ -1,5 +1,5 @@
-"""Weight bridge: cruse_tpu flax variables -> the port's ``CruseNet`` and
-``CruseDfNet`` state_dicts.
+"""Weight bridge: cruse_tpu flax variables -> the port's ``CruseNet``,
+``CruseDfNet`` and ``MtfaaNet`` state_dicts.
 
 The JAX side's ``{"params", "batch_stats"}`` tree, as numpy arrays, maps onto
 the port by path, because the port names its submodules after the flax ones
@@ -15,6 +15,10 @@ holds at any depth), and four layouts differ:
   spatial axes for ``ConvTranspose2d`` (``[in, out, kt, kf]``);
 - ``batch_stats`` ``mean``/``var`` become ``running_mean``/``running_var``;
 - a 2-D Dense kernel ``[in, out]`` becomes a ``Linear`` weight ``[out, in]``.
+
+MTFAA keeps the flax shapes and names (its kernels read them as they are),
+so its mapping is the path alone: ``/`` becomes ``.``, for the parameters
+and the BatchNorm ``mean``/``var`` alike.
 
 ``save_flax_npz`` / ``load_flax_npz`` store such a tree in one ``.npz`` with
 ``/``-joined keys, so a weight file written next to JAX loads where there is
@@ -100,9 +104,22 @@ def cruse_state_dict_from_flax(variables_np: Mapping[str, Any], cfg) -> Dict[str
     return state
 
 
+def mtfaa_state_dict_from_flax(variables_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """cruse_tpu ``MtfaaNet`` variables -> state_dict of the port's
+    ``MtfaaNet``: every leaf in its flax shape (0-d PReLU slopes included)
+    under its flax path with ``/`` -> ``.``, BatchNorm statistics included."""
+    return {path.replace("/", "."): torch.from_numpy(np.array(value, np.float32))
+            for collection in ("params", "batch_stats")
+            for path, value in flatten_tree(variables_np.get(collection, {})).items()}
+
+
 def state_dict_from_flax(variables_np: Mapping[str, Any], model) -> Dict[str, torch.Tensor]:
-    """cruse_tpu variables -> state_dict of the port's ``model``: a CruseNet,
-    or a CruseDfNet, whose trunk is under ``cruse.`` and head is ``df_head``.
-    The CRUSE trunk's config (``config.cruse`` of a CruseDfNet) fixes the
-    encoder kernels' layout."""
+    """cruse_tpu variables -> state_dict of the port's ``model``: an
+    MtfaaNet, a CruseNet, or a CruseDfNet, whose trunk is under ``cruse.``
+    and head is ``df_head``. The CRUSE trunk's config (``config.cruse`` of a
+    CruseDfNet) fixes the encoder kernels' layout."""
+    from cruse_tpu_torch.models.mtfaa import MtfaaNet
+
+    if isinstance(model, MtfaaNet):
+        return mtfaa_state_dict_from_flax(variables_np)
     return cruse_state_dict_from_flax(variables_np, getattr(model.config, "cruse", model.config))

@@ -100,6 +100,7 @@ def test_transposed_weight_cache_invalidates():
     from cruse_tpu_torch.ops.gru_kernel import transposed_weight
 
     layer = GroupedGRULayer(8, 8, 2)
+    layer.reset_parameters(torch.Generator().manual_seed(0))
     w = layer.w_hh
     first = transposed_weight(w, torch.float32)
     assert transposed_weight(w, torch.float32) is first

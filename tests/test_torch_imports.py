@@ -1,9 +1,10 @@
 """Import guard: every module of cruse_tpu_torch, and chip_smoke.py, imports
-with jax and flax blocked, as on a machine with a GPU and no JAX.
+with jax, flax and the JAX package cruse_tpu blocked, as on a machine with a
+GPU and no JAX.
 
-One subprocess sets ``sys.modules["jax"] = None`` (and flax, jaxlib), so any
-``import jax`` on a module's import chain raises, then imports each module in
-turn; every module is its own test case.
+One subprocess sets ``sys.modules["jax"] = None`` (and flax, jaxlib,
+cruse_tpu), so any such import on a module's import chain raises, then
+imports each module in turn; every module is its own test case.
 """
 import json
 import subprocess
@@ -20,7 +21,7 @@ MODULES = sorted(
 
 _PROBE = """
 import importlib, json, sys
-for blocked in ("jax", "jaxlib", "flax"):
+for blocked in ("jax", "jaxlib", "flax", "cruse_tpu"):
     sys.modules[blocked] = None
 sys.path.insert(0, sys.argv[1])
 results = {}
