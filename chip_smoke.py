@@ -63,7 +63,41 @@ needed). In order, and any failure exits non-zero:
     window, the deep filter at MTFAA's shape, and one B=16 x 10 s config-5b enhancement with the kernels and
     with the plain versions (x-realtime); profiles one B=16 forward (kernels
     per forward, device time by kernel, busy time and idle share);
-13. prints a JSON line of the kernels, then ``{"ok": true, "device": ...}``.
+13. holds the training kernels against their plain versions on the card at
+    config 5b's four stage shapes and d = 1, 2, 4, 8, and on ragged shapes
+    (T=19, K=5, C=4 with d=8 > T/2; d=64): the depthwise stencil forward and
+    backward, ``tail_bwd`` and ``mid_bwd`` (elementwise outputs within 1e-5,
+    per-channel sums within 1e-4, both x max(1, max|ref|): f32 sums of up to
+    641,024 terms), and the attention backward (dq, dk/dv) at the three stage
+    geometries with window 126, without one, with T < window and T off the
+    tile (1e-5), alone and through ``flash_tattn_tm`` under autograd; then
+    ``tfcm_block_train``'s six outputs and thirteen gradients against autograd
+    through the plain block (gradients: relative 2e-3 or absolute 1e-3 of the
+    largest gradient);
+14. drives the training path: full-width config 5b, seeded weights, B=16 x 10 s
+    of seeded noisy/clean pairs, 3 steps of ``make_train_step``; checks 24
+    stencil-forward, 24 ``tail_bwd``, 24 ``mid_bwd``, 3 attention-forward, 3 dq
+    and 3 dk/dv launches a step and no eval-kernel launch, finite losses and
+    gradient norm, that parameters and BatchNorm statistics moved, and the
+    first step's losses and BatchNorm statistics against the same model with
+    every kernel swapped for its plain version, and its gradients against that
+    plain step in float64 (a leaf passes within relative 2e-3, or 1e-3 of the
+    largest gradient, or no further from float64 than three times the plain
+    float32 step's worst leaf: the phase encoder's gradients carry about 1e-2
+    of float32 rounding in either version); then the
+    ``"pallas"`` route (24 stencil forwards and backwards a step) and config 5
+    (full-causal attention) the same way at B=4 x 4 s, and that a step on a
+    batch with a NaN leaves everything unchanged;
+15. times every training kernel and its plain version at stage 0, the library
+    calls that compute a kernel's function (cuDNN's depthwise convolution and
+    its backward, ``scaled_dot_product_attention`` with the band mask and its
+    backward, cuDNN's GRU per group, which also does the input projection),
+    one B=16 x 10 s train step with the kernels and with the plain versions,
+    its peak memory, and profiles one step;
+16. prints a JSON line of the kernels (each with its launches on the main
+    paths, its error, its time, the plain version's, the least time the card
+    could take for its bytes or its multiply-adds, and the library call's time
+    where there is one), then ``{"ok": true, "device": ...}``.
 
 TF32 is off for matmuls and convolutions throughout, so every comparison is
 in full float32.
@@ -72,6 +106,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -91,17 +126,27 @@ from cruse_tpu_torch.models.mtfaa import (
     AxialSelfAttention, BatchNormC, PReLUc, TFCM, TFCMBlock)
 from cruse_tpu_torch.nn.gru import GroupedGRULayer
 from cruse_tpu_torch.ops import _build
-from cruse_tpu_torch.ops.asa_kernel import flash_tattn_tm, tattn_reference
+from cruse_tpu_torch.ops.asa_kernel import (
+    band_mask, flash_tattn_tm, tattn_bwd_reference, tattn_dkv, tattn_dq, tattn_reference)
 from cruse_tpu_torch.ops.deep_filter_kernel import deep_filter, deep_filter_reference
+from cruse_tpu_torch.ops.dw_kernel import (
+    dw_bwd_reference, dw_causal_tm, dw_stencil_bwd, dw_stencil_fwd, dw_taps_reference)
 from cruse_tpu_torch.ops.gru_kernel import gru_sequence, gru_sequence_reference
 from cruse_tpu_torch.ops.tfcm_kernel import (
     PARAM_KEYS, fold_eval_params, fused_tfcm_block_eval, fused_tfcm_stack_eval,
     tfcm_stack_reference)
+from cruse_tpu_torch.ops.tfcm_bwd_kernels import (
+    mid_bwd, mid_bwd_reference, tail_bwd, tail_bwd_reference)
+from cruse_tpu_torch.ops.tfcm_train import PARAM_NAMES, tfcm_block_reference, tfcm_block_train
+from cruse_tpu_torch.train.step import (
+    StepConfig, init_train_state, make_loss_gradients, make_train_step)
 from cruse_tpu_torch.utils.config import load_config
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
-KERNELS = ("gru_sequence", "deep_filter", "tfcm_eval", "tattn")  # csrc/<name>.cu
+KERNELS = ("gru_sequence", "deep_filter", "tfcm_eval", "tattn", "dw_stencil", "tfcm_bwd",
+           "tattn_bwd")  # csrc/<name>.cu
+PEAK_BYTES, PEAK_FMA = 3.35e12, 33.5e12  # an H100's HBM bytes/s and f32 multiply-adds/s (67 TFLOP/s)
 CONFIG1_GRU = (256, 1001, 4, 176)  # B, T, G, H of config 1's bottleneck banks
 STREAM_GRU = ((256, 1, 4, 176), (8, 1, 4, 176))  # config 3's streaming hop
 RAGGED_GRU = ((3, 7, 4, 176), (3, 7, 3, 50))
@@ -134,6 +179,20 @@ WINDOW = 126
 TFCM_TOL, TFCM_BLOCK_TOL, ATTN_TOL = 1e-4, 1e-5, 1e-5
 MTFAA_BATCH, MTFAA_SECONDS = 16, 10
 CAUSAL_BATCH, CAUSAL_SECONDS = 4, 4
+# B, K, C, T, d of the training kernels' ragged cases: d > T/2, and a dilation past every limit
+TRAIN_RAGGED = ((2, 5, 4, 19, 8), (1, 3, 4, 40, 64), (2, 7, 12, 131, 2))
+ELEMENT_TOL, SUM_TOL = 1e-5, 1e-4  # x max(1, max|ref|)
+GRAD_REL_TOL, GRAD_ABS_TOL = 2e-3, 1e-3  # a gradient leaf: relative, or of the largest gradient
+GRAD_NOISE_FACTOR = 3.0  # or this many times the same leaf's own float32 rounding error (whole net only)
+TRAIN_STEPS = 3
+HAND_WRITTEN = frozenset((  # the __global__ functions of ops/csrc/*.cu, as a profile names them
+    "gru_sequence_kernel", "deep_filter_kernel", "tfcm_eval_kernel", "tattn_fwd_kernel",
+    "tattn_dq_kernel", "tattn_dkv_kernel", "dw_fwd_kernel", "dw_bwd_kernel", "tail_bwd_kernel",
+    "mid_bwd_kernel"))
+# launches one config-5b train step makes: 6 stacks x 4 blocks, 3 attentions
+STEP_LAUNCHES = {"dw_stencil_fwd": 24, "dw_stencil_bwd": 0, "tail_bwd": 24, "mid_bwd": 24,
+                 "tattn": 3, "tattn_dq": 3, "tattn_dkv": 3, "tfcm_stack": 0, "tfcm_block": 0,
+                 "deep_filter": 0, "gru_sequence": 0}
 
 
 def require(ok: bool, what: str) -> None:
@@ -216,10 +275,20 @@ def set_plain(model, plain: bool) -> None:
     model.filter_fn = deep_filter_reference if plain else deep_filter
 
 
+COUNTERS = {"gru_sequence": gru_sequence, "deep_filter": deep_filter,
+            "tfcm_stack": fused_tfcm_stack_eval, "tfcm_block": fused_tfcm_block_eval,
+            "tattn": flash_tattn_tm, "dw_stencil_fwd": dw_stencil_fwd,
+            "dw_stencil_bwd": dw_stencil_bwd, "tail_bwd": tail_bwd, "mid_bwd": mid_bwd,
+            "tattn_dq": tattn_dq, "tattn_dkv": tattn_dkv}
+
+
 def reset_counts() -> None:
-    for kernel in (gru_sequence, deep_filter, fused_tfcm_stack_eval, fused_tfcm_block_eval,
-                   flash_tattn_tm):
+    for kernel in COUNTERS.values():
         kernel.launches = 0
+
+
+def counts() -> dict:
+    return {name: kernel.launches for name, kernel in COUNTERS.items()}
 
 
 def seed_batch_norm_stats(model, gen) -> None:
@@ -530,12 +599,15 @@ def plain_block(x, params, dilation):
 
 
 def set_plain_mtfaa(model, plain: bool) -> None:
-    """Put every plain version (or every kernel) in an MTFAA model's path."""
+    """Put every plain version (or every kernel) in an MTFAA model's eval and
+    training paths."""
     for m in model.modules():
         if isinstance(m, TFCM):
             m.stack_fn = tfcm_stack_reference if plain else fused_tfcm_stack_eval
         elif isinstance(m, TFCMBlock):
             m.block_fn = plain_block if plain else fused_tfcm_block_eval
+            m.train_fn = tfcm_block_reference if plain else tfcm_block_train
+            m.dw_fn = dw_taps_reference if plain else dw_causal_tm
         elif isinstance(m, AxialSelfAttention):
             m.attn_fn = tattn_reference if plain else flash_tattn_tm
     model.filter_fn = deep_filter_reference if plain else deep_filter
@@ -656,8 +728,10 @@ def time_mtfaa_kernels(device, smi) -> dict:
             ms = cuda_ms(lambda: fused_tfcm_stack_eval(x, params, dilations=DILATIONS), reps=20)
             plain = cuda_ms(lambda: tfcm_stack_reference(x, params, DILATIONS), reps=5)
             nbytes = 2 * x.numel() * 4  # x read once, y written once
+            least = bound(nbytes, len(DILATIONS) * x.numel() * (2 * shape[2] + 9))
             print(f"tfcm stack {list(shape)} dilations {DILATIONS} on {smi}: kernel {ms:.3f} ms = "
-                  f"{nbytes / ms / 1e6:.1f} GB/s of {nbytes / 1e9:.3f} GB, plain {plain:.3f} ms = "
+                  f"{nbytes / ms / 1e6:.1f} GB/s of {nbytes / 1e9:.3f} GB, bound {least['bound_ms']:.4f} ms "
+                  f"({least['bound_by']}), plain {plain:.3f} ms = "
                   f"{nbytes / plain / 1e6:.1f} GB/s ({'kernel faster' if ms < plain else 'KERNEL SLOWER'})")
             times.setdefault("tfcm_stack", (ms, plain))
         x, params = tfcm_inputs(*TFCM_STAGES[0], 1, device, SEED + 1)
@@ -674,8 +748,9 @@ def time_mtfaa_kernels(device, smi) -> dict:
         for window in (WINDOW, None):
             ms = cuda_ms(lambda: flash_tattn_tm(q, k, v, window), reps=20)
             plain = cuda_ms(lambda: tattn_reference(q, k, v, window), reps=5)
+            least = bound(4 * bf * 626 * (2 * c + 2 * cv), bf * band_pairs(626, window) * (c + cv))
             print(f"tattn BF={bf} c={c} C={cv} T=626 window={window} on {smi}: kernel {ms:.3f} ms, "
-                  f"plain {plain:.3f} ms ({'kernel faster' if ms < plain else 'KERNEL SLOWER'}; "
+                  f"bound {least['bound_ms']:.4f} ms ({least['bound_by']}), plain {plain:.3f} ms ({'kernel faster' if ms < plain else 'KERNEL SLOWER'}; "
                   f"the plain logits are {bf * 626 * 626 * 4 / 1e9:.3f} GB)")
             times.setdefault("tattn", (ms, plain))
         del q, k, v
@@ -684,16 +759,426 @@ def time_mtfaa_kernels(device, smi) -> dict:
         ms = cuda_ms(lambda: deep_filter(spec, coefs, t_dim, f_dim), reps=20)
         plain = cuda_ms(lambda: deep_filter_reference(spec, coefs, t_dim, f_dim), reps=5)
         nbytes = coefs.numel() * 4 + 2 * spec.numel() * 8
+        least = bound(nbytes, spec.numel() * coefs.shape[3] * 4)
         print(f"deep_filter B={b} T={t} F={f} K={coefs.shape[3]} (config 5b) on {smi}: kernel "
-              f"{ms:.3f} ms = {nbytes / ms / 1e6:.1f} GB/s, plain {plain:.3f} ms "
+              f"{ms:.3f} ms = {nbytes / ms / 1e6:.1f} GB/s, bound {least['bound_ms']:.4f} ms "
+              f"({least['bound_by']}), plain {plain:.3f} ms "
               f"({'kernel faster' if ms < plain else 'KERNEL SLOWER'})")
     return times
 
 
+def bound(nbytes: float, fmas: float) -> dict:
+    """The least time (ms) the card could take: the larger of the bytes over
+    its memory rate and the multiply-adds over its f32 rate."""
+    by_bytes, by_ops = nbytes / PEAK_BYTES * 1e3, fmas / PEAK_FMA * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def band_pairs(t: int, window) -> int:
+    """(query, key) pairs of one row of the causal band."""
+    return sum(min(i + 1, window or t) for i in range(t))
+
+
+def stage_inputs(b, k, c, t, d, device, seed):
+    """Seeded inputs of the training kernels at one shape: x_ext [B,K,C,T+2d],
+    two [B,K,C,T] tensors (an activation and a gradient), wd, and a
+    BatchNorm's (mean, var, scale, bias) and PReLU slope off their defaults."""
+    gen = torch.Generator(device).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    stats = (randn(c, scale=0.3), torch.rand(c, generator=gen, device=device) + 0.5,
+             1 + randn(c, scale=0.2), randn(c, scale=0.2),
+             torch.rand((), generator=gen, device=device) * 0.25 + 0.05)
+    return randn(b, k, c, t + 2 * d), randn(b, k, c, t), randn(b, k, c, t), randn(3, 3, c, scale=1 / 3), stats
+
+
+def require_close(got, want, tol: float, what: str) -> float:
+    err, scale = scaled_err(got, want)
+    require(bool(torch.isfinite(got).all()) and err <= tol * scale,
+            f"{what}: max-abs {err:.3g} <= {tol} x {scale:.3g}")
+    return err
+
+
+def check_train_kernels(device) -> dict:
+    """The stencil (forward, backward), tail_bwd and mid_bwd against their plain
+    versions on the card; returns each kernel's largest max-abs error."""
+    worst = {"dw_fwd": 0.0, "dw_bwd": 0.0, "tail_bwd": 0.0, "mid_bwd": 0.0}
+    cases = [(*shape, d) for shape in TFCM_STAGES for d in DILATIONS] + list(TRAIN_RAGGED)
+    eps = 1e-5
+    for b, k, c, t, d in cases:
+        x_ext, h, g, wd, (m, v, ga, be, a) = stage_inputs(b, k, c, t, d, device, SEED)
+        what = f"{(b, k, c, t)} d={d}"
+        with torch.inference_mode():
+            errs = [require_close(dw_stencil_fwd(x_ext, wd, d), dw_taps_reference(x_ext, wd, d),
+                                  ELEMENT_TOL, f"dw_stencil_fwd {what}")]
+            worst["dw_fwd"] = max(worst["dw_fwd"], *errs)
+            got, want = dw_stencil_bwd(g, x_ext, wd, d), dw_bwd_reference(g, x_ext, wd, d)
+            errs = [require_close(got[0], want[0], ELEMENT_TOL, f"dw_stencil_bwd dx {what}"),
+                    require_close(got[1], want[1], SUM_TOL, f"dw_stencil_bwd dwd {what}")]
+            worst["dw_bwd"] = max(worst["dw_bwd"], *errs)
+            got = tail_bwd(g, h, m, v, ga, be, a, eps)
+            want = tail_bwd_reference(g, h, m, v, ga, be, a, eps)
+            errs = [require_close(got[0], want[0], ELEMENT_TOL, f"tail_bwd dh2n {what}")]
+            errs += [require_close(x, y, SUM_TOL, f"tail_bwd {name} {what}")
+                     for name, x, y in zip(("dgamma2", "dbeta2", "da2"), got[1:], want[1:])]
+            worst["tail_bwd"] = max(worst["tail_bwd"], *errs)
+            got = mid_bwd(g, h, wd, m, v, ga, be, a, d, eps)
+            want = mid_bwd_reference(g, h, wd, m, v, ga, be, a, d, eps)
+            errs = [require_close(got[0], want[0], ELEMENT_TOL, f"mid_bwd dh1n {what}")]
+            errs += [require_close(x, y, SUM_TOL, f"mid_bwd {name} {what}")
+                     for name, x, y in zip(("dwd", "dgamma1", "dbeta1", "da1", "dbd"), got[1:], want[1:])]
+            worst["mid_bwd"] = max(worst["mid_bwd"], *errs)
+        del x_ext, h, g, got, want
+    return worst
+
+
+def check_attn_bwd(device) -> tuple[float, float]:
+    """The attention's dq and dk/dv kernels against the plain dense backward on
+    the card, fed by the forward kernel's output and logsumexp, and once
+    through autograd on ``flash_tattn_tm``; returns (dq, dk/dv) largest errors."""
+    worst_dq = worst_dkv = 0.0
+    cases = [(bf, c, cv, 626, w) for bf, c, cv in ATTN_STAGES for w in (WINDOW, None)]
+    cases += [(64, 6, 24, 100, WINDOW),  # T < window
+              (64, 8, 32, 200, WINDOW), (64, 12, 48, 200, 50),  # T off the 128 tile
+              (5, 3, 12, 37, 7), (3, 2, 8, 300, None)]
+    for bf, c, cv, t, window in cases:
+        q, k, v = attn_inputs(bf, c, cv, t, device, SEED)
+        dout = attn_inputs(bf, c, cv, t, device, SEED + 1)[2]
+        what = f"BF={bf} c={c} C={cv} T={t} window={window}"
+        q.requires_grad_(), k.requires_grad_(), v.requires_grad_()
+        before = counts()
+        out = flash_tattn_tm(q, k, v, window)  # forward with the logsumexp
+        got = torch.autograd.grad(out, (q, k, v), dout)
+        torch.cuda.synchronize()
+        after = counts()
+        require(all(after[n] - before[n] == 1 for n in ("tattn", "tattn_dq", "tattn_dkv")),
+                f"tattn under autograd {what}: one forward, one dq and one dk/dv launch")
+        with torch.inference_mode():
+            want = tattn_bwd_reference(q, k, v, dout, window)
+            require_close(out, tattn_reference(q, k, v, window), ATTN_TOL, f"tattn forward (lse) {what}")
+        worst_dq = max(worst_dq, require_close(got[0], want[0], ATTN_TOL, f"tattn_dq {what}"))
+        worst_dkv = max(worst_dkv, require_close(got[1], want[1], ATTN_TOL, f"tattn_dkv dk {what}"),
+                        require_close(got[2], want[2], ATTN_TOL, f"tattn_dkv dv {what}"))
+        del q, k, v, dout, out, got, want
+    return worst_dq, worst_dkv
+
+
+def gradient_close(got, want, gscale: float) -> tuple[bool, float]:
+    """A gradient leaf agrees: relative GRAD_REL_TOL, or GRAD_ABS_TOL of the largest gradient."""
+    err = float((got - want).abs().max())
+    return err <= GRAD_REL_TOL * float(want.abs().max()) or err <= GRAD_ABS_TOL * gscale, err
+
+
+def check_tfcm_block_train(device) -> None:
+    """tfcm_block_train's outputs and its 13 gradients against autograd through
+    the plain block, on the card."""
+    for (b, k, c, t), d in ((TFCM_STAGES[0], 4), (TFCM_STAGES[2], 1), ((2, 7, 12, 131), 64)):
+        gen = torch.Generator(device).manual_seed(SEED + d)
+
+        def randn(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device=device) * scale
+
+        values = {"w1": randn(c, c, scale=c ** -0.5), "b1": randn(c, scale=0.1),
+                  "g1": 1 + randn(c, scale=0.2), "be1": randn(c, scale=0.2),
+                  "a1": torch.tensor(0.2, device=device), "wd": randn(3, 3, c, scale=1 / 3),
+                  "bd": randn(c, scale=0.1), "g2": 1 + randn(c, scale=0.2),
+                  "be2": randn(c, scale=0.2), "a2": torch.tensor(0.1, device=device),
+                  "w2": randn(c, c, scale=c ** -0.5), "b2": randn(c, scale=0.1)}
+        x, g = randn(b, k, c, t, scale=0.5), randn(b, k, c, t)
+        results = []
+        for fn in (tfcm_block_train, tfcm_block_reference):
+            leaves = [x.clone().requires_grad_()] + [values[n].clone().requires_grad_() for n in PARAM_NAMES]
+            out = fn(leaves[0], tuple(leaves[1:]), d, 1e-5)
+            grads = torch.autograd.grad(out[0], leaves, g)
+            results.append(([o.detach() for o in out], grads))
+            del out, leaves
+        torch.cuda.synchronize()
+        what = f"tfcm_block_train {(b, k, c, t)} d={d}"
+        for name, got, want in zip(("y", "new_hist", "m1", "v1", "m2", "v2"), results[0][0], results[1][0]):
+            require_close(got, want, ELEMENT_TOL, f"{what} {name}")
+        gscale = max(float(w.abs().max()) for w in results[1][1])
+        for name, got, want in zip(("x",) + PARAM_NAMES, results[0][1], results[1][1]):
+            ok, err = gradient_close(got, want, gscale)
+            if name in ("b1", "bd"):  # they feed a BatchNorm: zero but for rounding, on both sides
+                ok = err <= GRAD_ABS_TOL * gscale
+            require(ok, f"{what} d{name}: max-abs {err:.3g} (relative {GRAD_REL_TOL} or "
+                    f"{GRAD_ABS_TOL} x {gscale:.3g})")
+        del results, x, g
+
+
+def noisy_clean_pairs(seed: int, b: int, seconds: int, device):
+    """Seeded (noisy, clean) batches [B, L] on the card."""
+    noisy = np.stack(noisy_utterances(seed, (seconds * SR,) * b))
+    rng = np.random.default_rng(seed + 1000)
+    noise = (0.03 * rng.standard_normal(noisy.shape)).astype(np.float32)
+    return {"noisy": torch.from_numpy(noisy).to(device), "clean": torch.from_numpy(noisy - noise).to(device)}
+
+
+def train_config() -> StepConfig:
+    """The step of configs/mtfaa_windowed.toml in float32, at a constant rate as
+    the reference's benchmark runs it (the config's 500-step warm-up would
+    start from a rate of 0, and three steps would move nothing)."""
+    config = load_config(str(ROOT / "configs" / "mtfaa_windowed.toml"))
+    ac, opt = config["acoustics"], config["optimizer"]
+    return StepConfig(stft=StftConfig(n_fft=int(ac["n_fft"]), hop_length=int(ac["hop_length"])),
+                      learning_rate=float(opt["lr"]), beta1=float(opt["beta1"]), beta2=float(opt["beta2"]),
+                      clip_grad_norm=float(config["trainer"]["train"]["clip_grad_norm_value"]),
+                      loss_weights=tuple(sorted((k, float(v)) for k, v in config["loss"]["weights"].items())))
+
+
+def named_state(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def check_train_steps(config, b: int, seconds: int, seed: int, device, what: str,
+                      expected: dict) -> dict:
+    """Drive make_train_step for TRAIN_STEPS steps at full width; returns the
+    launches it made. Before that, the first batch's losses, gradients and
+    BatchNorm statistics against the same weights with every kernel swapped for
+    its plain version, in float32 and in float64.
+
+    Why float64: a gradient that has come down through all 24 TFCM blocks, the
+    phase encoder's square root and the spectral loss's power law carries the
+    rounding of every float32 sum above it, and the plain float32 versions
+    themselves miss the float64 gradient of the phase encoder's leaves by about
+    1e-2 of the largest gradient. So the comparison is leaf by leaf: a leaf of
+    the kernels' run passes when it is within GRAD_REL_TOL of the float64 leaf,
+    or within GRAD_ABS_TOL of the largest gradient, or no further from the
+    float64 leaf than GRAD_NOISE_FACTOR times what the plain float32 run's
+    SAME leaf is. A wrong gradient of a leaf whose float32 rounding is small
+    fails, however noisy other leaves are."""
+    cfg = train_config()
+    batches = [noisy_clean_pairs(seed + i, b, seconds, device) for i in range(TRAIN_STEPS)]
+    runs = {}
+    for name, dtype in (("float64", torch.float64), ("plain", torch.float32), ("kernels", torch.float32)):
+        model = build_mtfaa(config, device, seed).to(dtype)
+        set_plain_mtfaa(model, name != "kernels")
+        state = init_train_state(model, cfg, device)
+        grads, losses, _ = make_loss_gradients(model, cfg)(
+            state.balancer_state, {k: v.to(dtype) for k, v in batches[0].items()})
+        torch.cuda.synchronize()
+        runs[name] = ([g.double() for g in grads], losses, named_state(model))
+        del grads
+        if name != "kernels":
+            del model, state
+            torch.cuda.empty_cache()
+    (grads, losses, stats), (plain_grads, ref_losses, ref_stats) = runs["kernels"], runs["plain"]
+    exact = runs["float64"][0]
+    for name in losses:
+        err = abs(float(losses[name]) - float(ref_losses[name]))
+        require(err <= 1e-4 * max(1.0, abs(float(ref_losses[name]))),
+                f"{what}: loss {name} {float(losses[name]):.6g}, kernels vs plain versions {err:.3g}")
+    gscale = max(float(g.abs().max()) for g in exact)
+    worst, worst_noise, worst_ratio, by_noise, bad = 0.0, 0.0, 0.0, 0, []
+    for (name, _), got, plain, want in zip(model.named_parameters(), grads, plain_grads, exact):
+        ok, err = gradient_close(got, want, gscale)
+        noise = float((plain - want).abs().max())  # this leaf's float32 rounding, plain versions
+        worst, worst_noise = max(worst, err), max(worst_noise, noise)
+        if not ok:
+            by_noise += 1
+            worst_ratio = max(worst_ratio, err / noise if noise > 0 else math.inf)
+            if err > GRAD_NOISE_FACTOR * noise:
+                bad.append((name, f"err {err:.3g}", f"plain float32's {noise:.3g}",
+                            f"leaf max {float(want.abs().max()):.3g}"))
+    require(not bad, f"{what}: {len(grads)} gradient leaves against the float64 plain step: kernels' "
+            f"worst {worst / gscale:.3g} of the largest gradient {gscale:.3g}, plain float32's worst "
+            f"{worst_noise / gscale:.3g}; {by_noise} leaves beyond relative {GRAD_REL_TOL} and "
+            f"{GRAD_ABS_TOL} of the largest, each held to {GRAD_NOISE_FACTOR} x the same leaf's plain "
+            f"float32 error (worst ratio {worst_ratio:.3g}); failing {bad[:10]}")
+    err = max(float((stats[k] - ref_stats[k]).abs().max() / max(1.0, float(ref_stats[k].abs().max())))
+              for k in ref_stats if k.endswith((".mean", ".var")))
+    require(err <= 1e-4, f"{what}: BatchNorm running statistics, kernels vs plain versions {err:.3g} <= 1e-4")
+    del runs, grads, plain_grads, exact
+
+    before = named_state(model)
+    step = make_train_step(model, cfg)
+    reset_counts()
+    metrics = []
+    for data in batches:
+        state, m = step(state, data)
+        metrics.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    launched = counts()
+    require(launched == {k: v * TRAIN_STEPS for k, v in expected.items()},
+            f"{what}: {TRAIN_STEPS} train steps launched {launched} = {TRAIN_STEPS} x {expected}")
+    require(all(math.isfinite(v) for m in metrics for v in m.values())
+            and all(m["nonfinite_skipped"] == 0 for m in metrics)
+            and state.step == TRAIN_STEPS and state.opt_state.count == TRAIN_STEPS,
+            f"{what}: finite losses and gradient norms {metrics}")
+    after = named_state(model)
+    stuck = [k for k in before if torch.equal(before[k], after[k])]
+    require(all(k.endswith("bias") for k in stuck) and len(stuck) <= len(before) // 10,
+            f"{what}: {len(before) - len(stuck)} of {len(before)} parameters and BatchNorm "
+            f"statistics moved (all but biases whose gradient is exactly zero: {stuck})")
+
+    bad = {k: v.clone() for k, v in batches[0].items()}
+    bad["noisy"][0, 1000] = float("nan")
+    kept = [t.clone() for t in state.opt_state.mu + state.opt_state.nu] + list(state.balancer_state.total.values())
+    new_state, m = step(state, bad)
+    require(float(m["nonfinite_skipped"]) == 1.0 and new_state.opt_state.count == TRAIN_STEPS
+            and all(torch.equal(after[k], v) for k, v in model.state_dict().items())
+            and all(torch.equal(a, b) for a, b in zip(
+                kept, new_state.opt_state.mu + new_state.opt_state.nu
+                + list(new_state.balancer_state.total.values()))),
+            f"{what}: a step on a batch with a NaN is skipped and changes nothing")
+    return launched
+
+
+def library_ms(device) -> dict:
+    """Times (ms) of the PyTorch calls that compute a kernel's function, on
+    tensors already in the library's layout, at the main paths' shapes.
+    Timed here and used nowhere in the port."""
+    import torch.nn.functional as F
+    times = {}
+    b, k, c, t = TFCM_STAGES[0]
+    d = 1
+    x_ext, _, g, wd, _ = stage_inputs(b, k, c, t, d, device, SEED + 1)
+    with torch.inference_mode():
+        x = x_ext.permute(0, 2, 1, 3).contiguous()  # [B, C, K, T + 2d]: cuDNN's NCHW
+        w = wd.permute(2, 1, 0)[:, None].contiguous()  # [C, 1, band tap, time tap]
+        gy = g.permute(0, 2, 1, 3).contiguous()
+        conv = lambda: F.conv2d(x, w, None, 1, (1, 0), (1, d), c)  # noqa: E731
+        require_close(conv().permute(0, 2, 1, 3), dw_stencil_fwd(x_ext, wd, d), 1e-4,
+                      "cuDNN depthwise conv2d computes the stencil")
+        times["dw_fwd"] = cuda_ms(conv, reps=10)
+        times["dw_bwd"] = cuda_ms(lambda: torch.ops.aten.convolution_backward(
+            gy, x, w, None, (1, 1), (1, 0), (1, d), False, (0, 0), c, (True, True, False)), reps=10)
+    del x_ext, g, x, gy
+
+    bf, cq, cv = ATTN_STAGES[0]
+    q, kk, v = attn_inputs(bf, cq, cv, 626, device, SEED + 1)
+    dout = attn_inputs(bf, cq, cv, 626, device, SEED + 2)[2].transpose(1, 2)[:, None].contiguous()
+    q4, k4, v4 = (u.transpose(1, 2)[:, None].contiguous().requires_grad_() for u in (q, kk, v))  # [BF, 1, T, c]
+    for window in (WINDOW, None):
+        mask = band_mask(626, window, device)
+        with torch.inference_mode():
+            got = F.scaled_dot_product_attention(q4.detach(), k4.detach(), v4.detach(), attn_mask=mask)
+            require_close(got[:, 0].transpose(1, 2), flash_tattn_tm(q, kk, v, window), 1e-4,
+                          f"scaled_dot_product_attention computes the attention (window={window})")
+            times[f"tattn_{window}"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q4.detach(), k4.detach(), v4.detach(), attn_mask=mask), reps=10)
+        out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+        times[f"tattn_bwd_{window}"] = cuda_ms(lambda: torch.autograd.grad(
+            out, (q4, k4, v4), dout, retain_graph=True), reps=5)
+        del out
+    del q, kk, v, q4, k4, v4, dout
+
+    b, t, g_, h = CONFIG1_GRU
+    gru = torch.nn.GRU(h, h, batch_first=True).to(device)
+    x = torch.randn(b, t, h, device=device)
+    with torch.inference_mode():
+        times["gru"] = g_ * cuda_ms(lambda: gru(x), reps=3)  # one call a group
+    return times
+
+
+def time_train_kernels(device, smi, lib: dict) -> dict:
+    """Each training kernel and its plain version at stage 0 (ms), with the
+    bytes it must move and the multiply-adds it does; prints them."""
+    entries = {}
+    b, k, c, t = TFCM_STAGES[0]
+    d, eps = 1, 1e-5
+    x_ext, h, g, wd, (m, v, ga, be, a) = stage_inputs(b, k, c, t, d, device, SEED + 1)
+    points, tensor = b * k * c * t, b * k * c * t * 4
+    ext = x_ext.numel() * 4
+    cases = {  # name: (kernel, plain, least bytes, multiply-adds, library ms)
+        "dw_stencil_fwd": (lambda: dw_stencil_fwd(x_ext, wd, d), lambda: dw_taps_reference(x_ext, wd, d),
+                           ext + tensor, 9 * points, lib["dw_fwd"]),
+        "dw_stencil_bwd": (lambda: dw_stencil_bwd(g, x_ext, wd, d), lambda: dw_bwd_reference(g, x_ext, wd, d),
+                           2 * ext + tensor, 18 * points, lib["dw_bwd"]),
+        "tail_bwd": (lambda: tail_bwd(g, h, m, v, ga, be, a, eps),
+                     lambda: tail_bwd_reference(g, h, m, v, ga, be, a, eps), 3 * tensor, 6 * points, None),
+        "mid_bwd": (lambda: mid_bwd(g, h, wd, m, v, ga, be, a, d, eps),
+                    lambda: mid_bwd_reference(g, h, wd, m, v, ga, be, a, d, eps), 3 * tensor,
+                    (9 + 9 * 3 + 6) * points, None),
+    }
+    with torch.inference_mode():
+        for name, (kernel, plain, nbytes, fmas, library) in cases.items():
+            ms, plain_ms = cuda_ms(kernel, reps=20), cuda_ms(plain, reps=5)
+            entries[name] = {"ms": ms, "plain_ms": plain_ms, **bound(nbytes, fmas), "library_ms": library}
+            print(f"{name} {[b, k, c, t]} d={d} on {smi}: kernel {ms:.3f} ms = {nbytes / ms / 1e6:.1f} GB/s "
+                  f"of {nbytes / 1e6:.1f} MB, bound {entries[name]['bound_ms']:.4f} ms "
+                  f"({entries[name]['bound_by']}), plain {plain_ms:.3f} ms, library "
+                  f"{'none' if library is None else f'{library:.3f} ms'} "
+                  f"({'kernel faster' if ms < plain_ms else 'KERNEL SLOWER'} than plain)")
+    del x_ext, h, g
+
+    bf, cq, cv = ATTN_STAGES[0]
+    t = 626
+    q, kk, vv = attn_inputs(bf, cq, cv, t, device, SEED + 1)
+    dout = attn_inputs(bf, cq, cv, t, device, SEED + 2)[2]
+    rows = 4 * bf * t
+    with torch.inference_mode():
+        for window in (WINDOW, None):
+            out = tattn_reference(q, kk, vv, window)
+            lse = torch.logsumexp(torch.einsum("bct,bcs->bts", q, kk).mul_(cq ** -0.5).masked_fill_(
+                ~band_mask(t, window, device), -1e9), dim=-1)
+            dd = (dout * out).sum(dim=1)
+            pairs = bf * band_pairs(t, window)
+            plain_ms = cuda_ms(lambda: tattn_bwd_reference(q, kk, vv, dout, window), reps=3)
+            for name, kernel, nbytes, fmas in (
+                    ("tattn_dq", lambda: tattn_dq(q, kk, vv, dout, lse, dd, window),
+                     rows * (3 * cq + 2 * cv + 2), pairs * (2 * cq + cv)),
+                    ("tattn_dkv", lambda: tattn_dkv(q, kk, vv, dout, lse, dd, window),
+                     rows * (3 * cq + 3 * cv + 2), pairs * 2 * (cq + cv))):
+                ms = cuda_ms(kernel, reps=10)
+                # the library's backward is one call that returns dq, dk and dv together
+                entry = {"ms": ms, "plain_ms": plain_ms, **bound(nbytes, fmas),
+                         "library_ms": lib[f"tattn_bwd_{window}"]}
+                entries.setdefault(name, entry)  # the JSON line keeps the windowed case, config 5b's
+                print(f"{name} BF={bf} c={cq} C={cv} T={t} window={window} on {smi}: kernel {ms:.3f} ms, "
+                      f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}: {fmas / 1e9:.2f} GFMA), "
+                      f"plain dense backward (dq, dk and dv together) {plain_ms:.3f} ms; "
+                      f"library: scaled_dot_product_attention's backward (one call, all three) "
+                      f"{entry['library_ms']:.3f} ms")
+            del out, lse, dd
+    return entries
+
+
+def time_train_step(device, smi) -> None:
+    """One B=16 x 10 s config-5b train step with the kernels and with the plain
+    versions (wall ms after a warm-up, peak memory), and a profile of a step."""
+    cfg = train_config()
+    data = noisy_clean_pairs(SEED + 7, MTFAA_BATCH, MTFAA_SECONDS, device)
+    profiled = False
+    for plain in (True, False, False, True):
+        model = build_mtfaa(None, device, SEED + 4)
+        set_plain_mtfaa(model, plain)
+        state = init_train_state(model, cfg, device)
+        step = make_train_step(model, cfg)
+        state, _ = step(state, data)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            state, _ = step(state, data)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        print(f"MTFAA config 5b train step B={MTFAA_BATCH} x {MTFAA_SECONDS} s, f32, on {smi}, "
+              f"{'plain versions' if plain else 'kernels'}: {ms:.1f} ms a step = "
+              f"{MTFAA_BATCH * MTFAA_SECONDS / ms * 1e3:.1f} s of audio a second, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        if not plain and not profiled:
+            profiled = True
+            box = {"state": state}
+
+            def one_step():
+                box["state"], _ = step(box["state"], data)
+
+            profile_calls(one_step, 2, f"B={MTFAA_BATCH} x {MTFAA_SECONDS} s config-5b train step, kernels")
+            del box
+        del model, state, step
+        torch.cuda.empty_cache()
+
+
 def profile_calls(fn, calls: int, label: str) -> None:
-    """torch.profiler over `calls` calls of fn: device time by kernel, the
-    device's busy time per call (union of kernel intervals) and its idle
-    share against the call's wall time measured without the profiler."""
+    """torch.profiler over `calls` calls of fn: device time by kernel (the 20
+    that take most, then every hand-written kernel the calls launched, its
+    template instances summed, with the share of the busy time they take
+    together), the device's busy time per call (union of kernel intervals)
+    and its idle share against the call's wall time measured without the
+    profiler."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
 
@@ -727,6 +1212,16 @@ def profile_calls(fn, calls: int, label: str) -> None:
           f"idle {1 - busy_ms / wall_ms:.1%}")
     for name, (total, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]:
         print(f"  {total / calls:10.2f} us/call  {n / calls:5.1f}/call  {name[:100]}")
+    own = {}
+    for name, (total, n) in by_name.items():
+        match = re.search(r"\b(\w+_kernel)\b", name)
+        if match and match.group(1) in HAND_WRITTEN:
+            had = own.get(match.group(1), (0.0, 0))
+            own[match.group(1)] = (had[0] + total, had[1] + n)
+    own_ms = sum(total for total, _ in own.values()) / calls / 1e3
+    print(f"  hand-written kernels, {label}: {own_ms:.4f} ms per call = {own_ms / busy_ms:.1%} of the busy time")
+    for name, (total, n) in sorted(own.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {total / calls:10.2f} us/call  {n / calls:5.1f}/call  {total / n:9.2f} us each  {name}")
 
 
 def main() -> int:
@@ -838,37 +1333,78 @@ def main() -> int:
           f"{plain_s * 1e3:.1f} ms = {b * seconds / plain_s:.1f}x realtime")
     profile_calls(lambda: inferencer.auto(x), 3, f"B={b} x {seconds} s config-5b auto forward")
 
-    print(json.dumps({"kernels": [{
-        "name": "gru_sequence", "route": "cuda",
-        "source": "cruse_tpu_torch/ops/csrc/gru_sequence.cu",
-        "replaces": "cruse_tpu/ops/gru_kernel.py:82",
-        "launches": launches + stream_gru + auto_gru, "max_abs_err": gru_err,
-        "ms": kernel_ms, "plain_ms": plain_ms,
-    }, {
-        "name": "deep_filter", "route": "cuda",
-        "source": "cruse_tpu_torch/ops/csrc/deep_filter.cu",
-        "replaces": "cruse_tpu/ops/deep_filter_kernel.py:91",
-        "launches": stream_df + auto_df + mtfaa_df, "max_abs_err": df_err,
-        "ms": df_ms, "plain_ms": df_plain_ms,
-    }, {
-        "name": "tfcm_stack", "route": "cuda",
-        "source": "cruse_tpu_torch/ops/csrc/tfcm_eval.cu",
-        "replaces": "cruse_tpu/ops/tfcm_kernel.py:212",
-        "launches": stack_launches, "max_abs_err": tfcm_err,
-        "ms": times["tfcm_stack"][0], "plain_ms": times["tfcm_stack"][1],
-    }, {
-        "name": "tfcm_block", "route": "cuda",
-        "source": "cruse_tpu_torch/ops/csrc/tfcm_eval.cu",
-        "replaces": "cruse_tpu/ops/tfcm_kernel.py:103",
-        "launches": block_launches, "max_abs_err": block_err,
-        "ms": times["tfcm_block"][0], "plain_ms": times["tfcm_block"][1],
-    }, {
-        "name": "tattn", "route": "cuda",
-        "source": "cruse_tpu_torch/ops/csrc/tattn.cu",
-        "replaces": "cruse_tpu/ops/asa_kernel.py:190",
-        "launches": attn_launches, "max_abs_err": attn_err,
-        "ms": times["tattn"][0], "plain_ms": times["tattn"][1],
-    }]}))
+    del inferencer, mtfaa, x
+    torch.cuda.empty_cache()
+
+    train_errs = check_train_kernels(device)
+    dq_err, dkv_err = check_attn_bwd(device)
+    check_tfcm_block_train(device)
+    torch.cuda.empty_cache()
+    train_launches = check_train_steps(
+        None, MTFAA_BATCH, MTFAA_SECONDS, SEED + 8, device,
+        f"config-5b train step B={MTFAA_BATCH} x {MTFAA_SECONDS} s", STEP_LAUNCHES)
+    torch.cuda.empty_cache()
+    pallas_launches = check_train_steps(
+        MtfaaConfig(attention_window=WINDOW, tfcm_dw_impl="pallas"), CAUSAL_BATCH, CAUSAL_SECONDS,
+        SEED + 9, device, f'config-5b train step, "pallas" TFCM route, B={CAUSAL_BATCH} x {CAUSAL_SECONDS} s',
+        dict(STEP_LAUNCHES, dw_stencil_bwd=24, tail_bwd=0, mid_bwd=0))
+    check_train_steps(MtfaaConfig(), CAUSAL_BATCH, CAUSAL_SECONDS, SEED + 10, device,
+                      f"config-5 train step (full-causal attention) B={CAUSAL_BATCH} x {CAUSAL_SECONDS} s",
+                      STEP_LAUNCHES)
+    torch.cuda.empty_cache()
+
+    lib = library_ms(device)
+    print(f"library calls on {smi}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in lib.items()))
+    train_times = time_train_kernels(device, smi, lib)
+    time_train_step(device, smi)
+
+    # least bytes (each input read once, each output written once) and
+    # multiply-adds of the kernels of the earlier slices, at the timed shapes
+    b, t, g, h = CONFIG1_GRU
+    gru_bound = bound(4 * (b * t * g * 4 * h + 2 * b * g * h + g * 3 * h * h + g * 3 * h),
+                      b * t * g * 3 * h * h)
+    b, t, f = CONFIG3_DF[:3]
+    taps = (2 * CONFIG3_DF[3] + 1) * (2 * CONFIG3_DF[4] + 1)
+    df_bound = bound(b * t * f * (8 * taps + 16), b * t * f * taps * 4)
+    b, k, c, t = TFCM_STAGES[0]
+    layer_fmas = b * k * t * c * (2 * c + 9)
+    stack_bound = bound(2 * 4 * b * k * c * t, len(DILATIONS) * layer_fmas)
+    block_bound = bound(2 * 4 * b * k * c * t, layer_fmas)
+    bf, cq, cv = ATTN_STAGES[0]
+    attn_bound = bound(4 * bf * 626 * (2 * cq + 2 * cv), bf * band_pairs(626, WINDOW) * (cq + cv))
+
+    def entry(name, source, replaces, launches, err, times, bounds, library):
+        return {"name": name, "route": "cuda", "source": f"cruse_tpu_torch/ops/csrc/{source}.cu",
+                "replaces": f"cruse_tpu/ops/{replaces}", "launches": launches, "max_abs_err": err,
+                "ms": times[0], "plain_ms": times[1], **bounds, "library_ms": library}
+
+    def train_entry(name, source, replaces, launches, err):
+        e = train_times[name]
+        return entry(name, source, replaces, launches, err, (e["ms"], e["plain_ms"]),
+                     {"bound_ms": e["bound_ms"], "bound_by": e["bound_by"]}, e["library_ms"])
+
+    print(json.dumps({"kernels": [
+        entry("gru_sequence", "gru_sequence", "gru_kernel.py:82", launches + stream_gru + auto_gru,
+              gru_err, (kernel_ms, plain_ms), gru_bound, lib["gru"]),
+        entry("deep_filter", "deep_filter", "deep_filter_kernel.py:91", stream_df + auto_df + mtfaa_df,
+              df_err, (df_ms, df_plain_ms), df_bound, None),
+        entry("tfcm_stack", "tfcm_eval", "tfcm_kernel.py:212", stack_launches, tfcm_err,
+              times["tfcm_stack"], stack_bound, None),
+        entry("tfcm_block", "tfcm_eval", "tfcm_kernel.py:103", block_launches, block_err,
+              times["tfcm_block"], block_bound, None),
+        entry("tattn", "tattn", "asa_kernel.py:190", attn_launches + train_launches["tattn"], attn_err,
+              times["tattn"], attn_bound, lib[f"tattn_{WINDOW}"]),
+        train_entry("dw_stencil_fwd", "dw_stencil", "dw_kernel.py:174", train_launches["dw_stencil_fwd"],
+                    train_errs["dw_fwd"]),
+        train_entry("dw_stencil_bwd", "dw_stencil", "dw_kernel.py:197", pallas_launches["dw_stencil_bwd"],
+                    train_errs["dw_bwd"]),
+        train_entry("tail_bwd", "tfcm_bwd", "tfcm_bwd_kernels.py:92", train_launches["tail_bwd"],
+                    train_errs["tail_bwd"]),
+        train_entry("mid_bwd", "tfcm_bwd", "tfcm_bwd_kernels.py:236", train_launches["mid_bwd"],
+                    train_errs["mid_bwd"]),
+        train_entry("tattn_dq", "tattn_bwd", "asa_kernel.py:266", train_launches["tattn_dq"], dq_err),
+        train_entry("tattn_dkv", "tattn_bwd", "asa_kernel.py:282", train_launches["tattn_dkv"], dkv_err),
+    ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
 

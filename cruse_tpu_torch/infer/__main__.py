@@ -1,9 +1,9 @@
 """Enhancement CLI of the port:
 
     python -m cruse_tpu_torch.infer -C cfg.toml -I wav_dir -O out_dir \\
-        [--weights w.npz] [--seed N] [--batch N] [--device cuda]
+        [--weights w.npz] [--seed N] [--batch N] [--device cpu]
     python -m cruse_tpu_torch.infer -C cfg.toml -I wav_dir -O out_dir \\
-        --streaming [--hops_per_step k] [--weights w.npz] [--device cuda]
+        --streaming [--hops_per_step k] [--weights w.npz] [--device cpu]
 
 Weights come from a bridge ``.npz`` written by
 ``cruse_tpu_torch.utils.weights.save_flax_npz`` from cruse_tpu variables, or,
@@ -13,8 +13,10 @@ config's ``[inferencer] type`` (``mag_to_mag``, or ``auto``, the default as in
 (N > 1) enhances N utterances per forward, otherwise one per forward.
 ``--streaming`` runs each file as one stream (B=1) frame by frame through
 ``StreamingEnhancer`` with a ``center=False`` STFT, logging the per-hop
-real-time factor; ``--hops_per_step k`` feeds k hops per call. A CUDA device
-that is not there is an error, never a quiet fall back to the CPU.
+real-time factor; ``--hops_per_step k`` feeds k hops per call. The model runs
+on the card (``--device cuda``, the default) unless ``--device cpu`` asks for
+the CPU; a CUDA device that is not there is an error, never a quiet fall back
+to the CPU.
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ def main(argv=None):
                         help="Bridge .npz of cruse_tpu variables (save_flax_npz).")
     parser.add_argument("--seed", type=int, default=0, help="Seed of the weights without --weights.")
     parser.add_argument("--batch", type=int, default=0, help="Utterances per forward (0/1: one).")
-    parser.add_argument("--device", default="cpu", help="cpu, cuda or cuda:N.")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (the default), cuda:N, or cpu.")
     parser.add_argument("--streaming", action="store_true",
                         help="Frame-by-frame causal path, one stream per file.")
     parser.add_argument("--hops_per_step", type=int, default=1,

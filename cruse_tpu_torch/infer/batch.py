@@ -44,11 +44,13 @@ class InferencerConfig:
 
 
 class BatchInferencer:
-    """Enhance utterances with a model on one ``device``. The model is
-    moved there and put in eval mode (BatchNorm uses its running stats)."""
+    """Enhance utterances with a model on one ``device``: the card unless the
+    caller asks for the CPU (``device="cpu"``); a CUDA device that is not
+    there is an error. The model is moved there and put in eval mode
+    (BatchNorm uses its running stats)."""
 
     def __init__(self, model: torch.nn.Module, config: InferencerConfig,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         if config.type not in ("mag_to_mag", "auto"):
             raise NotImplementedError(f"inferencer strategy {config.type!r} is not ported "
                                       "(ported: mag_to_mag, auto)")
@@ -58,6 +60,9 @@ class BatchInferencer:
             raise ValueError(f"mag_to_mag takes a mask model; {type(model).__name__} runs "
                              "with type='auto'")
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {self.device}: no CUDA device is available "
+                               "(pass device='cpu' to run on the CPU)")
         self.model = model.to(self.device).eval()
         self._forward = forward_for_model(self.model) if config.type == "auto" else None
         self._strategy = getattr(self, config.type)

@@ -1,5 +1,6 @@
 """MTFAA: multi-scale temporal-frequency axial attention (counterpart of
-``cruse_tpu/models/mtfaa.py``), offline eval forward.
+``cruse_tpu/models/mtfaa.py``), offline: the eval forward and the training
+forward with its backward.
 
 cspec ``[B, T, F, 2]`` -> phase encoder -> linear band split -> encoder stages
 (band-downsampling conv, BatchNorm, PReLU, TFCM stack, axial self-attention)
@@ -24,11 +25,25 @@ keeps the kernel's wrapper as an attribute (``stack_fn``, ``block_fn``,
 ``attn_fn``, ``filter_fn``), so the plain versions can be put in its place
 to check the kernels.
 
-Not ported yet, and refused by name: the training forward (train-mode
-BatchNorm; the MTFAA training slice) and streaming with carried state (the
-MTFAA streaming slice). ``tfcm_dw_impl``, ``asa_impl``, ``tfcm_remat`` and
-``asa_remat`` are accepted so that one config file builds both packages;
-the port has one implementation per device, so they change nothing.
+Training (``model.train()`` and ``train=True``; the two must agree):
+BatchNorm normalises with the batch statistics over B, K, T (biased variance
+``E[x^2] - mean^2``) and moves its running statistics in place by
+``0.9 * old + 0.1 * batch``, with no gradient into them. A TFCM block takes
+one of two routes, after the reference's ``tfcm_dw_impl``: any ``fused*``
+value (the default) runs ``ops/tfcm_train.py::tfcm_block_train`` (``train_fn``:
+the stencil's forward kernel, and a backward through the ``tail_bwd`` and
+``mid_bwd`` kernels); ``"pallas"`` or ``"xla"`` run the unfused block under
+autograd with the stencil as ``ops/dw_kernel.py::dw_causal_tm`` (``dw_fn``:
+forward and backward kernels). The temporal attention under a gradient is the
+forward kernel with its logsumexp and the dq and dk/dv kernels
+(``ops/asa_kernel.py``). The deep filter in training is the differentiable
+plain shift-MAC (``deep_filter_reference``), as the reference trains through
+its plain version too: the deep-filter kernel has no backward.
+
+Not ported yet, and refused by name: streaming with carried state (the MTFAA
+streaming slice). ``asa_impl``, ``tfcm_remat`` and ``asa_remat`` are accepted
+so that one config file builds both packages; the port has one
+implementation per device, so they change nothing.
 """
 from __future__ import annotations
 
@@ -43,14 +58,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from cruse_tpu_torch.ops.asa_kernel import flash_tattn_tm
-from cruse_tpu_torch.ops.deep_filter_kernel import deep_filter
+from cruse_tpu_torch.ops.deep_filter_kernel import deep_filter, deep_filter_reference
+from cruse_tpu_torch.ops.dw_kernel import dw_causal_tm
 from cruse_tpu_torch.ops.tfcm_kernel import (
     fold_eval_params, fused_tfcm_block_eval, fused_tfcm_stack_eval)
+from cruse_tpu_torch.ops.tfcm_train import batch_stats, tfcm_block_train
 
 _STREAMING = ("streaming MTFAA with carried state (conv and TFCM histories, rolling "
               "attention K/V caches) comes with the MTFAA streaming slice; only state=None runs")
-_TRAINING = ("the MTFAA training forward (train-mode BatchNorm) comes with the MTFAA "
-             "training slice; call .eval() and run train=False")
+BN_MOMENTUM = 0.9  # running = 0.9 * running + 0.1 * batch
 
 
 # ---------------- linear filterbank ----------------
@@ -137,10 +153,12 @@ def _check_no_state(state) -> None:
         raise NotImplementedError(_STREAMING)
 
 
-def _check_eval(module: nn.Module, state, train: bool) -> None:
+def _check_mode(module: nn.Module, state, train: bool) -> None:
     _check_no_state(state)
-    if train or module.training:
-        raise NotImplementedError(_TRAINING)
+    if train != module.training:
+        raise ValueError(f"train={train} but the module is in "
+                         f"{'training' if module.training else 'eval'} mode: call "
+                         f"{'.train()' if train else '.eval()'} first (BatchNorm follows the mode)")
 
 
 # ---------------- complex convs / phase encoder ----------------
@@ -206,8 +224,10 @@ class PhaseEncoder(nn.Module):
 
 
 class BatchNormC(nn.Module):
-    """BatchNorm over the channel axis of [B, K, C, T], eval mode: the
-    running statistics, ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
+    """BatchNorm over the channel axis of [B, K, C, T]:
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` with the running
+    statistics in eval mode and the batch's (over B, K, T; biased variance) in
+    training mode, which also moves the running ones (``update_running``)."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -217,11 +237,20 @@ class BatchNormC(nn.Module):
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """running = 0.9 * running + 0.1 * batch, in place."""
+        self.mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
+        self.var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(_TRAINING)
-        inv = torch.rsqrt(self.var + self.eps) * self.scale
-        return (x - _bias_tm(self.mean)) * _bias_tm(inv) + _bias_tm(self.bias)
+            mean, var = batch_stats(x)  # the gradient flows through them
+            self.update_running(mean, var)
+        else:
+            mean, var = self.mean, self.var
+        inv = torch.rsqrt(var + self.eps) * self.scale
+        return (x - _bias_tm(mean)) * _bias_tm(inv) + _bias_tm(self.bias)
 
 
 class PReLUc(nn.Module):
@@ -239,16 +268,19 @@ class PReLUc(nn.Module):
 
 
 class TFCMBlock(nn.Module):
-    """Residual temporal-frequency conv block, eval: 1x1 conv + BN + PReLU ->
+    """Residual temporal-frequency conv block: 1x1 conv + BN + PReLU ->
     depthwise (3, 3) conv, time-dilated and causal -> BN + PReLU -> 1x1 conv,
-    + input. The whole block is one launch of the TFCM kernel on the card
-    (``block_fn``, with the BatchNorms folded into the convs)."""
+    + input. In eval mode the whole block is one launch of the TFCM kernel on
+    the card (``block_fn``, with the BatchNorms folded into the convs). In
+    training ``dw_impl`` picks the route (see the module doc): ``fused*`` ->
+    ``train_fn``, else the unfused block with the stencil ``dw_fn``."""
 
-    def __init__(self, channels: int, dilation: int = 1, generator: torch.Generator | None = None):
+    def __init__(self, channels: int, dilation: int = 1, dw_impl: str = "fused_fold",
+                 generator: torch.Generator | None = None):
         super().__init__()
         gen = generator or torch.Generator().manual_seed(0)
         c = channels
-        self.channels, self.dilation = c, dilation
+        self.channels, self.dilation, self.dw_impl = c, dilation, dw_impl
         self.pconv1_kernel = _param(gen, c, c)
         self.pconv1_bias = _zeros(c)
         self.bn1 = BatchNormC(c)
@@ -260,6 +292,8 @@ class TFCMBlock(nn.Module):
         self.pconv2_kernel = _param(gen, c, c)
         self.pconv2_bias = _zeros(c)
         self.block_fn = fused_tfcm_block_eval
+        self.train_fn = tfcm_block_train
+        self.dw_fn = dw_causal_tm
 
     def eval_params(self) -> dict:
         """The block's weights and statistics under the kernel's keys."""
@@ -270,28 +304,49 @@ class TFCMBlock(nn.Module):
                 "a2": self.prelu2.negative_slope, "w2": self.pconv2_kernel, "b2": self.pconv2_bias}
 
     def forward(self, x: torch.Tensor, hist=None, train: bool = False) -> torch.Tensor:
-        _check_eval(self, hist, train)
-        return self.block_fn(x.contiguous(), _folded(self, [self]), dilation=self.dilation)
+        _check_mode(self, hist, train)
+        if not train:
+            return self.block_fn(x.contiguous(), _folded(self, [self]), dilation=self.dilation)
+        if self.dw_impl.startswith("fused"):
+            params = (self.pconv1_kernel, self.pconv1_bias, self.bn1.scale, self.bn1.bias,
+                      self.prelu1.negative_slope, self.dw_kernel, self.dw_bias, self.bn2.scale,
+                      self.bn2.bias, self.prelu2.negative_slope, self.pconv2_kernel,
+                      self.pconv2_bias)
+            y, _hist, m1, v1, m2, v2 = self.train_fn(x.contiguous(), params, self.dilation,
+                                                     self.bn1.eps)
+            self.bn1.update_running(m1, v1)
+            self.bn2.update_running(m2, v2)
+            return y
+        h = self.prelu1(self.bn1(_conv_tm(x, self.pconv1_kernel) + _bias_tm(self.pconv1_bias)))
+        h = self.dw_fn(causal_ext(h, 2 * self.dilation), self.dw_kernel, self.dilation)
+        h = self.prelu2(self.bn2(h + _bias_tm(self.dw_bias)))
+        return _conv_tm(h, self.pconv2_kernel) + _bias_tm(self.pconv2_bias) + x
 
 
 class TFCM(nn.Module):
-    """Stack of TFCM blocks with dilations 2^idx, eval: the whole ladder is
-    one launch of the TFCM kernel on the card (``stack_fn``)."""
+    """Stack of TFCM blocks with dilations 2^idx. In eval mode the whole
+    ladder is one launch of the TFCM kernel on the card (``stack_fn``); in
+    training the blocks run one after another, each by its ``dw_impl`` route."""
 
-    def __init__(self, channels: int, num_layers: int = 6, generator: torch.Generator | None = None):
+    def __init__(self, channels: int, num_layers: int = 6, dw_impl: str = "fused_fold",
+                 generator: torch.Generator | None = None):
         super().__init__()
         gen = generator or torch.Generator().manual_seed(0)
         self.num_layers = num_layers
         for idx in range(num_layers):
-            setattr(self, f"block_{idx}", TFCMBlock(channels, 2 ** idx, generator=gen))
+            setattr(self, f"block_{idx}", TFCMBlock(channels, 2 ** idx, dw_impl, generator=gen))
         self.stack_fn = fused_tfcm_stack_eval
 
     def blocks(self):
         return [getattr(self, f"block_{idx}") for idx in range(self.num_layers)]
 
     def forward(self, x: torch.Tensor, state=None, train: bool = False) -> torch.Tensor:
-        _check_eval(self, state, train)
+        _check_mode(self, state, train)
         blocks = self.blocks()
+        if train:
+            for block in blocks:
+                x = block(x, train=True)
+            return x
         return self.stack_fn(x.contiguous(), _folded(self, blocks),
                              dilations=tuple(b.dilation for b in blocks))
 
@@ -318,7 +373,8 @@ class AxialSelfAttention(nn.Module):
     projections to q/k at ``c_att = max(channels // 4, 1)`` and v at
     ``channels``. The temporal branch is one launch of the attention kernel
     on the card (``attn_fn``): causal, optionally windowed, or with
-    ``causal=False`` over every frame (the window is then unused)."""
+    ``causal=False`` over every frame (the window is then unused). Under a
+    gradient ``attn_fn`` also runs its backward kernels."""
 
     def __init__(self, channels: int, causal: bool = True, window: Optional[int] = None,
                  generator: torch.Generator | None = None):
@@ -430,7 +486,8 @@ class MtfaaConfig:
     band_strides: Tuple[int, ...] = (2, 2, 2)
     tfcm_layers: int = 4
     tfcm_remat: bool = False  # accepted; no effect in the port
-    tfcm_dw_impl: str = "fused_fold"  # accepted; no effect in the port
+    tfcm_dw_impl: str = "fused_fold"  # training route of a TFCM block: "fused*" -> the
+    # kernel-backed block backward; "pallas" / "xla" -> the unfused block, stencil kernels
     attention_window: Optional[int] = None  # None: full causal attention
     asa_impl: str = "auto"  # accepted; no effect in the port
     asa_enabled: bool = True
@@ -456,8 +513,11 @@ class MtfaaConfig:
 class MtfaaNet(nn.Module):
     """cspec [B, T, F, 2] -> ((enhanced complex64 [B, T, F], mask [B, T, F]), None).
 
-    Eval only: BatchNorm uses its running statistics, so the model must be
-    in eval mode; ``train=True`` and a carried ``state`` raise."""
+    ``train`` must agree with the module's mode (``.train()`` / ``.eval()``).
+    With ``train=True`` BatchNorm uses and records batch statistics, the TFCM
+    blocks and the attention run their differentiable routes, and the deep
+    filter is the plain differentiable shift-MAC in place of ``filter_fn``
+    (whose kernel has no backward). A carried ``state`` raises."""
 
     def __init__(self, config: MtfaaConfig = MtfaaConfig(), generator: torch.Generator | None = None):
         super().__init__()
@@ -472,7 +532,7 @@ class MtfaaNet(nn.Module):
             setattr(self, f"enc_conv_{si}", BandDownConv(c_in, ch, cfg.band_strides[si], generator=gen))
             setattr(self, f"enc_bn_{si}", BatchNormC(ch))
             setattr(self, f"enc_prelu_{si}", PReLUc())
-            setattr(self, f"enc_tfcm_{si}", TFCM(ch, cfg.tfcm_layers, generator=gen))
+            setattr(self, f"enc_tfcm_{si}", TFCM(ch, cfg.tfcm_layers, cfg.tfcm_dw_impl, generator=gen))
             if cfg.asa_enabled:
                 setattr(self, f"enc_asa_{si}",
                         AxialSelfAttention(ch, window=cfg.attention_window, generator=gen))
@@ -482,7 +542,8 @@ class MtfaaNet(nn.Module):
             setattr(self, f"dec_conv_{si}", BandUpConv(cfg.channels[si], ch_out, generator=gen))
             setattr(self, f"dec_bn_{si}", BatchNormC(ch_out))
             setattr(self, f"dec_prelu_{si}", PReLUc())
-            setattr(self, f"dec_tfcm_{si}", TFCM(ch_out, cfg.tfcm_layers, generator=gen))
+            setattr(self, f"dec_tfcm_{si}",
+                    TFCM(ch_out, cfg.tfcm_layers, cfg.tfcm_dw_impl, generator=gen))
         self.mask_head_kernel = _param(gen, cfg.phase_channels, 1)
         self.mask_head_bias = _zeros(1)
         if cfg.use_deep_filter:
@@ -503,7 +564,7 @@ class MtfaaNet(nn.Module):
         return torch.clamp(mag, min=1e-12) ** 0.5
 
     def forward(self, cspec: torch.Tensor, state=None, train: bool = False):
-        _check_eval(self, state, train)
+        _check_mode(self, state, train)
         cfg = self.config
         if cspec.dim() != 4 or cspec.shape[-1] != 2 or cspec.shape[-2] != cfg.num_bins:
             raise ValueError(f"cspec must be [B, T, {cfg.num_bins}, 2], got {tuple(cspec.shape)}")
@@ -514,14 +575,14 @@ class MtfaaNet(nn.Module):
         for si in range(len(cfg.channels)):
             x = getattr(self, f"enc_conv_{si}")(x)
             x = getattr(self, f"enc_prelu_{si}")(getattr(self, f"enc_bn_{si}")(x))
-            x = getattr(self, f"enc_tfcm_{si}")(x)
+            x = getattr(self, f"enc_tfcm_{si}")(x, train=train)
             if cfg.asa_enabled:
                 x = getattr(self, f"enc_asa_{si}")(x)
             skips.append(x)
         for si in reversed(range(len(cfg.channels))):
             x = getattr(self, f"dec_conv_{si}")(x + skips[si])
             x = getattr(self, f"dec_prelu_{si}")(getattr(self, f"dec_bn_{si}")(x))
-            x = getattr(self, f"dec_tfcm_{si}")(x)
+            x = getattr(self, f"dec_tfcm_{si}")(x, train=train)
 
         # magnitude mask at band resolution -> full bins
         band_mask = _conv_tm(x, self.mask_head_kernel)[:, :, 0] + self.mask_head_bias  # [B, K, T]
@@ -539,5 +600,6 @@ class MtfaaNet(nn.Module):
             taps = self.num_taps
             coefs = (feats @ self.df_coef_kernel + self.df_coef_bias) / taps
             coefs = coefs.view(b, t, cfg.num_bins, taps, 2)
-            enhanced = self.filter_fn(enhanced, coefs, cfg.df_taps_t, cfg.df_taps_f, causal=True)
+            filter_fn = deep_filter_reference if train else self.filter_fn
+            enhanced = filter_fn(enhanced, coefs, cfg.df_taps_t, cfg.df_taps_f, causal=True)
         return (enhanced, mask), None

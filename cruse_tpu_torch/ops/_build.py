@@ -3,8 +3,9 @@
 The sources are the ``*.cu`` files in ``cruse_tpu_torch/ops/csrc/``; each is
 compiled on first use into one shared library with a plain C interface,
 under ``build/cruse_tpu_torch/`` at the root of the checkout. The library's
-file name carries a hash of its source and flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is. A failed build raises:
+file name carries a hash of its source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source is rebuilt and an unchanged one is loaded
+as it is. A failed build raises:
 nothing falls back to the plain PyTorch versions.
 """
 from __future__ import annotations
@@ -51,7 +52,8 @@ def load_library(name: str) -> ctypes.CDLL:
     source = SRC_DIR / f"{name}.cu"
     if not source.is_file():
         raise RuntimeError(f"kernel source missing: {source}")
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(SRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     library = BUILD_DIR / f"lib{name}-{digest}.so"
     if not library.is_file():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

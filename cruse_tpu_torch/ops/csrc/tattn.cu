@@ -30,8 +30,12 @@
 // 24, 32 or 48; the padded rows are zero), so the register arrays have a
 // fixed size.
 //
-// Layouts: q, k f32 [BF, c, T], v f32 [BF, C, T], out f32 [BF, C, T], all
-// contiguous. Plain C interface (bound with ctypes): pointers and the stream
+// For training the kernel also writes each query's logsumexp, lse[bf, t] =
+// m + log(l) of its scaled logits, from which the backward (tattn_bwd.cu)
+// recomputes the probabilities.
+//
+// Layouts: q, k f32 [BF, c, T], v f32 [BF, C, T], out f32 [BF, C, T], lse f32
+// [BF, T] or null, all contiguous. Plain C interface (bound with ctypes): pointers and the stream
 // are void*, the launch is on the caller's stream, nothing is allocated here,
 // and the entry returns cudaGetLastError() of its launch.
 
@@ -46,8 +50,8 @@ constexpr float kNeg = -1e30f;
 template <int CQ, int CV>
 __global__ void __launch_bounds__(kQueries)
 tattn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, int c, int cv, int T,
-                 int window, int causal, float scale) {
+                 const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse,
+                 int c, int cv, int T, int window, int causal, float scale) {
   __shared__ float k_s[CQ][kKeys];
   __shared__ float v_s[CV][kKeys];
   const long long bf = blockIdx.y;
@@ -121,16 +125,17 @@ tattn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < CV; ++i)
     if (i < cv) ob[static_cast<long long>(i) * T + t] = acc[i] * inv;
+  if (lse != nullptr) lse[bf * T + t] = m + logf(l);
 }
 
 template <int CQ>
-int launch_cv(const float* q, const float* k, const float* v, float* out, int BF, int c, int cv,
-              int T, int window, int causal, cudaStream_t stream) {
+int launch_cv(const float* q, const float* k, const float* v, float* out, float* lse, int BF, int c,
+              int cv, int T, int window, int causal, cudaStream_t stream) {
   const dim3 grid((T + kQueries - 1) / kQueries, BF);
   const float scale = 1.f / sqrtf(static_cast<float>(c));
 #define TATTN_CASE(N)                                                                   \
   case N:                                                                               \
-    tattn_fwd_kernel<CQ, N><<<grid, kQueries, 0, stream>>>(q, k, v, out, c, cv, T,      \
+    tattn_fwd_kernel<CQ, N><<<grid, kQueries, 0, stream>>>(q, k, v, out, lse, c, cv, T, \
                                                             window, causal, scale);     \
     break;
   const int cvp = cv <= 8 ? 8 : cv <= 16 ? 16 : cv <= 24 ? 24 : cv <= 32 ? 32 : 48;
@@ -151,18 +156,20 @@ int launch_cv(const float* q, const float* k, const float* v, float* out, int BF
 extern "C" {
 
 // q, k: f32 [BF, c, T]; v, out: f32 [BF, cv, T]; all contiguous. c <= 16,
-// cv <= 48. window <= 0: no window. causal == 0: every key (window unused).
-int tattn_fwd_f32(const void* q, const void* k, const void* v, void* out, int BF, int c, int cv,
-                  int T, int window, int causal, void* stream) {
+// cv <= 48. lse: f32 [BF, T], or null to skip it. window <= 0: no window.
+// causal == 0: every key (window unused).
+int tattn_fwd_f32(const void* q, const void* k, const void* v, void* out, void* lse, int BF, int c,
+                  int cv, int T, int window, int causal, void* stream) {
   if (BF < 1 || BF > 65535 || c < 1 || cv < 1 || T < 1) return static_cast<int>(cudaErrorInvalidValue);
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
   float* of = static_cast<float*>(out);
+  float* lf = static_cast<float*>(lse);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c <= 4) return launch_cv<4>(qf, kf, vf, of, BF, c, cv, T, window, causal, s);
-  if (c <= 8) return launch_cv<8>(qf, kf, vf, of, BF, c, cv, T, window, causal, s);
-  if (c <= 16) return launch_cv<16>(qf, kf, vf, of, BF, c, cv, T, window, causal, s);
+  if (c <= 4) return launch_cv<4>(qf, kf, vf, of, lf, BF, c, cv, T, window, causal, s);
+  if (c <= 8) return launch_cv<8>(qf, kf, vf, of, lf, BF, c, cv, T, window, causal, s);
+  if (c <= 16) return launch_cv<16>(qf, kf, vf, of, lf, BF, c, cv, T, window, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

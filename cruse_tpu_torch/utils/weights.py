@@ -20,6 +20,10 @@ MTFAA keeps the flax shapes and names (its kernels read them as they are),
 so its mapping is the path alone: ``/`` becomes ``.``, for the parameters
 and the BatchNorm ``mean``/``var`` alike.
 
+``mtfaa_flax_from_named`` is that mapping's inverse, for the parameters, their
+gradients or the statistics of a trained port model, so that tests compare
+the two packages leaf by leaf.
+
 ``save_flax_npz`` / ``load_flax_npz`` store such a tree in one ``.npz`` with
 ``/``-joined keys, so a weight file written next to JAX loads where there is
 no JAX. Neither function imports JAX: ``np.asarray`` takes its arrays.
@@ -111,6 +115,19 @@ def mtfaa_state_dict_from_flax(variables_np: Mapping[str, Any]) -> Dict[str, tor
     return {path.replace("/", "."): torch.from_numpy(np.array(value, np.float32))
             for collection in ("params", "batch_stats")
             for path, value in flatten_tree(variables_np.get(collection, {})).items()}
+
+
+def mtfaa_flax_from_named(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of ``mtfaa_state_dict_from_flax``: tensors by the port's
+    dotted names (a ``state_dict``, or gradients by parameter name) -> a
+    flax-shaped ``{"params": ..., "batch_stats": ...}`` tree of numpy arrays.
+    A BatchNorm's ``mean`` / ``var`` go to ``batch_stats``, every other leaf
+    to ``params``."""
+    flat: Dict[str, Dict[str, np.ndarray]] = {"params": {}, "batch_stats": {}}
+    for name, tensor in named.items():
+        collection = "batch_stats" if name.rsplit(".", 1)[-1] in ("mean", "var") else "params"
+        flat[collection][name.replace(".", "/")] = tensor.detach().cpu().numpy()
+    return {collection: unflatten_tree(leaves) for collection, leaves in flat.items()}
 
 
 def state_dict_from_flax(variables_np: Mapping[str, Any], model) -> Dict[str, torch.Tensor]:

@@ -115,7 +115,7 @@ def _pipeline_pair(cfg_kwargs, rng, tmp_path):
         JaxInferencerConfig(stft=JaxStftConfig(n_fft=320, hop_length=160),
                             output_dir=str(tmp_path / "jax")))
     inf = BatchInferencer(model, InferencerConfig(stft=StftConfig(n_fft=320, hop_length=160),
-                                                  output_dir=str(tmp_path / "torch")))
+                                                  output_dir=str(tmp_path / "torch")), device="cpu")
     return jax_inf, inf
 
 

@@ -93,7 +93,7 @@ def _auto_pair(jax_model, variables, model, tmp_path):
     jax_inf = JaxBatchInferencer(jax_model, variables, JaxInferencerConfig(
         type="auto", stft=JaxStftConfig(**stft_args), output_dir=str(tmp_path / "jax")))
     inf = BatchInferencer(model, InferencerConfig(type="auto", stft=StftConfig(**stft_args),
-                                                  output_dir=str(tmp_path / "torch")))
+                                                  output_dir=str(tmp_path / "torch")), device="cpu")
     return jax_inf, inf
 
 
@@ -135,7 +135,7 @@ def test_build_from_config_tiny_cruse_df():
     for a, b in zip(model.state_dict().values(), again.state_dict().values()):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert config["inferencer"]["type"] == "auto"
-    BatchInferencer(model, InferencerConfig(type="auto"))  # the strategy the config names
+    BatchInferencer(model, InferencerConfig(type="auto"), device="cpu")  # the strategy the config names
     with pytest.raises(ValueError, match="auto"):
         BatchInferencer(model, InferencerConfig(type="mag_to_mag"))
 

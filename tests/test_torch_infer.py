@@ -49,7 +49,7 @@ def test_run_batched_ragged_matches_jax(rng, tmp_path):
     ref = _jax_inferencer(jax_model, variables, tmp_path / "jax").run_batched(
         wavs, names, batch_size=2, write=False)
     inf = BatchInferencer(model, InferencerConfig(stft=StftConfig(n_fft=320, hop_length=160),
-                                                  output_dir=str(tmp_path / "torch")))
+                                                  output_dir=str(tmp_path / "torch")), device="cpu")
     ours = inf.run_batched(wavs, names, batch_size=2, write=False)
     _assert_same_outputs(ours, ref)
     assert len(inf.rtf_history) == 2 and not (tmp_path / "torch").exists()
@@ -61,7 +61,7 @@ def test_call_one_utterance_per_forward_matches_jax(rng, tmp_path):
     batches = [{"noisy": w, "name": [f"utt{i}"]} for i, w in enumerate(wavs)]
     ref = _jax_inferencer(jax_model, variables, tmp_path / "jax")(batches, write=False)
     inf = BatchInferencer(model, InferencerConfig(stft=StftConfig(n_fft=320, hop_length=160),
-                                                  output_dir=str(tmp_path / "torch")))
+                                                  output_dir=str(tmp_path / "torch")), device="cpu")
     ours = inf(batches, write=True)
     _assert_same_outputs(ours, ref)
     assert sorted(p.name for p in (tmp_path / "torch").iterdir()) == ["utt0.wav", "utt1.wav"]
@@ -102,15 +102,28 @@ def test_auto_on_cruse_matches_jax(rng, tmp_path):
         type="auto", stft=JaxStftConfig(n_fft=320, hop_length=160),
         output_dir=str(tmp_path / "jax"))).run_batched(wavs, names, batch_size=2, write=False)
     inf = BatchInferencer(model, InferencerConfig(type="auto", stft=StftConfig(n_fft=320, hop_length=160),
-                                                  output_dir=str(tmp_path / "torch")))
+                                                  output_dir=str(tmp_path / "torch")), device="cpu")
     _assert_same_outputs(inf.run_batched(wavs, names, batch_size=2, write=False), ref)
 
 
-def test_cli_cuda_without_a_card_raises(monkeypatch, tmp_path):
+@pytest.mark.parametrize("device_args", [["--device", "cuda"], []], ids=["cuda", "default"])
+def test_cli_cuda_without_a_card_raises(monkeypatch, tmp_path, device_args):
+    """The CLI runs on the card unless asked for the CPU: without a CUDA
+    device both --device cuda and the default are an error."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_main(["-C", str(ROOT / "configs/tiny_cruse.toml"), "-I", str(tmp_path),
-                  "-O", str(tmp_path / "out"), "--device", "cuda"])
+                  "-O", str(tmp_path / "out")] + device_args)
+
+
+def test_inferencer_defaults_to_the_card(monkeypatch, rng):
+    """BatchInferencer's device defaults to cuda and raises without one; the
+    CPU is used only when asked for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = CruseNet(CruseConfig(**SMALL), generator=torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchInferencer(model, InferencerConfig())
+    assert BatchInferencer(model, InferencerConfig(), device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("cfg", [
@@ -122,7 +135,7 @@ def test_unported_strategies_are_refused(cfg):
     for a model family whose forward adapter is not ported it is refused."""
     model = CruseNet(CruseConfig(**SMALL))
     if cfg.get("type") == "auto":
-        BatchInferencer(model, InferencerConfig(**cfg))
+        BatchInferencer(model, InferencerConfig(**cfg), device="cpu")
         model = torch.nn.Linear(2, 2)
     with pytest.raises(NotImplementedError):
-        BatchInferencer(model, InferencerConfig(**cfg))
+        BatchInferencer(model, InferencerConfig(**cfg), device="cpu")

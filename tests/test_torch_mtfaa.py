@@ -29,7 +29,8 @@ from cruse_tpu_torch.infer.streaming import StreamingEnhancer
 from cruse_tpu_torch.models import MtfaaConfig, MtfaaNet, build_from_config
 from cruse_tpu_torch.models.mtfaa import Banks, BandDownConv, BandUpConv, PhaseEncoder
 from cruse_tpu_torch.utils.config import load_config
-from cruse_tpu_torch.utils.weights import load_flax_npz, save_flax_npz, state_dict_from_flax
+from cruse_tpu_torch.utils.weights import (
+    load_flax_npz, mtfaa_flax_from_named, save_flax_npz, state_dict_from_flax)
 from tests.test_torch_cruse import noisy_batch
 from tests.test_torch_tfcm import perturbed
 
@@ -114,7 +115,7 @@ def _auto_pair(jax_model, variables, model, tmp_path):
     jax_inf = JaxBatchInferencer(jax_model, variables, JaxInferencerConfig(
         type="auto", stft=JaxStftConfig(**STFT), output_dir=str(tmp_path / "jax")))
     inf = BatchInferencer(model, InferencerConfig(type="auto", stft=StftConfig(**STFT),
-                                                  output_dir=str(tmp_path / "torch")))
+                                                  output_dir=str(tmp_path / "torch")), device="cpu")
     return jax_inf, inf
 
 
@@ -157,7 +158,7 @@ def test_build_from_config(toml, args):
     again = build_from_config(config["model"], generator=torch.Generator().manual_seed(1))
     for a, b in zip(model.state_dict().values(), again.state_dict().values()):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    BatchInferencer(model, InferencerConfig(type="auto"))
+    BatchInferencer(model, InferencerConfig(type="auto"), device="cpu")
 
 
 def test_bridge_npz_round_trip(rng, tmp_path):
@@ -178,13 +179,52 @@ def test_bridge_npz_round_trip(rng, tmp_path):
         torch.testing.assert_close(loaded[key], value, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("route,jax_impl", [("fused_fold", "fused_pallas_interpret"),
+                                            ("pallas", "pallas_interpret")])
+def test_training_forward_matches_jax(rng, route, jax_impl):
+    """train=True: the mask and the enhanced spectrum from batch statistics,
+    and every BatchNorm's running statistics moved as the reference's, by
+    both of the port's TFCM routes (the reference by the routes that reach
+    its kernels, in interpret mode; its "fused_fold" takes BN1's statistics
+    from a Gram matrix, another rounding, and is not the port's forward); eval
+    afterwards uses the moved statistics. The training outputs are held to
+    2e-4, not 1e-5: twelve BatchNorms in a row take float32 batch variances as
+    E[x^2] - mean^2, and a float64 run of the port differs from each float32
+    package by 6e-6 to 6e-5 at these shapes."""
+    jax_model, variables, _ = make_mtfaa_pair(rng, dict(TINY_WINDOWED, tfcm_dw_impl=jax_impl))
+    model = MtfaaNet(MtfaaConfig(**TINY_WINDOWED, tfcm_dw_impl=route))
+    model.load_state_dict(state_dict_from_flax(variables, model), strict=True)
+    cspec = (rng.standard_normal((2, 12, 257, 2)) * 0.3).astype(np.float32)
+    ((ref_enh, ref_mask), _), updated = jax_model.apply(variables, jnp.asarray(cspec), None, True,
+                                                        mutable=["batch_stats"])
+    (enhanced, mask), state = model.train()(torch.from_numpy(cspec), train=True)
+    assert state is None and enhanced.requires_grad
+    np.testing.assert_allclose(mask.detach().numpy(), np.asarray(ref_mask), atol=2e-4)
+    np.testing.assert_allclose(enhanced.detach().numpy(), np.asarray(ref_enh), atol=2e-4)
+    ours = mtfaa_flax_from_named(model.state_dict())["batch_stats"]
+    leaves = jax.tree_util.tree_leaves_with_path(updated["batch_stats"])
+    assert len(leaves) == 2 * (3 + 3 + 6 * 2 * 2)  # mean, var of 6 stage BNs and 2 per TFCM block
+    for path, want in leaves:
+        got = ours
+        for part in path:
+            got = got[part.key]
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5,
+                                   err_msg=jax.tree_util.keystr(path))
+    with torch.no_grad():
+        (after, _), _ = model.eval()(torch.from_numpy(cspec))
+    (ref_after, _), _ = jax_model.apply({"params": variables["params"], **updated}, jnp.asarray(cspec))
+    np.testing.assert_allclose(after.numpy(), np.asarray(ref_after), atol=2e-5)
+
+
 def test_unported_paths_raise():
     model = MtfaaNet(MtfaaConfig(**TINY_WINDOWED)).eval()
     cspec = torch.zeros(1, 5, 257, 2)
-    with pytest.raises(NotImplementedError, match="training"):
+    with pytest.raises(ValueError, match="eval mode"):  # train and the module's mode must agree
         model(cspec, train=True)
-    with pytest.raises(NotImplementedError, match="training"):
+    with pytest.raises(ValueError, match="training mode"):
         model.train()(cspec)
+    with pytest.raises(NotImplementedError, match="streaming slice"):
+        model(cspec, state={}, train=True)
     model.eval()
     with pytest.raises(NotImplementedError, match="streaming slice"):
         model(cspec, state={})
@@ -205,7 +245,7 @@ def test_cli_enhances_a_directory(rng, tmp_path):
     for i, n in enumerate(lengths):
         write_wav(str(tmp_path / "in" / f"utt{i}.wav"), noisy_batch(rng, 1, n)[0], 16000)
     args = ["-C", str(CONFIGS / "tiny_mtfaa.toml"), "-I", str(tmp_path / "in"),
-            "-O", str(tmp_path / "out")]
+            "-O", str(tmp_path / "out"), "--device", "cpu"]
     cli_main(args + ["--batch", "2"])
     for i, n in enumerate(lengths):
         out, sr = read_wav(str(tmp_path / "out" / f"utt{i}.wav"))

@@ -137,7 +137,7 @@ def test_cli_streaming_writes_the_stream(rng, tmp_path):
         cmd = [sys.executable, "-m", "cruse_tpu_torch.infer", "-C",
                str(ROOT / "configs/tiny_cruse_df.toml"), "-I", str(tmp_path / "in"),
                "-O", str(out_dir), "--weights", str(tmp_path / "w.npz"), "--streaming",
-               "--hops_per_step", str(k)]
+               "--hops_per_step", str(k), "--device", "cpu"]
         proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
         assert proc.returncode == 0, proc.stderr[-2000:]
         assert "streaming rtf" in proc.stdout + proc.stderr
