@@ -9,18 +9,25 @@ needed). In order, and any failure exits non-zero:
 1. prints the device and ``nvidia-smi`` name and power limit;
 2. builds the CUDA kernels from ``cruse_tpu_torch/ops/csrc``, one nvcc per
    source, all started together (ptxas report);
-3. holds the grouped-GRU kernel against its plain PyTorch version on the card
-   at config-1 shapes (B=256, T=1001, G=4, H=176), at the streaming step's
-   (T=1) and on ragged shapes: f32 within 1e-4, bf16 weights within 1e-3
-   (same bf16-rounded weights);
+3. holds both grouped-GRU kernels (the resident one, whose weights stay in a
+   thread-block cluster's shared memory, and the streamed one) against the
+   plain PyTorch version on the card at config-1 shapes (B=256, T=1001, G=4,
+   H=176), at the streaming step's (T=1) and on ragged shapes (B=17: a row
+   tile with one live row; H=177: an odd split of the units; H=200 and H=384:
+   clusters of 4 and, with bf16 weights, 8; H=500: the streamed kernel alone):
+   f32 within 1e-4, bf16 weights within 1e-3 (same bf16-rounded weights); and
+   that ``gru_sequence`` takes the kernel ``resident_plan`` names;
 4. drives config 1's path: full-width CRUSE from ``configs/cruse_base.toml``
    with seeded weights and seeded non-default BatchNorm statistics,
    ``BatchInferencer.run_batched`` on six synthetic noisy utterances of 2 to
-   10 s in batches of 4; checks the outputs, that the GRU kernel launched
-   twice per forward (one per bank), and that the enhanced waveforms agree
-   with the same batch through the plain recurrence on the card within 1e-4;
-5. times the GRU kernel and the plain version with CUDA events, and one
-   B=256 x 10 s enhancement with each;
+   10 s in batches of 4; checks the outputs, that the resident GRU kernel
+   launched twice per forward (one per bank), and that the enhanced waveforms
+   agree with the same batch through the plain recurrence on the card within
+   1e-4;
+5. times both GRU kernels and the plain version with CUDA events at config 1's
+   shape (f32 and bf16 weights) and both kernels at the T=1 shapes (B=256, 8,
+   1), one B=256 x 10 s enhancement with the kernel and with the plain
+   recurrence, and profiles that forward;
 6. holds the deep-filter kernel against its plain version within 1e-5 at
    config 3's offline shape (B=64, T=1001, F=96, t=2, f=1, the low bins of a
    161-bin spectrum), the streaming hop's (B=256, T=1, with history), and
@@ -131,7 +138,9 @@ from cruse_tpu_torch.ops.asa_kernel import (
 from cruse_tpu_torch.ops.deep_filter_kernel import deep_filter, deep_filter_reference
 from cruse_tpu_torch.ops.dw_kernel import (
     dw_bwd_reference, dw_causal_tm, dw_stencil_bwd, dw_stencil_fwd, dw_taps_reference)
-from cruse_tpu_torch.ops.gru_kernel import gru_sequence, gru_sequence_reference
+from cruse_tpu_torch.ops.gru_kernel import (
+    MAX_HIDDEN, cluster_fit, gru_sequence, gru_sequence_reference, launch_resident, launch_streamed,
+    resident_plan)
 from cruse_tpu_torch.ops.tfcm_kernel import (
     PARAM_KEYS, fold_eval_params, fused_tfcm_block_eval, fused_tfcm_stack_eval,
     tfcm_stack_reference)
@@ -150,6 +159,10 @@ PEAK_BYTES, PEAK_FMA = 3.35e12, 33.5e12  # an H100's HBM bytes/s and f32 multipl
 CONFIG1_GRU = (256, 1001, 4, 176)  # B, T, G, H of config 1's bottleneck banks
 STREAM_GRU = ((256, 1, 4, 176), (8, 1, 4, 176))  # config 3's streaming hop
 RAGGED_GRU = ((3, 7, 4, 176), (3, 7, 3, 50))
+# a row tile with one live row; an odd split of the units; clusters of 4 (f32) and of 8 (bf16
+# weights; f32 takes the streamed kernel); a size only the streamed kernel takes
+CLUSTER_GRU = ((17, 7, 4, 176), (3, 7, 2, 177), (5, 6, 2, 200), (3, 5, 2, 384), (3, 5, 2, 500))
+STEP_GRU = ((256, 1, 4, 176), (8, 1, 4, 176), (1, 1, 4, 176))  # the T=1 shapes that are timed
 # B, T, F, t_dim, f_dim, causal, spectrum bins (>= F: the low bins of a wider one), history
 CONFIG3_DF = (256, 1001, 96, 2, 1, True, 161, False)
 MTFAA_DF = (16, 626, 257, 1, 1, True, 257, False)  # config 5b, B=16 x 10 s: every bin, K=9
@@ -186,7 +199,7 @@ GRAD_REL_TOL, GRAD_ABS_TOL = 2e-3, 1e-3  # a gradient leaf: relative, or of the 
 GRAD_NOISE_FACTOR = 3.0  # or this many times the same leaf's own float32 rounding error (whole net only)
 TRAIN_STEPS = 3
 HAND_WRITTEN = frozenset((  # the __global__ functions of ops/csrc/*.cu, as a profile names them
-    "gru_sequence_kernel", "deep_filter_kernel", "tfcm_eval_kernel", "tattn_fwd_kernel",
+    "gru_sequence_kernel", "gru_resident_kernel", "deep_filter_kernel", "tfcm_eval_kernel", "tattn_fwd_kernel",
     "tattn_dq_kernel", "tattn_dkv_kernel", "dw_fwd_kernel", "dw_bwd_kernel", "tail_bwd_kernel",
     "mid_bwd_kernel"))
 # launches one config-5b train step makes: 6 stacks x 4 blocks, 3 attentions
@@ -229,24 +242,102 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def check_gru_kernel(device) -> float:
-    """Kernel vs plain version on the card; returns the largest f32 error."""
+    """Both kernels (each where it takes the shape) vs the plain version on
+    the card, and gru_sequence's choice between them; returns the largest f32
+    error."""
     worst = 0.0
-    for shape in (CONFIG1_GRU, *STREAM_GRU, *RAGGED_GRU):
+    for shape in (CONFIG1_GRU, *STREAM_GRU, *RAGGED_GRU, *CLUSTER_GRU):
         args = gru_inputs(*shape, device, SEED)
-        with torch.inference_mode():
-            got = gru_sequence(*args)
-            torch.cuda.synchronize()
-            want = gru_sequence_reference(*args)
-            err = max_err(got, want)
-            require(all(bool(torch.isfinite(x).all()) for x in got)
-                    and err <= F32_TOL, f"gru_sequence f32 {shape}: max-abs {err:.3g} <= {F32_TOL}")
-            worst = max(worst, err)
-            got = gru_sequence(*args, weight_dtype=torch.bfloat16)
-            torch.cuda.synchronize()
-            want = gru_sequence_reference(*args, weight_dtype=torch.bfloat16)
-            err = max_err(got, want)
-            require(err <= BF16_TOL, f"gru_sequence bf16 weights {shape}: max-abs {err:.3g} <= {BF16_TOL}")
+        for dtype, tol, what in ((None, F32_TOL, "f32"), (torch.bfloat16, BF16_TOL, "bf16 weights")):
+            fit, plan = cluster_fit(shape[3], dtype), resident_plan(*shape, dtype)
+            kernels = [("streamed", launch_streamed)] if shape[3] <= MAX_HIDDEN else []
+            if fit is not None:
+                kernels.append((f"resident (cluster of {fit[0]}, {fit[1]} units a block)", launch_resident))
+            with torch.inference_mode():
+                want = gru_sequence_reference(*args, weight_dtype=dtype)
+                for name, kernel in kernels:
+                    got = kernel(*args, weight_dtype=dtype)
+                    torch.cuda.synchronize()
+                    err = max_err(got, want)
+                    require(all(bool(torch.isfinite(x).all()) for x in got) and err <= tol,
+                            f"gru_sequence {what}, {name} kernel, {shape}: max-abs {err:.3g} <= {tol}")
+                    if dtype is None:
+                        worst = max(worst, err)
+                before = gru_sequence.launches, gru_sequence.resident_launches
+                got = gru_sequence(*args, weight_dtype=dtype)
+                torch.cuda.synchronize()
+                took = gru_sequence.launches - before[0], gru_sequence.resident_launches - before[1]
+                require(took == (1, int(plan is not None)) and max_err(got, want) <= tol,
+                        f"gru_sequence {what} {shape}: one launch, of the "
+                        f"{'streamed' if plan is None else 'resident'} kernel as planned")
     return worst
+
+
+def time_gru_kernels(device, smi) -> dict:
+    """Both kernels and the plain version at config 1's shape (ms; f32 and
+    bf16 weights), and both kernels at the T=1 shapes; prints them. The two
+    kernels take turns (resident, streamed, streamed, resident) on one card."""
+    times = {}
+    args = gru_inputs(*CONFIG1_GRU, device, SEED + 1)
+    b, t, g, h = CONFIG1_GRU
+    with torch.inference_mode():
+        for dtype, what in ((None, "f32"), (torch.bfloat16, "bf16 weights")):
+            turns = [cuda_ms(lambda: kernel(*args, weight_dtype=dtype), reps=5)
+                     for kernel in (launch_resident, launch_streamed, launch_streamed, launch_resident)]
+            times[what] = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            fit = cluster_fit(h, dtype)
+            print(f"gru_sequence B={b} T={t} G={g} H={h} {what} on {smi}: resident kernel (cluster of "
+                  f"{fit[0]}, {fit[2]} B of shared memory a block) {turns[0]:.3f}, {turns[3]:.3f} ms; "
+                  f"streamed kernel {turns[1]:.3f}, {turns[2]:.3f} ms")
+        times["plain"] = cuda_ms(lambda: gru_sequence_reference(*args), reps=2)
+        times["routed"] = cuda_ms(lambda: gru_sequence(*args), reps=5)
+        print(f"gru_sequence B={b} T={t} G={g} H={h} f32 on {smi}: as routed {times['routed']:.3f} ms, "
+              f"plain {times['plain']:.3f} ms "
+              f"({'kernel faster' if times['routed'] < times['plain'] else 'KERNEL SLOWER'})")
+        del args
+        # one step: the wrapper's host time exceeds the kernel's, so CUDA events
+        # around back-to-back launches would time the host; the kernel's own time
+        # is read from a profile, the host's from the clock
+        for shape in STEP_GRU:
+            args = gru_inputs(*shape, device, SEED + 1)
+            turns = [launch_us(lambda: kernel(*args), reps=100)
+                     for kernel in (launch_resident, launch_streamed, launch_streamed, launch_resident)]
+            times[shape] = (turns[0][0] + turns[3][0]) / 2e3, (turns[1][0] + turns[2][0]) / 2e3
+            print(f"gru_sequence B={shape[0]} T=1 G={shape[2]} H={shape[3]} f32 on {smi}, kernel's device "
+                  f"time (host time a call): resident kernel {turns[0][0]:.2f} ({turns[0][1]:.1f}), "
+                  f"{turns[3][0]:.2f} ({turns[3][1]:.1f}) us; streamed kernel {turns[1][0]:.2f} "
+                  f"({turns[1][1]:.1f}), {turns[2][0]:.2f} ({turns[2][1]:.1f}) us")
+    return times
+
+
+def launch_us(fn, reps: int) -> tuple[float, float]:
+    """(median device time of the hand-written kernels fn() launches, read from
+    a torch.profiler trace of reps calls; host time of one fn() call with the
+    queue never full), both in microseconds."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(f"{tmp}/trace.json")
+        with open(f"{tmp}/trace.json") as fh:
+            events = json.load(fh)["traceEvents"]
+    durations = sorted(e["dur"] for e in events if e.get("cat") == "kernel" and "dur" in e
+                       and any(name in e["name"] for name in HAND_WRITTEN))
+    # a trace may miss a few launches; the median needs most of them, not all
+    require(len(durations) >= reps // 2, f"the profile shows {len(durations)} kernels for {reps} calls")
+    return durations[len(durations) // 2], sorted(host)[reps // 2] * 1e6
 
 
 def noisy_utterances(seed: int, lengths=UTTERANCE_SAMPLES):
@@ -285,6 +376,7 @@ COUNTERS = {"gru_sequence": gru_sequence, "deep_filter": deep_filter,
 def reset_counts() -> None:
     for kernel in COUNTERS.values():
         kernel.launches = 0
+    gru_sequence.resident_launches = 0
 
 
 def counts() -> dict:
@@ -321,10 +413,11 @@ def check_main_path(inferencer) -> int:
     results = inferencer.run_batched(wavs, names, batch_size=BATCH, write=False)
     torch.cuda.synchronize()
     launches, df_launches = gru_sequence.launches, deep_filter.launches
+    resident = gru_sequence.resident_launches
 
-    require(launches == 2 * forwards and df_launches == 0,
+    require(launches == 2 * forwards and resident == launches and df_launches == 0,
             f"config-1 path launched gru_sequence {launches} times = 2 per forward x {forwards}, "
-            f"deep_filter {df_launches} times")
+            f"{resident} of them the resident kernel, deep_filter {df_launches} times")
     require([r[0] for r in results] == names
             and all(r[1].shape == w.shape for r, w in zip(results, wavs))
             and all(0 < np.abs(r[1]).max() <= 32767 for r in results),
@@ -403,8 +496,11 @@ def check_streaming(model, device) -> tuple[int, int]:
     streamed = enh.run(wav)
     torch.cuda.synchronize()
     launches, df_launches = gru_sequence.launches, deep_filter.launches
-    require(launches == 2 * hops and df_launches == hops,
-            f"streaming path launched gru_sequence {launches} = 2 x {hops} hops and "
+    planned = launches if resident_plan(*STREAM_GRU[1]) else 0
+    require(launches == 2 * hops and df_launches == hops
+            and gru_sequence.resident_launches == planned,
+            f"streaming path launched gru_sequence {launches} = 2 x {hops} hops "
+            f"({planned} of them the resident kernel, as planned for T=1) and "
             f"deep_filter {df_launches} = 1 x {hops} hops")
     require(tuple(streamed.shape) == (STREAM_BATCH, hops * hop)
             and bool(torch.isfinite(streamed).all()),
@@ -1247,15 +1343,8 @@ def main() -> int:
     inferencer = build_inferencer(device)
     launches = check_main_path(inferencer)
 
-    args = gru_inputs(*CONFIG1_GRU, device, SEED + 1)
-    with torch.inference_mode():
-        kernel_ms = cuda_ms(lambda: gru_sequence(*args), reps=5)
-        bf16_ms = cuda_ms(lambda: gru_sequence(*args, weight_dtype=torch.bfloat16), reps=5)
-        plain_ms = cuda_ms(lambda: gru_sequence_reference(*args), reps=2)
-    b, t, g, h = CONFIG1_GRU
-    print(f"gru_sequence B={b} T={t} G={g} H={h} on {smi}: kernel f32 {kernel_ms:.3f} ms, "
-          f"kernel bf16 weights {bf16_ms:.3f} ms, plain {plain_ms:.3f} ms "
-          f"({'kernel faster' if kernel_ms < plain_ms else 'KERNEL SLOWER'})")
+    gru_times = time_gru_kernels(device, smi)
+    kernel_ms, plain_ms = gru_times["routed"], gru_times["plain"]
 
     seconds = 10
     x = torch.from_numpy(np.random.default_rng(SEED).standard_normal((256, seconds * SR))
@@ -1267,7 +1356,8 @@ def main() -> int:
     print(f"enhancement B=256 x {seconds} s on {smi}: {kernel_s * 1e3:.1f} ms = "
           f"{256 * seconds / kernel_s:.1f}x realtime with the kernel; plain recurrence "
           f"{plain_s * 1e3:.1f} ms = {256 * seconds / plain_s:.1f}x realtime")
-    del inferencer, args
+    profile_calls(lambda: inferencer.mag_to_mag(x), 2, f"B=256 x {seconds} s config-1 mag_to_mag")
+    del inferencer
 
     df_err = check_df_kernel(device)
     model = build_cruse_df(device)
@@ -1384,8 +1474,9 @@ def main() -> int:
                      {"bound_ms": e["bound_ms"], "bound_by": e["bound_by"]}, e["library_ms"])
 
     print(json.dumps({"kernels": [
-        entry("gru_sequence", "gru_sequence", "gru_kernel.py:82", launches + stream_gru + auto_gru,
-              gru_err, (kernel_ms, plain_ms), gru_bound, lib["gru"]),
+        {**entry("gru_sequence", "gru_sequence", "gru_kernel.py:82", launches + stream_gru + auto_gru,
+                 gru_err, (kernel_ms, plain_ms), gru_bound, lib["gru"]),
+         "resident_ms": gru_times["f32"][0], "streamed_ms": gru_times["f32"][1]},
         entry("deep_filter", "deep_filter", "deep_filter_kernel.py:91", stream_df + auto_df + mtfaa_df,
               df_err, (df_ms, df_plain_ms), df_bound, None),
         entry("tfcm_stack", "tfcm_eval", "tfcm_kernel.py:212", stack_launches, tfcm_err,

@@ -6,9 +6,20 @@ applied), ``h0 [B, G, H]``, ``w_hh [G, 3H, H]``, ``b_hh [G, 3H]``; returns
 ``(y [B, T, G, H], h_last [B, G, H])`` in float32, torch gate order (r, z, n).
 
 ``gru_sequence`` runs the plain version for tensors on the CPU and launches
-the hand-written kernel (``csrc/gru_sequence.cu``, one launch for all T
-steps) for tensors on a CUDA device; on a CUDA device it launches or raises.
-``gru_sequence.launches`` counts kernel launches.
+a hand-written kernel (``csrc/gru_sequence.cu``, one launch for all T steps)
+for tensors on a CUDA device; on a CUDA device it launches or raises. The
+source holds two kernels, and the shape alone decides which one runs
+(``resident_plan``):
+
+- the resident kernel keeps the recurrent weight in the shared memory of a
+  cluster of 1, 2, 4 or 8 thread blocks for all T steps. It takes every shape
+  whose slice of the weight fits a block's shared memory, from
+  ``RESIDENT_MIN_T`` steps on;
+- the streamed kernel reads the weight from L2 every step. It takes the rest
+  (hidden size per group up to ``MAX_HIDDEN``).
+
+``gru_sequence.launches`` counts every kernel launch,
+``gru_sequence.resident_launches`` those of the resident kernel.
 """
 from __future__ import annotations
 
@@ -19,9 +30,19 @@ import torch
 
 from cruse_tpu_torch.ops import _build
 
-MAX_HIDDEN = 512  # one thread per hidden unit (kMaxThreads in the source)
-_WEIGHT_DTYPES = {None: "gru_sequence_f32", torch.float32: "gru_sequence_f32",
-                  torch.bfloat16: "gru_sequence_bf16w"}
+MAX_HIDDEN = 512  # streamed kernel: one thread per hidden unit (kMaxThreads in the source)
+TILE_ROWS = 16  # resident kernel: batch rows per cluster (kTile)
+SHARED_LIMIT = 232448  # bytes of dynamic shared memory a block may have on sm_90 (kSharedLimit)
+CLUSTER_SIZES = (1, 2, 4, 8)  # 8 is the portable limit of a cluster
+UNIT_GROUP = 4  # resident kernel: units a thread multiplies, one 16-byte load of a gate's weights (kUnits)
+MAX_UNITS = 96  # resident kernel: units a block owns, 4 threads a unit (kResidentThreads)
+# The least T that takes the resident kernel. Its start-up (a block loads its
+# slice of the weight, up to 186 KB, into shared memory) is paid once a launch,
+# and still it wins at one step: on an H100 at T = 1, G = 4, H = 176 and B = 256,
+# 8, 1 the resident kernel takes 17-18 us of device time, the streamed one 45-46
+# (chip_smoke.py times both; PERF.md has the table).
+RESIDENT_MIN_T = 1
+_WEIGHT_DTYPES = {None: "f32", torch.float32: "f32", torch.bfloat16: "bf16w"}
 
 
 def gru_sequence_reference(x_proj, h0, w_hh, b_hh, weight_dtype=None):
@@ -65,42 +86,91 @@ def _check_shapes(x_proj, h0, w_hh, b_hh, weight_dtype):
         raise ValueError(f"x_proj {tuple(x_proj.shape)}: need B, T >= 1 and 3H gates")
 
 
+def cluster_fit(h, weight_dtype=None):
+    """``(CS, U, shared-memory bytes)``: the smallest cluster size whose block
+    holds its slice of the weight, ``[H][3][U]`` with ``U = ceil(H / CS)``
+    units rounded up to a multiple of ``UNIT_GROUP``, plus the double-buffered
+    state tile ``[2][H][TILE_ROWS]`` in float32, within ``SHARED_LIMIT``, with
+    at most ``MAX_UNITS`` units a block; None where no cluster does."""
+    itemsize = 2 if weight_dtype == torch.bfloat16 else 4
+    for cs in CLUSTER_SIZES:
+        u = -(-h // (cs * UNIT_GROUP)) * UNIT_GROUP
+        nbytes = -(-h * 3 * u * itemsize // 16) * 16 + 2 * h * TILE_ROWS * 4
+        if nbytes <= SHARED_LIMIT and u <= MAX_UNITS:
+            return cs, u, nbytes
+    return None
+
+
+def resident_plan(b, t, g, h, weight_dtype=None):
+    """``cluster_fit`` of the resident kernel where this shape takes it, None
+    where the streamed kernel runs (too few steps, or no cluster holds the
+    weight). b and g only size the grid: ``CS * g`` by ``ceil(b / TILE_ROWS)``
+    blocks."""
+    if t < RESIDENT_MIN_T or min(b, g, h) < 1:
+        return None
+    return cluster_fit(h, weight_dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernels() -> dict:
     """Build and load the library once and declare its entries' prototypes."""
     lib = _build.load_library("gru_sequence")
     kernels = {}
-    for name in set(_WEIGHT_DTYPES.values()):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        kernels[name] = fn
+    for suffix in set(_WEIGHT_DTYPES.values()):
+        for name, ints in ((f"gru_sequence_{suffix}", 4), (f"gru_resident_{suffix}", 5)):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * ints + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            kernels[name] = fn
     return kernels
 
 
-def transposed_weight(w_hh: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``w_hh [G, 3H, H]`` as the kernel reads it, ``[G, H, 3H]`` in ``dtype``.
-
-    The copy is kept on the weight tensor itself and made again only when
-    the tensor's storage (``data_ptr``), its version counter (bumped by every
-    in-place write, ``load_state_dict`` included) or the dtype changes, so a
-    streaming step (T = 1) does not re-transpose the same weight on every
-    hop. Inference tensors have no version counter and are not cached.
-    """
+def _cached_layout(w_hh: torch.Tensor, slot: str, key: tuple, make) -> torch.Tensor:
+    """``make()``, kept on the weight tensor itself under ``slot`` and made
+    again only when the tensor's storage (``data_ptr``), its version counter
+    (bumped by every in-place write, ``load_state_dict`` included) or ``key``
+    changes, so a streaming step (T = 1) does not lay the same weight out
+    again on every hop. Inference tensors have no version counter and are
+    not cached."""
     if w_hh.is_inference():
-        return w_hh.transpose(1, 2).contiguous().to(dtype)
-    key = (w_hh.data_ptr(), w_hh._version, dtype)
-    cached = getattr(w_hh, "_gru_transposed", None)
+        return make()
+    key = (w_hh.data_ptr(), w_hh._version, *key)
+    cached = getattr(w_hh, slot, None)
     if cached is None or cached[0] != key:
         with torch.no_grad():
-            cached = (key, w_hh.transpose(1, 2).contiguous().to(dtype))
-        w_hh._gru_transposed = cached
+            cached = (key, make())
+        setattr(w_hh, slot, cached)
     return cached[1]
 
 
-def _launch(x_proj, h0, w_hh, b_hh, weight_dtype):
+def transposed_weight(w_hh: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``w_hh [G, 3H, H]`` as the streamed kernel reads it, ``[G, H, 3H]`` in
+    ``dtype`` (cached on the weight, see ``_cached_layout``)."""
+    return _cached_layout(w_hh, "_gru_transposed", (dtype,),
+                          lambda: w_hh.transpose(1, 2).contiguous().to(dtype))
+
+
+def packed_weight(w_hh: torch.Tensor, dtype: torch.dtype, cs: int) -> torch.Tensor:
+    """``w_hh [G, 3H, H]`` as the resident kernel reads it: ``[G, CS, H, 3, U]``
+    in ``dtype`` with ``U = ceil(H / CS)`` rounded up to a multiple of
+    ``UNIT_GROUP``; ``[g, c, k, gate, u]`` is ``w_hh[g, gate * H + c * U + u, k]``,
+    zero where ``c * U + u >= H`` (cached on the weight, see ``_cached_layout``)."""
+    def make():
+        g, h3, h = w_hh.shape
+        u = -(-h // (cs * UNIT_GROUP)) * UNIT_GROUP
+        w = w_hh.reshape(g, 3, h, h)  # [g, gate, unit, k]
+        w = torch.nn.functional.pad(w, (0, 0, 0, cs * u - h))
+        return w.reshape(g, 3, cs, u, h).permute(0, 2, 4, 1, 3).contiguous().to(dtype)
+
+    return _cached_layout(w_hh, "_gru_packed", (dtype, cs), make)
+
+
+def _check_launch(x_proj, h0, w_hh, b_hh, weight_dtype):
+    """What both kernels ask of their tensors; returns (B, T, G, H)."""
     tensors = {"x_proj": x_proj, "h0": h0, "w_hh": w_hh, "b_hh": b_hh}
     device = x_proj.device
+    if device.type != "cuda":
+        raise ValueError(f"the kernels launch on CUDA tensors only, got {device}")
     for name, tensor in tensors.items():
         if tensor.device != device:
             raise ValueError(f"{name} is on {tensor.device}, x_proj on {device}")
@@ -112,23 +182,53 @@ def _launch(x_proj, h0, w_hh, b_hh, weight_dtype):
         raise RuntimeError("the CUDA gru_sequence kernel has no backward; "
                            "run it under torch.no_grad() or torch.inference_mode()")
     b, t, g, h3 = x_proj.shape
-    h = h3 // 3
-    if h > MAX_HIDDEN:
-        raise ValueError(f"hidden size per group {h} > {MAX_HIDDEN}, the kernel's limit")
+    return b, t, g, h3 // 3
 
-    fn = _kernels()[_WEIGHT_DTYPES[weight_dtype]]
-    w_t = transposed_weight(w_hh, weight_dtype or torch.float32)
+
+def _run(entry: str, x_proj, h0, weight, b_hh, ints: tuple):
+    """Launch one entry of the library on x_proj's stream; raises if the
+    launch is refused. Returns (y, h_last)."""
+    b, t, g, h = ints[:4]
+    device = x_proj.device
+    fn = _kernels()[entry]
     y = torch.empty((b, t, g, h), dtype=torch.float32, device=device)
     h_last = torch.empty((b, g, h), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        err = fn(x_proj.data_ptr(), h0.data_ptr(), w_t.data_ptr(), b_hh.data_ptr(),
-                 y.data_ptr(), h_last.data_ptr(), b, t, g, h, stream)
+        err = fn(x_proj.data_ptr(), h0.data_ptr(), weight.data_ptr(), b_hh.data_ptr(),
+                 y.data_ptr(), h_last.data_ptr(), *ints, stream)
     if err != 0:
-        raise RuntimeError(f"gru_sequence kernel launch failed with CUDA error {err} "
-                           f"(B={b}, T={t}, G={g}, H={h})")
+        raise RuntimeError(f"{entry} kernel launch failed with CUDA error {err} "
+                           f"(B, T, G, H[, CS] = {ints})")
     gru_sequence.launches += 1
     return y, h_last
+
+
+def launch_streamed(x_proj, h0, w_hh, b_hh, weight_dtype=None):
+    """The streamed kernel on CUDA tensors, whatever the shape's plan says."""
+    _check_shapes(x_proj, h0, w_hh, b_hh, weight_dtype)
+    b, t, g, h = _check_launch(x_proj, h0, w_hh, b_hh, weight_dtype)
+    if h > MAX_HIDDEN:
+        raise ValueError(f"hidden size per group {h} > {MAX_HIDDEN}, the streamed kernel's "
+                         f"limit, and no cluster of up to {CLUSTER_SIZES[-1]} blocks holds its weight")
+    w_t = transposed_weight(w_hh, weight_dtype or torch.float32)
+    return _run(f"gru_sequence_{_WEIGHT_DTYPES[weight_dtype]}", x_proj, h0, w_t, b_hh, (b, t, g, h))
+
+
+def launch_resident(x_proj, h0, w_hh, b_hh, weight_dtype=None):
+    """The resident kernel on CUDA tensors, whatever T; raises where no cluster
+    holds the weight."""
+    _check_shapes(x_proj, h0, w_hh, b_hh, weight_dtype)
+    b, t, g, h = _check_launch(x_proj, h0, w_hh, b_hh, weight_dtype)
+    fit = cluster_fit(h, weight_dtype)
+    if fit is None:
+        raise ValueError(f"no cluster of up to {CLUSTER_SIZES[-1]} blocks holds the recurrent "
+                         f"weight of hidden size per group {h} in shared memory")
+    w_packed = packed_weight(w_hh, weight_dtype or torch.float32, fit[0])
+    out = _run(f"gru_resident_{_WEIGHT_DTYPES[weight_dtype]}", x_proj, h0, w_packed, b_hh,
+               (b, t, g, h, fit[0]))
+    gru_sequence.resident_launches += 1
+    return out
 
 
 def gru_sequence(x_proj, h0, w_hh, b_hh, weight_dtype=None):
@@ -141,8 +241,11 @@ def gru_sequence(x_proj, h0, w_hh, b_hh, weight_dtype=None):
     if x_proj.device.type == "cpu":
         return gru_sequence_reference(x_proj, h0, w_hh, b_hh, weight_dtype)
     if x_proj.device.type == "cuda":
-        return _launch(x_proj, h0, w_hh, b_hh, weight_dtype)
+        b, t, g, h3 = x_proj.shape
+        launch = launch_streamed if resident_plan(b, t, g, h3 // 3, weight_dtype) is None else launch_resident
+        return launch(x_proj, h0, w_hh, b_hh, weight_dtype)
     raise ValueError(f"gru_sequence runs on cpu or cuda tensors, got {x_proj.device}")
 
 
 gru_sequence.launches = 0
+gru_sequence.resident_launches = 0

@@ -20,7 +20,9 @@ from cruse_tpu.ops.gru_kernel import gru_sequence_pallas
 
 from cruse_tpu_torch.nn.gru import GGRUBottleneck, GroupedGRULayer, channel_shuffle, gru_scan
 from cruse_tpu_torch.ops import _build
-from cruse_tpu_torch.ops.gru_kernel import gru_sequence, gru_sequence_reference
+from cruse_tpu_torch.ops import gru_kernel
+from cruse_tpu_torch.ops.gru_kernel import (
+    RESIDENT_MIN_T, SHARED_LIMIT, gru_sequence, gru_sequence_reference, packed_weight, resident_plan)
 
 
 def _gru_inputs(rng, b, t, g, h):
@@ -118,6 +120,143 @@ def test_transposed_weight_cache_invalidates():
     with torch.inference_mode():  # inference tensors have no version counter: no cache
         frozen = torch.ones(2, 6, 2)
         assert transposed_weight(frozen, torch.float32) is not transposed_weight(frozen, torch.float32)
+
+
+@pytest.mark.parametrize("shape, dtype, cs, units", [
+    ((256, 1001, 4, 176), None, 2, 88),  # config 1: a cluster of 2, 88 units a block
+    # bf16 weights would fit one block (186 KB), but a block holds at most 96
+    # units (4 threads a unit), so config 1 takes a cluster of 2 here too
+    ((256, 1001, 4, 176), torch.bfloat16, 2, 88),
+    ((8, 1, 4, 176), None, 2, 88),  # the streaming hop
+    ((3, 7, 3, 50), None, 1, 52),  # units rounded up to a multiple of 4
+    ((3, 7, 2, 177), None, 2, 92),  # an odd split: 92 + 85 units
+    ((5, 6, 2, 200), None, 4, 52),
+    ((5, 6, 2, 256), None, 4, 64),
+    ((3, 5, 2, 350), None, 8, 44),
+    ((3, 5, 2, 384), torch.bfloat16, 8, 48),
+])
+def test_resident_plan(shape, dtype, cs, units):
+    plan = resident_plan(*shape, dtype)
+    assert plan[:2] == (cs, units)
+    h, itemsize = shape[3], 2 if dtype == torch.bfloat16 else 4
+    assert plan[2] == -(-h * 3 * units * itemsize // 16) * 16 + 2 * h * 16 * 4 <= SHARED_LIMIT == 232448
+    assert cs * units >= h > (cs - 1) * units  # every block of the cluster owns a unit
+    # and no smaller cluster would do
+    smaller = [c for c in gru_kernel.CLUSTER_SIZES if c < cs]
+    for c in smaller:
+        u = -(-h // (4 * c)) * 4
+        assert h * 3 * u * itemsize + 2 * h * 16 * 4 > SHARED_LIMIT or u > gru_kernel.MAX_UNITS
+
+
+@pytest.mark.parametrize("shape, dtype", [
+    ((3, 5, 2, 384), None),  # float32: 8 blocks cannot hold [384][3][48]
+    ((3, 5, 2, 500), None), ((3, 5, 2, 500), torch.bfloat16),
+    ((256, RESIDENT_MIN_T - 1, 4, 176), None),  # fewer steps than the resident kernel's least
+])
+def test_resident_plan_none_takes_streamed_kernel(shape, dtype):
+    assert resident_plan(*shape, dtype) is None
+
+
+def test_resident_min_t_routes(monkeypatch):
+    """Below the least T the plan is None whatever fits; from it on, the fit."""
+    monkeypatch.setattr(gru_kernel, "RESIDENT_MIN_T", 3)
+    assert resident_plan(256, 2, 4, 176) is None
+    assert resident_plan(256, 3, 4, 176) == gru_kernel.cluster_fit(176) == (2, 88, 208384)
+
+
+@pytest.mark.parametrize("g, h, cs", [(2, 8, 1), (3, 10, 4), (2, 5, 4), (1, 13, 2), (2, 7, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_weight_matches_indexing(rng, g, h, cs, dtype):
+    """[g, c, k, gate, u] is w_hh[g, gate * H + c * U + u, k]; the padding is zero."""
+    w = torch.from_numpy(rng.standard_normal((g, 3 * h, h)).astype(np.float32))
+    packed = packed_weight(w, dtype, cs)
+    u = -(-h // (4 * cs)) * 4
+    assert packed.shape == (g, cs, h, 3, u) and packed.dtype == dtype and packed.is_contiguous()
+    want = torch.zeros(g, cs, h, 3, u)
+    for c in range(cs):
+        for gate in range(3):
+            for unit in range(u):
+                if c * u + unit < h:
+                    want[:, c, :, gate, unit] = w[:, gate * h + c * u + unit, :]
+    torch.testing.assert_close(packed.float(), want.to(dtype).float(), rtol=0, atol=0)
+
+
+def test_packed_weight_cache_invalidates():
+    """The resident kernel's copy of w_hh is made once per weight, dtype and
+    cluster size, and made again after any in-place write."""
+    layer = GroupedGRULayer(8, 8, 2)
+    layer.reset_parameters(torch.Generator().manual_seed(0))
+    w = layer.w_hh
+    first = packed_weight(w, torch.float32, 2)
+    assert packed_weight(w, torch.float32, 2) is first
+    assert packed_weight(w, torch.float32, 1) is not first
+    assert packed_weight(w, torch.bfloat16, 2).dtype == torch.bfloat16
+    first = packed_weight(w, torch.float32, 2)
+    new_state = {k: v + 1.0 for k, v in layer.state_dict().items()}
+    layer.load_state_dict(new_state)
+    again = packed_weight(w, torch.float32, 2)
+    assert again is not first
+    torch.testing.assert_close(again[:, 0, :, 0, 0], new_state["w_hh"][:, 0, :], rtol=0, atol=0)
+    with torch.no_grad():
+        w.mul_(2.0)
+    torch.testing.assert_close(packed_weight(w, torch.float32, 2)[:, 0, :, 1, 1],
+                               w.detach()[:, 4 + 1, :], rtol=0, atol=0)
+    with torch.inference_mode():  # inference tensors have no version counter: no cache
+        frozen = torch.ones(2, 6, 2)
+        assert packed_weight(frozen, torch.float32, 2) is not packed_weight(frozen, torch.float32, 2)
+
+
+def _recurrence_by_slices(x_proj, h0, w_hh, b_hh, cs, parts=8):
+    """The resident kernel's decomposition in plain PyTorch: block c of the
+    cluster computes the units [c * U, (c + 1) * U) from its slice of the packed
+    weight, each sum over k taken in `parts` interleaved partial sums that are
+    then added pairwise, and the blocks' units together are the next state."""
+    g, h3, h = w_hh.shape
+    packed = packed_weight(w_hh, torch.float32, cs)  # [G, CS, K, 3, U]
+    u = packed.shape[-1]
+    state, ys = h0, []
+    for t in range(x_proj.shape[1]):
+        new = []
+        for c in range(cs):
+            units = range(c * u, min(h, (c + 1) * u))
+            if not len(units):
+                continue
+            sums = [torch.einsum("bgk,gkju->bgju", state[:, :, p::parts], packed[:, c, p::parts])
+                    for p in range(parts)]
+            while len(sums) > 1:
+                sums = [a + b for a, b in zip(sums[::2], sums[1::2])]
+            hp = sums[0][..., :len(units)] + b_hh.reshape(g, 3, h)[:, :, units.start:units.stop]
+            xg = x_proj[:, t].reshape(-1, g, 3, h)[..., units.start:units.stop]
+            r = torch.sigmoid(xg[:, :, 0] + hp[:, :, 0])
+            z = torch.sigmoid(xg[:, :, 1] + hp[:, :, 1])
+            n = torch.tanh(xg[:, :, 2] + r * hp[:, :, 2])
+            new.append((1.0 - z) * n + z * state[..., units.start:units.stop])
+        state = torch.cat(new, dim=-1)
+        ys.append(state)
+    return torch.stack(ys, dim=1), state
+
+
+@pytest.mark.parametrize("shape, cs", [((3, 9, 2, 8), 1), ((3, 9, 2, 8), 2), ((2, 6, 3, 10), 4),
+                                       ((17, 4, 1, 13), 2), ((2, 5, 2, 5), 4), ((2, 5, 1, 37), 8)])
+def test_recurrence_by_unit_slices_matches_reference_and_jax(rng, shape, cs):
+    args = _gru_inputs(rng, *shape)
+    y, h = _recurrence_by_slices(*_torch(args), cs)
+    y_ref, h_ref = gru_sequence_reference(*_torch(args))
+    y_jax, h_jax = jax_gru_scan(*_jax(args))
+    np.testing.assert_allclose(y.numpy(), y_ref.numpy(), atol=1e-5)
+    np.testing.assert_allclose(h.numpy(), h_ref.numpy(), atol=1e-5)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_jax), atol=1e-5)
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_jax), atol=1e-5)
+
+
+def test_launchers_refuse_cpu_tensors(rng):
+    """The two launchers never run the plain version: on CPU tensors they raise."""
+    args = _torch(_gru_inputs(rng, 2, 3, 2, 4))
+    for launch in (gru_kernel.launch_resident, gru_kernel.launch_streamed):
+        before = gru_sequence.launches, gru_sequence.resident_launches
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            launch(*args)
+        assert (gru_sequence.launches, gru_sequence.resident_launches) == before
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
