@@ -53,7 +53,9 @@ needed). In order, and any failure exits non-zero:
     eval TFCM stack at config 5b's four stage shapes (B=16, 10 s: [16,64,24,626],
     [16,32,32,626], [16,16,48,626], [16,128,4,626]) within 1e-4, the one-block
     case at d=1 and d=8 within 1e-5, ragged shapes (T=19 with a time tile of
-    8, K not a multiple of the band tile, C=4), and the temporal attention at
+    8, K not a multiple of the band tile, C=4), three layers, and six layers
+    (config 5's depth) with T=50 < 2 x 32; the kernel runs one launch of
+    ``tfcm_layer_kernel`` a layer; and the temporal attention at
     the three stage geometries (BF=1024/512/256, c=6/8/12, C=24/32/48, T=626)
     with window 126, without one, with T < window, T off the tile and
     non-causal, within 1e-5; tolerances scale with max(1, max|ref|);
@@ -65,11 +67,15 @@ needed). In order, and any failure exits non-zero:
     the same batch through all plain versions within 1e-4; then config 5
     (``MtfaaConfig()``, full-causal attention) at B=4 x 4 s the same way, and
     a lone ``TFCMBlock`` (one block launch);
-12. times the TFCM stack at the four stage shapes and one block (ms, GB/s
-    over the least bytes), the attention at stage 0 with and without the
-    window, the deep filter at MTFAA's shape, and one B=16 x 10 s config-5b enhancement with the kernels and
-    with the plain versions (x-realtime); profiles one B=16 forward (kernels
-    per forward, device time by kernel, busy time and idle share);
+12. times the TFCM stack at the four stage shapes and one block (ms, the
+    bound, GB/s over the least bytes and over the design's bytes; for each
+    layer its tile, buffers, shared memory a block, blocks an SM, registers
+    and spills as the card reports them), the attention at stage 0 with and
+    without the window, the deep filter at MTFAA's shape, and one B=16 x 10 s
+    config-5b enhancement with the kernels and with the plain versions
+    (x-realtime); profiles one B=16 forward (kernels per forward, device time
+    by kernel, busy time and idle share) and checks that it shows 24
+    ``tfcm_layer_kernel`` launches (6 stacks x 4 layers);
 13. holds the training kernels against their plain versions on the card at
     config 5b's four stage shapes and d = 1, 2, 4, 8, and on ragged shapes
     (T=19, K=5, C=4 with d=8 > T/2; d=64): the depthwise stencil forward and
@@ -142,8 +148,8 @@ from cruse_tpu_torch.ops.gru_kernel import (
     MAX_HIDDEN, cluster_fit, gru_sequence, gru_sequence_reference, launch_resident, launch_streamed,
     resident_plan)
 from cruse_tpu_torch.ops.tfcm_kernel import (
-    PARAM_KEYS, fold_eval_params, fused_tfcm_block_eval, fused_tfcm_stack_eval,
-    tfcm_stack_reference)
+    PARAM_KEYS, _blocking, _layer_plan, fold_eval_params, fused_tfcm_block_eval, fused_tfcm_stack_eval,
+    layer_kernel_info, tfcm_stack_reference)
 from cruse_tpu_torch.ops.tfcm_bwd_kernels import (
     mid_bwd, mid_bwd_reference, tail_bwd, tail_bwd_reference)
 from cruse_tpu_torch.ops.tfcm_train import PARAM_NAMES, tfcm_block_reference, tfcm_block_train
@@ -186,7 +192,9 @@ TFCM_STAGES = ((16, 64, 24, 626), (16, 32, 32, 626), (16, 16, 48, 626), (16, 128
 TFCM_RAGGED = ((2, 10, 24, 19, DILATIONS, 8, None),  # tile 1's halo reaches before t=0
                (2, 13, 32, 100, DILATIONS, None, 4),  # K not a multiple of the band tile
                (3, 7, 4, 19, DILATIONS, 8, 3),  # C=4, both ragged
-               (2, 5, 12, 9, (1, 2), None, None))
+               (2, 5, 12, 9, (1, 2), None, None),
+               (2, 16, 48, 45, (1, 2, 4), None, None),  # an odd number of layers
+               (2, 24, 24, 50, (1, 2, 4, 8, 16, 32), None, None))  # 6 layers (config 5's), T < 2 x 32
 ATTN_STAGES = ((1024, 6, 24), (512, 8, 32), (256, 12, 48))
 WINDOW = 126
 TFCM_TOL, TFCM_BLOCK_TOL, ATTN_TOL = 1e-4, 1e-5, 1e-5
@@ -199,7 +207,7 @@ GRAD_REL_TOL, GRAD_ABS_TOL = 2e-3, 1e-3  # a gradient leaf: relative, or of the 
 GRAD_NOISE_FACTOR = 3.0  # or this many times the same leaf's own float32 rounding error (whole net only)
 TRAIN_STEPS = 3
 HAND_WRITTEN = frozenset((  # the __global__ functions of ops/csrc/*.cu, as a profile names them
-    "gru_sequence_kernel", "gru_resident_kernel", "deep_filter_kernel", "tfcm_eval_kernel", "tattn_fwd_kernel",
+    "gru_sequence_kernel", "gru_resident_kernel", "deep_filter_kernel", "tfcm_layer_kernel", "tattn_fwd_kernel",
     "tattn_dq_kernel", "tattn_dkv_kernel", "dw_fwd_kernel", "dw_bwd_kernel", "tail_bwd_kernel",
     "mid_bwd_kernel"))
 # launches one config-5b train step makes: 6 stacks x 4 blocks, 3 attentions
@@ -815,6 +823,32 @@ def check_tfcm_block_path(device) -> int:
     return counts[1]
 
 
+def tfcm_design_bytes(shape, dilations) -> int:
+    """Bytes the layer kernels move for one stack as planned: each block reads
+    x over its tile and halo once per output-channel group, reads x again at
+    its own positions (the residual) and writes y (edge tiles counted whole;
+    the halo and the second read mostly hit L2)."""
+    b, k, c, t = shape
+    groups = _blocking(c)[1]
+    total = 0
+    for tile, d in zip(_layer_plan(b, k, c, t, tuple(dilations), None, None), dilations):
+        tiles = b * -(-k // tile.kt) * -(-t // tile.tt)
+        total += 4 * c * (tiles * (tile.kt + 2) * (tile.tt + 2 * d) * groups + 2 * b * k * t)
+    return total
+
+
+def print_tfcm_layers(shape, dilations, smi) -> None:
+    """Each layer's tile, shared memory a block, blocks an SM and the
+    kernel's registers and spills, as the card reports them."""
+    b, k, c, t = shape
+    for tile, d in zip(_layer_plan(b, k, c, t, tuple(dilations), None, None), dilations):
+        info = layer_kernel_info(c, tile.smem)
+        print(f"  tfcm_layer_kernel<{c}> d={d} on {smi}: tile {tile.kt} bands x {tile.tt} frames, "
+              f"{tile.src} -> {tile.dst}, {tile.smem} B of shared memory a block, {info['blocks_per_sm']} "
+              f"blocks an SM, {info['threads']} threads, {info['registers']} registers, "
+              f"{info['spill_bytes']} B of local (spill) memory a thread")
+
+
 def time_mtfaa_kernels(device, smi) -> dict:
     """Kernel vs plain times (ms) at the main path's shapes; prints them."""
     times = {}
@@ -824,19 +858,25 @@ def time_mtfaa_kernels(device, smi) -> dict:
             ms = cuda_ms(lambda: fused_tfcm_stack_eval(x, params, dilations=DILATIONS), reps=20)
             plain = cuda_ms(lambda: tfcm_stack_reference(x, params, DILATIONS), reps=5)
             nbytes = 2 * x.numel() * 4  # x read once, y written once
+            design = tfcm_design_bytes(shape, DILATIONS)
             least = bound(nbytes, len(DILATIONS) * x.numel() * (2 * shape[2] + 9))
-            print(f"tfcm stack {list(shape)} dilations {DILATIONS} on {smi}: kernel {ms:.3f} ms = "
-                  f"{nbytes / ms / 1e6:.1f} GB/s of {nbytes / 1e9:.3f} GB, bound {least['bound_ms']:.4f} ms "
-                  f"({least['bound_by']}), plain {plain:.3f} ms = "
-                  f"{nbytes / plain / 1e6:.1f} GB/s ({'kernel faster' if ms < plain else 'KERNEL SLOWER'})")
+            print(f"tfcm stack {list(shape)} dilations {DILATIONS} on {smi}: kernel {ms:.3f} ms "
+                  f"({len(DILATIONS)} layer launches), bound {least['bound_ms']:.4f} ms ({least['bound_by']}; "
+                  f"least bytes {nbytes / 1e9:.3f} GB = {nbytes / ms / 1e6:.1f} GB/s), design bytes "
+                  f"{design / 1e9:.3f} GB = {design / ms / 1e6:.1f} GB/s, plain {plain:.3f} ms "
+                  f"({'kernel faster' if ms < plain else 'KERNEL SLOWER'})")
+            print_tfcm_layers(shape, DILATIONS, smi)
             times.setdefault("tfcm_stack", (ms, plain))
         x, params = tfcm_inputs(*TFCM_STAGES[0], 1, device, SEED + 1)
         ms = cuda_ms(lambda: fused_tfcm_block_eval(x, params, dilation=1), reps=20)
         plain = cuda_ms(lambda: tfcm_stack_reference(x, params, (1,)), reps=5)
         nbytes = 2 * x.numel() * 4
+        design = tfcm_design_bytes(TFCM_STAGES[0], (1,))
         print(f"tfcm block {list(TFCM_STAGES[0])} d=1 on {smi}: kernel {ms:.3f} ms = "
-              f"{nbytes / ms / 1e6:.1f} GB/s, plain {plain:.3f} ms = {nbytes / plain / 1e6:.1f} GB/s "
+              f"{nbytes / ms / 1e6:.1f} GB/s of the least bytes, design bytes {design / 1e9:.3f} GB = "
+              f"{design / ms / 1e6:.1f} GB/s, plain {plain:.3f} ms = {nbytes / plain / 1e6:.1f} GB/s "
               f"({'kernel faster' if ms < plain else 'KERNEL SLOWER'})")
+        print_tfcm_layers(TFCM_STAGES[0], (1,), smi)
         times["tfcm_block"] = (ms, plain)
         del x, params
         bf, c, cv = ATTN_STAGES[0]
@@ -1268,13 +1308,13 @@ def time_train_step(device, smi) -> None:
         torch.cuda.empty_cache()
 
 
-def profile_calls(fn, calls: int, label: str) -> None:
+def profile_calls(fn, calls: int, label: str) -> dict:
     """torch.profiler over `calls` calls of fn: device time by kernel (the 20
     that take most, then every hand-written kernel the calls launched, its
     template instances summed, with the share of the busy time they take
     together), the device's busy time per call (union of kernel intervals)
     and its idle share against the call's wall time measured without the
-    profiler."""
+    profiler. Returns the launches per call of every ``*_kernel`` function."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
 
@@ -1308,16 +1348,18 @@ def profile_calls(fn, calls: int, label: str) -> None:
           f"idle {1 - busy_ms / wall_ms:.1%}")
     for name, (total, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]:
         print(f"  {total / calls:10.2f} us/call  {n / calls:5.1f}/call  {name[:100]}")
-    own = {}
+    named = {}  # every *_kernel function, its template instances summed
     for name, (total, n) in by_name.items():
         match = re.search(r"\b(\w+_kernel)\b", name)
-        if match and match.group(1) in HAND_WRITTEN:
-            had = own.get(match.group(1), (0.0, 0))
-            own[match.group(1)] = (had[0] + total, had[1] + n)
+        if match:
+            had = named.get(match.group(1), (0.0, 0))
+            named[match.group(1)] = (had[0] + total, had[1] + n)
+    own = {name: v for name, v in named.items() if name in HAND_WRITTEN}
     own_ms = sum(total for total, _ in own.values()) / calls / 1e3
     print(f"  hand-written kernels, {label}: {own_ms:.4f} ms per call = {own_ms / busy_ms:.1%} of the busy time")
     for name, (total, n) in sorted(own.items(), key=lambda kv: -kv[1][0]):
         print(f"  {total / calls:10.2f} us/call  {n / calls:5.1f}/call  {total / n:9.2f} us each  {name}")
+    return {name: n / calls for name, (_, n) in named.items()}
 
 
 def main() -> int:
@@ -1421,7 +1463,10 @@ def main() -> int:
     print(f"MTFAA config 5b auto enhancement B={b} x {seconds} s on {smi}: {kernel_s * 1e3:.1f} ms = "
           f"{b * seconds / kernel_s:.1f}x realtime with the kernels; plain versions "
           f"{plain_s * 1e3:.1f} ms = {b * seconds / plain_s:.1f}x realtime")
-    profile_calls(lambda: inferencer.auto(x), 3, f"B={b} x {seconds} s config-5b auto forward")
+    launched = profile_calls(lambda: inferencer.auto(x), 3, f"B={b} x {seconds} s config-5b auto forward")
+    require(launched.get("tfcm_layer_kernel") == 6 * len(DILATIONS) and "tfcm_eval_kernel" not in launched,
+            f"the config-5b forward's profile shows {launched.get('tfcm_layer_kernel')} tfcm_layer_kernel "
+            f"launches = 6 stacks x {len(DILATIONS)} layers, and no launch of the whole-ladder kernel")
 
     del inferencer, mtfaa, x
     torch.cuda.empty_cache()

@@ -18,16 +18,20 @@ float32. The parameters arrive as one ``[L, P]`` float32 tensor from
 ``fold_eval_params`` (P = 2C^2 + 12C + 2 per layer: w1' [C, C] as
 [in, out], b1' [C], wd' [3, 3, C], bd' [C], w2 [C, C], b2 [C], a1, a2).
 
-``fused_tfcm_stack_eval`` and ``fused_tfcm_block_eval`` (the one-layer case
-of the same kernel) run the plain version for tensors on the CPU and launch
-the hand-written kernel (``csrc/tfcm_eval.cu``) for tensors on a CUDA device;
-on a CUDA device they launch or raise. ``<fn>.launches`` counts kernel
-launches. The kernel has no backward: it raises when a gradient is requested.
+``fused_tfcm_stack_eval`` and ``fused_tfcm_block_eval`` (its one-layer case)
+run the plain version for tensors on the CPU and the hand-written kernel
+(``csrc/tfcm_eval.cu``: ``tfcm_layer_kernel``, one device launch a dilation
+layer, x passing between layers through two ping-pong buffers, all L
+launches made by one C call) for tensors on a CUDA device; on a CUDA device
+they launch or raise. ``<fn>.launches`` counts the calls that launched, one a
+stack or a block whatever L. The kernel has no backward: it raises when a
+gradient is requested.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -35,8 +39,12 @@ import torch.nn.functional as F
 from cruse_tpu_torch.ops import _build
 
 KERNEL_CHANNELS = (4, 8, 12, 16, 24, 32, 48)  # the kernel's template instances
-MAX_LAYERS = 8  # kMaxLayers in the source
-SMEM_BYTES = 227 * 1024  # a Hopper block's shared memory (kMaxSmem in the source)
+SMEM_BYTES = 227 * 1024  # the most shared memory a Hopper block takes (kMaxSmem in the source)
+SM_SMEM_BYTES = 228 * 1024  # an H100 SM's shared memory, shared by its blocks
+BLOCK_RESERVED_SMEM = 1024  # the runtime's own shared memory a block
+MIN_BLOCKS_PER_SM = 2  # the tiles are chosen for (kMinBlocks in the source)
+NUM_SMS = 132  # an H100 SXM's SMs
+KERNEL_THREADS = 128  # a block's threads (kThreads in the source)
 PARAM_KEYS = ("w1", "b1", "g1", "be1", "m1", "v1", "a1", "wd", "bd",
               "g2", "be2", "m2", "v2", "a2", "w2", "b2")
 
@@ -106,40 +114,111 @@ def _check(x, params, dilations):
         raise ValueError(f"params are on {params.device}, x on {x.device}")
 
 
-@functools.lru_cache(maxsize=None)
-def _tiles(k: int, c: int, t: int, dilations: tuple, t_chunk, k_chunk):
-    """(band tile, time tile) of one block: the pair whose halo-extended tiles
-    cover [K, T] with the fewest computed positions and fit shared memory
-    (two [bands + 2L, C, frames + 2*sum(d)] f32 buffers and one layer's
-    parameters); ``t_chunk`` / ``k_chunk`` fix a side."""
-    n_l, halo = len(dilations), 2 * sum(dilations)
-    max_positions = (SMEM_BYTES // 4 - params_per_layer(c)) // (2 * c)
-    best = None
-    for kt in ([k_chunk] if k_chunk else range(1, k + 1)):
-        ke = kt + 2 * n_l
-        tt_max = min(max_positions // ke - halo, t)
-        if t_chunk:
-            tt = t_chunk if t_chunk <= tt_max else 0
-        else:
-            tt = -(-t // -(-t // tt_max)) if tt_max >= 1 else 0  # balance the time tiles
-        if tt < 1:
-            continue
-        cost = -(-k // kt) * -(-t // tt) * ke * (tt + halo)
-        if best is None or cost < best[0]:
-            best = (cost, kt, tt)
-    if best is None:
-        raise ValueError(f"no TFCM tile fits {SMEM_BYTES} bytes of shared memory at K={k}, C={c}, "
-                         f"dilations {dilations} (t_chunk={t_chunk}, k_chunk={k_chunk})")
-    return best[1], best[2]
+def _blocking(c: int) -> tuple[int, int]:
+    """(positions a thread owns, output-channel groups): ``Blocking<C>`` in
+    the source."""
+    return (8 if c <= 12 else 4), (2 if c >= 48 else 1)
+
+
+def layer_smem_bytes(c: int, kt: int, tt: int, d: int) -> int:
+    """Shared memory of one block of the layer kernel (``smem_bytes`` in the
+    source): the layer's parameters, padded to 4 floats, and its p1 tile of
+    ``ceil(kt / P) * P + 2`` bands x C x ``tt + 2d`` frames, plus 32 floats
+    that a ragged warp may read past it."""
+    p = _blocking(c)[0]
+    bands = -(-kt // p) * p + 2
+    return 4 * (-(-params_per_layer(c) // 4) * 4 + bands * c * (tt + 2 * d) + 32)
+
+
+def blocks_per_sm(smem_bytes: int) -> int:
+    """Blocks of the layer kernel that an SM's shared memory holds."""
+    return SM_SMEM_BYTES // (smem_bytes + BLOCK_RESERVED_SMEM)
+
+
+def _block_cost(c: int, kt: int, tt: int, d: int) -> float:
+    """Modelled time of one block: a warp's share of the block's units (warp
+    tasks), each costed by its instructions a channel. Phase 1's unit (32P
+    positions of the tile and its halo, CO outputs) does P x CO FMAs and
+    P + CO loads a channel; phase 2's (P bands x 32 frames) 9P + P x CO FMAs
+    and 3(P + 2) + 10 + CO loads. Measured on an H100, the kernel is bound by
+    how fast each warp gets through its units, so a block takes as long as
+    its busiest warp."""
+    p, g = _blocking(c)
+    co = c // g
+    warps = KERNEL_THREADS // 32
+    units1 = -(-((kt + 2) * (tt + 2 * d)) // (32 * p)) * g
+    units2 = -(-kt // p) * -(-tt // 32) * g
+    return c * (-(-units1 // warps) * (p * co + p + co)
+                + -(-units2 // warps) * (9 * p + p * co + 3 * (p + 2) + 10 + co))
+
+
+class LayerTile(NamedTuple):
+    kt: int  # bands of a block's own positions
+    tt: int  # frames of a block's own positions
+    src: str  # the buffer the layer reads: "x", "out" or "scratch"
+    dst: str  # the buffer it writes: "out" or "scratch", never src
+    smem: int  # shared memory of one block, bytes
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = _build.load_library("tfcm_eval").tfcm_eval_f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] \
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _layer_plan(b: int, k: int, c: int, t: int, dilations: tuple, t_chunk, k_chunk) -> tuple:
+    """One ``LayerTile`` per layer. The tile is chosen for the layer's own
+    dilation: the (kt, tt), kt a multiple of the P bands a thread owns and tt
+    of 32 frames (or K, T), that fits two blocks an SM and costs the least:
+    waves of 132 SMs x two blocks, times the modelled time of a block
+    (``_block_cost``); only where none fits two does one block an SM take all
+    its shared memory.
+    ``t_chunk`` / ``k_chunk`` fix a side. The buffers ping-pong so that the
+    last layer writes ``out``: x -> out for one layer, x -> scratch -> out
+    for two, x -> out -> scratch -> out for three, and so on."""
+    p = _blocking(c)[0]
+    n = len(dilations)
+    plan = []
+    for layer, d in enumerate(dilations):
+        kts = [k_chunk] if k_chunk else sorted({min(m * p, k) for m in range(1, -(-k // p) + 1)})
+        tts = [t_chunk] if t_chunk else sorted({min(m * 32, t) for m in range(1, -(-t // 32) + 1)})
+        best = None
+        for budget in (SM_SMEM_BYTES // MIN_BLOCKS_PER_SM - BLOCK_RESERVED_SMEM, SMEM_BYTES):
+            for kt in kts:
+                for tt in tts:
+                    smem = layer_smem_bytes(c, kt, tt, d)
+                    if smem > budget:
+                        continue
+                    slots = NUM_SMS * min(blocks_per_sm(smem), MIN_BLOCKS_PER_SM)
+                    waves = -(-b * -(-k // kt) * -(-t // tt) // slots)
+                    cost = waves * _block_cost(c, kt, tt, d)
+                    if best is None or cost < best[0]:
+                        best = (cost, kt, tt)
+            if best is not None:
+                break
+        if best is None:
+            raise ValueError(f"no TFCM tile fits {SMEM_BYTES} bytes of shared memory at K={k}, C={c}, "
+                             f"d={d} (t_chunk={t_chunk}, k_chunk={k_chunk})")
+        dst = "out" if (n - 1 - layer) % 2 == 0 else "scratch"
+        src = "x" if layer == 0 else plan[-1].dst
+        plan.append(LayerTile(best[1], best[2], src, dst, layer_smem_bytes(c, best[1], best[2], d)))
+    return tuple(plan)
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = _build.load_library("tfcm_eval")
+    lib.tfcm_eval_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
+    lib.tfcm_eval_f32.restype = ctypes.c_int
+    lib.tfcm_layer_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.tfcm_layer_info.restype = ctypes.c_int
+    return lib
+
+
+def layer_kernel_info(c: int, smem_bytes: int) -> dict:
+    """The layer kernel's instance for C on the current CUDA device: registers
+    and local (spill) bytes a thread, blocks an SM at ``smem_bytes`` of shared
+    memory, threads a block."""
+    info = (ctypes.c_int * 4)()
+    err = _library().tfcm_layer_info(c, smem_bytes, info)
+    if err != 0:
+        raise RuntimeError(f"tfcm_layer_info failed with CUDA error {err} (C={c}, {smem_bytes} B)")
+    return dict(zip(("registers", "spill_bytes", "blocks_per_sm", "threads"), info))
 
 
 def _launch(x, params, dilations, t_chunk, k_chunk):
@@ -151,21 +230,28 @@ def _launch(x, params, dilations, t_chunk, k_chunk):
     b, k, c, t = x.shape
     if c not in KERNEL_CHANNELS:
         raise ValueError(f"the TFCM kernel takes C in {KERNEL_CHANNELS}, got {c}")
-    if len(dilations) > MAX_LAYERS:
-        raise ValueError(f"the TFCM kernel takes at most {MAX_LAYERS} layers, got {len(dilations)}")
-    kt, tt = _tiles(k, c, t, dilations, t_chunk, k_chunk)
-    if b > 65535 or -(-k // kt) > 65535:
-        raise ValueError(f"B={b} or {-(-k // kt)} band tiles > 65535, the kernel's grid limit")
-    out = torch.empty_like(x)
-    dils = (ctypes.c_int * len(dilations))(*dilations)
+    plan = _layer_plan(b, k, c, t, dilations, t_chunk, k_chunk)
+    if b > 65535 or max(-(-k // tile.kt) for tile in plan) > 65535:
+        raise ValueError(f"B={b} or the band tiles > 65535, the kernel's grid limit")
+    n = len(plan)
+    buffers = {"x": x, "out": torch.empty_like(x)}
+    if n > 1:
+        buffers["scratch"] = torch.empty_like(x)
+
+    def array(kind, values):
+        return (kind * n)(*values)
+
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = _kernel()(x.data_ptr(), params.data_ptr(), out.data_ptr(), b, k, c, t,
-                        len(dilations), dils, kt, tt, stream)
+        err = _library().tfcm_eval_f32(
+            array(ctypes.c_void_p, [buffers[tile.src].data_ptr() for tile in plan]), params.data_ptr(),
+            array(ctypes.c_void_p, [buffers[tile.dst].data_ptr() for tile in plan]), b, k, c, t, n,
+            array(ctypes.c_int, dilations), array(ctypes.c_int, [tile.kt for tile in plan]),
+            array(ctypes.c_int, [tile.tt for tile in plan]), stream)
     if err != 0:
         raise RuntimeError(f"tfcm_eval kernel launch failed with CUDA error {err} "
-                           f"(B={b}, K={k}, C={c}, T={t}, dilations={dilations}, tile {kt}x{tt})")
-    return out
+                           f"(B={b}, K={k}, C={c}, T={t}, dilations={dilations}, plan {plan})")
+    return buffers["out"]
 
 
 def _run(x, params, dilations, t_chunk, k_chunk, counter):
@@ -183,14 +269,17 @@ def _run(x, params, dilations, t_chunk, k_chunk, counter):
 def fused_tfcm_stack_eval(x, params, *, dilations, t_chunk: int | None = None,
                           k_chunk: int | None = None):
     """The eval TFCM stack, x [B, K, C, T] -> [B, K, C, T], params
-    ``fold_eval_params(...)`` [L, P], one launch for all L blocks. ``t_chunk``
-    and ``k_chunk`` fix the kernel's time and band tile (chosen otherwise)."""
+    ``fold_eval_params(...)`` [L, P]: on a CUDA device L launches of the
+    layer kernel, one a block, counted as one call. ``t_chunk`` and
+    ``k_chunk`` fix every layer's time and band tile (``_layer_plan``
+    chooses them otherwise)."""
     return _run(x, params, dilations, t_chunk, k_chunk, fused_tfcm_stack_eval)
 
 
 def fused_tfcm_block_eval(x, params, *, dilation: int, t_chunk: int | None = None,
                           k_chunk: int | None = None):
-    """One eval TFCM block, params [1, P]: the stack's one-layer case."""
+    """One eval TFCM block, params [1, P]: the stack's one-layer case (one
+    launch of the layer kernel on a CUDA device)."""
     return _run(x, params, (dilation,), t_chunk, k_chunk, fused_tfcm_block_eval)
 
 

@@ -21,8 +21,8 @@ from cruse_tpu.ops.tfcm_kernel import tfcm_stack_params
 
 from cruse_tpu_torch.models.mtfaa import TFCM, TFCMBlock
 from cruse_tpu_torch.ops.tfcm_kernel import (
-    SMEM_BYTES, _tiles, fold_eval_params, fused_tfcm_block_eval, fused_tfcm_stack_eval,
-    params_per_layer, tfcm_stack_reference)
+    MIN_BLOCKS_PER_SM, SMEM_BYTES, _blocking, _layer_plan, blocks_per_sm, fold_eval_params,
+    fused_tfcm_block_eval, fused_tfcm_stack_eval, layer_smem_bytes, params_per_layer, tfcm_stack_reference)
 from cruse_tpu_torch.utils.weights import mtfaa_state_dict_from_flax
 
 
@@ -96,6 +96,27 @@ def test_block_wrapper_and_reference_match_pallas(rng, d, tc, t, c, k):
     np.testing.assert_allclose(tfcm_stack_reference(xt, params, (d,)).numpy(), np.asarray(ref), atol=1e-5)
 
 
+@pytest.mark.parametrize("n_layers", [3, 6])
+def test_stack_matches_jax_at_other_depths(rng, n_layers):
+    """An odd number of layers and config 5's default depth (6): the port's
+    module and its stack wrapper against the JAX module and the JAX Pallas
+    stack kernel, interpreted (T=50 < 2 x 32, the last layer's 2d)."""
+    x = rng.standard_normal((2, 9, 12, 50)).astype(np.float32)
+    jax_stack = JaxTFCM(12, n_layers)
+    variables, stack = make_pair(jax_stack, TFCM(12, n_layers), x, rng)
+    ref, _ = jax_stack.apply(variables, jnp.asarray(x))
+    dils = tuple(2 ** i for i in range(n_layers))
+    kernel = jax_stack_eval(jnp.asarray(x), tfcm_stack_params(variables["params"], variables["batch_stats"],
+                                                              n_layers), dilations=dils, t_chunk=16,
+                            interpret=True)
+    with torch.no_grad():
+        got = stack(torch.from_numpy(x))
+    wrapped = fused_tfcm_stack_eval(torch.from_numpy(x), fold_eval_params(raw_params(variables, n_layers)),
+                                    dilations=dils)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+    np.testing.assert_allclose(wrapped.numpy(), np.asarray(kernel), atol=1e-5)
+
+
 def test_stack_wrapper_matches_pallas_with_halo_before_start(rng):
     """T=19 in time tiles of 8: a later tile's halo reaches before t=0."""
     x = rng.standard_normal((2, 16, 8, 19)).astype(np.float32)
@@ -129,18 +150,55 @@ def test_wrappers_check_their_inputs_and_count_no_cpu_launch(rng):
         fused_tfcm_stack_eval(x.to("meta"), params.to("meta"), dilations=(1, 2))
 
 
-@pytest.mark.parametrize("shape", [(64, 24, 626), (32, 32, 626), (16, 48, 626), (128, 4, 626), (7, 4, 19)])
-def test_tiles_fit_shared_memory(shape):
-    """The tile the wrapper picks at config 5b's stage shapes fits a block's
-    shared memory; a fixed side is kept."""
+STAGES = [(64, 24, 626), (32, 32, 626), (16, 48, 626), (128, 4, 626)]  # config 5b, B=16 x 10 s
+
+
+@pytest.mark.parametrize("layer", range(4))
+@pytest.mark.parametrize("shape", STAGES + [(7, 4, 19)])
+def test_layer_plan_fits_shared_memory(shape, layer):
+    """Each layer's tile at config 5b's stage shapes (and a small ragged one)
+    is chosen for its own dilation, fits shared memory, leaves two blocks an
+    SM at the stage shapes, and covers whole band groups; a fixed side is
+    kept; a tile that cannot fit raises."""
     k, c, t = shape
     dils = (1, 2, 4, 8)
-    kt, tt = _tiles(k, c, t, dils, None, None)
-    assert 1 <= kt <= k and 1 <= tt <= t
-    assert (params_per_layer(c) + 2 * (kt + 8) * c * (tt + 30)) * 4 <= SMEM_BYTES
-    assert _tiles(k, c, t, dils, 8, 3) == (3, 8)
+    d = dils[layer]
+    tile = _layer_plan(16, k, c, t, dils, None, None)[layer]
+    p = _blocking(c)[0]
+    assert 1 <= tile.kt <= k and 1 <= tile.tt <= t
+    assert tile.kt % p == 0 or tile.kt == k
+    assert tile.smem == layer_smem_bytes(c, tile.kt, tile.tt, d) <= SMEM_BYTES
+    bands = -(-tile.kt // p) * p + 2
+    assert tile.smem >= 4 * (params_per_layer(c) + bands * c * (tile.tt + 2 * d))
+    if shape in STAGES:
+        assert blocks_per_sm(tile.smem) >= MIN_BLOCKS_PER_SM
+    fixed = _layer_plan(16, k, c, t, dils, 8, 3)[layer]
+    assert (fixed.kt, fixed.tt) == (3, 8)
     with pytest.raises(ValueError, match="shared memory"):
-        _tiles(k, c, t, dils, 10_000, k)
+        _layer_plan(16, k, c, t, dils, 10_000, k)
+
+
+@pytest.mark.parametrize("d,blocks", [(16, 2), (32, 1), (64, 1)])
+def test_layer_plan_takes_one_block_an_sm_only_where_two_do_not_fit(d, blocks):
+    """At C=48 a one-layer halo of 2d frames outgrows the two-block budget
+    from d=32 (config 5's last layer): the tile then takes up to a whole
+    block's shared memory."""
+    tile = _layer_plan(2, 16, 48, 626, (d,), None, None)[0]
+    assert tile.smem <= SMEM_BYTES and min(blocks_per_sm(tile.smem), 2) == blocks
+
+
+@pytest.mark.parametrize("n_layers", [1, 2, 3, 4, 6])
+def test_layer_plan_buffers_ping_pong(n_layers):
+    """Layer 0 reads x, each later layer reads what the one before wrote, no
+    layer reads the buffer it writes, x is never written, the last layer
+    writes out, and a scratch buffer appears only with two layers or more."""
+    dils = tuple(2 ** i for i in range(n_layers))
+    plan = _layer_plan(2, 10, 24, 100, dils, None, None)
+    assert len(plan) == n_layers
+    assert plan[0].src == "x" and plan[-1].dst == "out"
+    assert all(tile.src != tile.dst and tile.dst in ("out", "scratch") for tile in plan)
+    assert all(later.src == earlier.dst for earlier, later in zip(plan, plan[1:]))
+    assert ("scratch" in {tile.dst for tile in plan}) == (n_layers > 1)
 
 
 def test_folded_parameters_follow_a_change_of_weights(rng):
