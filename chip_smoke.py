@@ -81,7 +81,11 @@ needed). In order, and any failure exits non-zero:
     (T=19, K=5, C=4 with d=8 > T/2; d=64): the depthwise stencil forward and
     backward, ``tail_bwd`` and ``mid_bwd`` (elementwise outputs within 1e-5,
     per-channel sums within 1e-4, both x max(1, max|ref|): f32 sums of up to
-    641,024 terms), and the attention backward (dq, dk/dv) at the three stage
+    641,024 terms); ``mid_bwd``'s two kernels also at the ragged shapes and at
+    forced tiles (K not a multiple of the band tile, T not a multiple of the
+    time tile, d >= the time tile, B = 1, T = 1500, d = 700) into
+    outputs and per-tile partial sums filled with NaN first, the partials held
+    against their plain version; and the attention backward (dq, dk/dv) at the three stage
     geometries with window 126, without one, with T < window and T off the
     tile (1e-5), alone and through ``flash_tattn_tm`` under autograd; then
     ``tfcm_block_train``'s six outputs and thirteen gradients against autograd
@@ -101,12 +105,20 @@ needed). In order, and any failure exits non-zero:
     ``"pallas"`` route (24 stencil forwards and backwards a step) and config 5
     (full-causal attention) the same way at B=4 x 4 s, and that a step on a
     batch with a NaN leaves everything unchanged;
-15. times every training kernel and its plain version at stage 0, the library
+15. times every training kernel and its plain version at stage 0, ``tail_bwd``
+    and ``mid_bwd`` at the four stage shapes and d = 1, 2, 4, 8
+    (``ops/tfcm_bwd_timing.py``: the wrapper by CUDA events, the kernels
+    alone and the device launches a call from a profile, the bound; for
+    ``mid_bwd`` its tile, shared memory, blocks an SM, registers and spills,
+    and a check of at most two launches a call) and a step's 24 launches of
+    each against their summed bound, the library
     calls that compute a kernel's function (cuDNN's depthwise convolution and
     its backward, ``scaled_dot_product_attention`` with the band mask and its
     backward, cuDNN's GRU per group, which also does the input projection),
     one B=16 x 10 s train step with the kernels and with the plain versions,
-    its peak memory, and profiles one step;
+    its peak memory, and profiles one step (``mid_bwd``'s device time a step,
+    and a check that the step makes at least 96 device launches fewer than the
+    6,270 it made with eight launches a ``mid_bwd`` call);
 16. prints a JSON line of the kernels (each with its launches on the main
     paths, its error, its time, the plain version's, the least time the card
     could take for its bytes or its multiply-adds, and the library call's time
@@ -125,6 +137,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -151,7 +164,9 @@ from cruse_tpu_torch.ops.tfcm_kernel import (
     PARAM_KEYS, _blocking, _layer_plan, fold_eval_params, fused_tfcm_block_eval, fused_tfcm_stack_eval,
     layer_kernel_info, tfcm_stack_reference)
 from cruse_tpu_torch.ops.tfcm_bwd_kernels import (
-    mid_bwd, mid_bwd_reference, tail_bwd, tail_bwd_reference)
+    launch_mid, mid_buffers, mid_bwd, mid_bwd_reference, mid_kernel_info, mid_partials_reference, mid_plan,
+    mid_sums, tail_bwd, tail_bwd_reference)
+from cruse_tpu_torch.ops.tfcm_bwd_timing import describe, time_tfcm_bwd
 from cruse_tpu_torch.ops.tfcm_train import PARAM_NAMES, tfcm_block_reference, tfcm_block_train
 from cruse_tpu_torch.train.step import (
     StepConfig, init_train_state, make_loss_gradients, make_train_step)
@@ -202,6 +217,15 @@ MTFAA_BATCH, MTFAA_SECONDS = 16, 10
 CAUSAL_BATCH, CAUSAL_SECONDS = 4, 4
 # B, K, C, T, d of the training kernels' ragged cases: d > T/2, and a dilation past every limit
 TRAIN_RAGGED = ((2, 5, 4, 19, 8), (1, 3, 4, 40, 64), (2, 7, 12, 131, 2))
+# B, K, C, T, d, band tile, time tile of mid_bwd's tiling cases (None: as mid_plan picks)
+MID_TILINGS = ((2, 13, 24, 100, 2, 4, None),  # K not a multiple of the band tile
+               (2, 9, 32, 131, 2, None, 32),  # T not a multiple of the time tile
+               (1, 6, 4, 100, 64, None, 32),  # d >= the time tile
+               (1, 7, 48, 90, 40, 3, 32),  # d >= the time tile, both ragged
+               (1, 16, 48, 626, 8, None, None),  # B = 1
+               (1, 5, 8, 1500, 3, None, None),  # a long T: a smaller band group
+               (1, 4, 4, 2000, 700, None, None))  # d = 700: a smaller band group again
+STACK_STAGES = (0, 0, 1, 1, 2, 3)  # the TFCM stage of each of a config-5b step's six stacks
 ELEMENT_TOL, SUM_TOL = 1e-5, 1e-4  # x max(1, max|ref|)
 GRAD_REL_TOL, GRAD_ABS_TOL = 2e-3, 1e-3  # a gradient leaf: relative, or of the largest gradient
 GRAD_NOISE_FACTOR = 3.0  # or this many times the same leaf's own float32 rounding error (whole net only)
@@ -209,11 +233,13 @@ TRAIN_STEPS = 3
 HAND_WRITTEN = frozenset((  # the __global__ functions of ops/csrc/*.cu, as a profile names them
     "gru_sequence_kernel", "gru_resident_kernel", "deep_filter_kernel", "tfcm_layer_kernel", "tattn_fwd_kernel",
     "tattn_dq_kernel", "tattn_dkv_kernel", "dw_fwd_kernel", "dw_bwd_kernel", "tail_bwd_kernel",
-    "mid_bwd_kernel"))
+    "mid_tile_kernel", "mid_finish_kernel"))
 # launches one config-5b train step makes: 6 stacks x 4 blocks, 3 attentions
 STEP_LAUNCHES = {"dw_stencil_fwd": 24, "dw_stencil_bwd": 0, "tail_bwd": 24, "mid_bwd": 24,
                  "tattn": 3, "tattn_dq": 3, "tattn_dkv": 3, "tfcm_stack": 0, "tfcm_block": 0,
                  "deep_filter": 0, "gru_sequence": 0}
+STEP_KERNELS_BEFORE = 6270  # device launches of a config-5b train step when a mid_bwd call made 8
+MID_LAUNCHES_PER_CALL = 2  # mid_tile_kernel and mid_finish_kernel
 
 
 def require(ok: bool, what: str) -> None:
@@ -967,6 +993,31 @@ def check_train_kernels(device) -> dict:
                      for name, x, y in zip(("dwd", "dgamma1", "dbeta1", "da1", "dbd"), got[1:], want[1:])]
             worst["mid_bwd"] = max(worst["mid_bwd"], *errs)
         del x_ext, h, g, got, want
+    worst["mid_bwd"] = max(worst["mid_bwd"], check_mid_tiles(device))
+    return worst
+
+
+def check_mid_tiles(device) -> float:
+    """mid_bwd's two kernels at TRAIN_RAGGED's shapes and at the tiles of
+    MID_TILINGS, into outputs and partials filled with NaN first (so a value
+    the kernels never write shows): dh1n, each tile's partial sums (against
+    their plain version) and the five sums; returns the largest error."""
+    worst, eps = 0.0, 1e-5
+    names = ("dwd", "dgamma1", "dbeta1", "da1", "dbd")
+    for b, k, c, t, d, kb, tt in [(*shape, None, None) for shape in TRAIN_RAGGED] + list(MID_TILINGS):
+        _, h, g, wd, (m, v, ga, be, a) = stage_inputs(b, k, c, t, d, device, SEED + 3)
+        plan = mid_plan(b, k, c, t, d, kb, tt)
+        what = f"{(b, k, c, t)} d={d}, tile {plan.kb} bands x {plan.tt} frames, {plan.tiles} a channel"
+        with torch.inference_mode():
+            dh1n, part, out = (x.fill_(float("nan")) for x in mid_buffers(h, plan))
+            launch_mid(g, h, wd, m, v, ga, be, a, d, eps, plan, dh1n, part, out)
+            want = mid_bwd_reference(g, h, wd, m, v, ga, be, a, d, eps)
+            errs = [require_close(dh1n, want[0], ELEMENT_TOL, f"mid_bwd dh1n {what}"),
+                    require_close(part, mid_partials_reference(g, h, wd, m, v, ga, be, a, d, eps, plan),
+                                  SUM_TOL, f"mid_bwd partial sums {what}")]
+            errs += [require_close(x, y, SUM_TOL, f"mid_bwd {name} {what}")
+                     for name, x, y in zip(names, mid_sums(out, c), want[1:])]
+        worst = max(worst, *errs)
     return worst
 
 
@@ -1211,7 +1262,8 @@ def library_ms(device) -> dict:
 
 def time_train_kernels(device, smi, lib: dict) -> dict:
     """Each training kernel and its plain version at stage 0 (ms), with the
-    bytes it must move and the multiply-adds it does; prints them."""
+    bytes it must move and the multiply-adds it does; tail_bwd and mid_bwd
+    also at every stage and d (``time_tfcm_bwd_stages``); prints them."""
     entries = {}
     b, k, c, t = TFCM_STAGES[0]
     d, eps = 1, 1e-5
@@ -1225,9 +1277,10 @@ def time_train_kernels(device, smi, lib: dict) -> dict:
                            2 * ext + tensor, 18 * points, lib["dw_bwd"]),
         "tail_bwd": (lambda: tail_bwd(g, h, m, v, ga, be, a, eps),
                      lambda: tail_bwd_reference(g, h, m, v, ga, be, a, eps), 3 * tensor, 6 * points, None),
+        # dh1a and the tap sums 9 each, BN1 2, the other sums 4
         "mid_bwd": (lambda: mid_bwd(g, h, wd, m, v, ga, be, a, d, eps),
                     lambda: mid_bwd_reference(g, h, wd, m, v, ga, be, a, d, eps), 3 * tensor,
-                    (9 + 9 * 3 + 6) * points, None),
+                    24 * points, None),
     }
     with torch.inference_mode():
         for name, (kernel, plain, nbytes, fmas, library) in cases.items():
@@ -1239,6 +1292,7 @@ def time_train_kernels(device, smi, lib: dict) -> dict:
                   f"{'none' if library is None else f'{library:.3f} ms'} "
                   f"({'kernel faster' if ms < plain_ms else 'KERNEL SLOWER'} than plain)")
     del x_ext, h, g
+    time_tfcm_bwd_stages(device, smi)
 
     bf, cq, cv = ATTN_STAGES[0]
     t = 626
@@ -1272,6 +1326,36 @@ def time_train_kernels(device, smi, lib: dict) -> dict:
     return entries
 
 
+def time_tfcm_bwd_stages(device, smi) -> None:
+    """tail_bwd and mid_bwd at config 5b's four stage shapes and d = 1, 2, 4,
+    8 (``ops/tfcm_bwd_timing.py``): the wrapper, the kernels alone, device
+    launches a call, the bound; mid_bwd's tile and what the card reports of
+    it; a step's 24 calls of each against their summed bound. Checks that
+    a mid_bwd call is at most two device launches."""
+    rows = time_tfcm_bwd(device, TFCM_STAGES, DILATIONS)
+    for row in rows:
+        line = describe(row)
+        if row["kernel"] == "mid_bwd":
+            plan = mid_plan(*row["shape"], row["d"])
+            info = mid_kernel_info(plan.smem)
+            line += (f"; tile {plan.kb} bands x {plan.tt} frames, {plan.tiles * row['shape'][2]} blocks, "
+                     f"{plan.smem} B of shared memory a block, {info['blocks_per_sm']} blocks an SM, "
+                     f"{info['threads']} threads, {info['registers']} registers, {info['spill_bytes']} B spilled")
+            require(row["launches_per_call"] <= MID_LAUNCHES_PER_CALL,
+                    f"a mid_bwd call is {row['launches_per_call']:.1f} <= {MID_LAUNCHES_PER_CALL} device "
+                    f"launches ({row['shape']}, d={row['d']}, profile)")
+        print(f"{line} on {smi}", flush=True)
+    for name in ("tail_bwd", "mid_bwd"):
+        mine = [r for r in rows if r["kernel"] == name]
+        step = {key: sum(r[key] for stage in STACK_STAGES for r in mine
+                         if list(r["shape"]) == list(TFCM_STAGES[stage]))
+                * (len(DILATIONS) if name == "tail_bwd" else 1)
+                for key in ("kernel_ms", "wrapper_ms", "bound_ms")}
+        print(f"{name}, a config-5b train step's {6 * len(DILATIONS)} calls (6 stacks at stages "
+              f"{STACK_STAGES} x d = {DILATIONS}) on {smi}: kernels alone {step['kernel_ms']:.3f} ms, "
+              f"wrappers {step['wrapper_ms']:.3f} ms, summed bound {step['bound_ms']:.3f} ms (bytes)")
+
+
 def time_train_step(device, smi) -> None:
     """One B=16 x 10 s config-5b train step with the kernels and with the plain
     versions (wall ms after a warm-up, peak memory), and a profile of a step."""
@@ -1302,19 +1386,33 @@ def time_train_step(device, smi) -> None:
             def one_step():
                 box["state"], _ = step(box["state"], data)
 
-            profile_calls(one_step, 2, f"B={MTFAA_BATCH} x {MTFAA_SECONDS} s config-5b train step, kernels")
+            prof = profile_calls(one_step, 2, f"B={MTFAA_BATCH} x {MTFAA_SECONDS} s config-5b train step, kernels")
+            mid_ms = sum(prof.device_ms.get(name, 0.0) for name in ("mid_tile_kernel", "mid_finish_kernel"))
+            print(f"config-5b train step on {smi}: mid_bwd's kernels {mid_ms:.3f} ms a step in "
+                  f"{sum(prof.launches.get(n, 0.0) for n in ('mid_tile_kernel', 'mid_finish_kernel')):.1f} "
+                  f"launches; {prof.kernels:.1f} device launches a step")
+            require(prof.kernels <= STEP_KERNELS_BEFORE - 96,
+                    f"the config-5b train step's profile shows {prof.kernels:.1f} device launches a step "
+                    f"<= {STEP_KERNELS_BEFORE} - 96")
             del box
         del model, state, step
         torch.cuda.empty_cache()
 
 
-def profile_calls(fn, calls: int, label: str) -> dict:
+class Profile(NamedTuple):
+    launches: dict  # *_kernel function -> launches a call
+    device_ms: dict  # *_kernel function -> device ms a call
+    kernels: float  # device launches a call, all kernels
+
+
+def profile_calls(fn, calls: int, label: str) -> Profile:
     """torch.profiler over `calls` calls of fn: device time by kernel (the 20
     that take most, then every hand-written kernel the calls launched, its
     template instances summed, with the share of the busy time they take
     together), the device's busy time per call (union of kernel intervals)
     and its idle share against the call's wall time measured without the
-    profiler. Returns the launches per call of every ``*_kernel`` function."""
+    profiler. Returns the launches and device time a call of every
+    ``*_kernel`` function, and the device launches a call."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
 
@@ -1359,7 +1457,8 @@ def profile_calls(fn, calls: int, label: str) -> dict:
     print(f"  hand-written kernels, {label}: {own_ms:.4f} ms per call = {own_ms / busy_ms:.1%} of the busy time")
     for name, (total, n) in sorted(own.items(), key=lambda kv: -kv[1][0]):
         print(f"  {total / calls:10.2f} us/call  {n / calls:5.1f}/call  {total / n:9.2f} us each  {name}")
-    return {name: n / calls for name, (_, n) in named.items()}
+    return Profile({name: n / calls for name, (_, n) in named.items()},
+                   {name: total / calls / 1e3 for name, (total, _) in named.items()}, len(kernels) / calls)
 
 
 def main() -> int:
@@ -1463,7 +1562,7 @@ def main() -> int:
     print(f"MTFAA config 5b auto enhancement B={b} x {seconds} s on {smi}: {kernel_s * 1e3:.1f} ms = "
           f"{b * seconds / kernel_s:.1f}x realtime with the kernels; plain versions "
           f"{plain_s * 1e3:.1f} ms = {b * seconds / plain_s:.1f}x realtime")
-    launched = profile_calls(lambda: inferencer.auto(x), 3, f"B={b} x {seconds} s config-5b auto forward")
+    launched = profile_calls(lambda: inferencer.auto(x), 3, f"B={b} x {seconds} s config-5b auto forward").launches
     require(launched.get("tfcm_layer_kernel") == 6 * len(DILATIONS) and "tfcm_eval_kernel" not in launched,
             f"the config-5b forward's profile shows {launched.get('tfcm_layer_kernel')} tfcm_layer_kernel "
             f"launches = 6 stacks x {len(DILATIONS)} layers, and no launch of the whole-ladder kernel")

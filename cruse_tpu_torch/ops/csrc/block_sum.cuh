@@ -6,10 +6,10 @@
 
 #include <cuda_runtime.h>
 
-// Sum v[i] over the block's WARPS * 32 threads into out[i]; every thread of
-// the block must call it.
+// Sum v[i] over the block's WARPS * 32 threads into out[i * stride]; every
+// thread of the block must call it.
 template <int WARPS, int N>
-__device__ void block_sum(float (&v)[N], float* out) {
+__device__ void block_sum(float (&v)[N], float* out, int stride = 1) {
   __shared__ float warp_sums[WARPS][N];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
@@ -23,6 +23,6 @@ __device__ void block_sum(float (&v)[N], float* out) {
     float s = 0.f;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) s += warp_sums[w][threadIdx.x];
-    out[threadIdx.x] = s;
+    out[threadIdx.x * stride] = s;
   }
 }

@@ -23,13 +23,17 @@ from cruse_tpu.ops.tfcm_bwd_kernels import tail_bwd as jax_tail_bwd
 from cruse_tpu_torch.models.mtfaa import BatchNormC, TFCMBlock
 from cruse_tpu_torch.ops.dw_kernel import dw_taps_reference
 from cruse_tpu_torch.ops.tfcm_bwd_kernels import (
-    mid_bwd, mid_bwd_reference, tail_bwd, tail_bwd_reference)
+    BLOCK_RESERVED_SMEM, MIN_BLOCKS_PER_SM, SM_SMEM_BYTES, SMEM_BYTES, mid_bwd, mid_bwd_reference,
+    mid_finish_reference, mid_partials_reference, mid_plan, mid_smem_bytes, tail_bwd, tail_bwd_reference)
 from cruse_tpu_torch.ops.tfcm_train import PARAM_NAMES, tfcm_block_reference, tfcm_block_train
 from cruse_tpu_torch.utils.weights import mtfaa_flax_from_named, mtfaa_state_dict_from_flax
 from tests.test_torch_tfcm import perturbed
 
 SHAPES = [((2, 8, 12, 50), 1), ((2, 6, 4, 40), 4), ((1, 4, 16, 131), 2)]  # tests/test_tfcm_train.py:96
 EPS = 1e-5
+# config 5b's TFCM stages at B=16 x 10 s, and the ragged shapes chip_smoke.py runs on the card
+STAGES = [(16, 64, 24, 626), (16, 32, 32, 626), (16, 16, 48, 626), (16, 128, 4, 626)]
+RAGGED = [((2, 5, 4, 19), 8), ((1, 3, 4, 40), 64), ((2, 7, 12, 131), 2)]
 
 
 def close(got, want, atol=0.0, rel_of_max=0.0):
@@ -108,6 +112,59 @@ def test_mid_bwd_has_no_dilation_limit(rng):
     close(got[4], a_.grad, atol=1e-4)
     close(got[5], bd.grad, atol=1e-4)
 
+
+
+@pytest.mark.parametrize("shape,d", [(s, d) for s in STAGES for d in (1, 2, 4, 8, 64)] + RAGGED
+                         + [((1, 4, 4, 2000), 700)])
+def test_mid_plan_gives_a_legal_tile(shape, d):
+    """Every tile of mid_plan's grid stages the dh2 its points read (a band
+    each side, and 2d frames after its own or up to the last frame) within its
+    shared memory, and the block fits the card; config 5b's stages get the
+    blocks an SM the plan aims at."""
+    b, k, c, t = shape
+    plan = mid_plan(b, k, c, t, d)
+    assert 1 <= plan.kb <= min(k, 8) and 1 <= plan.tt <= t
+    assert plan.tiles == b * -(-k // plan.kb) * -(-t // plan.tt)
+    assert plan.smem == mid_smem_bytes(plan.kb, plan.tt, t, d) <= SMEM_BYTES
+    stride = min(plan.tt + 2 * d, t)  # a staged dh2 row, as the kernel lays it out
+    assert plan.smem == 4 * ((plan.kb + 2) * stride + plan.kb * plan.tt)
+    for t0 in range(0, t, plan.tt):
+        staged = min(plan.tt + 2 * d, t - t0)
+        own = min(plan.tt, t - t0)
+        assert staged <= stride
+        assert staged == min(own + 2 * d, t - t0)  # the latest tap of the last own frame, or T
+    if shape in STAGES and d <= 8:
+        assert SM_SMEM_BYTES // (plan.smem + BLOCK_RESERVED_SMEM) >= MIN_BLOCKS_PER_SM
+
+
+TILINGS = [  # (B, K, C, T), d, forced (kb, tt)
+    ((2, 8, 12, 50), 1, (None, None)),
+    ((2, 13, 4, 131), 2, (4, None)),  # K not a multiple of kb
+    ((2, 9, 8, 131), 2, (None, 32)),  # T not a multiple of tt
+    ((1, 6, 4, 100), 64, (None, 32)),  # d >= tt
+    ((1, 16, 5, 626), 8, (None, None)),  # B = 1
+    ((2, 5, 4, 19), 8, (3, 7)),
+    ((1, 4, 4, 2000), 700, (None, None)),  # d = 700: the plan takes a smaller band group
+]
+
+
+@pytest.mark.parametrize("shape,d,forced", TILINGS)
+def test_mid_tiles_finish_to_the_reference_sums(rng, shape, d, forced):
+    """The plain versions of the kernel's two steps (per-tile f32 sums with the
+    taps taken around each point of h1a, then the float64 finish) give
+    mid_bwd_reference's five sums at any tile."""
+    c = shape[2]
+    dh2, h1 = T(*(rng.standard_normal(shape).astype(np.float32) for _ in range(2)))
+    wd, = T(rng.standard_normal((3, 3, c)).astype(np.float32))
+    m, v, ga, be, a = T(*stats(rng, c))
+    plan = mid_plan(*shape, d, *forced)
+    part = mid_partials_reference(dh2, h1, wd, m, v, ga, be, a, d, EPS, plan)
+    assert tuple(part.shape) == (c, 13, plan.tiles) and part.dtype == torch.float32
+    want = mid_bwd_reference(dh2, h1, wd, m, v, ga, be, a, d, EPS)
+    got = mid_finish_reference(part)
+    for g, w in zip(got, want[1:]):
+        assert g.dtype == torch.float32
+        close(g, w, rel_of_max=1e-4)
 
 def test_kernel_wrappers_check_their_inputs(rng):
     c = 4
