@@ -55,10 +55,12 @@ needed). In order, and any failure exits non-zero:
     case at d=1 and d=8 within 1e-5, ragged shapes (T=19 with a time tile of
     8, K not a multiple of the band tile, C=4), three layers, and six layers
     (config 5's depth) with T=50 < 2 x 32; the kernel runs one launch of
-    ``tfcm_layer_kernel`` a layer; and the temporal attention at
+    ``tfcm_layer_kernel`` a layer; and the temporal attention forward at
     the three stage geometries (BF=1024/512/256, c=6/8/12, C=24/32/48, T=626)
-    with window 126, without one, with T < window, T off the tile and
-    non-causal, within 1e-5; tolerances scale with max(1, max|ref|);
+    with window 126, without one, and non-causal, and at T < window, T off
+    the 32-query warp, T = 1, 31 and 33, window 1 and 32, BF = 1, c = 3 with
+    C = 12 and c = 16 with C = 48, within 1e-5, its logsumexp too (causal
+    cases); tolerances scale with max(1, max|ref|);
 11. drives config 5b's path: full-width MTFAA from
     ``configs/mtfaa_windowed.toml`` (seeded weights, BatchNorm statistics and
     PReLU slopes), ``BatchInferencer(type="auto").run_batched`` on the six
@@ -70,9 +72,14 @@ needed). In order, and any failure exits non-zero:
 12. times the TFCM stack at the four stage shapes and one block (ms, the
     bound, GB/s over the least bytes and over the design's bytes; for each
     layer its tile, buffers, shared memory a block, blocks an SM, registers
-    and spills as the card reports them), the attention at stage 0 with and
-    without the window, the deep filter at MTFAA's shape, and one B=16 x 10 s
-    config-5b enhancement with the kernels and with the plain versions
+    and spills as the card reports them), the attention forward at stage 0
+    with and without the window against its plain version, and at all three
+    stages with and without it (``ops/tattn_timing.py``: the kernel alone from
+    a profile, the wrapper, the bound, ``scaled_dot_product_attention`` with
+    the band mask, and the instance's registers, spills and blocks an SM,
+    checked to spill nothing and, from a trace that saw every call, to be one
+    device launch a call), the deep filter at MTFAA's shape, and one
+    B=16 x 10 s config-5b enhancement with the kernels and with the plain versions
     (x-realtime); profiles one B=16 forward (kernels per forward, device time
     by kernel, busy time and idle share) and checks that it shows 24
     ``tfcm_layer_kernel`` launches (6 stacks x 4 layers);
@@ -113,8 +120,8 @@ needed). In order, and any failure exits non-zero:
     and a check of at most two launches a call) and a step's 24 launches of
     each against their summed bound, the library
     calls that compute a kernel's function (cuDNN's depthwise convolution and
-    its backward, ``scaled_dot_product_attention`` with the band mask and its
-    backward, cuDNN's GRU per group, which also does the input projection),
+    its backward, the backward of ``scaled_dot_product_attention`` with the
+    band mask (its forward is timed in 12), cuDNN's GRU per group, which also does the input projection),
     one B=16 x 10 s train step with the kernels and with the plain versions,
     its peak memory, and profiles one step (``mid_bwd``'s device time a step,
     and a check that the step makes at least 96 device launches fewer than the
@@ -153,7 +160,7 @@ from cruse_tpu_torch.models.mtfaa import (
 from cruse_tpu_torch.nn.gru import GroupedGRULayer
 from cruse_tpu_torch.ops import _build
 from cruse_tpu_torch.ops.asa_kernel import (
-    band_mask, flash_tattn_tm, tattn_bwd_reference, tattn_dkv, tattn_dq, tattn_reference)
+    _launch_fwd, band_mask, flash_tattn_tm, tattn_bwd_reference, tattn_dkv, tattn_dq, tattn_reference)
 from cruse_tpu_torch.ops.deep_filter_kernel import deep_filter, deep_filter_reference
 from cruse_tpu_torch.ops.dw_kernel import (
     dw_bwd_reference, dw_causal_tm, dw_stencil_bwd, dw_stencil_fwd, dw_taps_reference)
@@ -166,7 +173,9 @@ from cruse_tpu_torch.ops.tfcm_kernel import (
 from cruse_tpu_torch.ops.tfcm_bwd_kernels import (
     launch_mid, mid_buffers, mid_bwd, mid_bwd_reference, mid_kernel_info, mid_partials_reference, mid_plan,
     mid_sums, tail_bwd, tail_bwd_reference)
-from cruse_tpu_torch.ops.tfcm_bwd_timing import describe, time_tfcm_bwd
+from cruse_tpu_torch.ops.tattn_timing import attn_inputs, band_pairs, time_tattn_fwd
+from cruse_tpu_torch.ops.tattn_timing import describe as describe_tattn
+from cruse_tpu_torch.ops.tfcm_bwd_timing import bound, describe, time_tfcm_bwd
 from cruse_tpu_torch.ops.tfcm_train import PARAM_NAMES, tfcm_block_reference, tfcm_block_train
 from cruse_tpu_torch.train.step import (
     StepConfig, init_train_state, make_loss_gradients, make_train_step)
@@ -176,7 +185,6 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 KERNELS = ("gru_sequence", "deep_filter", "tfcm_eval", "tattn", "dw_stencil", "tfcm_bwd",
            "tattn_bwd")  # csrc/<name>.cu
-PEAK_BYTES, PEAK_FMA = 3.35e12, 33.5e12  # an H100's HBM bytes/s and f32 multiply-adds/s (67 TFLOP/s)
 CONFIG1_GRU = (256, 1001, 4, 176)  # B, T, G, H of config 1's bottleneck banks
 STREAM_GRU = ((256, 1, 4, 176), (8, 1, 4, 176))  # config 3's streaming hop
 RAGGED_GRU = ((3, 7, 4, 176), (3, 7, 3, 50))
@@ -690,30 +698,37 @@ def check_tfcm_kernel(device) -> tuple[float, float]:
     return worst["stack"], worst["block"]
 
 
-def attn_inputs(bf, c, cv, t, device, seed):
-    gen = torch.Generator(device).manual_seed(seed)
-    return [torch.randn(shape, generator=gen, device=device) for shape in ((bf, c, t), (bf, c, t), (bf, cv, t))]
-
-
 def check_attn_kernel(device) -> float:
-    """Temporal-attention kernel vs the plain version on the card; returns
-    the largest max-abs error."""
+    """Temporal-attention forward kernel vs the plain version on the card, and
+    its logsumexp (causal cases) vs the plain logsumexp of the masked logits;
+    returns the largest max-abs error of the output."""
     worst = 0.0
     cases = [(bf, c, cv, 626, w, True) for bf, c, cv in ATTN_STAGES for w in (WINDOW, None)]
     cases += [(bf, c, cv, 626, None, False) for bf, c, cv in ATTN_STAGES]
     cases += [(64, 6, 24, 100, WINDOW, True),  # T < window
-              (64, 8, 32, 200, WINDOW, True), (64, 12, 48, 200, 50, True),  # T off the 128 tile
-              (64, 6, 24, 200, None, False), (5, 3, 12, 37, 7, True)]
+              (64, 8, 32, 200, WINDOW, True), (64, 12, 48, 200, 50, True),  # T off the 32-query warp
+              (64, 6, 24, 200, None, False), (5, 3, 12, 37, 7, True),
+              (64, 6, 24, 1, WINDOW, True), (64, 6, 24, 31, WINDOW, True),  # T = 1, inside one key tile
+              (64, 8, 32, 33, None, True), (64, 8, 32, 33, None, False),  # one key past a tile
+              (64, 8, 32, 200, 1, True), (64, 8, 32, 200, 32, True),  # window 1 and one tile
+              (1, 6, 24, 626, WINDOW, True),  # BF = 1
+              (7, 3, 12, 300, WINDOW, True), (7, 16, 48, 300, WINDOW, True),  # c = 3 / 16, C = 12 / 48
+              (7, 16, 48, 300, None, False)]
     for bf, c, cv, t, window, causal in cases:
         q, k, v = attn_inputs(bf, c, cv, t, device, SEED)
+        what = f"tattn BF={bf} c={c} C={cv} T={t} window={window} causal={causal}"
         with torch.inference_mode():
             got = flash_tattn_tm(q, k, v, window, causal=causal)
+            lse = _launch_fwd(q, k, v, window, causal, with_lse=True)[1] if causal else None
             torch.cuda.synchronize()
             want = tattn_reference(q, k, v, window, causal)
-        err, scale = scaled_err(got, want)
-        require(bool(torch.isfinite(got).all()) and err <= ATTN_TOL * scale,
-                f"tattn BF={bf} c={c} C={cv} T={t} window={window} causal={causal}: "
-                f"max-abs {err:.3g} <= {ATTN_TOL} x {scale:.3g}")
+            err, scale = scaled_err(got, want)
+            require(bool(torch.isfinite(got).all()) and err <= ATTN_TOL * scale,
+                    f"{what}: max-abs {err:.3g} <= {ATTN_TOL} x {scale:.3g}")
+            if lse is not None:
+                logits = (torch.einsum("bct,bcs->bts", q, k) * c ** -0.5).masked_fill_(
+                    ~band_mask(t, window, device), -math.inf)
+                require_close(lse, torch.logsumexp(logits, dim=-1), ATTN_TOL, f"{what}: logsumexp")
         worst = max(worst, err)
     return worst
 
@@ -905,17 +920,28 @@ def time_mtfaa_kernels(device, smi) -> dict:
         print_tfcm_layers(TFCM_STAGES[0], (1,), smi)
         times["tfcm_block"] = (ms, plain)
         del x, params
-        bf, c, cv = ATTN_STAGES[0]
-        q, k, v = attn_inputs(bf, c, cv, 626, device, SEED + 1)
-        for window in (WINDOW, None):
-            ms = cuda_ms(lambda: flash_tattn_tm(q, k, v, window), reps=20)
-            plain = cuda_ms(lambda: tattn_reference(q, k, v, window), reps=5)
-            least = bound(4 * bf * 626 * (2 * c + 2 * cv), bf * band_pairs(626, window) * (c + cv))
-            print(f"tattn BF={bf} c={c} C={cv} T=626 window={window} on {smi}: kernel {ms:.3f} ms, "
-                  f"bound {least['bound_ms']:.4f} ms ({least['bound_by']}), plain {plain:.3f} ms ({'kernel faster' if ms < plain else 'KERNEL SLOWER'}; "
-                  f"the plain logits are {bf * 626 * 626 * 4 / 1e9:.3f} GB)")
-            times.setdefault("tattn", (ms, plain))
-        del q, k, v
+    # the forward at all three stage geometries, with and without the window
+    # (ops/tattn_timing.py: kernel alone, wrapper, bound, library call,
+    # instance), and at stage 0 the plain version
+    times["tattn_stages"] = time_tattn_fwd(device, ATTN_STAGES, (WINDOW, None))
+    bf, c, cv = ATTN_STAGES[0]
+    q, k, v = attn_inputs(bf, c, cv, 626, device, SEED + 1)
+    for row in times["tattn_stages"]:
+        require(row["info"]["spill_bytes"] == 0, f"the tattn forward instance at c={row['c']}, C={row['C']} "
+                f"spills nothing")
+        require(row["traced"] == row["calls"] and row["launches_per_call"] <= 1,
+                f"a profile of {row['calls']} tattn forward calls (window {row['window']}) saw each call's "
+                f"kernel ({row['traced']}) and {row['launches_per_call']:.1f} <= 1 device launches a call")
+        line = describe_tattn(row)
+        if (row["bf"], row["c"], row["C"]) == (bf, c, cv):
+            with torch.inference_mode():
+                plain = cuda_ms(lambda: tattn_reference(q, k, v, row["window"]), reps=5)
+            line += (f"; plain {plain:.3f} ms ({'kernel faster' if row['wrapper_ms'] < plain else 'KERNEL SLOWER'}; "
+                     f"the plain logits are {bf * 626 * 626 * 4 / 1e9:.3f} GB)")
+            times.setdefault("tattn", (row["wrapper_ms"], plain))
+        print(f"{line} on {smi}", flush=True)
+    del q, k, v
+    with torch.inference_mode():
         b, t, f, t_dim, f_dim = MTFAA_DF[:5]
         spec, coefs, _ = df_inputs(*MTFAA_DF, device, SEED + 1)
         ms = cuda_ms(lambda: deep_filter(spec, coefs, t_dim, f_dim), reps=20)
@@ -927,18 +953,6 @@ def time_mtfaa_kernels(device, smi) -> dict:
               f"({least['bound_by']}), plain {plain:.3f} ms "
               f"({'kernel faster' if ms < plain else 'KERNEL SLOWER'})")
     return times
-
-
-def bound(nbytes: float, fmas: float) -> dict:
-    """The least time (ms) the card could take: the larger of the bytes over
-    its memory rate and the multiply-adds over its f32 rate."""
-    by_bytes, by_ops = nbytes / PEAK_BYTES * 1e3, fmas / PEAK_FMA * 1e3
-    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
-
-
-def band_pairs(t: int, window) -> int:
-    """(query, key) pairs of one row of the causal band."""
-    return sum(min(i + 1, window or t) for i in range(t))
 
 
 def stage_inputs(b, k, c, t, d, device, seed):
@@ -1238,14 +1252,8 @@ def library_ms(device) -> dict:
     q, kk, v = attn_inputs(bf, cq, cv, 626, device, SEED + 1)
     dout = attn_inputs(bf, cq, cv, 626, device, SEED + 2)[2].transpose(1, 2)[:, None].contiguous()
     q4, k4, v4 = (u.transpose(1, 2)[:, None].contiguous().requires_grad_() for u in (q, kk, v))  # [BF, 1, T, c]
-    for window in (WINDOW, None):
+    for window in (WINDOW, None):  # the forward's library time comes from ops/tattn_timing.py
         mask = band_mask(626, window, device)
-        with torch.inference_mode():
-            got = F.scaled_dot_product_attention(q4.detach(), k4.detach(), v4.detach(), attn_mask=mask)
-            require_close(got[:, 0].transpose(1, 2), flash_tattn_tm(q, kk, v, window), 1e-4,
-                          f"scaled_dot_product_attention computes the attention (window={window})")
-            times[f"tattn_{window}"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q4.detach(), k4.detach(), v4.detach(), attn_mask=mask), reps=10)
         out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
         times[f"tattn_bwd_{window}"] = cuda_ms(lambda: torch.autograd.grad(
             out, (q4, k4, v4), dout, retain_graph=True), reps=5)
@@ -1604,8 +1612,7 @@ def main() -> int:
     layer_fmas = b * k * t * c * (2 * c + 9)
     stack_bound = bound(2 * 4 * b * k * c * t, len(DILATIONS) * layer_fmas)
     block_bound = bound(2 * 4 * b * k * c * t, layer_fmas)
-    bf, cq, cv = ATTN_STAGES[0]
-    attn_bound = bound(4 * bf * 626 * (2 * cq + 2 * cv), bf * band_pairs(626, WINDOW) * (cq + cv))
+    attn_row = times["tattn_stages"][0]  # stage 0, window 126
 
     def entry(name, source, replaces, launches, err, times, bounds, library):
         return {"name": name, "route": "cuda", "source": f"cruse_tpu_torch/ops/csrc/{source}.cu",
@@ -1627,8 +1634,10 @@ def main() -> int:
               times["tfcm_stack"], stack_bound, None),
         entry("tfcm_block", "tfcm_eval", "tfcm_kernel.py:103", block_launches, block_err,
               times["tfcm_block"], block_bound, None),
-        entry("tattn", "tattn", "asa_kernel.py:190", attn_launches + train_launches["tattn"], attn_err,
-              times["tattn"], attn_bound, lib[f"tattn_{WINDOW}"]),
+        {**entry("tattn", "tattn", "asa_kernel.py:190", attn_launches + train_launches["tattn"], attn_err,
+                 times["tattn"], {key: attn_row[key] for key in ("bound_ms", "bound_by")}, attn_row["library_ms"]),
+         "stages": [{key: row[key] for key in ("bf", "c", "C", "window", "kernel_ms", "wrapper_ms", "bound_ms",
+                                                "library_ms")} for row in times["tattn_stages"]]},
         train_entry("dw_stencil_fwd", "dw_stencil", "dw_kernel.py:174", train_launches["dw_stencil_fwd"],
                     train_errs["dw_fwd"]),
         train_entry("dw_stencil_bwd", "dw_stencil", "dw_kernel.py:197", pallas_launches["dw_stencil_bwd"],

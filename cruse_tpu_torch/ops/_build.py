@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
@@ -47,8 +48,8 @@ def nvcc_command(nvcc: str, source: Path, output: Path) -> list[str]:
 
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if needed and load it; the build report
-    (ptxas registers and spills) is printed when it is built."""
+    """Build ``csrc/<name>.cu`` if needed and load it; the build's time and
+    report (ptxas registers and spills) are printed when it is built."""
     source = SRC_DIR / f"{name}.cu"
     if not source.is_file():
         raise RuntimeError(f"kernel source missing: {source}")
@@ -59,11 +60,13 @@ def load_library(name: str) -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         partial = BUILD_DIR / f"tmp{os.getpid()}-{library.name}"
         cmd = nvcc_command(find_nvcc(), source, partial)
+        start = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - start
         report = (proc.stdout + proc.stderr).strip()
         if proc.returncode != 0:
             partial.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed ({proc.returncode}) building {source}:\n{report}")
-        print(f"built {library.name}: {' '.join(cmd)}\n{report}", flush=True)
+        print(f"built {library.name} in {seconds:.1f} s: {' '.join(cmd)}\n{report}", flush=True)
         os.replace(partial, library)  # atomic: a concurrent loader sees all or nothing
     return ctypes.CDLL(str(library))

@@ -16,10 +16,12 @@ causal whatever it is given; this one is not.
 autograd is the plain backward) and launches the hand-written kernels for
 tensors on a CUDA device; on a CUDA device it launches or raises. Without a
 gradient to compute it is one launch of the forward kernel
-(``csrc/tattn.cu``, flash-style: no T x T tensor). With one, the forward also
-writes each query's logsumexp ``[BF, T]``, and the backward computes
-``D = sum_C dO * O`` in PyTorch and launches ``tattn_dq`` and ``tattn_dkv``
-(``csrc/tattn_bwd.cu``), which recompute the probabilities from the
+(``csrc/tattn.cu``, flash-style: no T x T tensor; a warp walks the 32-key
+tiles of its own 32 queries' band with a base-2 online softmax, which
+``tattn_band_tiles`` and ``tattn_online_reference`` spell out in PyTorch).
+With one, the forward also writes each query's logsumexp ``[BF, T]``, and
+the backward computes ``D = sum_C dO * O`` in PyTorch and launches
+``tattn_dq`` and ``tattn_dkv`` (``csrc/tattn_bwd.cu``), which recompute the probabilities from the
 logsumexp; the scale 1/sqrt(c) is applied once to dq and dk inside them. The
 backward is causal only: ``causal=False`` under a gradient raises.
 ``flash_tattn_tm.launches``, ``tattn_dq.launches`` and
@@ -38,6 +40,10 @@ from cruse_tpu_torch.ops import _build
 
 MAX_QK_CHANNELS = 16  # c of q and k (the source's widest CQ instance)
 MAX_V_CHANNELS = 48  # C of v (the widest CV instance)
+# the forward kernel's walk (csrc/tattn.cu): keys a tile, keys whose logits a
+# thread holds at once, queries a warp (one a lane)
+KEY_TILE, HALF_TILE, WARP_QUERIES = 32, 16, 32
+LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
 
 
 def band_mask(t: int, window: Optional[int], device) -> torch.Tensor:
@@ -56,6 +62,70 @@ def tattn_reference(q, k, v, window: Optional[int] = None, causal: bool = True):
     if causal:
         logits = logits.masked_fill(~band_mask(t, window, q.device), -1e9)
     return torch.einsum("bts,bcs->bct", torch.softmax(logits, dim=-1), v)
+
+
+def tattn_band_tiles(q0: int, nq: int, t: int, window: Optional[int] = None, causal: bool = True,
+                     key_tile: int = KEY_TILE) -> list:
+    """The key tiles that the queries ``[q0, q0 + nq)`` (those below ``t``)
+    see, in order: ``[(first key, masked), ...]``. A tile is masked when some
+    key of it lies outside some live query's band (or past ``t``); every
+    other tile lies inside every query's band. With ``nq = WARP_QUERIES``,
+    the walk of a warp of the forward kernel, whose index arithmetic
+    (``csrc/tattn.cu``, ``tile_masked``) this is."""
+    q_hi = min(q0 + nq, t) - 1
+    s_lo, s_hi = 0, t - 1
+    if causal:
+        s_hi = q_hi
+        if window is not None:
+            s_lo = max(0, q0 - window + 1)
+    tiles = []
+    for s0 in range(s_lo // key_tile * key_tile, s_hi + 1, key_tile):
+        if causal:
+            masked = s0 + key_tile - 1 > q0 or (window is not None and s0 < q_hi - window + 1)
+        else:
+            masked = s0 + key_tile > t
+        tiles.append((s0, masked))
+    return tiles
+
+
+def tattn_online_reference(q, k, v, window: Optional[int] = None, causal: bool = True,
+                           queries_per_warp: int = WARP_QUERIES):
+    """The forward kernel's walk in PyTorch: ``(out, lse)``. For each warp of
+    ``queries_per_warp`` queries, the tiles of ``tattn_band_tiles`` in halves of
+    ``HALF_TILE`` keys, a base-2 online softmax (log2(e)/sqrt(c) folded into
+    q, the accumulators rescaled where a half tile raises the running max,
+    masked keys -inf against a running max that starts at -1e30), and the
+    natural-log logsumexp ``ln 2 * (m2 + log2 l)``. No card or JAX path calls
+    it; the CPU tests hold it against the reference."""
+    bf, c, t = q.shape
+    q2 = q * (LOG2E / math.sqrt(c))
+    out = torch.empty_like(v)
+    lse = torch.empty((bf, t), dtype=q.dtype, device=q.device)
+    for q0 in range(0, t, queries_per_warp):
+        tq = torch.arange(q0, min(q0 + queries_per_warp, t), device=q.device)
+        qw = q2[:, :, tq]
+        m = torch.full((bf, len(tq)), -1e30, dtype=q.dtype, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((bf, v.shape[1], len(tq)), dtype=v.dtype, device=v.device)
+        for s0, masked in tattn_band_tiles(q0, queries_per_warp, t, window, causal):
+            for h0 in range(s0, min(s0 + KEY_TILE, t), HALF_TILE):
+                keys = torch.arange(h0, min(h0 + HALF_TILE, t), device=q.device)  # keys past t add 0
+                s = torch.einsum("bcn,bcs->bns", qw, k[:, :, keys])
+                if masked and causal:
+                    ok = keys[None, :] <= tq[:, None]
+                    if window is not None:
+                        ok = ok & (keys[None, :] > tq[:, None] - window)
+                    s = s.masked_fill(~ok, -math.inf)
+                top = s.amax(dim=-1)
+                rises = top > m
+                corr = torch.where(rises, torch.exp2(m - top), torch.ones_like(m))
+                m = torch.where(rises, top, m)
+                p = torch.exp2(s - m[..., None])
+                l = l * corr + p.sum(dim=-1)
+                acc = acc * corr[:, None] + torch.einsum("bns,bcs->bcn", p, v[:, :, keys])
+        out[:, :, tq] = acc / l[:, None]
+        lse[:, tq] = LN2 * (m + torch.log2(l))
+    return out, lse
 
 
 def _check(q, k, v, window):
@@ -108,14 +178,28 @@ def tattn_bwd_reference(q, k, v, dout, window: Optional[int] = None):
 
 @functools.lru_cache(maxsize=None)
 def _kernels():
-    fwd = _build.load_library("tattn").tattn_fwd_f32
+    lib = _build.load_library("tattn")
+    fwd, info = lib.tattn_fwd_f32, lib.tattn_fwd_info
     bwd = _build.load_library("tattn_bwd")
     dq, dkv = bwd.tattn_dq_f32, bwd.tattn_dkv_f32
     fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     dq.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     dkv.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fwd.restype = dq.restype = dkv.restype = ctypes.c_int
-    return fwd, dq, dkv
+    fwd.restype = info.restype = dq.restype = dkv.restype = ctypes.c_int
+    return fwd, dq, dkv, info
+
+
+def tattn_fwd_info(c: int, cv: int) -> dict:
+    """The forward kernel's instance for head widths (c, C) on the current
+    CUDA device: registers and local (spill) bytes a thread, blocks an SM,
+    threads a block, shared memory a block (bytes), queries a warp."""
+    info = (ctypes.c_int * 6)()
+    err = _kernels()[3](c, cv, info)
+    if err != 0:
+        raise RuntimeError(f"tattn_fwd_info failed with CUDA error {err} (c={c}, C={cv})")
+    return dict(zip(("registers", "spill_bytes", "blocks_per_sm", "threads", "smem_bytes",
+                     "warp_queries"), info))
 
 
 def _check_launch(what, **tensors):

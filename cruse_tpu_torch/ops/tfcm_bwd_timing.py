@@ -31,9 +31,12 @@ from cruse_tpu_torch.ops.tfcm_bwd_kernels import mid_bwd, tail_bwd
 
 STAGES = ((16, 64, 24, 626), (16, 32, 32, 626), (16, 16, 48, 626), (16, 128, 4, 626))
 DILATIONS = (1, 2, 4, 8)
-PEAK_BYTES = 3.35e12  # an H100 SXM's HBM3 bytes/s
+PEAK_BYTES, PEAK_FMA = 3.35e12, 33.5e12  # an H100 SXM's HBM3 bytes/s and f32 multiply-adds/s (67 TFLOP/s)
 EPS = 1e-5
 KERNEL_NAME = re.compile(r"\b(tail|mid)_\w*kernel\b")  # the hand-written kernels of both phases
+MARKER_NAME = re.compile(r"\bspin_kernel\b")  # torch.cuda._sleep's kernel: marks where the traced calls start and end
+MARKERS, MARKER_CYCLES = 16, 1000  # markers a side, and the clock cycles each spins
+TRIES = 6  # traces taken of one case before one that missed launches is accepted or refused
 
 
 def card() -> str:
@@ -57,6 +60,13 @@ def stage_inputs(shape, device, seed: int = 0):
     return randn(b, k, c, t), randn(b, k, c, t), randn(3, 3, c, scale=1 / 3), stats
 
 
+def bound(nbytes: float, fmas: float) -> dict:
+    """The least time (ms) the card could take: the larger of the bytes over
+    its memory rate and the multiply-adds over its f32 rate."""
+    by_bytes, by_ops = nbytes / PEAK_BYTES * 1e3, fmas / PEAK_FMA * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
 def events_ms(fn, reps: int) -> float:
     """Mean time (ms) of fn() over reps back-to-back calls, after a warm-up."""
     fn()
@@ -71,20 +81,57 @@ def events_ms(fn, reps: int) -> float:
 
 
 def kernel_events(fn, calls: int) -> list:
-    """The kernel events of a torch.profiler trace of `calls` calls of fn."""
+    """The kernel events of a torch.profiler trace of `calls` calls of fn:
+    the kernels the card ran between two markers (``torch.cuda._sleep``'s
+    ``spin_kernel``) launched on the same stream just before and just after
+    the calls (``marked_kernels``), or none where the trace lost a marker.
+    The device's own timestamps order them, so neither a host clock that
+    disagrees with the device's nor kernels an earlier trace left behind can
+    move a kernel in or out of the calls. The trace holds host activity too:
+    inside chip_smoke.py, traces of the device alone came back empty now and
+    then."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(MARKERS):
+            torch.cuda._sleep(MARKER_CYCLES)
         for _ in range(calls):
             fn()
+        for _ in range(MARKERS):
+            torch.cuda._sleep(MARKER_CYCLES)
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         prof.export_chrome_trace(f"{tmp}/trace.json")
         with open(f"{tmp}/trace.json") as fh:
-            return [e for e in json.load(fh)["traceEvents"] if e.get("cat") == "kernel" and "dur" in e]
+            events = json.load(fh)["traceEvents"]
+    kernels = marked_kernels(events)
+    if kernels is None:
+        held = [bool(MARKER_NAME.search(e["name"])) for e in sorted(
+            (e for e in events if e.get("cat") == "kernel" and "dur" in e), key=lambda e: e["ts"])]
+        at = [i for i, marker in enumerate(held) if marker]
+        print(f"a trace of {calls} calls held {len(held)} kernels and no pair of markers around them: "
+              f"{len(at)} markers, at {at[:1] + at[-1:]} of its kernels in the device's order", flush=True)
+    return kernels or []
 
 
-def profiled(fn, calls: int, tries: int = 3) -> tuple[float, float, dict]:
+def marked_kernels(events: list) -> list | None:
+    """The kernel events between the last marker that a non-marker kernel
+    follows and the next marker after that, in the device's order; None
+    where there is no such pair. The markers before and after the calls
+    come in runs of ``MARKERS``, so a trace that lost its first or its last
+    few events still opens and closes the calls (inside chip_smoke.py a trace
+    lost 3 of 3 markers a side on six tries in a row)."""
+    kernels = sorted((e for e in events if e.get("cat") == "kernel" and "dur" in e), key=lambda e: e["ts"])
+    marker = [bool(MARKER_NAME.search(e["name"])) for e in kernels]
+    opening = max((i for i in range(len(kernels) - 1) if marker[i] and not marker[i + 1]), default=None)
+    if opening is None:
+        return None
+    closing = next((i for i in range(opening + 1, len(kernels)) if marker[i]), None)
+    return None if closing is None else kernels[opening + 1:closing]
+
+
+def profiled(fn, calls: int, tries: int = TRIES) -> tuple[float, float, dict]:
     """(device ms a call of the hand-written kernels, device launches a call,
     {kernel: ms a call}) from a torch.profiler trace of `calls` calls. A trace
     may miss launches, now and then all of them, so a trace with fewer than
@@ -93,10 +140,13 @@ def profiled(fn, calls: int, tries: int = 3) -> tuple[float, float, dict]:
     call in the trace."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    for attempt in range(tries):
         events = kernel_events(fn, calls)
-        if sum(bool(KERNEL_NAME.search(e["name"])) for e in events) >= calls:
+        seen = sum(bool(KERNEL_NAME.search(e["name"])) for e in events)
+        if seen >= calls:
             break
+        print(f"profile {attempt + 1} of {calls} calls saw {seen} hand-written launches "
+              f"({tries - attempt - 1} tries left)", flush=True)
     else:
         raise RuntimeError(f"{tries} profiles of {calls} calls missed the hand-written kernels")
     by_kernel: dict = {}
