@@ -93,8 +93,12 @@ needed). In order, and any failure exits non-zero:
     time tile, d >= the time tile, B = 1, T = 1500, d = 700) into
     outputs and per-tile partial sums filled with NaN first, the partials held
     against their plain version; and the attention backward (dq, dk/dv) at the three stage
-    geometries with window 126, without one, with T < window and T off the
-    tile (1e-5), alone and through ``flash_tattn_tm`` under autograd; then
+    geometries with window 126 and without one, with T < window, T off the
+    tile, T = 1, 31 and 33 (a last key block of one key), window 1 and 32,
+    BF = 1, c = 3 with C = 12 and c = 16 with C = 48 (1e-5), through
+    ``flash_tattn_tm`` under autograd (one launch of each kernel a call) and
+    the dk/dv kernel again into dk and dv filled with NaN first, after a check
+    that config 5b's three dk/dv instances spill nothing; then
     ``tfcm_block_train``'s six outputs and thirteen gradients against autograd
     through the plain block (gradients: relative 2e-3 or absolute 1e-3 of the
     largest gradient);
@@ -120,8 +124,14 @@ needed). In order, and any failure exits non-zero:
     and a check of at most two launches a call) and a step's 24 launches of
     each against their summed bound, the library
     calls that compute a kernel's function (cuDNN's depthwise convolution and
-    its backward, the backward of ``scaled_dot_product_attention`` with the
-    band mask (its forward is timed in 12), cuDNN's GRU per group, which also does the input projection),
+    its backward, cuDNN's GRU per group, which also does the input
+    projection), the attention's dk/dv and dq kernels at the three stage
+    geometries with and without the window (``ops/tattn_timing.py``: the
+    kernels alone from a profile, checked to be one device launch a call,
+    the wrappers, the bound, the backward of ``scaled_dot_product_attention``
+    with the band mask as the library call (its forward is timed in 12),
+    the dk/dv instance's registers, spills and blocks an SM) and the plain
+    dense backward at stage 0,
     one B=16 x 10 s train step with the kernels and with the plain versions,
     its peak memory, and profiles one step (``mid_bwd``'s device time a step,
     and a check that the step makes at least 96 device launches fewer than the
@@ -160,7 +170,8 @@ from cruse_tpu_torch.models.mtfaa import (
 from cruse_tpu_torch.nn.gru import GroupedGRULayer
 from cruse_tpu_torch.ops import _build
 from cruse_tpu_torch.ops.asa_kernel import (
-    _launch_fwd, band_mask, flash_tattn_tm, tattn_bwd_reference, tattn_dkv, tattn_dq, tattn_reference)
+    _launch_dkv, _launch_fwd, band_mask, flash_tattn_tm, tattn_bwd_reference, tattn_dkv, tattn_dkv_info, tattn_dq,
+    tattn_reference)
 from cruse_tpu_torch.ops.deep_filter_kernel import deep_filter, deep_filter_reference
 from cruse_tpu_torch.ops.dw_kernel import (
     dw_bwd_reference, dw_causal_tm, dw_stencil_bwd, dw_stencil_fwd, dw_taps_reference)
@@ -173,7 +184,7 @@ from cruse_tpu_torch.ops.tfcm_kernel import (
 from cruse_tpu_torch.ops.tfcm_bwd_kernels import (
     launch_mid, mid_buffers, mid_bwd, mid_bwd_reference, mid_kernel_info, mid_partials_reference, mid_plan,
     mid_sums, tail_bwd, tail_bwd_reference)
-from cruse_tpu_torch.ops.tattn_timing import attn_inputs, band_pairs, time_tattn_fwd
+from cruse_tpu_torch.ops.tattn_timing import attn_inputs, time_tattn_bwd, time_tattn_fwd
 from cruse_tpu_torch.ops.tattn_timing import describe as describe_tattn
 from cruse_tpu_torch.ops.tfcm_bwd_timing import bound, describe, time_tfcm_bwd
 from cruse_tpu_torch.ops.tfcm_train import PARAM_NAMES, tfcm_block_reference, tfcm_block_train
@@ -246,6 +257,8 @@ HAND_WRITTEN = frozenset((  # the __global__ functions of ops/csrc/*.cu, as a pr
 STEP_LAUNCHES = {"dw_stencil_fwd": 24, "dw_stencil_bwd": 0, "tail_bwd": 24, "mid_bwd": 24,
                  "tattn": 3, "tattn_dq": 3, "tattn_dkv": 3, "tfcm_stack": 0, "tfcm_block": 0,
                  "deep_filter": 0, "gru_sequence": 0}
+# what the kernels line gives of each attention kernel's timed stage geometries (ops/tattn_timing.py's rows)
+STAGE_KEYS = ("bf", "c", "C", "window", "kernel_ms", "wrapper_ms", "bound_ms", "library_ms")
 STEP_KERNELS_BEFORE = 6270  # device launches of a config-5b train step when a mid_bwd call made 8
 MID_LAUNCHES_PER_CALL = 2  # mid_tile_kernel and mid_finish_kernel
 
@@ -1037,13 +1050,25 @@ def check_mid_tiles(device) -> float:
 
 def check_attn_bwd(device) -> tuple[float, float]:
     """The attention's dq and dk/dv kernels against the plain dense backward on
-    the card, fed by the forward kernel's output and logsumexp, and once
-    through autograd on ``flash_tattn_tm``; returns (dq, dk/dv) largest errors."""
+    the card, through autograd on ``flash_tattn_tm`` (one launch of each a
+    call), and the dk/dv kernel again through ``_launch_dkv`` into dk and dv
+    filled with NaN first, fed by the forward kernel's output and logsumexp,
+    so an element that no lane writes shows; first, that config 5b's three
+    dk/dv instances spill nothing. Returns (dq, dk/dv) largest errors."""
+    for _, c, cv in ATTN_STAGES:
+        info = tattn_dkv_info(c, cv)
+        require(info["spill_bytes"] == 0, f"the tattn_dkv instance at c={c}, C={cv} spills nothing "
+                f"({info['registers']} registers, {info['blocks_per_sm']} blocks an SM)")
     worst_dq = worst_dkv = 0.0
     cases = [(bf, c, cv, 626, w) for bf, c, cv in ATTN_STAGES for w in (WINDOW, None)]
     cases += [(64, 6, 24, 100, WINDOW),  # T < window
               (64, 8, 32, 200, WINDOW), (64, 12, 48, 200, 50),  # T off the 128 tile
-              (5, 3, 12, 37, 7), (3, 2, 8, 300, None)]
+              (5, 3, 12, 37, 7), (3, 2, 8, 300, None),
+              (64, 6, 24, 1, WINDOW), (64, 6, 24, 31, WINDOW),  # T = 1, inside one 32-frame tile
+              (64, 8, 32, 33, None), (64, 8, 32, 65, WINDOW),  # the last key block holds one key
+              (64, 8, 32, 200, 1), (64, 8, 32, 200, 32),  # window 1 and one tile
+              (1, 6, 24, 626, WINDOW),  # BF = 1
+              (7, 3, 12, 300, WINDOW), (7, 16, 48, 300, WINDOW), (7, 16, 48, 300, None)]  # c = 3 / 16, C = 12 / 48
     for bf, c, cv, t, window in cases:
         q, k, v = attn_inputs(bf, c, cv, t, device, SEED)
         dout = attn_inputs(bf, c, cv, t, device, SEED + 1)[2]
@@ -1059,10 +1084,15 @@ def check_attn_bwd(device) -> tuple[float, float]:
         with torch.inference_mode():
             want = tattn_bwd_reference(q, k, v, dout, window)
             require_close(out, tattn_reference(q, k, v, window), ATTN_TOL, f"tattn forward (lse) {what}")
-        worst_dq = max(worst_dq, require_close(got[0], want[0], ATTN_TOL, f"tattn_dq {what}"))
-        worst_dkv = max(worst_dkv, require_close(got[1], want[1], ATTN_TOL, f"tattn_dkv dk {what}"),
-                        require_close(got[2], want[2], ATTN_TOL, f"tattn_dkv dv {what}"))
-        del q, k, v, dout, out, got, want
+            worst_dq = max(worst_dq, require_close(got[0], want[0], ATTN_TOL, f"tattn_dq {what}"))
+            worst_dkv = max(worst_dkv, require_close(got[1], want[1], ATTN_TOL, f"tattn_dkv dk {what}"),
+                            require_close(got[2], want[2], ATTN_TOL, f"tattn_dkv dv {what}"))
+            out, lse = _launch_fwd(q, k, v, window, True, with_lse=True)
+            dk, dv = torch.full_like(k, math.nan), torch.full_like(v, math.nan)
+            _launch_dkv(q, k, v, dout, lse, (dout * out).sum(dim=1), window, dk, dv)
+            worst_dkv = max(worst_dkv, require_close(dk, want[1], ATTN_TOL, f"tattn_dkv dk into NaN {what}"),
+                            require_close(dv, want[2], ATTN_TOL, f"tattn_dkv dv into NaN {what}"))
+        del q, k, v, dout, out, lse, got, want, dk, dv
     return worst_dq, worst_dkv
 
 
@@ -1247,18 +1277,7 @@ def library_ms(device) -> dict:
         times["dw_bwd"] = cuda_ms(lambda: torch.ops.aten.convolution_backward(
             gy, x, w, None, (1, 1), (1, 0), (1, d), False, (0, 0), c, (True, True, False)), reps=10)
     del x_ext, g, x, gy
-
-    bf, cq, cv = ATTN_STAGES[0]
-    q, kk, v = attn_inputs(bf, cq, cv, 626, device, SEED + 1)
-    dout = attn_inputs(bf, cq, cv, 626, device, SEED + 2)[2].transpose(1, 2)[:, None].contiguous()
-    q4, k4, v4 = (u.transpose(1, 2)[:, None].contiguous().requires_grad_() for u in (q, kk, v))  # [BF, 1, T, c]
-    for window in (WINDOW, None):  # the forward's library time comes from ops/tattn_timing.py
-        mask = band_mask(626, window, device)
-        out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
-        times[f"tattn_bwd_{window}"] = cuda_ms(lambda: torch.autograd.grad(
-            out, (q4, k4, v4), dout, retain_graph=True), reps=5)
-        del out
-    del q, kk, v, q4, k4, v4, dout
+    # the attention's library times come from ops/tattn_timing.py
 
     b, t, g_, h = CONFIG1_GRU
     gru = torch.nn.GRU(h, h, batch_first=True).to(device)
@@ -1302,35 +1321,33 @@ def time_train_kernels(device, smi, lib: dict) -> dict:
     del x_ext, h, g
     time_tfcm_bwd_stages(device, smi)
 
+    # the backward's two kernels at all three stage geometries, with and
+    # without the window (ops/tattn_timing.py: kernel alone, wrapper, bound,
+    # the library's backward, the dk/dv instance), and at stage 0 the plain
+    # dense backward; the JSON line keeps the windowed stage-0 case, config 5b's
     bf, cq, cv = ATTN_STAGES[0]
-    t = 626
-    q, kk, vv = attn_inputs(bf, cq, cv, t, device, SEED + 1)
-    dout = attn_inputs(bf, cq, cv, t, device, SEED + 2)[2]
-    rows = 4 * bf * t
+    q, kk, vv = attn_inputs(bf, cq, cv, 626, device, SEED + 1)
+    dout = attn_inputs(bf, cq, cv, 626, device, SEED + 2)[2]
+    plain = {}
     with torch.inference_mode():
         for window in (WINDOW, None):
-            out = tattn_reference(q, kk, vv, window)
-            lse = torch.logsumexp(torch.einsum("bct,bcs->bts", q, kk).mul_(cq ** -0.5).masked_fill_(
-                ~band_mask(t, window, device), -1e9), dim=-1)
-            dd = (dout * out).sum(dim=1)
-            pairs = bf * band_pairs(t, window)
-            plain_ms = cuda_ms(lambda: tattn_bwd_reference(q, kk, vv, dout, window), reps=3)
-            for name, kernel, nbytes, fmas in (
-                    ("tattn_dq", lambda: tattn_dq(q, kk, vv, dout, lse, dd, window),
-                     rows * (3 * cq + 2 * cv + 2), pairs * (2 * cq + cv)),
-                    ("tattn_dkv", lambda: tattn_dkv(q, kk, vv, dout, lse, dd, window),
-                     rows * (3 * cq + 3 * cv + 2), pairs * 2 * (cq + cv))):
-                ms = cuda_ms(kernel, reps=10)
-                # the library's backward is one call that returns dq, dk and dv together
-                entry = {"ms": ms, "plain_ms": plain_ms, **bound(nbytes, fmas),
-                         "library_ms": lib[f"tattn_bwd_{window}"]}
-                entries.setdefault(name, entry)  # the JSON line keeps the windowed case, config 5b's
-                print(f"{name} BF={bf} c={cq} C={cv} T={t} window={window} on {smi}: kernel {ms:.3f} ms, "
-                      f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}: {fmas / 1e9:.2f} GFMA), "
-                      f"plain dense backward (dq, dk and dv together) {plain_ms:.3f} ms; "
-                      f"library: scaled_dot_product_attention's backward (one call, all three) "
-                      f"{entry['library_ms']:.3f} ms")
-            del out, lse, dd
+            plain[window] = cuda_ms(lambda: tattn_bwd_reference(q, kk, vv, dout, window), reps=3)
+    del q, kk, vv, dout
+    for row in time_tattn_bwd(device, ATTN_STAGES, (WINDOW, None)):
+        name = f"tattn_{row['kind']}"
+        if row["info"] is not None:
+            require(row["info"]["spill_bytes"] == 0,
+                    f"the {name} instance at c={row['c']}, C={row['C']} spills nothing")
+        require(row["traced"] == row["calls"] and row["launches_per_call"] <= 1,
+                f"a profile of {row['calls']} {name} calls (BF={row['bf']}, window {row['window']}) saw each "
+                f"call's kernel ({row['traced']}) and {row['launches_per_call']:.1f} <= 1 device launches a call")
+        line = describe_tattn(row)
+        if row["bf"] == bf:
+            line += f"; plain dense backward (dq, dk and dv together) {plain[row['window']]:.3f} ms"
+            entries.setdefault(name, {"ms": row["wrapper_ms"], "plain_ms": plain[row["window"]], "stages": [],
+                                      **{key: row[key] for key in ("bound_ms", "bound_by", "library_ms")}})
+        entries[name]["stages"].append({key: row[key] for key in STAGE_KEYS})
+        print(f"{line} on {smi}", flush=True)
     return entries
 
 
@@ -1621,8 +1638,9 @@ def main() -> int:
 
     def train_entry(name, source, replaces, launches, err):
         e = train_times[name]
-        return entry(name, source, replaces, launches, err, (e["ms"], e["plain_ms"]),
-                     {"bound_ms": e["bound_ms"], "bound_by": e["bound_by"]}, e["library_ms"])
+        return {**entry(name, source, replaces, launches, err, (e["ms"], e["plain_ms"]),
+                        {"bound_ms": e["bound_ms"], "bound_by": e["bound_by"]}, e["library_ms"]),
+                **({"stages": e["stages"]} if "stages" in e else {})}
 
     print(json.dumps({"kernels": [
         {**entry("gru_sequence", "gru_sequence", "gru_kernel.py:82", launches + stream_gru + auto_gru,
@@ -1636,8 +1654,7 @@ def main() -> int:
               times["tfcm_block"], block_bound, None),
         {**entry("tattn", "tattn", "asa_kernel.py:190", attn_launches + train_launches["tattn"], attn_err,
                  times["tattn"], {key: attn_row[key] for key in ("bound_ms", "bound_by")}, attn_row["library_ms"]),
-         "stages": [{key: row[key] for key in ("bf", "c", "C", "window", "kernel_ms", "wrapper_ms", "bound_ms",
-                                                "library_ms")} for row in times["tattn_stages"]]},
+         "stages": [{key: row[key] for key in STAGE_KEYS} for row in times["tattn_stages"]]},
         train_entry("dw_stencil_fwd", "dw_stencil", "dw_kernel.py:174", train_launches["dw_stencil_fwd"],
                     train_errs["dw_fwd"]),
         train_entry("dw_stencil_bwd", "dw_stencil", "dw_kernel.py:197", pallas_launches["dw_stencil_bwd"],

@@ -23,7 +23,10 @@ With one, the forward also writes each query's logsumexp ``[BF, T]``, and
 the backward computes ``D = sum_C dO * O`` in PyTorch and launches
 ``tattn_dq`` and ``tattn_dkv`` (``csrc/tattn_bwd.cu``), which recompute the probabilities from the
 logsumexp; the scale 1/sqrt(c) is applied once to dq and dk inside them. The
-backward is causal only: ``causal=False`` under a gradient raises.
+dk/dv kernel walks as the forward does with the roles swapped: a warp holds 32
+keys and visits the 32-query tiles of their band, which ``tattn_key_tiles``
+and ``tattn_dkv_walk_reference`` spell out in PyTorch. The backward is causal
+only: ``causal=False`` under a gradient raises.
 ``flash_tattn_tm.launches``, ``tattn_dq.launches`` and
 ``tattn_dkv.launches`` count kernel launches.
 """
@@ -43,6 +46,8 @@ MAX_V_CHANNELS = 48  # C of v (the widest CV instance)
 # the forward kernel's walk (csrc/tattn.cu): keys a tile, keys whose logits a
 # thread holds at once, queries a warp (one a lane)
 KEY_TILE, HALF_TILE, WARP_QUERIES = 32, 16, 32
+# the dk/dv kernel's walk (csrc/tattn_bwd.cu): queries a tile, keys a warp (one a lane)
+QUERY_TILE, WARP_KEYS = 32, 32
 LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
 
 
@@ -176,30 +181,86 @@ def tattn_bwd_reference(q, k, v, dout, window: Optional[int] = None):
             torch.einsum("bts,bct->bcs", ds, q) * scale, dv)
 
 
+def tattn_key_tiles(s0: int, nk: int, t: int, window: Optional[int] = None) -> list:
+    """The query tiles that see the keys ``[s0, s0 + nk)`` (those below ``t``),
+    in order: ``[(first query, masked), ...]``, from the tile that holds
+    ``s0`` to the one that holds the last live key + ``window`` - 1 (``t`` - 1
+    without a window). A tile is masked when, and only when, it holds a pair
+    outside the band of some live key: a query before the key, or ``window``
+    or more after it. Queries past ``t`` form no pair (the kernel reads them as
+    zeros, which add nothing). With ``nk = WARP_KEYS``, the walk of a warp of
+    the dk/dv kernel, whose index arithmetic (``csrc/tattn_bwd.cu``,
+    ``tile_masked``) this is."""
+    s_hi = min(s0 + nk, t) - 1
+    t_hi = t - 1 if window is None else min(t - 1, s_hi + window - 1)
+    return [(t0, t0 < s_hi or (window is not None and min(t0 + QUERY_TILE, t) - 1 >= s0 + window))
+            for t0 in range(s0 // QUERY_TILE * QUERY_TILE, t_hi + 1, QUERY_TILE)]
+
+
+def tattn_dkv_walk_reference(q, k, v, dout, lse, dd, window: Optional[int] = None):
+    """The dk/dv kernel's walk in PyTorch: ``(dk, dv)`` from the forward's
+    logsumexp ``lse`` and ``dd = sum_C dout * out``. For each warp of
+    ``WARP_KEYS`` keys, the tiles of ``tattn_key_tiles``, with log2(e) /
+    sqrt(c) folded into k, ``p = exp2(q . k' - lse log2 e)``, masked pairs
+    set to 0 in the flagged tiles only, and 1 / sqrt(c) applied to dk at the
+    end. No card or JAX path calls it; the CPU tests hold it against JAX."""
+    bf, c, t = q.shape
+    k2 = k * (LOG2E / math.sqrt(c))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for s0 in range(0, t, WARP_KEYS):
+        ts = torch.arange(s0, min(s0 + WARP_KEYS, t), device=q.device)
+        kw, vw = k2[:, :, ts], v[:, :, ts]
+        dkw, dvw = torch.zeros_like(kw), torch.zeros_like(vw)
+        for t0, masked in tattn_key_tiles(s0, WARP_KEYS, t, window):
+            tq = torch.arange(t0, min(t0 + QUERY_TILE, t), device=q.device)
+            qt, gt = q[:, :, tq], dout[:, :, tq]
+            p = torch.exp2(torch.einsum("bcn,bcm->bnm", kw, qt) - lse[:, None, tq] * LOG2E)
+            if masked:
+                ok = tq[None, :] >= ts[:, None]
+                if window is not None:
+                    ok = ok & (tq[None, :] < ts[:, None] + window)
+                p = torch.where(ok, p, torch.zeros_like(p))
+            ds = p * (torch.einsum("bcn,bcm->bnm", vw, gt) - dd[:, None, tq])
+            dvw = dvw + torch.einsum("bnm,bcm->bcn", p, gt)
+            dkw = dkw + torch.einsum("bnm,bcm->bcn", ds, qt)
+        dk[:, :, ts] = dkw / math.sqrt(c)
+        dv[:, :, ts] = dvw
+    return dk, dv
+
+
 @functools.lru_cache(maxsize=None)
 def _kernels():
     lib = _build.load_library("tattn")
     fwd, info = lib.tattn_fwd_f32, lib.tattn_fwd_info
     bwd = _build.load_library("tattn_bwd")
-    dq, dkv = bwd.tattn_dq_f32, bwd.tattn_dkv_f32
+    dq, dkv, dkv_info = bwd.tattn_dq_f32, bwd.tattn_dkv_f32, bwd.tattn_dkv_info
     fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    info.argtypes = dkv_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     dq.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     dkv.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fwd.restype = info.restype = dq.restype = dkv.restype = ctypes.c_int
-    return fwd, dq, dkv, info
+    fwd.restype = info.restype = dq.restype = dkv.restype = dkv_info.restype = ctypes.c_int
+    return fwd, dq, dkv, info, dkv_info
+
+
+def _instance_info(entry: int, what: str, c: int, cv: int, per_warp: str) -> dict:
+    info = (ctypes.c_int * 6)()
+    err = _kernels()[entry](c, cv, info)
+    if err != 0:
+        raise RuntimeError(f"{what} failed with CUDA error {err} (c={c}, C={cv})")
+    return dict(zip(("registers", "spill_bytes", "blocks_per_sm", "threads", "smem_bytes", per_warp), info))
 
 
 def tattn_fwd_info(c: int, cv: int) -> dict:
     """The forward kernel's instance for head widths (c, C) on the current
     CUDA device: registers and local (spill) bytes a thread, blocks an SM,
     threads a block, shared memory a block (bytes), queries a warp."""
-    info = (ctypes.c_int * 6)()
-    err = _kernels()[3](c, cv, info)
-    if err != 0:
-        raise RuntimeError(f"tattn_fwd_info failed with CUDA error {err} (c={c}, C={cv})")
-    return dict(zip(("registers", "spill_bytes", "blocks_per_sm", "threads", "smem_bytes",
-                     "warp_queries"), info))
+    return _instance_info(3, "tattn_fwd_info", c, cv, "warp_queries")
+
+
+def tattn_dkv_info(c: int, cv: int) -> dict:
+    """The dk/dv kernel's instance for head widths (c, C) on the current CUDA
+    device, as ``tattn_fwd_info`` (keys a warp in place of queries)."""
+    return _instance_info(4, "tattn_dkv_info", c, cv, "warp_keys")
 
 
 def _check_launch(what, **tensors):
@@ -263,9 +324,21 @@ def tattn_dkv(q, k, v, dout, lse, dd, window: Optional[int] = None):
     _check_bwd(q, k, v, dout, lse, dd, window)
     if q.device.type == "cpu":
         return tattn_bwd_reference(q, k, v, dout, window)[1:]
-    _check_launch("tattn_dkv", q=q, k=k, v=v, dout=dout, lse=lse, dd=dd)
-    bf, c, t = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_dkv(q, k, v, dout, lse, dd, window, dk, dv)
+    return dk, dv
+
+
+def _launch_dkv(q, k, v, dout, lse, dd, window, dk, dv):
+    """One launch of the dk/dv kernel on CUDA tensors, into ``dk`` and ``dv``
+    (``tattn_dkv``'s; ``chip_smoke.py`` passes NaN-filled ones, so an
+    element no lane writes shows); counted in ``tattn_dkv.launches``."""
+    _check_launch("tattn_dkv", q=q, k=k, v=v, dout=dout, lse=lse, dd=dd, dk=dk, dv=dv)
+    bf, c, t = q.shape
+    for name, grad, like in (("dk", dk, k), ("dv", dv, v)):
+        if grad.shape != like.shape or grad.dtype != torch.float32 or grad.device != q.device:
+            raise ValueError(f"{name} must be float32 {tuple(like.shape)} on {q.device}, got "
+                             f"{grad.dtype} {tuple(grad.shape)} on {grad.device}")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = _kernels()[2](q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
@@ -273,7 +346,6 @@ def tattn_dkv(q, k, v, dout, lse, dd, window: Optional[int] = None):
                             v.shape[1], t, 0 if window is None else int(window), stream)
     _raise_on(err, "tattn_dkv", q, v, window)
     tattn_dkv.launches += 1
-    return dk, dv
 
 
 class _FlashTattn(torch.autograd.Function):
