@@ -170,8 +170,8 @@ from cruse_tpu_torch.models.mtfaa import (
 from cruse_tpu_torch.nn.gru import GroupedGRULayer
 from cruse_tpu_torch.ops import _build
 from cruse_tpu_torch.ops.asa_kernel import (
-    _launch_dkv, _launch_fwd, band_mask, flash_tattn_tm, tattn_bwd_reference, tattn_dkv, tattn_dkv_info, tattn_dq,
-    tattn_reference)
+    _launch_dkv, _launch_dq, _launch_fwd, band_mask, flash_tattn_tm, tattn_bwd_reference, tattn_dkv, tattn_dkv_info,
+    tattn_dq, tattn_dq_info, tattn_reference)
 from cruse_tpu_torch.ops.deep_filter_kernel import deep_filter, deep_filter_reference
 from cruse_tpu_torch.ops.dw_kernel import (
     dw_bwd_reference, dw_causal_tm, dw_stencil_bwd, dw_stencil_fwd, dw_taps_reference)
@@ -1051,14 +1051,16 @@ def check_mid_tiles(device) -> float:
 def check_attn_bwd(device) -> tuple[float, float]:
     """The attention's dq and dk/dv kernels against the plain dense backward on
     the card, through autograd on ``flash_tattn_tm`` (one launch of each a
-    call), and the dk/dv kernel again through ``_launch_dkv`` into dk and dv
-    filled with NaN first, fed by the forward kernel's output and logsumexp,
-    so an element that no lane writes shows; first, that config 5b's three
-    dk/dv instances spill nothing. Returns (dq, dk/dv) largest errors."""
+    call), and both kernels again through ``_launch_dq`` and ``_launch_dkv``
+    into dq, dk and dv filled with NaN first, fed by the forward kernel's
+    output and logsumexp, so an element that no lane writes shows; first,
+    that config 5b's three dq and three dk/dv instances spill nothing.
+    Returns (dq, dk/dv) largest errors."""
     for _, c, cv in ATTN_STAGES:
-        info = tattn_dkv_info(c, cv)
-        require(info["spill_bytes"] == 0, f"the tattn_dkv instance at c={c}, C={cv} spills nothing "
-                f"({info['registers']} registers, {info['blocks_per_sm']} blocks an SM)")
+        for name, instance_info in (("tattn_dq", tattn_dq_info), ("tattn_dkv", tattn_dkv_info)):
+            info = instance_info(c, cv)
+            require(info["spill_bytes"] == 0, f"the {name} instance at c={c}, C={cv} spills nothing "
+                    f"({info['registers']} registers, {info['blocks_per_sm']} blocks an SM)")
     worst_dq = worst_dkv = 0.0
     cases = [(bf, c, cv, 626, w) for bf, c, cv in ATTN_STAGES for w in (WINDOW, None)]
     cases += [(64, 6, 24, 100, WINDOW),  # T < window
@@ -1088,11 +1090,14 @@ def check_attn_bwd(device) -> tuple[float, float]:
             worst_dkv = max(worst_dkv, require_close(got[1], want[1], ATTN_TOL, f"tattn_dkv dk {what}"),
                             require_close(got[2], want[2], ATTN_TOL, f"tattn_dkv dv {what}"))
             out, lse = _launch_fwd(q, k, v, window, True, with_lse=True)
-            dk, dv = torch.full_like(k, math.nan), torch.full_like(v, math.nan)
-            _launch_dkv(q, k, v, dout, lse, (dout * out).sum(dim=1), window, dk, dv)
+            dd = (dout * out).sum(dim=1)
+            dq, dk, dv = torch.full_like(q, math.nan), torch.full_like(k, math.nan), torch.full_like(v, math.nan)
+            _launch_dq(q, k, v, dout, lse, dd, window, dq)
+            _launch_dkv(q, k, v, dout, lse, dd, window, dk, dv)
+            worst_dq = max(worst_dq, require_close(dq, want[0], ATTN_TOL, f"tattn_dq into NaN {what}"))
             worst_dkv = max(worst_dkv, require_close(dk, want[1], ATTN_TOL, f"tattn_dkv dk into NaN {what}"),
                             require_close(dv, want[2], ATTN_TOL, f"tattn_dkv dv into NaN {what}"))
-        del q, k, v, dout, out, lse, got, want, dk, dv
+        del q, k, v, dout, out, lse, dd, got, want, dq, dk, dv
     return worst_dq, worst_dkv
 
 

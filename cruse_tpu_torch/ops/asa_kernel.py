@@ -23,9 +23,11 @@ With one, the forward also writes each query's logsumexp ``[BF, T]``, and
 the backward computes ``D = sum_C dO * O`` in PyTorch and launches
 ``tattn_dq`` and ``tattn_dkv`` (``csrc/tattn_bwd.cu``), which recompute the probabilities from the
 logsumexp; the scale 1/sqrt(c) is applied once to dq and dk inside them. The
-dk/dv kernel walks as the forward does with the roles swapped: a warp holds 32
-keys and visits the 32-query tiles of their band, which ``tattn_key_tiles``
-and ``tattn_dkv_walk_reference`` spell out in PyTorch. The backward is causal
+dq kernel walks exactly as the forward does (a warp of 32 queries over the
+key tiles of ``tattn_band_tiles``; ``tattn_dq_walk_reference`` in PyTorch).
+The dk/dv kernel walks with the roles swapped: a warp holds 32 keys and
+visits the 32-query tiles of their band, which ``tattn_key_tiles`` and
+``tattn_dkv_walk_reference`` spell out in PyTorch. The backward is causal
 only: ``causal=False`` under a gradient raises.
 ``flash_tattn_tm.launches``, ``tattn_dq.launches`` and
 ``tattn_dkv.launches`` count kernel launches.
@@ -46,7 +48,8 @@ MAX_V_CHANNELS = 48  # C of v (the widest CV instance)
 # the forward kernel's walk (csrc/tattn.cu): keys a tile, keys whose logits a
 # thread holds at once, queries a warp (one a lane)
 KEY_TILE, HALF_TILE, WARP_QUERIES = 32, 16, 32
-# the dk/dv kernel's walk (csrc/tattn_bwd.cu): queries a tile, keys a warp (one a lane)
+# the dk/dv kernel's walk (csrc/tattn_bwd.cu): queries a tile, keys a warp (one a lane);
+# the dq kernel's is the forward's
 QUERY_TILE, WARP_KEYS = 32, 32
 LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
 
@@ -181,6 +184,36 @@ def tattn_bwd_reference(q, k, v, dout, window: Optional[int] = None):
             torch.einsum("bts,bct->bcs", ds, q) * scale, dv)
 
 
+def tattn_dq_walk_reference(q, k, v, dout, lse, dd, window: Optional[int] = None):
+    """The dq kernel's walk in PyTorch: dq from the forward's logsumexp
+    ``lse`` and ``dd = sum_C dout * out``. For each warp of ``WARP_QUERIES``
+    queries, the key tiles of ``tattn_band_tiles``, with log2(e) / sqrt(c)
+    folded into q, ``p = exp2(q' . k - lse log2 e)``, masked pairs set to 0
+    in the flagged tiles only, ``ds = p (dout . v - dd)``, and 1 / sqrt(c)
+    applied to dq at the end. No card or JAX path calls it; the CPU tests
+    hold it against JAX."""
+    bf, c, t = q.shape
+    q2 = q * (LOG2E / math.sqrt(c))
+    dq = torch.empty_like(q)
+    for q0 in range(0, t, WARP_QUERIES):
+        tq = torch.arange(q0, min(q0 + WARP_QUERIES, t), device=q.device)
+        qw, gw = q2[:, :, tq], dout[:, :, tq]
+        dqw = torch.zeros_like(qw)
+        for s0, masked in tattn_band_tiles(q0, WARP_QUERIES, t, window):
+            keys = torch.arange(s0, min(s0 + KEY_TILE, t), device=q.device)  # keys past t add 0
+            kt = k[:, :, keys]
+            p = torch.exp2(torch.einsum("bcn,bcs->bns", qw, kt) - lse[:, tq, None] * LOG2E)
+            if masked:
+                ok = keys[None, :] <= tq[:, None]
+                if window is not None:
+                    ok = ok & (keys[None, :] > tq[:, None] - window)
+                p = torch.where(ok, p, torch.zeros_like(p))
+            ds = p * (torch.einsum("bcn,bcs->bns", gw, v[:, :, keys]) - dd[:, tq, None])
+            dqw = dqw + torch.einsum("bns,bcs->bcn", ds, kt)
+        dq[:, :, tq] = dqw / math.sqrt(c)
+    return dq
+
+
 def tattn_key_tiles(s0: int, nk: int, t: int, window: Optional[int] = None) -> list:
     """The query tiles that see the keys ``[s0, s0 + nk)`` (those below ``t``),
     in order: ``[(first query, masked), ...]``, from the tile that holds
@@ -233,13 +266,14 @@ def _kernels():
     lib = _build.load_library("tattn")
     fwd, info = lib.tattn_fwd_f32, lib.tattn_fwd_info
     bwd = _build.load_library("tattn_bwd")
-    dq, dkv, dkv_info = bwd.tattn_dq_f32, bwd.tattn_dkv_f32, bwd.tattn_dkv_info
+    dq, dkv, dkv_info, dq_info = bwd.tattn_dq_f32, bwd.tattn_dkv_f32, bwd.tattn_dkv_info, bwd.tattn_dq_info
     fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    info.argtypes = dkv_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    info.argtypes = dkv_info.argtypes = dq_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     dq.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     dkv.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fwd.restype = info.restype = dq.restype = dkv.restype = dkv_info.restype = ctypes.c_int
-    return fwd, dq, dkv, info, dkv_info
+    for fn in (fwd, dq, dkv, info, dkv_info, dq_info):
+        fn.restype = ctypes.c_int
+    return fwd, dq, dkv, info, dkv_info, dq_info
 
 
 def _instance_info(entry: int, what: str, c: int, cv: int, per_warp: str) -> dict:
@@ -261,6 +295,12 @@ def tattn_dkv_info(c: int, cv: int) -> dict:
     """The dk/dv kernel's instance for head widths (c, C) on the current CUDA
     device, as ``tattn_fwd_info`` (keys a warp in place of queries)."""
     return _instance_info(4, "tattn_dkv_info", c, cv, "warp_keys")
+
+
+def tattn_dq_info(c: int, cv: int) -> dict:
+    """The dq kernel's instance for head widths (c, C) on the current CUDA
+    device, as ``tattn_fwd_info``."""
+    return _instance_info(5, "tattn_dq_info", c, cv, "warp_queries")
 
 
 def _check_launch(what, **tensors):
@@ -305,16 +345,8 @@ def tattn_dq(q, k, v, dout, lse, dd, window: Optional[int] = None):
     _check_bwd(q, k, v, dout, lse, dd, window)
     if q.device.type == "cpu":
         return tattn_bwd_reference(q, k, v, dout, window)[0]
-    _check_launch("tattn_dq", q=q, k=k, v=v, dout=dout, lse=lse, dd=dd)
-    bf, c, t = q.shape
     dq = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = _kernels()[1](q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                            lse.data_ptr(), dd.data_ptr(), dq.data_ptr(), bf, c, v.shape[1], t,
-                            0 if window is None else int(window), stream)
-    _raise_on(err, "tattn_dq", q, v, window)
-    tattn_dq.launches += 1
+    _launch_dq(q, k, v, dout, lse, dd, window, dq)
     return dq
 
 
@@ -329,16 +361,37 @@ def tattn_dkv(q, k, v, dout, lse, dd, window: Optional[int] = None):
     return dk, dv
 
 
+def _check_grads(q, **grads):
+    """Each gradient is float32 of its operand's shape, on q's device (``{name: (grad, operand)}``)."""
+    for name, (grad, like) in grads.items():
+        if grad.shape != like.shape or grad.dtype != torch.float32 or grad.device != q.device:
+            raise ValueError(f"{name} must be float32 {tuple(like.shape)} on {q.device}, got "
+                             f"{grad.dtype} {tuple(grad.shape)} on {grad.device}")
+
+
+def _launch_dq(q, k, v, dout, lse, dd, window, dq):
+    """One launch of the dq kernel on CUDA tensors, into ``dq`` (``tattn_dq``'s;
+    ``chip_smoke.py`` passes a NaN-filled one, so an element no lane writes
+    shows); counted in ``tattn_dq.launches``."""
+    _check_launch("tattn_dq", q=q, k=k, v=v, dout=dout, lse=lse, dd=dd, dq=dq)
+    _check_grads(q, dq=(dq, q))
+    bf, c, t = q.shape
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = _kernels()[1](q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                            lse.data_ptr(), dd.data_ptr(), dq.data_ptr(), bf, c, v.shape[1], t,
+                            0 if window is None else int(window), stream)
+    _raise_on(err, "tattn_dq", q, v, window)
+    tattn_dq.launches += 1
+
+
 def _launch_dkv(q, k, v, dout, lse, dd, window, dk, dv):
     """One launch of the dk/dv kernel on CUDA tensors, into ``dk`` and ``dv``
     (``tattn_dkv``'s; ``chip_smoke.py`` passes NaN-filled ones, so an
     element no lane writes shows); counted in ``tattn_dkv.launches``."""
     _check_launch("tattn_dkv", q=q, k=k, v=v, dout=dout, lse=lse, dd=dd, dk=dk, dv=dv)
+    _check_grads(q, dk=(dk, k), dv=(dv, v))
     bf, c, t = q.shape
-    for name, grad, like in (("dk", dk, k), ("dv", dv, v)):
-        if grad.shape != like.shape or grad.dtype != torch.float32 or grad.device != q.device:
-            raise ValueError(f"{name} must be float32 {tuple(like.shape)} on {q.device}, got "
-                             f"{grad.dtype} {tuple(grad.shape)} on {grad.device}")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = _kernels()[2](q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),

@@ -18,7 +18,7 @@ port): ``scaled_dot_product_attention`` with the band mask, and for the
 backward the gradient of that call, one call that returns dq, dk and dv
 together and is checked to agree with the kernels; and the instance's
 registers, spills, blocks an SM and shared memory as the card reports them
-(``tattn_fwd_info``, ``tattn_dkv_info``). The script calls only the wrappers
+(``tattn_fwd_info``, ``tattn_dq_info``, ``tattn_dkv_info``). The script calls only the wrappers
 (and the info entries, where the checkout has them), so it times whichever
 ``cruse_tpu_torch`` Python imports: from the root of another checkout,
 ``PYTHONPATH=. python3 <this file>`` times that checkout's kernels.
@@ -30,8 +30,8 @@ kernels and times whichever of ``tattn_fwd_f32``, ``tattn_dq_f32`` and
 events, in turns (the wrapper's, the files', then back): another checkout's
 ``tattn_bwd.cu`` against this one's, or an edited copy with one part cut
 out, which shows what that part costs. ``--sass FILE`` writes the SASS of
-every ``tattn_fwd_kernel`` and ``tattn_dkv_kernel`` instance of the libraries
-timed (``cuobjdump -sass``).
+every ``tattn_fwd_kernel``, ``tattn_dq_kernel`` and ``tattn_dkv_kernel``
+instance of the libraries timed (``cuobjdump -sass``).
 """
 from __future__ import annotations
 
@@ -118,10 +118,11 @@ def kernel_alone(fn, calls: int, kind: str = "forward", tries: int = TRIES) -> t
 
 def instance_info(c: int, cv: int, kind: str = "forward"):
     """What the card reports of the instance (c, C) launches, or None for a
-    kernel or a checkout without an info entry."""
+    checkout without the kernel's info entry."""
     from cruse_tpu_torch.ops import asa_kernel
 
-    info = getattr(asa_kernel, {"forward": "tattn_fwd_info", "dkv": "tattn_dkv_info"}.get(kind, ""), None)
+    info = getattr(asa_kernel, {"forward": "tattn_fwd_info", "dq": "tattn_dq_info", "dkv": "tattn_dkv_info"}[kind],
+                   None)
     return None if info is None else info(c, cv)
 
 
@@ -265,14 +266,14 @@ def time_sources(device, sources: list, stages=STAGES, windows=WINDOWS, t: int =
 
 
 def write_sass(path: str, libraries: list) -> None:
-    """The SASS of every ``tattn_fwd_kernel`` and ``tattn_dkv_kernel`` instance of the libraries."""
+    """The SASS of every instance of the three attention kernels of the libraries."""
     cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
     with open(path, "w") as fh:
         for library in libraries:
             sass = subprocess.run([str(cuobjdump), "-sass", str(library)], capture_output=True, text=True,
                                   check=True).stdout
             for function in sass.split("Function : ")[1:]:
-                if re.search(r"tattn_(fwd|dkv)_kernel", function.split()[0]):
+                if re.search(r"tattn_(fwd|dq|dkv)_kernel", function.split()[0]):
                     fh.write(f"// {library}\nFunction : {function}\n")
 
 
@@ -296,7 +297,7 @@ def main() -> int:
     parser.add_argument("--out", help="write the rows as JSON here")
     parser.add_argument("--source", action="append", default=[],
                         help="also time this CUDA source's tattn entries, in turns with the wrapper's kernels")
-    parser.add_argument("--sass", help="write the SASS of the tattn_fwd_kernel and tattn_dkv_kernel instances here")
+    parser.add_argument("--sass", help="write the SASS of the attention kernels' instances here")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("tattn_timing: no CUDA device")

@@ -7,8 +7,10 @@ dq and the dk/dv kernels), as tests/test_asa_kernel.py runs it. Tolerance
 2e-5 max-abs, that test's own: float32 softmax attention and its gradient,
 summed in another order. The dk/dv kernel's walk (``tattn_key_tiles``: which
 query tiles a warp of keys visits and which carry the mask;
-``tattn_dkv_walk_reference``: the base-2 walk over them) is held against the
-JAX gradients, fed by the JAX forward's output and logsumexp.
+``tattn_dkv_walk_reference``: the base-2 walk over them) and the dq kernel's
+(``tattn_dq_walk_reference``: the forward's key tiles, ``tattn_band_tiles``)
+are held against the JAX gradients, fed by the JAX forward's output and
+logsumexp.
 """
 import numpy as np
 import pytest
@@ -22,7 +24,7 @@ from cruse_tpu.ops.asa_kernel import xla_tattn_tm
 
 from cruse_tpu_torch.ops.asa_kernel import (
     QUERY_TILE, WARP_KEYS, band_mask, flash_tattn_tm, tattn_bwd_reference, tattn_dkv,
-    tattn_dkv_walk_reference, tattn_dq, tattn_key_tiles, tattn_reference)
+    tattn_dkv_walk_reference, tattn_dq, tattn_dq_walk_reference, tattn_key_tiles, tattn_reference)
 from tests.test_torch_tattn import CASES
 
 GRAD_CASES = CASES + [(2, 3, 12, 37, 7), (2, 6, 24, 100, 126)]  # tiny; T < window
@@ -31,6 +33,7 @@ WALK_CASES = GRAD_CASES + [
     (2, 8, 32, 33, 7),
     (2, 8, 32, 100, 1),  # window 1: each key seen by its own query alone
     (2, 6, 24, 190, 126),  # stage 0's widths, the window inside the row
+    (2, 8, 32, 65, 5),  # a last query (key) block of one frame, the window's edge inside the row
 ]
 
 
@@ -77,18 +80,18 @@ def test_backward_wrappers_check_their_inputs():
         tattn_dkv(q, k, v, g, lse, dd, 0)
 
 
-@pytest.mark.parametrize("bf,c,cv,t,w", WALK_CASES)
-def test_dkv_walk_matches_jax(bf, c, cv, t, w):
-    """dk and dv of the kernel's walk, fed by the JAX flash forward's output
-    and residual logsumexp, against JAX's gradients: the flash kernel
-    (interpret) and xla_tattn_tm."""
+def walk_against_jax(bf, c, cv, t, w, argnums, walk):
+    """A kernel walk's gradients (``walk(q, k, v, dout, lse, dd, w)``, a tuple
+    in ``argnums``' order), fed by the JAX flash forward's output and residual
+    logsumexp, against JAX's gradients: the flash kernel (interpret) and
+    xla_tattn_tm."""
     rng = np.random.default_rng(2)
     q, k, v = (rng.standard_normal(s).astype(np.float32) for s in ((bf, c, t), (bf, c, t), (bf, cv, t)))
     g = rng.standard_normal((bf, cv, t)).astype(np.float32)
     jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
 
     def jax_grads(fn):
-        return jax.grad(lambda *a: jnp.sum(fn(*a) * g), argnums=(1, 2))(jq, jk, jv)
+        return jax.grad(lambda *a: jnp.sum(fn(*a) * g), argnums=argnums)(jq, jk, jv)
 
     wants = [jax_grads(lambda qq, kk, vv: jax_flash_tattn_tm(qq, kk, vv, w, True)),
              jax_grads(lambda qq, kk, vv: xla_tattn_tm(qq, kk, vv, w))]
@@ -96,10 +99,22 @@ def test_dkv_walk_matches_jax(bf, c, cv, t, w):
     gt = torch.from_numpy(g)
     lse_t = torch.from_numpy(np.array(lse)[:, 0, :t])
     dd = (gt * torch.from_numpy(np.array(out))).sum(dim=1)
-    got = tattn_dkv_walk_reference(*(torch.from_numpy(a) for a in (q, k, v)), gt, lse_t, dd, w)
+    got = walk(*(torch.from_numpy(a) for a in (q, k, v)), gt, lse_t, dd, w)
     for want in wants:
         for ours, theirs in zip(got, want):
             np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), atol=2e-5)
+
+
+@pytest.mark.parametrize("bf,c,cv,t,w", WALK_CASES)
+def test_dkv_walk_matches_jax(bf, c, cv, t, w):
+    """dk and dv of the dk/dv kernel's walk against JAX's (``walk_against_jax``)."""
+    walk_against_jax(bf, c, cv, t, w, (1, 2), tattn_dkv_walk_reference)
+
+
+@pytest.mark.parametrize("bf,c,cv,t,w", WALK_CASES)
+def test_dq_walk_matches_jax(bf, c, cv, t, w):
+    """dq of the dq kernel's walk against JAX's (``walk_against_jax``)."""
+    walk_against_jax(bf, c, cv, t, w, (0,), lambda *a: (tattn_dq_walk_reference(*a),))
 
 
 @pytest.mark.parametrize("t,window", [(626, 126), (626, None), (100, 126), (33, 7), (33, None), (200, 1),
