@@ -174,7 +174,10 @@ from cruse_tpu_torch.ops.asa_kernel import (
     tattn_dq, tattn_dq_info, tattn_reference)
 from cruse_tpu_torch.ops.deep_filter_kernel import deep_filter, deep_filter_reference
 from cruse_tpu_torch.ops.dw_kernel import (
-    dw_bwd_reference, dw_causal_tm, dw_stencil_bwd, dw_stencil_fwd, dw_taps_reference)
+    DW_BLOCKS_PER_SM, dw_bwd_buffers, dw_bwd_reference, dw_causal_tm, dw_kernel_info, dw_partials_reference, dw_plan,
+    dw_stencil_bwd, dw_stencil_fwd, dw_taps_reference, launch_dw_bwd, launch_dw_fwd)
+from cruse_tpu_torch.ops.dw_timing import describe as describe_dw
+from cruse_tpu_torch.ops.dw_timing import describe_step, dw_bound, time_dw
 from cruse_tpu_torch.ops.gru_kernel import (
     MAX_HIDDEN, cluster_fit, gru_sequence, gru_sequence_reference, launch_resident, launch_streamed,
     resident_plan)
@@ -244,6 +247,17 @@ MID_TILINGS = ((2, 13, 24, 100, 2, 4, None),  # K not a multiple of the band til
                (1, 16, 48, 626, 8, None, None),  # B = 1
                (1, 5, 8, 1500, 3, None, None),  # a long T: a smaller band group
                (1, 4, 4, 2000, 700, None, None))  # d = 700: a smaller band group again
+# B, K, C, T, d, band tile, time tile (None: as dw_plan picks; both directions), and the floats by which
+# the tensors start past a 16-byte boundary, of the stencil kernels' tiling cases
+DW_TILINGS = ((2, 13, 24, 100, 2, 4, None, 0),  # K not a multiple of the band tile
+              (2, 9, 32, 131, 2, None, 32, 0),  # T not a multiple of the time tile; odd T: 4-byte copies
+              (1, 6, 4, 100, 64, None, 32, 0),  # d > the time tile: three runs a staged row
+              (1, 7, 48, 90, 40, 3, 32, 0),  # d > the time tile, both ragged
+              (2, 16, 24, 626, 1, 16, 320, 0),  # 16-byte copies, T off the time tile
+              (2, 16, 24, 626, 1, 5, 320, 1),  # the same misaligned: 4-byte copies
+              (1, 16, 48, 626, 8, None, None, 0),  # B = 1; the backward's 642 frames in two spans
+              (1, 5, 8, 1500, 3, None, None, 0),  # a long T: three spans
+              (1, 4, 4, 2000, 700, None, None, 0))  # d = 700
 STACK_STAGES = (0, 0, 1, 1, 2, 3)  # the TFCM stage of each of a config-5b step's six stacks
 ELEMENT_TOL, SUM_TOL = 1e-5, 1e-4  # x max(1, max|ref|)
 GRAD_REL_TOL, GRAD_ABS_TOL = 2e-3, 1e-3  # a gradient leaf: relative, or of the largest gradient
@@ -251,16 +265,19 @@ GRAD_NOISE_FACTOR = 3.0  # or this many times the same leaf's own float32 roundi
 TRAIN_STEPS = 3
 HAND_WRITTEN = frozenset((  # the __global__ functions of ops/csrc/*.cu, as a profile names them
     "gru_sequence_kernel", "gru_resident_kernel", "deep_filter_kernel", "tfcm_layer_kernel", "tattn_fwd_kernel",
-    "tattn_dq_kernel", "tattn_dkv_kernel", "dw_fwd_kernel", "dw_bwd_kernel", "tail_bwd_kernel",
-    "mid_tile_kernel", "mid_finish_kernel"))
+    "tattn_dq_kernel", "tattn_dkv_kernel", "dw_fwd_kernel", "dw_bwd_kernel", "dw_finish_kernel",
+    "tail_bwd_kernel", "mid_tile_kernel", "mid_finish_kernel"))
 # launches one config-5b train step makes: 6 stacks x 4 blocks, 3 attentions
 STEP_LAUNCHES = {"dw_stencil_fwd": 24, "dw_stencil_bwd": 0, "tail_bwd": 24, "mid_bwd": 24,
                  "tattn": 3, "tattn_dq": 3, "tattn_dkv": 3, "tfcm_stack": 0, "tfcm_block": 0,
                  "deep_filter": 0, "gru_sequence": 0}
 # what the kernels line gives of each attention kernel's timed stage geometries (ops/tattn_timing.py's rows)
 STAGE_KEYS = ("bf", "c", "C", "window", "kernel_ms", "wrapper_ms", "bound_ms", "library_ms")
+# and of the stencil's timed stage shapes and dilations (ops/dw_timing.py's rows)
+DW_STAGE_KEYS = ("shape", "d", "kernel_ms", "wrapper_ms", "bound_ms", "library_ms", "kb", "tt")
 STEP_KERNELS_BEFORE = 6270  # device launches of a config-5b train step when a mid_bwd call made 8
 MID_LAUNCHES_PER_CALL = 2  # mid_tile_kernel and mid_finish_kernel
+DW_LAUNCHES_PER_CALL = {"forward": 1, "backward": 2}  # dw_fwd_kernel; dw_bwd_kernel and dw_finish_kernel
 
 
 def require(ok: bool, what: str) -> None:
@@ -1006,6 +1023,8 @@ def check_train_kernels(device) -> dict:
             got, want = dw_stencil_bwd(g, x_ext, wd, d), dw_bwd_reference(g, x_ext, wd, d)
             errs = [require_close(got[0], want[0], ELEMENT_TOL, f"dw_stencil_bwd dx {what}"),
                     require_close(got[1], want[1], SUM_TOL, f"dw_stencil_bwd dwd {what}")]
+            require(torch.equal(dw_stencil_bwd(g, x_ext, wd, d)[1], got[1]),
+                    f"dw_stencil_bwd dwd {what}: two calls give the same bits")
             worst["dw_bwd"] = max(worst["dw_bwd"], *errs)
             got = tail_bwd(g, h, m, v, ga, be, a, eps)
             want = tail_bwd_reference(g, h, m, v, ga, be, a, eps)
@@ -1021,7 +1040,50 @@ def check_train_kernels(device) -> dict:
             worst["mid_bwd"] = max(worst["mid_bwd"], *errs)
         del x_ext, h, g, got, want
     worst["mid_bwd"] = max(worst["mid_bwd"], check_mid_tiles(device))
+    fwd_err, bwd_err = check_dw_tiles(device)
+    worst["dw_fwd"], worst["dw_bwd"] = max(worst["dw_fwd"], fwd_err), max(worst["dw_bwd"], bwd_err)
     return worst
+
+
+def check_dw_tiles(device) -> tuple[float, float]:
+    """The stencil's kernels at TRAIN_RAGGED's shapes and at the tiles of
+    DW_TILINGS, into y, dx, the per-tile partial sums and dwd filled with NaN
+    first (so a value the kernels never write shows): y and dx against the
+    plain versions, the partials against theirs, dwd against the plain tap
+    sums; first, that no instance at config 5b's tiles spills and that each
+    holds the blocks an SM that dw_plan assumes. Returns the
+    forward's and the backward's largest errors."""
+    for backward in (False, True):
+        smem = max(dw_plan(*shape, d, backward).smem for shape in TFCM_STAGES for d in DILATIONS)
+        for vec in (1, 2, 4):
+            info = dw_kernel_info(backward, vec, smem)
+            require(info["spill_bytes"] == 0 and info["blocks_per_sm"] == DW_BLOCKS_PER_SM[backward],
+                    f"the stencil's {'backward' if backward else 'forward'} instance with {4 * vec}-byte copies "
+                    f"spills nothing and holds {info['blocks_per_sm']} = {DW_BLOCKS_PER_SM[backward]} blocks an "
+                    f"SM at {smem} B, as dw_plan assumes ({info['registers']} registers)")
+    worst = [0.0, 0.0]
+    for b, k, c, t, d, kb, tt, shift in [(*shape, None, None, 0) for shape in TRAIN_RAGGED] + list(DW_TILINGS):
+        gen = torch.Generator(device).manual_seed(SEED + 5)
+        sizes = (b * k * c * (t + 2 * d), b * k * c * t)
+        x_ext, g = (torch.randn(n + 4, generator=gen, device=device)[shift : shift + n] for n in sizes)
+        x_ext, g = x_ext.view(b, k, c, t + 2 * d), g.view(b, k, c, t)
+        wd = torch.randn((3, 3, c), generator=gen, device=device) / 3
+        pf, pb = dw_plan(b, k, c, t, d, False, kb, tt), dw_plan(b, k, c, t, d, True, kb, tt)
+        what = (f"{(b, k, c, t)} d={d}{', misaligned' if shift else ''}, tiles {pf.kb} x {pf.tt} forward, "
+                f"{pb.kb} x {pb.tt} backward ({pb.tiles} a channel)")
+        with torch.inference_mode():
+            y = torch.full((b, k, c, t), float("nan"), device=device)
+            launch_dw_fwd(x_ext, wd, d, pf, y)
+            worst[0] = max(worst[0], require_close(y, dw_taps_reference(x_ext, wd, d), ELEMENT_TOL,
+                                                   f"dw_stencil forward {what}"))
+            dx, part, dwd = (z.fill_(float("nan")) for z in dw_bwd_buffers(x_ext, pb))
+            launch_dw_bwd(g, x_ext, wd, d, pb, dx, part, dwd)
+            want = dw_bwd_reference(g, x_ext, wd, d)
+            worst[1] = max(worst[1], require_close(dx, want[0], ELEMENT_TOL, f"dw_stencil backward dx {what}"),
+                           require_close(part, dw_partials_reference(g, x_ext, d, pb), SUM_TOL,
+                                         f"dw_stencil backward partial sums {what}"),
+                           require_close(dwd, want[1], SUM_TOL, f"dw_stencil backward dwd {what}"))
+    return worst[0], worst[1]
 
 
 def check_mid_tiles(device) -> float:
@@ -1325,6 +1387,8 @@ def time_train_kernels(device, smi, lib: dict) -> dict:
                   f"({'kernel faster' if ms < plain_ms else 'KERNEL SLOWER'} than plain)")
     del x_ext, h, g
     time_tfcm_bwd_stages(device, smi)
+    for name, stages in time_dw_stages(device, smi).items():
+        entries[name]["stages"] = stages
 
     # the backward's two kernels at all three stage geometries, with and
     # without the window (ops/tattn_timing.py: kernel alone, wrapper, bound,
@@ -1354,6 +1418,27 @@ def time_train_kernels(device, smi, lib: dict) -> dict:
         entries[name]["stages"].append({key: row[key] for key in STAGE_KEYS})
         print(f"{line} on {smi}", flush=True)
     return entries
+
+
+def time_dw_stages(device, smi) -> dict:
+    """The stencil's forward and backward at config 5b's four stage shapes and
+    d = 1, 2, 4, 8 (``ops/dw_timing.py``): kernels alone, wrapper, device
+    launches a call, the bound, cuDNN's call, the tile and its instance; a
+    step's 24 calls of each against their summed bound. Checks that a call
+    is at most its kernels' launches and that no instance spills. Returns
+    the kernels line's ``stages`` of each."""
+    rows = time_dw(device, TFCM_STAGES, DILATIONS)
+    for row in rows:
+        require(row["launches_per_call"] <= DW_LAUNCHES_PER_CALL[row["kind"]] and row["info"]["spill_bytes"] == 0,
+                f"a dw_stencil {row['kind']} call is {row['launches_per_call']:.1f} <= "
+                f"{DW_LAUNCHES_PER_CALL[row['kind']]} device launches, its instance spills nothing "
+                f"({row['shape']}, d={row['d']})")
+        print(f"{describe_dw(row)} on {smi}", flush=True)
+    for kind in ("forward", "backward"):
+        print(f"{describe_step(rows, kind)} on {smi}")
+    return {f"dw_stencil_{'fwd' if kind == 'forward' else 'bwd'}":
+            [{key: row[key] for key in DW_STAGE_KEYS} for row in rows if row["kind"] == kind]
+            for kind in ("forward", "backward")}
 
 
 def time_tfcm_bwd_stages(device, smi) -> None:
@@ -1420,7 +1505,11 @@ def time_train_step(device, smi) -> None:
             mid_ms = sum(prof.device_ms.get(name, 0.0) for name in ("mid_tile_kernel", "mid_finish_kernel"))
             print(f"config-5b train step on {smi}: mid_bwd's kernels {mid_ms:.3f} ms a step in "
                   f"{sum(prof.launches.get(n, 0.0) for n in ('mid_tile_kernel', 'mid_finish_kernel')):.1f} "
-                  f"launches; {prof.kernels:.1f} device launches a step")
+                  f"launches; the stencil forward's {prof.device_ms.get('dw_fwd_kernel', 0.0):.3f} ms in "
+                  f"{prof.launches.get('dw_fwd_kernel', 0.0):.1f} launches (their summed bound "
+                  f"{sum(dw_bound(TFCM_STAGES[i], d, 'forward')['bound_ms'] for i in STACK_STAGES for d in DILATIONS):.3f} "
+                  f"ms); "
+                  f"{prof.kernels:.1f} device launches a step")
             require(prof.kernels <= STEP_KERNELS_BEFORE - 96,
                     f"the config-5b train step's profile shows {prof.kernels:.1f} device launches a step "
                     f"<= {STEP_KERNELS_BEFORE} - 96")
@@ -1660,7 +1749,7 @@ def main() -> int:
         {**entry("tattn", "tattn", "asa_kernel.py:190", attn_launches + train_launches["tattn"], attn_err,
                  times["tattn"], {key: attn_row[key] for key in ("bound_ms", "bound_by")}, attn_row["library_ms"]),
          "stages": [{key: row[key] for key in STAGE_KEYS} for row in times["tattn_stages"]]},
-        train_entry("dw_stencil_fwd", "dw_stencil", "dw_kernel.py:174", train_launches["dw_stencil_fwd"],
+        train_entry("dw_stencil_fwd", "dw_stencil", "dw_kernel.py:154", train_launches["dw_stencil_fwd"],
                     train_errs["dw_fwd"]),
         train_entry("dw_stencil_bwd", "dw_stencil", "dw_kernel.py:197", pallas_launches["dw_stencil_bwd"],
                     train_errs["dw_bwd"]),

@@ -131,18 +131,19 @@ def marked_kernels(events: list) -> list | None:
     return None if closing is None else kernels[opening + 1:closing]
 
 
-def profiled(fn, calls: int, tries: int = TRIES) -> tuple[float, float, dict]:
+def profiled(fn, calls: int, tries: int = TRIES, name: re.Pattern = KERNEL_NAME) -> tuple[float, float, dict]:
     """(device ms a call of the hand-written kernels, device launches a call,
-    {kernel: ms a call}) from a torch.profiler trace of `calls` calls. A trace
-    may miss launches, now and then all of them, so a trace with fewer than
-    `calls` hand-written launches is taken again (up to `tries` times), and the
-    time a call is the median of each kernel's launches times its launches a
-    call in the trace."""
+    {kernel: ms a call}) from a torch.profiler trace of `calls` calls; the
+    hand-written kernels are those `name` finds (by default both TFCM
+    backward phases'). A trace may miss launches, now and then all of them,
+    so a trace with fewer than `calls` hand-written launches is taken again
+    (up to `tries` times), and the time a call is the median of each kernel's
+    launches times its launches a call in the trace."""
     fn()
     torch.cuda.synchronize()
     for attempt in range(tries):
         events = kernel_events(fn, calls)
-        seen = sum(bool(KERNEL_NAME.search(e["name"])) for e in events)
+        seen = sum(bool(name.search(e["name"])) for e in events)
         if seen >= calls:
             break
         print(f"profile {attempt + 1} of {calls} calls saw {seen} hand-written launches "
@@ -151,7 +152,7 @@ def profiled(fn, calls: int, tries: int = TRIES) -> tuple[float, float, dict]:
         raise RuntimeError(f"{tries} profiles of {calls} calls missed the hand-written kernels")
     by_kernel: dict = {}
     for e in events:
-        match = KERNEL_NAME.search(e["name"])
+        match = name.search(e["name"])
         if match:
             by_kernel.setdefault(match.group(0), []).append(e["dur"])
     per_call = {}
