@@ -28,11 +28,16 @@ needed). In order, and any failure exits non-zero:
    shape (f32 and bf16 weights) and both kernels at the T=1 shapes (B=256, 8,
    1), one B=256 x 10 s enhancement with the kernel and with the plain
    recurrence, and profiles that forward;
-6. holds the deep-filter kernel against its plain version within 1e-5 at
-   config 3's offline shape (B=64, T=1001, F=96, t=2, f=1, the low bins of a
-   161-bin spectrum), the streaming hop's (B=256, T=1, with history), and
-   ragged ones (T < 2*t_dim, a symmetric layout) and MTFAA's (B=16, T=626,
-   all 257 bins, t=1, f=1);
+6. holds the deep-filter kernels against their plain versions within 1e-5:
+   the forward at config 3's offline shape (B=64, T=1001, F=96, t=2, f=1, the
+   low bins of a 161-bin spectrum), the streaming hop's (B=256, T=1, with
+   history), ragged ones (T < 2*t_dim, a symmetric layout) and MTFAA's (B=16,
+   T=626, all 257 bins, t=1, f=1), the backward at each of them without
+   history (two calls giving the same bits), both through autograd (one
+   launch each), and both at forced ``df_plan`` tiles (T off the span, T <
+   2*t_dim, one span, a misaligned coefficient base, the strided 161-bin
+   slice, F=257 whole and split) into outputs filled with NaN first, after a
+   check that the instances at the main shapes spill nothing;
 7. drives config 3's streaming path: full-width CRUSE+DF (``CruseDfConfig()``,
    seeded weights and BatchNorm statistics), ``StreamingEnhancer.run`` on
    B=8 synthetic 4 s utterances; checks 2 GRU and 1 deep-filter launches per
@@ -44,8 +49,7 @@ needed). In order, and any failure exits non-zero:
    with the same CRUSE+DF on the six utterances; checks 2 GRU and 1
    deep-filter launches per forward and the waveform against the plain
    versions within 1e-4;
-9. times the deep-filter kernel and its plain version (B=256, T=1001, F=96,
-   K=15: ms and GB/s), streaming B=256 x 10 s (999 hops) with the kernels
+9. times streaming B=256 x 10 s (999 hops) with the kernels
    and with the plain versions (x-realtime), and one hop at B=1; profiles
    B=256 streaming hops (kernels per hop, device time by kernel, the
    device's busy time and idle share);
@@ -78,9 +82,8 @@ needed). In order, and any failure exits non-zero:
     a profile, the wrapper, the bound, ``scaled_dot_product_attention`` with
     the band mask, and the instance's registers, spills and blocks an SM,
     checked to spill nothing and, from a trace that saw every call, to be one
-    device launch a call), the deep filter at MTFAA's shape, and one
-    B=16 x 10 s config-5b enhancement with the kernels and with the plain versions
-    (x-realtime); profiles one B=16 forward (kernels per forward, device time
+    device launch a call), and one B=16 x 10 s config-5b enhancement with
+    the kernels and with the plain versions (x-realtime); profiles one B=16 forward (kernels per forward, device time
     by kernel, busy time and idle share) and checks that it shows 24
     ``tfcm_layer_kernel`` launches (6 stacks x 4 layers);
 13. holds the training kernels against their plain versions on the card at
@@ -104,8 +107,9 @@ needed). In order, and any failure exits non-zero:
     largest gradient);
 14. drives the training path: full-width config 5b, seeded weights, B=16 x 10 s
     of seeded noisy/clean pairs, 3 steps of ``make_train_step``; checks 24
-    stencil-forward, 24 ``tail_bwd``, 24 ``mid_bwd``, 3 attention-forward, 3 dq
-    and 3 dk/dv launches a step and no eval-kernel launch, finite losses and
+    stencil-forward, 24 ``tail_bwd``, 24 ``mid_bwd``, 3 attention-forward, 3 dq,
+    3 dk/dv, 1 deep-filter forward and 1 deep-filter backward launches a step
+    and no eval-kernel launch, finite losses and
     gradient norm, that parameters and BatchNorm statistics moved, and the
     first step's losses and BatchNorm statistics against the same model with
     every kernel swapped for its plain version, and its gradients against that
@@ -132,10 +136,18 @@ needed). In order, and any failure exits non-zero:
     with the band mask as the library call (its forward is timed in 12),
     the dk/dv instance's registers, spills and blocks an SM) and the plain
     dense backward at stage 0,
-    one B=16 x 10 s train step with the kernels and with the plain versions,
-    its peak memory, and profiles one step (``mid_bwd``'s device time a step,
-    and a check that the step makes at least 96 device launches fewer than the
-    6,270 it made with eight launches a ``mid_bwd`` call);
+    the deep filter's forward and backward at config 5b and config 3 and the
+    forward at the hop (``ops/df_timing.py``: the kernels alone from a
+    profile, checked to be one device launch a call, the wrappers, the
+    bound, the plain versions, the plan and its instance, and the plain
+    forward + ``autograd.grad`` that the step ran before the backward
+    kernel), one B=16 x 10 s train step with the kernels, with the plain
+    versions and with every kernel but the deep filter's (the step before
+    the backward kernel), their peak memory, and profiles a step with the
+    kernels and one with the plain deep filter (``mid_bwd``'s and the deep
+    filter's device time a step, and a check that the step makes at least
+    96 device launches fewer than the 6,270 it made with eight launches a
+    ``mid_bwd`` call);
 16. prints a JSON line of the kernels (each with its launches on the main
     paths, its error, its time, the plain version's, the least time the card
     could take for its bytes or its multiply-adds, and the library call's time
@@ -172,7 +184,11 @@ from cruse_tpu_torch.ops import _build
 from cruse_tpu_torch.ops.asa_kernel import (
     _launch_dkv, _launch_dq, _launch_fwd, band_mask, flash_tattn_tm, tattn_bwd_reference, tattn_dkv, tattn_dkv_info,
     tattn_dq, tattn_dq_info, tattn_reference)
-from cruse_tpu_torch.ops.deep_filter_kernel import deep_filter, deep_filter_reference
+from cruse_tpu_torch.ops.deep_filter_kernel import (
+    deep_filter, deep_filter_backward_reference, deep_filter_bwd, deep_filter_reference, df_kernel_info, df_plan,
+    df_vector_floats, launch_df_bwd, launch_df_fwd)
+from cruse_tpu_torch.ops.df_timing import df_inputs, misaligned, time_df
+from cruse_tpu_torch.ops.df_timing import describe as describe_df
 from cruse_tpu_torch.ops.dw_kernel import (
     DW_BLOCKS_PER_SM, dw_bwd_buffers, dw_bwd_reference, dw_causal_tm, dw_kernel_info, dw_partials_reference, dw_plan,
     dw_stencil_bwd, dw_stencil_fwd, dw_taps_reference, launch_dw_bwd, launch_dw_fwd)
@@ -216,6 +232,17 @@ DF_SHAPES = ((64, 1001, 96, 2, 1, True, 161, False),  # config 3 offline
              (3, 3, 24, 2, 1, True, 24, False),  # T < 2 * t_dim, zero fill
              (3, 9, 20, 1, 2, False, 20, False),  # symmetric layout
              MTFAA_DF)
+# B, T, F, t_dim, f_dim, causal, spectrum bins, history, and the plan's span and bins, and the floats by which
+# the coefficients start past a 16-byte boundary, of the deep filter's forced tiles (the backward's where no history)
+DF_TILINGS = ((3, 50, 96, 2, 1, True, 161, False, 7, 48, 0),  # T off the span; the strided 161-bin slice, 2 ranges
+              (3, 3, 24, 2, 1, True, 24, False, 2, 24, 0),  # T < 2 * t_dim
+              (3, 3, 24, 2, 1, True, 24, True, 2, 10, 0),  # T < 2 * t_dim, with history, ragged bins
+              (2, 40, 20, 1, 2, False, 20, False, 40, 20, 0),  # one span, symmetric
+              (2, 17, 37, 1, 1, True, 37, False, 5, 37, 1),  # a misaligned base: 4-byte copies
+              (2, 17, 37, 1, 1, True, 37, False, 4, 12, 2),  # an 8-byte base, ragged bins
+              (4, 30, 257, 1, 1, True, 257, False, 4, 257, 0),  # F = 257: rows off 16 bytes; 8-byte copies back
+              (4, 30, 257, 1, 1, True, 257, False, 6, 130, 0),  # F = 257 in two ranges
+              (3, 1, 96, 2, 1, True, 161, True, 1, 48, 0))  # the hop in two ranges
 F32_TOL, BF16_TOL, DF_TOL, WAV_TOL = 1e-4, 1e-3, 1e-5, 1e-4
 SR = 16000
 UTTERANCE_SAMPLES = (32017, 59123, 81611, 105777, 132941, 160000)  # 2 .. 10 s
@@ -264,17 +291,21 @@ GRAD_REL_TOL, GRAD_ABS_TOL = 2e-3, 1e-3  # a gradient leaf: relative, or of the 
 GRAD_NOISE_FACTOR = 3.0  # or this many times the same leaf's own float32 rounding error (whole net only)
 TRAIN_STEPS = 3
 HAND_WRITTEN = frozenset((  # the __global__ functions of ops/csrc/*.cu, as a profile names them
-    "gru_sequence_kernel", "gru_resident_kernel", "deep_filter_kernel", "tfcm_layer_kernel", "tattn_fwd_kernel",
+    "gru_sequence_kernel", "gru_resident_kernel", "deep_filter_kernel", "deep_filter_bwd_kernel", "tfcm_layer_kernel",
+    "tattn_fwd_kernel",
     "tattn_dq_kernel", "tattn_dkv_kernel", "dw_fwd_kernel", "dw_bwd_kernel", "dw_finish_kernel",
     "tail_bwd_kernel", "mid_tile_kernel", "mid_finish_kernel"))
-# launches one config-5b train step makes: 6 stacks x 4 blocks, 3 attentions
+# launches one config-5b train step makes: 6 stacks x 4 blocks, 3 attentions, 1 deep filter
 STEP_LAUNCHES = {"dw_stencil_fwd": 24, "dw_stencil_bwd": 0, "tail_bwd": 24, "mid_bwd": 24,
                  "tattn": 3, "tattn_dq": 3, "tattn_dkv": 3, "tfcm_stack": 0, "tfcm_block": 0,
-                 "deep_filter": 0, "gru_sequence": 0}
+                 "deep_filter": 1, "deep_filter_bwd": 1, "gru_sequence": 0}
 # what the kernels line gives of each attention kernel's timed stage geometries (ops/tattn_timing.py's rows)
 STAGE_KEYS = ("bf", "c", "C", "window", "kernel_ms", "wrapper_ms", "bound_ms", "library_ms")
 # and of the stencil's timed stage shapes and dilations (ops/dw_timing.py's rows)
 DW_STAGE_KEYS = ("shape", "d", "kernel_ms", "wrapper_ms", "bound_ms", "library_ms", "kb", "tt")
+# and of the deep filter's timed shapes (ops/df_timing.py's rows)
+DF_STAGE_KEYS = ("shape", "b", "t", "f", "t_dim", "f_dim", "kernel_ms", "wrapper_ms", "bound_ms", "plain_ms", "span",
+                 "bins")
 STEP_KERNELS_BEFORE = 6270  # device launches of a config-5b train step when a mid_bwd call made 8
 MID_LAUNCHES_PER_CALL = 2  # mid_tile_kernel and mid_finish_kernel
 DW_LAUNCHES_PER_CALL = {"forward": 1, "backward": 2}  # dw_fwd_kernel; dw_bwd_kernel and dw_finish_kernel
@@ -438,7 +469,7 @@ def set_plain(model, plain: bool) -> None:
     model.filter_fn = deep_filter_reference if plain else deep_filter
 
 
-COUNTERS = {"gru_sequence": gru_sequence, "deep_filter": deep_filter,
+COUNTERS = {"gru_sequence": gru_sequence, "deep_filter": deep_filter, "deep_filter_bwd": deep_filter_bwd,
             "tfcm_stack": fused_tfcm_stack_eval, "tfcm_block": fused_tfcm_block_eval,
             "tattn": flash_tattn_tm, "dw_stencil_fwd": dw_stencil_fwd,
             "dw_stencil_bwd": dw_stencil_bwd, "tail_bwd": tail_bwd, "mid_bwd": mid_bwd,
@@ -512,38 +543,101 @@ def check_main_path(inferencer) -> int:
     return launches
 
 
-def df_inputs(b, t, f, t_dim, f_dim, causal, bins, history, device, seed):
-    """Seeded deep-filter inputs on the card: the spectrum is the low f bins
-    of a [B, T, bins] one (strided rows, as in the model); the history, when
-    asked for, a batch-strided view, as the stream carries it."""
-    gen = torch.Generator(device).manual_seed(seed)
-    k = (2 * t_dim + 1) * (2 * f_dim + 1)
-
-    def cplx(*shape):
-        return torch.complex(torch.randn(shape, generator=gen, device=device),
-                             torch.randn(shape, generator=gen, device=device))
-
-    spec = cplx(b, t, bins)[:, :, :f]
-    coefs = torch.randn((b, t, f, k, 2), generator=gen, device=device) * 0.2
-    hist = cplx(b, 2 * t_dim + 1, f)[:, 1:] if history else None
-    return spec, coefs, hist
-
-
-def check_df_kernel(device) -> float:
-    """Deep-filter kernel vs plain version on the card; returns the largest error."""
-    worst = 0.0
+def check_df_kernel(device) -> tuple[float, float]:
+    """The deep filter's kernels against their plain versions on the card:
+    the forward at DF_SHAPES, the backward at those without history (two
+    calls giving the same bits), both through autograd at config 5b's shape
+    (one launch each), and both at DF_TILINGS (``check_df_tiles``). Returns
+    the forward's and the backward's largest errors."""
+    worst = [0.0, 0.0]
     for b, t, f, t_dim, f_dim, causal, bins, history in DF_SHAPES:
-        spec, coefs, hist = df_inputs(b, t, f, t_dim, f_dim, causal, bins, history, device, SEED)
+        spec, coefs, hist, g = df_inputs(b, t, f, t_dim, f_dim, causal, bins, history, device, SEED)
+        what = f"B={b} T={t} F={f} t={t_dim} f={f_dim} causal={causal} history={history}"
         with torch.inference_mode():
             got = deep_filter(spec, coefs, t_dim, f_dim, causal, hist)
             torch.cuda.synchronize()
             want = deep_filter_reference(spec, coefs, t_dim, f_dim, causal, hist)
-        err = float((got - want).abs().max())
-        require(bool(torch.isfinite(torch.view_as_real(got)).all()) and err <= DF_TOL,
-                f"deep_filter B={b} T={t} F={f} t={t_dim} f={f_dim} causal={causal} "
-                f"history={history}: max-abs {err:.3g} <= {DF_TOL}")
-        worst = max(worst, err)
-    return worst
+            err = float((got - want).abs().max())
+            require(bool(torch.isfinite(torch.view_as_real(got)).all()) and err <= DF_TOL,
+                    f"deep_filter {what}: max-abs {err:.3g} <= {DF_TOL}")
+            worst[0] = max(worst[0], err)
+            if history:
+                continue
+            got = deep_filter_bwd(g, spec, coefs, t_dim, f_dim, causal)
+            again = deep_filter_bwd(g, spec, coefs, t_dim, f_dim, causal)
+            want = deep_filter_backward_reference(g, spec, coefs, t_dim, f_dim, causal)
+            errs = [float((x - y).abs().max()) for x, y in zip(got, want)]
+            require(all(bool(torch.isfinite(torch.view_as_real(x) if x.is_complex() else x).all()) for x in got)
+                    and max(errs) <= DF_TOL, f"deep_filter_bwd {what}: dspec, dcoefs max-abs "
+                    f"{errs[0]:.3g}, {errs[1]:.3g} <= {DF_TOL}")
+            require(all(torch.equal(x, y) for x, y in zip(got, again)),
+                    f"deep_filter_bwd {what}: two calls give the same dspec and dcoefs bits")
+            worst[1] = max(worst[1], *errs)
+    spec, coefs, _, g = df_inputs(*MTFAA_DF, device, SEED + 1)
+    t_dim, f_dim = MTFAA_DF[3:5]
+    spec.requires_grad_(), coefs.requires_grad_()
+    before = counts()
+    out = deep_filter(spec, coefs, t_dim, f_dim)
+    got = torch.autograd.grad(out, (spec, coefs), g)
+    torch.cuda.synchronize()
+    after = counts()
+    require(all(after[n] - before[n] == 1 for n in ("deep_filter", "deep_filter_bwd")),
+            "deep_filter under autograd at config 5b's shape: one forward and one backward launch")
+    with torch.inference_mode():
+        want = deep_filter_backward_reference(g, spec, coefs, t_dim, f_dim, True)
+    errs = [float((x - y).abs().max()) for x, y in zip(got, want)]
+    require(max(errs) <= DF_TOL, f"deep_filter's gradients through autograd at config 5b's shape: max-abs "
+            f"{errs[0]:.3g}, {errs[1]:.3g} <= {DF_TOL}")
+    del spec, coefs, g, out, got, want
+    tiles = check_df_tiles(device)
+    return max(worst[0], tiles[0]), max(worst[1], *errs, tiles[1])
+
+
+def check_df_tiles(device) -> tuple[float, float]:
+    """Both deep-filter kernels at the forced plans of DF_TILINGS, into outputs
+    filled with NaN first (so a value the kernels never write shows), against
+    the plain versions; first, that the instances at the main shapes' plans
+    spill nothing. Returns the forward's and the backward's largest errors."""
+    for shape in (MTFAA_DF, CONFIG3_DF):
+        b, t, f, t_dim, f_dim, causal, _, _ = shape
+        for backward in (False, True):
+            plan = df_plan(b, t, f, t_dim, f_dim, causal, backward=backward)
+            for vec in (1, 2, 4):
+                info = df_kernel_info(backward, vec, plan.smem, plan.threads)
+                require(info["spill_bytes"] == 0, f"the deep filter's {'backward' if backward else 'forward'} "
+                        f"instance with {4 * vec}-byte copies spills nothing at the plan of B={b} T={t} F={f} "
+                        f"({info['registers']} registers, {info['blocks_per_sm']} blocks an SM at {plan.smem} B, "
+                        f"planned {plan.blocks_per_sm})")
+    worst = [0.0, 0.0]
+    nan = complex(math.nan, math.nan)
+    for b, t, f, t_dim, f_dim, causal, bins, history, span, nb, shift in DF_TILINGS:
+        spec, coefs, hist, g = df_inputs(b, t, f, t_dim, f_dim, causal, bins, history, device, SEED + 5)
+        coefs = misaligned(coefs, shift)
+        pf = df_plan(b, t, f, t_dim, f_dim, causal, history, span=span, bins=nb)
+        what = (f"B={b} T={t} F={f} t={t_dim} f={f_dim} causal={causal} history={history}, "
+                f"{4 * df_vector_floats(coefs)}- and {4 * df_vector_floats(coefs, coefs)}-byte copies forward and "
+                f"backward, plan {pf.span} frames x {pf.bins} bins")
+        with torch.inference_mode():
+            out = torch.full((b, t, f), nan, dtype=torch.complex64, device=device)
+            launch_df_fwd(spec, coefs, t_dim, f_dim, causal, hist, pf, out)
+            want = deep_filter_reference(spec, coefs, t_dim, f_dim, causal, hist)
+            err = float((out - want).abs().max())
+            require(bool(torch.isfinite(torch.view_as_real(out)).all()) and err <= DF_TOL,
+                    f"deep_filter forward {what}: max-abs {err:.3g} <= {DF_TOL}")
+            worst[0] = max(worst[0], err)
+            if history:
+                continue
+            pb = df_plan(b, t, f, t_dim, f_dim, causal, backward=True, span=span, bins=nb)
+            dspec = torch.full((b, t, f), nan, dtype=torch.complex64, device=device)
+            dcoefs = torch.full_like(coefs, math.nan)
+            launch_df_bwd(g, spec, coefs, t_dim, f_dim, causal, pb, dspec, dcoefs)
+            want = deep_filter_backward_reference(g, spec, coefs, t_dim, f_dim, causal)
+            errs = [float((x - y).abs().max()) for x, y in zip((dspec, dcoefs), want)]
+            require(bool(torch.isfinite(torch.view_as_real(dspec)).all() and torch.isfinite(dcoefs).all())
+                    and max(errs) <= DF_TOL, f"deep_filter backward {what}: dspec, dcoefs max-abs "
+                    f"{errs[0]:.3g}, {errs[1]:.3g} <= {DF_TOL}")
+            worst[1] = max(worst[1], *errs)
+    return worst[0], worst[1]
 
 
 def build_cruse_df(device):
@@ -971,17 +1065,6 @@ def time_mtfaa_kernels(device, smi) -> dict:
             times.setdefault("tattn", (row["wrapper_ms"], plain))
         print(f"{line} on {smi}", flush=True)
     del q, k, v
-    with torch.inference_mode():
-        b, t, f, t_dim, f_dim = MTFAA_DF[:5]
-        spec, coefs, _ = df_inputs(*MTFAA_DF, device, SEED + 1)
-        ms = cuda_ms(lambda: deep_filter(spec, coefs, t_dim, f_dim), reps=20)
-        plain = cuda_ms(lambda: deep_filter_reference(spec, coefs, t_dim, f_dim), reps=5)
-        nbytes = coefs.numel() * 4 + 2 * spec.numel() * 8
-        least = bound(nbytes, spec.numel() * coefs.shape[3] * 4)
-        print(f"deep_filter B={b} T={t} F={f} K={coefs.shape[3]} (config 5b) on {smi}: kernel "
-              f"{ms:.3f} ms = {nbytes / ms / 1e6:.1f} GB/s, bound {least['bound_ms']:.4f} ms "
-              f"({least['bound_by']}), plain {plain:.3f} ms "
-              f"({'kernel faster' if ms < plain else 'KERNEL SLOWER'})")
     return times
 
 
@@ -1471,15 +1554,36 @@ def time_tfcm_bwd_stages(device, smi) -> None:
               f"wrappers {step['wrapper_ms']:.3f} ms, summed bound {step['bound_ms']:.3f} ms (bytes)")
 
 
+def time_df_kernels(device, smi) -> list:
+    """The deep filter's forward and backward at config 5b and config 3 and the
+    forward at the hop (``ops/df_timing.py``): kernels alone, wrapper, device
+    launches a call, the bound, the plain version, the plan and its
+    instance, and at 5b the plain forward + ``autograd.grad``. Checks that a
+    call is one device launch and that no instance spills. Returns the rows."""
+    rows = time_df(device)
+    for row in rows:
+        require(row["launches_per_call"] <= 1 and row["info"]["spill_bytes"] == 0,
+                f"a deep_filter {row['kind']} call at {row['shape']} is {row['launches_per_call']:.1f} <= 1 device "
+                f"launches and its instance spills nothing")
+        print(f"{describe_df(row)} on {smi}", flush=True)
+    return rows
+
+
 def time_train_step(device, smi) -> None:
-    """One B=16 x 10 s config-5b train step with the kernels and with the plain
-    versions (wall ms after a warm-up, peak memory), and a profile of a step."""
+    """One B=16 x 10 s config-5b train step with the kernels, with the plain
+    versions, and with every kernel but the deep filter's (the step before
+    the deep filter's backward kernel; wall ms after a warm-up, peak memory),
+    in turns; and a profile of a step with the kernels and of one with the
+    plain deep filter."""
     cfg = train_config()
     data = noisy_clean_pairs(SEED + 7, MTFAA_BATCH, MTFAA_SECONDS, device)
-    profiled = False
-    for plain in (True, False, False, True):
+    profiled = set()
+    kinds = ("plain versions", "kernels", "kernels but the plain deep filter")
+    for kind in kinds + kinds[::-1]:
         model = build_mtfaa(None, device, SEED + 4)
-        set_plain_mtfaa(model, plain)
+        set_plain_mtfaa(model, kind == "plain versions")
+        if kind == "kernels but the plain deep filter":
+            model.filter_fn = deep_filter_reference
         state = init_train_state(model, cfg, device)
         step = make_train_step(model, cfg)
         state, _ = step(state, data)
@@ -1490,28 +1594,30 @@ def time_train_step(device, smi) -> None:
             state, _ = step(state, data)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / 3 * 1e3
-        print(f"MTFAA config 5b train step B={MTFAA_BATCH} x {MTFAA_SECONDS} s, f32, on {smi}, "
-              f"{'plain versions' if plain else 'kernels'}: {ms:.1f} ms a step = "
-              f"{MTFAA_BATCH * MTFAA_SECONDS / ms * 1e3:.1f} s of audio a second, peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-        if not plain and not profiled:
-            profiled = True
+        print(f"MTFAA config 5b train step B={MTFAA_BATCH} x {MTFAA_SECONDS} s, f32, on {smi}, {kind}: "
+              f"{ms:.1f} ms a step = {MTFAA_BATCH * MTFAA_SECONDS / ms * 1e3:.1f} s of audio a second, peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        if kind != "plain versions" and kind not in profiled:
+            profiled.add(kind)
             box = {"state": state}
 
             def one_step():
                 box["state"], _ = step(box["state"], data)
 
-            prof = profile_calls(one_step, 2, f"B={MTFAA_BATCH} x {MTFAA_SECONDS} s config-5b train step, kernels")
+            prof = profile_calls(one_step, 2, f"B={MTFAA_BATCH} x {MTFAA_SECONDS} s config-5b train step, {kind}")
             mid_ms = sum(prof.device_ms.get(name, 0.0) for name in ("mid_tile_kernel", "mid_finish_kernel"))
-            print(f"config-5b train step on {smi}: mid_bwd's kernels {mid_ms:.3f} ms a step in "
+            print(f"config-5b train step, {kind}, on {smi}: mid_bwd's kernels {mid_ms:.3f} ms a step in "
                   f"{sum(prof.launches.get(n, 0.0) for n in ('mid_tile_kernel', 'mid_finish_kernel')):.1f} "
                   f"launches; the stencil forward's {prof.device_ms.get('dw_fwd_kernel', 0.0):.3f} ms in "
                   f"{prof.launches.get('dw_fwd_kernel', 0.0):.1f} launches (their summed bound "
                   f"{sum(dw_bound(TFCM_STAGES[i], d, 'forward')['bound_ms'] for i in STACK_STAGES for d in DILATIONS):.3f} "
-                  f"ms); "
+                  f"ms); the deep filter's forward {prof.device_ms.get('deep_filter_kernel', 0.0):.4f} ms in "
+                  f"{prof.launches.get('deep_filter_kernel', 0.0):.1f} launches and backward "
+                  f"{prof.device_ms.get('deep_filter_bwd_kernel', 0.0):.4f} ms in "
+                  f"{prof.launches.get('deep_filter_bwd_kernel', 0.0):.1f} launches; "
                   f"{prof.kernels:.1f} device launches a step")
             require(prof.kernels <= STEP_KERNELS_BEFORE - 96,
-                    f"the config-5b train step's profile shows {prof.kernels:.1f} device launches a step "
+                    f"the config-5b train step's profile ({kind}) shows {prof.kernels:.1f} device launches a step "
                     f"<= {STEP_KERNELS_BEFORE} - 96")
             del box
         del model, state, step
@@ -1619,22 +1725,11 @@ def main() -> int:
     profile_calls(lambda: inferencer.mag_to_mag(x), 2, f"B=256 x {seconds} s config-1 mag_to_mag")
     del inferencer
 
-    df_err = check_df_kernel(device)
+    df_err, df_bwd_err = check_df_kernel(device)
     model = build_cruse_df(device)
     stream_gru, stream_df = check_streaming(model, device)
     auto_gru, auto_df = check_auto_path(model, device)
 
-    b, t, f, t_dim, f_dim = CONFIG3_DF[:5]
-    spec, coefs, _ = df_inputs(*CONFIG3_DF, device, SEED + 2)
-    with torch.inference_mode():
-        df_ms = cuda_ms(lambda: deep_filter(spec, coefs, t_dim, f_dim), reps=10)
-        df_plain_ms = cuda_ms(lambda: deep_filter_reference(spec, coefs, t_dim, f_dim), reps=2)
-    nbytes = coefs.numel() * 4 + 2 * spec.numel() * 8  # coefficients + spectrum + output, once
-    print(f"deep_filter B={b} T={t} F={f} K={coefs.shape[3]} on {smi}: kernel {df_ms:.3f} ms = "
-          f"{nbytes / df_ms / 1e6:.1f} GB/s of {nbytes / 1e9:.3f} GB, plain {df_plain_ms:.3f} ms = "
-          f"{nbytes / df_plain_ms / 1e6:.1f} GB/s "
-          f"({'kernel faster' if df_ms < df_plain_ms else 'KERNEL SLOWER'})")
-    del spec, coefs
 
     enh = StreamingEnhancer(model, StftConfig(n_fft=320, hop_length=160, center=False))
     wav = torch.from_numpy(np.random.default_rng(SEED).standard_normal((256, seconds * SR))
@@ -1709,6 +1804,7 @@ def main() -> int:
     lib = library_ms(device)
     print(f"library calls on {smi}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in lib.items()))
     train_times = time_train_kernels(device, smi, lib)
+    df_rows = time_df_kernels(device, smi)
     time_train_step(device, smi)
 
     # least bytes (each input read once, each output written once) and
@@ -1716,14 +1812,13 @@ def main() -> int:
     b, t, g, h = CONFIG1_GRU
     gru_bound = bound(4 * (b * t * g * 4 * h + 2 * b * g * h + g * 3 * h * h + g * 3 * h),
                       b * t * g * 3 * h * h)
-    b, t, f = CONFIG3_DF[:3]
-    taps = (2 * CONFIG3_DF[3] + 1) * (2 * CONFIG3_DF[4] + 1)
-    df_bound = bound(b * t * f * (8 * taps + 16), b * t * f * taps * 4)
     b, k, c, t = TFCM_STAGES[0]
     layer_fmas = b * k * t * c * (2 * c + 9)
     stack_bound = bound(2 * 4 * b * k * c * t, len(DILATIONS) * layer_fmas)
     block_bound = bound(2 * 4 * b * k * c * t, layer_fmas)
     attn_row = times["tattn_stages"][0]  # stage 0, window 126
+    df_fwd = next(row for row in df_rows if row["kind"] == "forward" and row["shape"] == "config 3")
+    df_bwd = next(row for row in df_rows if row["kind"] == "backward" and row["shape"] == "5b")
 
     def entry(name, source, replaces, launches, err, times, bounds, library):
         return {"name": name, "route": "cuda", "source": f"cruse_tpu_torch/ops/csrc/{source}.cu",
@@ -1740,8 +1835,17 @@ def main() -> int:
         {**entry("gru_sequence", "gru_sequence", "gru_kernel.py:82", launches + stream_gru + auto_gru,
                  gru_err, (kernel_ms, plain_ms), gru_bound, lib["gru"]),
          "resident_ms": gru_times["f32"][0], "streamed_ms": gru_times["f32"][1]},
-        entry("deep_filter", "deep_filter", "deep_filter_kernel.py:91", stream_df + auto_df + mtfaa_df,
-              df_err, (df_ms, df_plain_ms), df_bound, None),
+        {**entry("deep_filter", "deep_filter", "deep_filter_kernel.py:91",
+                 stream_df + auto_df + mtfaa_df + train_launches["deep_filter"], df_err,
+                 (df_fwd["wrapper_ms"], df_fwd["plain_ms"]), {key: df_fwd[key] for key in ("bound_ms", "bound_by")},
+                 None),
+         "stages": [{key: row[key] for key in DF_STAGE_KEYS} for row in df_rows if row["kind"] == "forward"]},
+        {"name": "deep_filter_bwd", "route": "cuda", "source": "cruse_tpu_torch/ops/csrc/deep_filter.cu",
+         "replaces": "cruse_tpu/models/deep_filter.py:94 (no TPU kernel: the JAX step differentiates the plain "
+                     "deep_filter_apply_tm)", "launches": train_launches["deep_filter_bwd"],
+         "max_abs_err": df_bwd_err, "ms": df_bwd["wrapper_ms"], "plain_ms": df_bwd["plain_ms"],
+         "bound_ms": df_bwd["bound_ms"], "bound_by": df_bwd["bound_by"], "library_ms": None,
+         "stages": [{key: row[key] for key in DF_STAGE_KEYS} for row in df_rows if row["kind"] == "backward"]},
         entry("tfcm_stack", "tfcm_eval", "tfcm_kernel.py:212", stack_launches, tfcm_err,
               times["tfcm_stack"], stack_bound, None),
         entry("tfcm_block", "tfcm_eval", "tfcm_kernel.py:103", block_launches, block_err,

@@ -8,7 +8,8 @@ features, which refine the low bins, where phase matters most. Everything is
 causal, so the model streams frame by frame: the deep filter then keeps the
 last ``2*t_dim`` masked low-bin frames as its history. Both paths run the
 filter through ``ops.deep_filter_kernel.deep_filter`` (one kernel launch on
-the card).
+the card); under a gradient its backward is a kernel too (one more launch),
+and the streaming form, with its history, has none.
 """
 from __future__ import annotations
 

@@ -36,9 +36,10 @@ the stencil's forward kernel, and a backward through the ``tail_bwd`` and
 autograd with the stencil as ``ops/dw_kernel.py::dw_causal_tm`` (``dw_fn``:
 forward and backward kernels). The temporal attention under a gradient is the
 forward kernel with its logsumexp and the dq and dk/dv kernels
-(``ops/asa_kernel.py``). The deep filter in training is the differentiable
-plain shift-MAC (``deep_filter_reference``), as the reference trains through
-its plain version too: the deep-filter kernel has no backward.
+(``ops/asa_kernel.py``). The deep filter under a gradient is the forward
+kernel and the backward kernel (``ops/deep_filter_kernel.py::deep_filter``,
+through its ``torch.autograd.Function``); the reference trains through its
+plain shift-MAC, whose autodiff the backward kernel computes.
 
 Not ported yet, and refused by name: streaming with carried state (the MTFAA
 streaming slice). ``asa_impl``, ``tfcm_remat`` and ``asa_remat`` are accepted
@@ -58,7 +59,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cruse_tpu_torch.ops.asa_kernel import flash_tattn_tm
-from cruse_tpu_torch.ops.deep_filter_kernel import deep_filter, deep_filter_reference
+from cruse_tpu_torch.ops.deep_filter_kernel import deep_filter
 from cruse_tpu_torch.ops.dw_kernel import dw_causal_tm
 from cruse_tpu_torch.ops.tfcm_kernel import (
     fold_eval_params, fused_tfcm_block_eval, fused_tfcm_stack_eval)
@@ -514,10 +515,9 @@ class MtfaaNet(nn.Module):
     """cspec [B, T, F, 2] -> ((enhanced complex64 [B, T, F], mask [B, T, F]), None).
 
     ``train`` must agree with the module's mode (``.train()`` / ``.eval()``).
-    With ``train=True`` BatchNorm uses and records batch statistics, the TFCM
-    blocks and the attention run their differentiable routes, and the deep
-    filter is the plain differentiable shift-MAC in place of ``filter_fn``
-    (whose kernel has no backward). A carried ``state`` raises."""
+    With ``train=True`` BatchNorm uses and records batch statistics, and the
+    TFCM blocks, the attention and the deep filter (``filter_fn``) run their
+    differentiable routes. A carried ``state`` raises."""
 
     def __init__(self, config: MtfaaConfig = MtfaaConfig(), generator: torch.Generator | None = None):
         super().__init__()
@@ -600,6 +600,5 @@ class MtfaaNet(nn.Module):
             taps = self.num_taps
             coefs = (feats @ self.df_coef_kernel + self.df_coef_bias) / taps
             coefs = coefs.view(b, t, cfg.num_bins, taps, 2)
-            filter_fn = deep_filter_reference if train else self.filter_fn
-            enhanced = filter_fn(enhanced, coefs, cfg.df_taps_t, cfg.df_taps_f, causal=True)
+            enhanced = self.filter_fn(enhanced, coefs, cfg.df_taps_t, cfg.df_taps_f, causal=True)
         return (enhanced, mask), None

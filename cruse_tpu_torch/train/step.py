@@ -8,7 +8,7 @@ here the weights and statistics live in the module, so an adapter takes the
 spectrum alone and returns the enhanced one. ``train`` must agree with the
 module's mode. Only ``complex_model_forward`` (MtfaaNet) runs with
 ``train=True``; the CRUSE and CRUSE+DF adapters refuse it by name, because
-their GRU and deep-filter kernels have no backward yet.
+the GRU kernel has no backward yet (the deep filter's has one).
 
 **The train step** (``make_train_step``): STFT of noisy and clean -> the
 model's training forward -> the losses on the enhanced spectrum (``si_snr``
@@ -59,8 +59,8 @@ def _magnitude_features(model, noisy_ri: torch.Tensor) -> torch.Tensor:
 def _check_eval(model, train: bool) -> None:
     if train:
         raise NotImplementedError(
-            f"the training forward of {type(model).__name__} is not ported: its GRU and "
-            "deep-filter kernels have no backward yet; only train=False runs")
+            f"the training forward of {type(model).__name__} is not ported: its GRU kernel "
+            "has no backward yet; only train=False runs")
     if model.training:
         raise ValueError("train=False needs the model in eval mode (model.eval()): "
                          "BatchNorm must use its running statistics")

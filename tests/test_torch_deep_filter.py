@@ -7,6 +7,12 @@ Inputs come from a numpy seed and go through both packages: the port's
 ``deep_filter_pallas`` run in interpret mode, as cruse_tpu's own tests run
 it; the history form frame by frame against ``apply_cruse_df_streaming``.
 Tolerance 1e-5: float32 sums of the same 15 products in the same order.
+
+The backward: ``deep_filter_backward_reference`` against ``jax.vjp`` of
+``deep_filter_apply`` and of the T-minor ``deep_filter_apply_tm`` that
+JAX's MTFAA step differentiates; ``deep_filter`` under autograd on the CPU;
+``df_plan``'s tiles, and ``deep_filter_bwd_walk_reference`` (the backward
+kernel's walk) against the plain backward.
 """
 import numpy as np
 import pytest
@@ -19,12 +25,15 @@ from cruse_tpu.models.cruse_df import apply_cruse_df_streaming as jax_apply_crus
 from cruse_tpu.models.cruse_df import df_stream_init as jax_df_stream_init
 from cruse_tpu.models.deep_filter import DeepFilterHead as JaxDeepFilterHead
 from cruse_tpu.models.deep_filter import deep_filter_apply as jax_deep_filter_apply
+from cruse_tpu.models.deep_filter import deep_filter_apply_tm as jax_deep_filter_apply_tm
 from cruse_tpu.models.deep_filter import tap_offsets as jax_tap_offsets
 
 from cruse_tpu_torch.models.cruse import CruseConfig
 from cruse_tpu_torch.models.cruse_df import CruseDfConfig, apply_cruse_df_streaming, df_stream_init
 from cruse_tpu_torch.models.deep_filter import DeepFilterHead, _shift2d, deep_filter_apply, tap_offsets
-from cruse_tpu_torch.ops.deep_filter_kernel import deep_filter, deep_filter_reference
+from cruse_tpu_torch.ops.deep_filter_kernel import (
+    MAX_SMEM, deep_filter, deep_filter_backward_reference, deep_filter_bwd, deep_filter_bwd_walk_reference,
+    deep_filter_reference, df_plan, df_walk)
 from cruse_tpu_torch.utils.weights import flatten_tree
 
 
@@ -194,3 +203,152 @@ def test_wrapper_rejects(rng, case):
         spec, coefs = spec.to("meta"), coefs.to("meta")
     with pytest.raises(ValueError):
         deep_filter(spec, coefs, 1, 1, causal, history)
+
+
+def _cotangent(rng, b, t, f):
+    return (rng.standard_normal((b, t, f)) + 1j * rng.standard_normal((b, t, f))).astype(np.complex64)
+
+
+def _torch_backward(grad, spec, coefs, t_dim, f_dim, causal):
+    dspec, dcoefs = deep_filter_backward_reference(*(torch.from_numpy(a) for a in (grad, spec, coefs)),
+                                                   t_dim, f_dim, causal)
+    return dspec.numpy(), dcoefs.numpy()
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "symmetric"])
+@pytest.mark.parametrize("t_dim,f_dim", [(1, 1), (2, 1), (1, 2), (0, 1)])
+def test_backward_reference_matches_jax_vjp(rng, t_dim, f_dim, causal):
+    """dspec (as d/dRe + i d/dIm) and dcoefs against jax.vjp of
+    deep_filter_apply with a seeded cotangent; tolerance 1e-5 (float32 sums
+    of at most 15 products)."""
+    spec, coefs = _inputs(rng, 2, 11, 24, t_dim, f_dim, causal)
+    grad = _cotangent(rng, 2, 11, 24)
+    _, vjp = jax.vjp(lambda sr, si, cr, ci: jax_deep_filter_apply(sr, si, cr, ci, t_dim, f_dim, causal=causal),
+                     *(jnp.asarray(a) for a in (spec.real, spec.imag, coefs[..., 0], coefs[..., 1])))
+    dsr, dsi, dcr, dci = (np.asarray(a) for a in vjp((jnp.asarray(grad.real), jnp.asarray(grad.imag))))
+    dspec, dcoefs = _torch_backward(grad, spec, coefs, t_dim, f_dim, causal)
+    np.testing.assert_allclose(dspec, dsr + 1j * dsi, atol=1e-5)
+    np.testing.assert_allclose(dcoefs, np.stack([dcr, dci], -1), atol=1e-5)
+
+
+def test_backward_reference_matches_jax_vjp_tm(rng):
+    """The T-minor apply that JAX's MTFAA step differentiates (spec [B, F,
+    T], coefs [B, F, K, T]), at config 5b's taps, with transposed inputs;
+    tolerance 1e-5."""
+    t_dim, f_dim = 1, 1
+    spec, coefs = _inputs(rng, 2, 13, 20, t_dim, f_dim, True)
+    grad = _cotangent(rng, 2, 13, 20)
+    tm = lambda x: jnp.asarray(np.ascontiguousarray(np.moveaxis(x, 1, -1)))  # noqa: E731  [B, T, ...] -> [B, ..., T]
+    _, vjp = jax.vjp(lambda sr, si, cr, ci: jax_deep_filter_apply_tm(sr, si, cr, ci, t_dim, f_dim, causal=True),
+                     tm(spec.real), tm(spec.imag), tm(coefs[..., 0]), tm(coefs[..., 1]))
+    dsr, dsi, dcr, dci = (np.moveaxis(np.asarray(a), -1, 1) for a in vjp((tm(grad.real), tm(grad.imag))))
+    dspec, dcoefs = _torch_backward(grad, spec, coefs, t_dim, f_dim, True)
+    np.testing.assert_allclose(dspec, dsr + 1j * dsi, atol=1e-5)
+    np.testing.assert_allclose(dcoefs, np.stack([dcr, dci], -1), atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "symmetric"])
+def test_wrapper_backward_on_cpu_matches_autograd(rng, causal):
+    """deep_filter under autograd on the CPU (its autograd.Function with the
+    plain backward) against autograd.grad through deep_filter_reference,
+    within 1e-6; no kernel launch is counted."""
+    spec, coefs = _inputs(rng, 2, 9, 16, 1, 1, causal)
+    grad = torch.from_numpy(_cotangent(rng, 2, 9, 16))
+    before = deep_filter.launches, deep_filter_bwd.launches
+    results = []
+    for fn in (deep_filter, deep_filter_reference):
+        s = torch.from_numpy(spec).requires_grad_()
+        c = torch.from_numpy(coefs).requires_grad_()
+        out = fn(s, c, 1, 1, causal)
+        results.append((out.detach(), *torch.autograd.grad(out, (s, c), grad)))
+    assert (deep_filter.launches, deep_filter_bwd.launches) == before
+    for got, want in zip(*results):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    # one input with a gradient: the other gets none
+    c = torch.from_numpy(coefs).requires_grad_()
+    (dc,) = torch.autograd.grad(deep_filter(torch.from_numpy(spec), c, 1, 1, causal), (c,), grad)
+    torch.testing.assert_close(dc, results[1][2], rtol=0, atol=1e-6)
+
+
+def test_gradient_with_history_raises(rng):
+    spec, coefs = (torch.from_numpy(a) for a in _inputs(rng, 2, 3, 16, 2, 1, True))
+    history = torch.zeros(2, 4, 16, dtype=torch.complex64)
+    with pytest.raises(ValueError, match="history"):
+        deep_filter(spec.requires_grad_(), coefs, 2, 1, history=history)
+    with torch.no_grad():  # the streaming form itself runs
+        assert deep_filter(spec, coefs, 2, 1, history=history).shape == (2, 3, 16)
+    with pytest.raises(ValueError, match="history"):
+        df_plan(2, 3, 16, 2, 1, True, True, backward=True)
+
+
+def test_deep_filter_bwd_on_cpu_is_the_plain_backward(rng):
+    spec, coefs = _inputs(rng, 2, 7, 12, 2, 1, True)
+    grad = _cotangent(rng, 2, 7, 12)
+    got = deep_filter_bwd(*(torch.from_numpy(a) for a in (grad, spec, coefs)), 2, 1, True)
+    for x, y in zip(got, _torch_backward(grad, spec, coefs, 2, 1, True)):
+        np.testing.assert_array_equal(x.numpy(), y)
+
+
+# B, T, F, t_dim, f_dim, causal, history: config 5b, config 3 offline and its hop, ragged ones
+PLAN_SHAPES = [(16, 626, 257, 1, 1, True, False), (256, 1001, 96, 2, 1, True, False),
+               (256, 1, 96, 2, 1, True, True), (3, 7, 24, 1, 1, True, False), (3, 3, 24, 2, 1, True, False),
+               (3, 9, 20, 1, 2, False, False), (1, 1500, 1024, 2, 2, True, False)]
+
+
+@pytest.mark.parametrize("shape,backward", [(s, bw) for s in PLAN_SHAPES for bw in (False, True)
+                                            if not (bw and s[-1])],  # a history goes with the forward only
+                         ids=lambda x: "x".join(map(str, x[:5])) if isinstance(x, tuple) else ("bwd" if x else "fwd"))
+def test_df_plan_is_a_legal_tile(shape, backward):
+    """Every frame and bin is owned by one block; a span's walk reaches 2
+    t_dim frames back (forward: the spectrum its taps read) or out (backward:
+    the g and coefficient frames whose taps reach its dspec); a block fits
+    the card."""
+    b, t, f, t_dim, f_dim, causal, history = shape
+    plan = df_plan(b, t, f, t_dim, f_dim, causal, history, backward)
+    assert plan.smem <= MAX_SMEM and plan.threads <= 1024 and plan.threads >= plan.bins
+    assert plan.blocks == b * -(-t // plan.span) * -(-f // plan.bins) and plan.blocks_per_sm >= 1
+    owned = [u for t0, nt, _, _ in df_walk(t, plan.span, t_dim, causal, backward) for u in range(t0, t0 + nt)]
+    assert owned == list(range(t))
+    assert sorted(f0 + i for f0 in range(0, f, plan.bins) for i in range(min(plan.bins, f - f0))) == list(range(f))
+    dt_min = 0 if causal else -t_dim
+    for t0, nt, first, last in df_walk(t, plan.span, t_dim, causal, backward):
+        if backward:  # dspec[tau] needs g and coefs at tau + dt for every tap
+            assert (first, last) == (t0 + dt_min, t0 + nt - 1 + dt_min + 2 * t_dim)
+        else:  # out[u] reads the spectrum at u - dt for every tap
+            assert (first, last) == (t0 - dt_min - 2 * t_dim, t0 + nt - 1 - dt_min)
+        assert last - first == nt - 1 + 2 * t_dim
+
+
+@pytest.mark.parametrize("bad", ["span0", "span_long", "bins0", "bins_wide", "smem", "threads"])
+def test_df_plan_refuses_bad_plans(bad):
+    b, t, f = 2, 50, 300
+    kwargs = {"span0": {"span": 0}, "span_long": {"span": 51}, "bins0": {"bins": 0},
+              "bins_wide": {"bins": 301}}.get(bad, {})
+    if bad == "smem":  # 600 bins x 25 taps do not fit
+        with pytest.raises(ValueError):
+            df_plan(b, t, 600, 2, 2, bins=600)
+        assert df_plan(b, t, 600, 2, 2).smem <= MAX_SMEM  # the plan splits the bins instead
+        return
+    if bad == "threads":
+        with pytest.raises(ValueError):
+            df_plan(1, 4, 1100, 0, 0, bins=1100)
+        assert df_plan(1, 4, 1100, 0, 0).threads <= 1024
+        return
+    with pytest.raises(ValueError):
+        df_plan(b, t, f, 1, 1, **kwargs)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "symmetric"])
+@pytest.mark.parametrize("t_dim,f_dim,span,bins", [(1, 1, 4, 24), (2, 1, 3, 10), (1, 2, 5, 7), (0, 1, 2, 24),
+                                                   (2, 1, 13, 24), (1, 1, 1, 6)])
+def test_bwd_walk_reference_matches_plain_backward(rng, causal, t_dim, f_dim, span, bins):
+    """The backward kernel's walk, span by span and range by range (spans and
+    ranges that split T = 13 and F = 24 raggedly, T < 2 t_dim + span), gives
+    the plain backward within 1e-5 and stores every value once."""
+    spec, coefs = _inputs(rng, 2, 13, 24, t_dim, f_dim, causal)
+    grad = _cotangent(rng, 2, 13, 24)
+    plan = df_plan(2, 13, 24, t_dim, f_dim, causal, backward=True, span=span, bins=bins)
+    got = deep_filter_bwd_walk_reference(*(torch.from_numpy(a) for a in (grad, spec, coefs)), t_dim, f_dim,
+                                         causal, plan)
+    for x, y in zip(got, _torch_backward(grad, spec, coefs, t_dim, f_dim, causal)):
+        np.testing.assert_allclose(x.numpy(), y, atol=1e-5)
