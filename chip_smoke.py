@@ -37,7 +37,10 @@ needed). In order, and any failure exits non-zero:
    launch each), and both at forced ``df_plan`` tiles (T off the span, T <
    2*t_dim, one span, a misaligned coefficient base, the strided 161-bin
    slice, F=257 whole and split) into outputs filled with NaN first, after a
-   check that the instances at the main shapes spill nothing;
+   check that the instances at the main shapes spill nothing; and on a
+   lazily conjugated spectrum and history (``spec.conj()``) and a gradient
+   that comes back through ``.conj()`` of the output, against the plain
+   versions on the resolved tensors;
 7. drives config 3's streaming path: full-width CRUSE+DF (``CruseDfConfig()``,
    seeded weights and BatchNorm statistics), ``StreamingEnhancer.run`` on
    B=8 synthetic 4 s utterances; checks 2 GRU and 1 deep-filter launches per
@@ -120,7 +123,20 @@ needed). In order, and any failure exits non-zero:
     ``"pallas"`` route (24 stencil forwards and backwards a step) and config 5
     (full-causal attention) the same way at B=4 x 4 s, and that a step on a
     batch with a NaN leaves everything unchanged;
-15. times every training kernel and its plain version at stage 0, ``tail_bwd``
+15. holds the GRU backward kernel against its plain version on the card at
+    config 2's shape (B=128, T=1001, G=4, H=176), B=13 (off the kernel's
+    8-row tile), H=33, T=1 and H=512, with dh_last None and nonzero: into
+    dx_proj, dhp and dh0 filled with NaN first, and through
+    ``gru_sequence_bwd`` (dx_proj, dh0, dw_hh, db_hh), each within 1e-4 of
+    its largest value (f32 sums over 1,001 steps); checks that a forward
+    kernel's launcher refuses tensors that want a gradient; then drives
+    config 2's CRUSE train step (``configs/cruse_base.toml``) and config 3's
+    CRUSE+DF (``CruseDfConfig()``) as in 14: the first batch's losses,
+    gradients (float64, leaf by leaf) and BatchNorm statistics at B=8 x 10 s,
+    then 3 steps at B=128 x 10 s (CRUSE) and B=32 x 10 s (CRUSE+DF) with 2
+    GRU forward and 2 GRU backward launches a step (and 1 + 1 deep-filter
+    launches for CRUSE+DF), no other kernel and no plain version;
+16. times every training kernel and its plain version at stage 0, ``tail_bwd``
     and ``mid_bwd`` at the four stage shapes and d = 1, 2, 4, 8
     (``ops/tfcm_bwd_timing.py``: the wrapper by CUDA events, the kernels
     alone and the device launches a call from a profile, the bound; for
@@ -147,8 +163,13 @@ needed). In order, and any failure exits non-zero:
     kernels and one with the plain deep filter (``mid_bwd``'s and the deep
     filter's device time a step, and a check that the step makes at least
     96 device launches fewer than the 6,270 it made with eight launches a
-    ``mid_bwd`` call);
-16. prints a JSON line of the kernels (each with its launches on the main
+    ``mid_bwd`` call); the GRU backward kernel alone at config 2's shape
+    (CUDA events), its wrapper, its plain walk, its bound and
+    ``autograd.grad`` through cuDNN's ``nn.GRU``, one call a group; one
+    config-2 step at B=128 x 10 s and one CRUSE+DF step at B=32 x 10 s (wall
+    ms, peak memory) and a profile of the config-2 step (2 launches of each
+    GRU kernel, busy time, idle share);
+17. prints a JSON line of the kernels (each with its launches on the main
     paths, its error, its time, the plain version's, the least time the card
     could take for its bytes or its multiply-adds, and the library call's time
     where there is one), then ``{"ok": true, "device": ...}``.
@@ -175,7 +196,7 @@ import cruse_tpu_torch
 from cruse_tpu_torch.dsp.stft import StftConfig, istft, stft
 from cruse_tpu_torch.infer.batch import BatchInferencer, InferencerConfig
 from cruse_tpu_torch.infer.streaming import StreamingEnhancer
-from cruse_tpu_torch.models import CruseDfConfig, CruseDfNet, MtfaaConfig, MtfaaNet, build_from_config
+from cruse_tpu_torch.models import CruseDfConfig, CruseDfNet, CruseNet, MtfaaConfig, MtfaaNet, build_from_config
 from cruse_tpu_torch.models.cruse_df import apply_cruse_df
 from cruse_tpu_torch.models.mtfaa import (
     AxialSelfAttention, BatchNormC, PReLUc, TFCM, TFCMBlock)
@@ -195,8 +216,8 @@ from cruse_tpu_torch.ops.dw_kernel import (
 from cruse_tpu_torch.ops.dw_timing import describe as describe_dw
 from cruse_tpu_torch.ops.dw_timing import describe_step, dw_bound, time_dw
 from cruse_tpu_torch.ops.gru_kernel import (
-    MAX_HIDDEN, cluster_fit, gru_sequence, gru_sequence_reference, launch_resident, launch_streamed,
-    resident_plan)
+    MAX_HIDDEN, cluster_fit, gru_backward_walk_reference, gru_sequence, gru_sequence_backward_reference,
+    gru_sequence_bwd, gru_sequence_reference, launch_gru_bwd, launch_resident, launch_streamed, resident_plan)
 from cruse_tpu_torch.ops.tfcm_kernel import (
     PARAM_KEYS, _blocking, _layer_plan, fold_eval_params, fused_tfcm_block_eval, fused_tfcm_stack_eval,
     layer_kernel_info, tfcm_stack_reference)
@@ -213,7 +234,7 @@ from cruse_tpu_torch.utils.config import load_config
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
-KERNELS = ("gru_sequence", "deep_filter", "tfcm_eval", "tattn", "dw_stencil", "tfcm_bwd",
+KERNELS = ("gru_sequence", "gru_bwd", "deep_filter", "tfcm_eval", "tattn", "dw_stencil", "tfcm_bwd",
            "tattn_bwd")  # csrc/<name>.cu
 CONFIG1_GRU = (256, 1001, 4, 176)  # B, T, G, H of config 1's bottleneck banks
 STREAM_GRU = ((256, 1, 4, 176), (8, 1, 4, 176))  # config 3's streaming hop
@@ -222,6 +243,13 @@ RAGGED_GRU = ((3, 7, 4, 176), (3, 7, 3, 50))
 # weights; f32 takes the streamed kernel); a size only the streamed kernel takes
 CLUSTER_GRU = ((17, 7, 4, 176), (3, 7, 2, 177), (5, 6, 2, 200), (3, 5, 2, 384), (3, 5, 2, 500))
 STEP_GRU = ((256, 1, 4, 176), (8, 1, 4, 176), (1, 1, 4, 176))  # the T=1 shapes that are timed
+# B, T, G, H of the GRU backward kernel's cases: config 2's banks at its published batch (B=128 x 10 s);
+# B off the kernel's 8-row tile; an odd H; T = 1; the largest H it takes
+CONFIG2_GRU = (128, 1001, 4, 176)
+GRU_BWD_SHAPES = (CONFIG2_GRU, (13, 37, 4, 176), (3, 5, 2, 33), (9, 1, 3, 50), (2, 4, 1, 512))
+GRU_BWD_TOL = 1e-4  # x max|ref| of each output: f32 sums over up to 1,001 steps, and over B x T terms
+# config 2's train step at its published batch, CRUSE+DF's at B=32, and both at B=8 for the float64 check
+CONFIG2_BATCH, CRUSE_DF_BATCH, CRUSE_CHECK_BATCH, CRUSE_SECONDS = 128, 32, 8, 10
 # B, T, F, t_dim, f_dim, causal, spectrum bins (>= F: the low bins of a wider one), history
 CONFIG3_DF = (256, 1001, 96, 2, 1, True, 161, False)
 MTFAA_DF = (16, 626, 257, 1, 1, True, 257, False)  # config 5b, B=16 x 10 s: every bin, K=9
@@ -294,11 +322,14 @@ HAND_WRITTEN = frozenset((  # the __global__ functions of ops/csrc/*.cu, as a pr
     "gru_sequence_kernel", "gru_resident_kernel", "deep_filter_kernel", "deep_filter_bwd_kernel", "tfcm_layer_kernel",
     "tattn_fwd_kernel",
     "tattn_dq_kernel", "tattn_dkv_kernel", "dw_fwd_kernel", "dw_bwd_kernel", "dw_finish_kernel",
-    "tail_bwd_kernel", "mid_tile_kernel", "mid_finish_kernel"))
+    "tail_bwd_kernel", "mid_tile_kernel", "mid_finish_kernel", "gru_bwd_kernel"))
 # launches one config-5b train step makes: 6 stacks x 4 blocks, 3 attentions, 1 deep filter
 STEP_LAUNCHES = {"dw_stencil_fwd": 24, "dw_stencil_bwd": 0, "tail_bwd": 24, "mid_bwd": 24,
                  "tattn": 3, "tattn_dq": 3, "tattn_dkv": 3, "tfcm_stack": 0, "tfcm_block": 0,
-                 "deep_filter": 1, "deep_filter_bwd": 1, "gru_sequence": 0}
+                 "deep_filter": 1, "deep_filter_bwd": 1, "gru_sequence": 0, "gru_sequence_bwd": 0}
+# and one config-2 CRUSE step: 2 GRU banks, each a forward and a backward launch; CRUSE+DF's adds the deep filter
+CRUSE_STEP_LAUNCHES = {**{name: 0 for name in STEP_LAUNCHES}, "gru_sequence": 2, "gru_sequence_bwd": 2}
+CRUSE_DF_STEP_LAUNCHES = {**CRUSE_STEP_LAUNCHES, "deep_filter": 1, "deep_filter_bwd": 1}
 # what the kernels line gives of each attention kernel's timed stage geometries (ops/tattn_timing.py's rows)
 STAGE_KEYS = ("bf", "c", "C", "window", "kernel_ms", "wrapper_ms", "bound_ms", "library_ms")
 # and of the stencil's timed stage shapes and dilations (ops/dw_timing.py's rows)
@@ -473,7 +504,7 @@ COUNTERS = {"gru_sequence": gru_sequence, "deep_filter": deep_filter, "deep_filt
             "tfcm_stack": fused_tfcm_stack_eval, "tfcm_block": fused_tfcm_block_eval,
             "tattn": flash_tattn_tm, "dw_stencil_fwd": dw_stencil_fwd,
             "dw_stencil_bwd": dw_stencil_bwd, "tail_bwd": tail_bwd, "mid_bwd": mid_bwd,
-            "tattn_dq": tattn_dq, "tattn_dkv": tattn_dkv}
+            "tattn_dq": tattn_dq, "tattn_dkv": tattn_dkv, "gru_sequence_bwd": gru_sequence_bwd}
 
 
 def reset_counts() -> None:
@@ -590,7 +621,44 @@ def check_df_kernel(device) -> tuple[float, float]:
             f"{errs[0]:.3g}, {errs[1]:.3g} <= {DF_TOL}")
     del spec, coefs, g, out, got, want
     tiles = check_df_tiles(device)
-    return max(worst[0], tiles[0]), max(worst[1], *errs, tiles[1])
+    conj = check_df_conj(device)
+    return max(worst[0], tiles[0], conj[0]), max(worst[1], *errs, tiles[1], conj[1])
+
+
+def check_df_conj(device) -> tuple[float, float]:
+    """The deep filter on a lazily conjugated spectrum (config 3's strided
+    low-bin slice, at B=8) and history (the hop), and its gradients through
+    autograd where the cotangent comes back through ``.conj()`` of the output,
+    against the plain versions on the resolved tensors, within DF_TOL (the
+    kernels read ``data_ptr()``: the values before the conjugation, unless
+    the wrappers resolve it). Returns the forward's and the backward's
+    largest errors."""
+    b, t, f, t_dim, f_dim, causal, bins, _ = CONFIG3_DF
+    spec, coefs, _, g = df_inputs(8, t, f, t_dim, f_dim, causal, bins, False, device, SEED + 5)
+    hop = DF_SHAPES[1]
+    spec_h, coefs_h, hist, _ = df_inputs(*hop, device, SEED + 6)
+    with torch.inference_mode():
+        errs = [float((deep_filter(spec.conj(), coefs, t_dim, f_dim) - deep_filter_reference(
+                    spec.conj().resolve_conj(), coefs, t_dim, f_dim)).abs().max()),
+                float((deep_filter(spec_h.conj(), coefs_h, t_dim, f_dim, True, hist.conj()) - deep_filter_reference(
+                    spec_h.conj().resolve_conj(), coefs_h, t_dim, f_dim, True, hist.conj().resolve_conj())).abs().max())]
+    torch.cuda.synchronize()
+    require(max(errs) <= DF_TOL, f"deep_filter of spec.conj() (B=8 T={t} F={f}) and of the hop with "
+            f"history.conj(): max-abs {errs[0]:.3g}, {errs[1]:.3g} <= {DF_TOL}")
+    results = []
+    before = counts()
+    for fn in (deep_filter, deep_filter_reference):
+        s, c = spec.clone().requires_grad_(), coefs.clone().requires_grad_()
+        out = fn(s.conj(), c, t_dim, f_dim)
+        results.append(torch.autograd.grad((out.conj() * g).real.sum(), (s, c)))
+        if fn is deep_filter:
+            after = counts()
+    torch.cuda.synchronize()
+    grad_errs = [float((x - y).abs().max()) for x, y in zip(*results)]
+    require(all(after[n] - before[n] == 1 for n in ("deep_filter", "deep_filter_bwd")) and max(grad_errs) <= DF_TOL,
+            f"deep_filter's gradients in spec and coefs through spec.conj() and out.conj() (one forward and one "
+            f"backward launch): max-abs {grad_errs[0]:.3g}, {grad_errs[1]:.3g} <= {DF_TOL}")
+    return max(errs), max(grad_errs)
 
 
 def check_df_tiles(device) -> tuple[float, float]:
@@ -1297,11 +1365,12 @@ def noisy_clean_pairs(seed: int, b: int, seconds: int, device):
     return {"noisy": torch.from_numpy(noisy).to(device), "clean": torch.from_numpy(noisy - noise).to(device)}
 
 
-def train_config() -> StepConfig:
-    """The step of configs/mtfaa_windowed.toml in float32, at a constant rate as
-    the reference's benchmark runs it (the config's 500-step warm-up would
-    start from a rate of 0, and three steps would move nothing)."""
-    config = load_config(str(ROOT / "configs" / "mtfaa_windowed.toml"))
+def train_config(name: str = "mtfaa_windowed.toml") -> StepConfig:
+    """The step of a config file (configs/mtfaa_windowed.toml, or config 2's
+    configs/cruse_base.toml) in float32, at a constant rate as the reference's
+    benchmark runs it (the MTFAA config's 500-step warm-up would start from a
+    rate of 0, and three steps would move nothing)."""
+    config = load_config(str(ROOT / "configs" / name))
     ac, opt = config["acoustics"], config["optimizer"]
     return StepConfig(stft=StftConfig(n_fft=int(ac["n_fft"]), hop_length=int(ac["hop_length"])),
                       learning_rate=float(opt["lr"]), beta1=float(opt["beta1"]), beta2=float(opt["beta2"]),
@@ -1313,12 +1382,44 @@ def named_state(model) -> dict:
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
-def check_train_steps(config, b: int, seconds: int, seed: int, device, what: str,
-                      expected: dict) -> dict:
-    """Drive make_train_step for TRAIN_STEPS steps at full width; returns the
-    launches it made. Before that, the first batch's losses, gradients and
-    BatchNorm statistics against the same weights with every kernel swapped for
-    its plain version, in float32 and in float64.
+def mtfaa_factory(config: MtfaaConfig | None, device, seed: int):
+    """``build(plain)``: the seeded full-width MTFAA on the card, with its
+    kernels or every kernel swapped for its plain version."""
+    def build(plain: bool):
+        model = build_mtfaa(config, device, seed)
+        set_plain_mtfaa(model, plain)
+        return model
+    return build
+
+
+def cruse_factory(df: bool, device, seed: int):
+    """``build(plain)``: config 2's CRUSE (``configs/cruse_base.toml``) or
+    config 3's CRUSE+DF (``CruseDfConfig()``), seeded weights and BatchNorm
+    statistics, on the card, with the kernels or their plain versions."""
+    def build(plain: bool):
+        gen = torch.Generator().manual_seed(seed)
+        if df:
+            model = CruseDfNet(CruseDfConfig(), generator=gen)
+        else:
+            model = build_from_config(load_config(str(ROOT / "configs" / "cruse_base.toml"))["model"], generator=gen)
+        seed_batch_norm_stats(model, gen)
+        model = model.to(device)
+        if df:
+            set_plain(model, plain)
+        else:
+            set_recurrence(model, gru_sequence_reference if plain else gru_sequence)
+        return model
+    return build
+
+
+def check_train_steps(build, cfg: StepConfig, b: int, seconds: int, seed: int, device, what: str,
+                      expected: dict, steps_b: int | None = None) -> dict:
+    """Drive make_train_step for TRAIN_STEPS steps at full width (batches of
+    ``steps_b``, default b); returns the launches it made. Before that, the
+    first batch of b (the steps' first batch where steps_b is b) through the
+    model ``build(plain)`` makes: its losses, gradients and BatchNorm
+    statistics against the same weights with every kernel swapped for its
+    plain version, in float32 and in float64.
 
     Why float64: a gradient that has come down through all 24 TFCM blocks, the
     phase encoder's square root and the spectral loss's power law carries the
@@ -1330,15 +1431,14 @@ def check_train_steps(config, b: int, seconds: int, seed: int, device, what: str
     float64 leaf than GRAD_NOISE_FACTOR times what the plain float32 run's
     SAME leaf is. A wrong gradient of a leaf whose float32 rounding is small
     fails, however noisy other leaves are."""
-    cfg = train_config()
-    batches = [noisy_clean_pairs(seed + i, b, seconds, device) for i in range(TRAIN_STEPS)]
+    batches = [noisy_clean_pairs(seed + i, steps_b or b, seconds, device) for i in range(TRAIN_STEPS)]
+    first = batches[0] if steps_b in (None, b) else noisy_clean_pairs(seed, b, seconds, device)
     runs = {}
     for name, dtype in (("float64", torch.float64), ("plain", torch.float32), ("kernels", torch.float32)):
-        model = build_mtfaa(config, device, seed).to(dtype)
-        set_plain_mtfaa(model, name != "kernels")
+        model = build(name != "kernels").to(dtype)
         state = init_train_state(model, cfg, device)
         grads, losses, _ = make_loss_gradients(model, cfg)(
-            state.balancer_state, {k: v.to(dtype) for k, v in batches[0].items()})
+            state.balancer_state, {k: v.to(dtype) for k, v in first.items()})
         torch.cuda.synchronize()
         runs[name] = ([g.double() for g in grads], losses, named_state(model))
         del grads
@@ -1369,9 +1469,9 @@ def check_train_steps(config, b: int, seconds: int, seed: int, device, what: str
             f"{GRAD_ABS_TOL} of the largest, each held to {GRAD_NOISE_FACTOR} x the same leaf's plain "
             f"float32 error (worst ratio {worst_ratio:.3g}); failing {bad[:10]}")
     err = max(float((stats[k] - ref_stats[k]).abs().max() / max(1.0, float(ref_stats[k].abs().max())))
-              for k in ref_stats if k.endswith((".mean", ".var")))
+              for k in ref_stats if k.endswith((".mean", ".var", ".running_mean", ".running_var")))
     require(err <= 1e-4, f"{what}: BatchNorm running statistics, kernels vs plain versions {err:.3g} <= 1e-4")
-    del runs, grads, plain_grads, exact
+    del runs, grads, plain_grads, exact, first
 
     before = named_state(model)
     step = make_train_step(model, cfg)
@@ -1407,6 +1507,139 @@ def check_train_steps(config, b: int, seconds: int, seed: int, device, what: str
     return launched
 
 
+def gru_bwd_case(shape, device, seed: int, with_dh_last: bool):
+    """Seeded (x_proj, h0, w_hh, b_hh, y, dy, dh_last or None, hp) at a shape,
+    y from the plain recurrence, hp = h_prev . w_hh^T + b_hh for all t."""
+    x, h0, w, b = gru_inputs(*shape, device, seed)
+    gen = torch.Generator(device).manual_seed(seed + 1)
+    with torch.inference_mode():
+        y, _ = gru_sequence_reference(x, h0, w, b)
+        dy = torch.randn(y.shape, generator=gen, device=device)
+        dh_last = torch.randn(h0.shape, generator=gen, device=device) * 0.5 if with_dh_last else None
+        h_prev = torch.cat([h0[:, None], y[:, :-1]], dim=1)
+        hp = (torch.einsum("btgh,gkh->btgk", h_prev, w) + b).contiguous()
+    return x, h0, w, b, y, dy, dh_last, hp
+
+
+def check_gru_bwd(device) -> float:
+    """The GRU backward kernel against its plain version on the card at
+    GRU_BWD_SHAPES, with dh_last None and nonzero: launched into dx_proj, dhp
+    and dh0 filled with NaN first (so a value it never writes shows) against
+    the plain walk, and through ``gru_sequence_bwd`` (all four gradients,
+    one launch), each output within GRU_BWD_TOL of its largest value; and
+    that a forward kernel's launcher refuses tensors that want a gradient,
+    and bf16 weights under a gradient. Returns the kernel's largest max-abs
+    error (dx_proj, dhp, dh0) at config 2's shape."""
+    worst = 0.0
+    for shape in GRU_BWD_SHAPES:
+        for with_dh_last in (False, True):
+            x, h0, w, b, y, dy, dh_last, hp = gru_bwd_case(shape, device, SEED + 11, with_dh_last)
+            what = f"gru_sequence_bwd B, T, G, H = {shape}, dh_last {'nonzero' if with_dh_last else 'None'}"
+            with torch.inference_mode():
+                outs = [torch.full_like(x, math.nan), torch.full_like(x, math.nan), torch.full_like(h0, math.nan)]
+                before = gru_sequence_bwd.launches
+                launch_gru_bwd(x, hp, y, h0, dy, dh_last, w, *outs)
+                wrapped = gru_sequence_bwd(dy, dh_last, x, h0, w, b, y)
+                torch.cuda.synchronize()
+                checks = list(zip(("dx_proj", "dhp", "dh0"), outs,
+                                  gru_backward_walk_reference(dy, dh_last, x, h0, w, b, y)))
+                checks += list(zip(("dx_proj", "dh0", "dw_hh", "db_hh"), wrapped,
+                                   gru_sequence_backward_reference(dy, dh_last, x, h0, w, b, y)))
+                errs = []
+                for i, (name, got, want) in enumerate(checks):
+                    err, scale = float((got - want).abs().max()), float(want.abs().max())
+                    require(bool(torch.isfinite(got).all()) and err <= GRU_BWD_TOL * scale,
+                            f"{what}, {'kernel into NaN-filled outputs' if i < 3 else 'wrapper'}: {name} max-abs "
+                            f"{err:.3g} <= {GRU_BWD_TOL} x {scale:.3g}")
+                    errs.append(err)
+                require(gru_sequence_bwd.launches - before == 2, f"{what}: one launch a call")
+            if shape == CONFIG2_GRU:
+                worst = max(worst, *errs[:3])  # the kernel's own outputs
+            del x, h0, w, b, y, dy, dh_last, hp, outs, wrapped, checks
+    x, h0, w, b = gru_inputs(3, 5, 2, 16, device, SEED)
+    try:
+        launch_resident(x.requires_grad_(), h0, w, b)
+        refused = False
+    except RuntimeError:
+        refused = True
+    try:
+        gru_sequence(x, h0, w, b, weight_dtype=torch.bfloat16)
+        refused_bf16 = False
+    except NotImplementedError:
+        refused_bf16 = True
+    require(refused and refused_bf16, "a forward kernel's launcher refuses tensors that want a gradient outside "
+            "gru_sequence, and gru_sequence refuses bf16 weights under a gradient")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def time_gru_bwd(device, smi, lib: dict) -> dict:
+    """The GRU backward kernel alone at config 2's shape (CUDA events, dh_last
+    None as in the step), the wrapper with its two products, its plain
+    version (the walk) and the library call; the bound from the least bytes
+    (x_proj, hp, y, dy, h0 and w_hh read once, dx_proj, dhp and dh0 written
+    once) and the multiply-adds of w_hh^T . dhp. Returns the kernels line's
+    numbers."""
+    b, t, g, h = CONFIG2_GRU
+    x, h0, w, bias, y, dy, _, hp = gru_bwd_case(CONFIG2_GRU, device, SEED + 13, False)
+    with torch.inference_mode():
+        outs = [torch.empty_like(x), torch.empty_like(x), torch.empty_like(h0)]
+        kernel = lambda: launch_gru_bwd(x, hp, y, h0, dy, None, w, *outs)  # noqa: E731
+        wrapper = lambda: gru_sequence_bwd(dy, None, x, h0, w, bias, y)  # noqa: E731
+        turns = [cuda_ms(fn, reps=3) for fn in (kernel, wrapper, wrapper, kernel)]
+        plain_ms = cuda_ms(lambda: gru_backward_walk_reference(dy, None, x, h0, w, bias, y), reps=1)
+    entry = {"ms": (turns[0] + turns[3]) / 2, "wrapper_ms": (turns[1] + turns[2]) / 2, "plain_ms": plain_ms,
+             **bound(4 * (b * t * g * 14 * h + 2 * b * g * h + g * 3 * h * h), b * t * g * 3 * h * h),
+             "library_ms": lib["gru_bwd"]}
+    print(f"gru_sequence_bwd B={b} T={t} G={g} H={h} f32 on {smi}: kernel {turns[0]:.3f}, {turns[3]:.3f} ms "
+          f"({entry['ms'] / t * 1e3:.2f} us a step); wrapper (hp and dw_hh products + kernel) {turns[1]:.3f}, "
+          f"{turns[2]:.3f} ms; bound {entry['bound_ms']:.3f} ms ({entry['bound_by']}); plain walk "
+          f"{plain_ms:.1f} ms; cuDNN nn.GRU backward, one call a group (it also takes the input projection's "
+          f"gradients) {lib['gru_bwd']:.3f} ms", flush=True)
+    return entry
+
+
+def time_cruse_steps(device, smi) -> None:
+    """One config-2 CRUSE train step at B=128 x 10 s and one CRUSE+DF step at
+    B=32 x 10 s, f32 (wall ms after a warm-up, peak memory), and a profile of
+    the config-2 step: kernels a step, device busy time and idle share, the
+    GRU kernels' device time."""
+    cfg = train_config("cruse_base.toml")
+    for df, b in ((False, CONFIG2_BATCH), (True, CRUSE_DF_BATCH)):
+        what = f"{'CRUSE+DF (config 3)' if df else 'CRUSE config 2'} train step B={b} x {CRUSE_SECONDS} s, f32"
+        model = cruse_factory(df, device, SEED + 14)(False)
+        state = init_train_state(model, cfg, device)
+        step = make_train_step(model, cfg)
+        data = noisy_clean_pairs(SEED + 15, b, CRUSE_SECONDS, device)
+        state, _ = step(state, data)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            state, _ = step(state, data)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        print(f"{what}, on {smi}: {ms:.1f} ms a step = {b * CRUSE_SECONDS / ms * 1e3:.1f} s of audio a second, "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+        if not df:
+            box = {"state": state}
+
+            def one_step():
+                box["state"], _ = step(box["state"], data)
+
+            prof = profile_calls(one_step, 2, what)
+            print(f"{what}, on {smi}: gru_bwd_kernel {prof.device_ms.get('gru_bwd_kernel', 0.0):.3f} ms in "
+                  f"{prof.launches.get('gru_bwd_kernel', 0.0):.1f} launches, gru_resident_kernel "
+                  f"{prof.device_ms.get('gru_resident_kernel', 0.0):.3f} ms in "
+                  f"{prof.launches.get('gru_resident_kernel', 0.0):.1f} launches; {prof.kernels:.1f} device "
+                  f"launches a step", flush=True)
+            require(prof.launches.get("gru_bwd_kernel") == 2 and prof.launches.get("gru_resident_kernel") == 2,
+                    f"{what}: the profile shows 2 gru_bwd_kernel and 2 gru_resident_kernel launches a step")
+            del box
+        del model, state, step, data
+        torch.cuda.empty_cache()
+
+
 def library_ms(device) -> dict:
     """Times (ms) of the PyTorch calls that compute a kernel's function, on
     tensors already in the library's layout, at the main paths' shapes.
@@ -1434,6 +1667,14 @@ def library_ms(device) -> dict:
     x = torch.randn(b, t, h, device=device)
     with torch.inference_mode():
         times["gru"] = g_ * cuda_ms(lambda: gru(x), reps=3)  # one call a group
+    # the backward: autograd.grad through cuDNN's GRU at config 2's shape, one call a group
+    b, t, g_, h = CONFIG2_GRU
+    x = torch.randn(b, t, h, device=device, requires_grad=True)
+    out, _ = gru(x)
+    gy = torch.randn_like(out)
+    leaves = (x, *gru.parameters())
+    times["gru_bwd"] = g_ * cuda_ms(lambda: torch.autograd.grad(out, leaves, gy, retain_graph=True), reps=3)
+    del x, out, gy, leaves
     return times
 
 
@@ -1789,16 +2030,31 @@ def main() -> int:
     check_tfcm_block_train(device)
     torch.cuda.empty_cache()
     train_launches = check_train_steps(
-        None, MTFAA_BATCH, MTFAA_SECONDS, SEED + 8, device,
+        mtfaa_factory(None, device, SEED + 8), train_config(), MTFAA_BATCH, MTFAA_SECONDS, SEED + 8, device,
         f"config-5b train step B={MTFAA_BATCH} x {MTFAA_SECONDS} s", STEP_LAUNCHES)
     torch.cuda.empty_cache()
     pallas_launches = check_train_steps(
-        MtfaaConfig(attention_window=WINDOW, tfcm_dw_impl="pallas"), CAUSAL_BATCH, CAUSAL_SECONDS,
-        SEED + 9, device, f'config-5b train step, "pallas" TFCM route, B={CAUSAL_BATCH} x {CAUSAL_SECONDS} s',
+        mtfaa_factory(MtfaaConfig(attention_window=WINDOW, tfcm_dw_impl="pallas"), device, SEED + 9),
+        train_config(), CAUSAL_BATCH, CAUSAL_SECONDS, SEED + 9, device,
+        f'config-5b train step, "pallas" TFCM route, B={CAUSAL_BATCH} x {CAUSAL_SECONDS} s',
         dict(STEP_LAUNCHES, dw_stencil_bwd=24, tail_bwd=0, mid_bwd=0))
-    check_train_steps(MtfaaConfig(), CAUSAL_BATCH, CAUSAL_SECONDS, SEED + 10, device,
+    check_train_steps(mtfaa_factory(MtfaaConfig(), device, SEED + 10), train_config(), CAUSAL_BATCH, CAUSAL_SECONDS,
+                      SEED + 10, device,
                       f"config-5 train step (full-causal attention) B={CAUSAL_BATCH} x {CAUSAL_SECONDS} s",
                       STEP_LAUNCHES)
+    torch.cuda.empty_cache()
+
+    gru_bwd_err = check_gru_bwd(device)
+    cruse_cfg = train_config("cruse_base.toml")
+    cruse_launches = check_train_steps(
+        cruse_factory(False, device, SEED + 16), cruse_cfg, CRUSE_CHECK_BATCH, CRUSE_SECONDS, SEED + 16, device,
+        f"config-2 CRUSE train step (check at B={CRUSE_CHECK_BATCH}, steps at B={CONFIG2_BATCH}, {CRUSE_SECONDS} s)",
+        CRUSE_STEP_LAUNCHES, CONFIG2_BATCH)
+    torch.cuda.empty_cache()
+    cruse_df_launches = check_train_steps(
+        cruse_factory(True, device, SEED + 17), cruse_cfg, CRUSE_CHECK_BATCH, CRUSE_SECONDS, SEED + 17, device,
+        f"CRUSE+DF train step (check at B={CRUSE_CHECK_BATCH}, steps at B={CRUSE_DF_BATCH}, {CRUSE_SECONDS} s)",
+        CRUSE_DF_STEP_LAUNCHES, CRUSE_DF_BATCH)
     torch.cuda.empty_cache()
 
     lib = library_ms(device)
@@ -1806,6 +2062,8 @@ def main() -> int:
     train_times = time_train_kernels(device, smi, lib)
     df_rows = time_df_kernels(device, smi)
     time_train_step(device, smi)
+    gru_bwd_times = time_gru_bwd(device, smi, lib)
+    time_cruse_steps(device, smi)
 
     # least bytes (each input read once, each output written once) and
     # multiply-adds of the kernels of the earlier slices, at the timed shapes
@@ -1832,17 +2090,24 @@ def main() -> int:
                 **({"stages": e["stages"]} if "stages" in e else {})}
 
     print(json.dumps({"kernels": [
-        {**entry("gru_sequence", "gru_sequence", "gru_kernel.py:82", launches + stream_gru + auto_gru,
+        {**entry("gru_sequence", "gru_sequence", "gru_kernel.py:82",
+                 launches + stream_gru + auto_gru + cruse_launches["gru_sequence"] + cruse_df_launches["gru_sequence"],
                  gru_err, (kernel_ms, plain_ms), gru_bound, lib["gru"]),
          "resident_ms": gru_times["f32"][0], "streamed_ms": gru_times["f32"][1]},
+        {"name": "gru_sequence_bwd", "route": "cuda", "source": "cruse_tpu_torch/ops/csrc/gru_bwd.cu",
+         "replaces": "cruse_tpu/nn/gru.py:30 (no TPU kernel: the JAX step differentiates gru_scan)",
+         "launches": cruse_launches["gru_sequence_bwd"] + cruse_df_launches["gru_sequence_bwd"],
+         "max_abs_err": gru_bwd_err, **gru_bwd_times},
         {**entry("deep_filter", "deep_filter", "deep_filter_kernel.py:91",
-                 stream_df + auto_df + mtfaa_df + train_launches["deep_filter"], df_err,
+                 stream_df + auto_df + mtfaa_df + train_launches["deep_filter"] + cruse_df_launches["deep_filter"],
+                 df_err,
                  (df_fwd["wrapper_ms"], df_fwd["plain_ms"]), {key: df_fwd[key] for key in ("bound_ms", "bound_by")},
                  None),
          "stages": [{key: row[key] for key in DF_STAGE_KEYS} for row in df_rows if row["kind"] == "forward"]},
         {"name": "deep_filter_bwd", "route": "cuda", "source": "cruse_tpu_torch/ops/csrc/deep_filter.cu",
          "replaces": "cruse_tpu/models/deep_filter.py:94 (no TPU kernel: the JAX step differentiates the plain "
-                     "deep_filter_apply_tm)", "launches": train_launches["deep_filter_bwd"],
+                     "deep_filter_apply_tm)",
+         "launches": train_launches["deep_filter_bwd"] + cruse_df_launches["deep_filter_bwd"],
          "max_abs_err": df_bwd_err, "ms": df_bwd["wrapper_ms"], "plain_ms": df_bwd["plain_ms"],
          "bound_ms": df_bwd["bound_ms"], "bound_by": df_bwd["bound_by"], "library_ms": None,
          "stages": [{key: row[key] for key in DF_STAGE_KEYS} for row in df_rows if row["kind"] == "backward"]},

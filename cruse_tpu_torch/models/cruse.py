@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cruse_tpu_torch.nn.conv import CausalConv2d
+from cruse_tpu_torch.nn.conv import BatchNorm2d, CausalConv2d
 from cruse_tpu_torch.nn.gru import GGRUBottleneck, GroupedGRULayer
 
 
@@ -107,7 +107,7 @@ class CausalConvTranspose2dTimeMajor(nn.Module):
         self.kt = kt
         self.conv = nn.ConvTranspose2d(in_channels, features, (kt, kf), stride=(1, fstride),
                                        padding=(0, kf // 2))
-        self.bn = nn.BatchNorm2d(features, eps=1e-5) if norm else None
+        self.bn = BatchNorm2d(features, eps=1e-5) if norm else None
         self.act = act
 
     def forward(self, x_ext: torch.Tensor) -> torch.Tensor:
@@ -146,7 +146,7 @@ class CruseNet(nn.Module):
             if c.decoder_mode == "upsample":
                 self.add_module(f"dec_{li}_conv", nn.Conv2d(dec_in[li], ch, (kt, 3)))
                 if not is_last:
-                    self.add_module(f"dec_{li}_bn", nn.BatchNorm2d(ch, eps=1e-5))
+                    self.add_module(f"dec_{li}_bn", BatchNorm2d(ch, eps=1e-5))
             else:
                 self.add_module(f"dec_{li}", CausalConvTranspose2dTimeMajor(
                     dec_in[li], ch, c.kernel, c.fstride, norm=not is_last,
@@ -172,14 +172,20 @@ class CruseNet(nn.Module):
     def compress(self, mag: torch.Tensor) -> torch.Tensor:
         return compress_mag(mag, self.config)
 
-    def forward(self, feat: torch.Tensor, state=None):
+    def forward(self, feat: torch.Tensor, state=None, train: bool = False):
         """feat: [B, T, F] compressed magnitude. Returns (mask [B, T, F], state),
         or ((mask, y [B, T, D]), state) with ``emit_features``.
 
         state: None for a fresh utterance, else the tuple returned by the
         previous call (conv histories + GRU states), to continue it.
+        train: the training forward (BatchNorm on the batch's statistics,
+        which it records in place); it must agree with the module's mode.
         """
         c = self.config
+        if train != self.training:
+            raise ValueError(f"train={train} but the module is in "
+                             f"{'training' if self.training else 'eval'} mode: call "
+                             f"{'.train()' if train else '.eval()'} first (BatchNorm follows the mode)")
         if feat.shape[-1] != c.in_freq:
             raise ValueError(f"feat has {feat.shape[-1]} bins, the model {c.in_freq}")
         kt = c.kernel[0]

@@ -65,9 +65,9 @@ class CruseDfNet(nn.Module):
     def init_state(self, batch_size: int, device=None, dtype=torch.float32):
         return cruse_init_state(self.config.cruse, batch_size, device, dtype)
 
-    def forward(self, feat: torch.Tensor, state=None):
+    def forward(self, feat: torch.Tensor, state=None, train: bool = False):
         c = self.config
-        (mask, feats), new_state = self.cruse(feat, state)
+        (mask, feats), new_state = self.cruse(feat, state, train)
         k = c.num_taps
         coefs = self.df_head(feats).reshape(*feats.shape[:-1], c.df_bins, k, 2) / k
         return (mask, coefs), new_state

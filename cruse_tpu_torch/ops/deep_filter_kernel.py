@@ -413,8 +413,13 @@ def launch_df_bwd(grad, spec, coefs, t_dim: int, f_dim: int, causal: bool, plan:
     deep_filter_bwd.launches += 1
 
 
+def _runs_plain(spec) -> bool:
+    """The plain versions run for CPU tensors only; CUDA tensors launch the kernels."""
+    return spec.device.type == "cpu"
+
+
 def _forward(spec, coefs, t_dim, f_dim, causal, history):
-    if spec.device.type == "cpu":
+    if _runs_plain(spec):
         return deep_filter_reference(spec, coefs, t_dim, f_dim, causal, history)
     b, t, f = spec.shape
     out = torch.empty((b, t, f), dtype=torch.complex64, device=spec.device)
@@ -427,7 +432,9 @@ def deep_filter_bwd(grad, spec, coefs, t_dim: int, f_dim: int, causal: bool = Tr
     """The backward alone: ``(dspec complex64 [B, T, F], dcoefs float32 [B, T,
     F, K, 2])`` from the gradient ``grad`` of the output (see the module doc)."""
     _check(spec, coefs, t_dim, f_dim, causal, None, grad)
-    if spec.device.type == "cpu":
+    # the kernels read the stored values: a lazily conjugated tensor is conjugated here
+    grad, spec = grad.resolve_conj(), spec.resolve_conj()
+    if _runs_plain(spec):
         return deep_filter_backward_reference(grad, spec, coefs, t_dim, f_dim, causal)
     b, t, f = spec.shape
     dspec = torch.empty((b, t, f), dtype=torch.complex64, device=spec.device)
@@ -447,7 +454,7 @@ class _DeepFilter(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         spec, coefs = ctx.saved_tensors
-        dspec, dcoefs = deep_filter_bwd(grad.contiguous(), spec, coefs, *ctx.taps)
+        dspec, dcoefs = deep_filter_bwd(grad.resolve_conj().contiguous(), spec, coefs, *ctx.taps)
         return (dspec if ctx.needs_input_grad[0] else None, dcoefs if ctx.needs_input_grad[1] else None,
                 None, None, None)
 
@@ -458,6 +465,9 @@ def deep_filter(spec, coefs, t_dim: int, f_dim: int, causal: bool = True, histor
     if history is not None and history.shape[1] == 0:
         history = None  # t_dim == 0: no past frame is ever read
     _check(spec, coefs, t_dim, f_dim, causal, history)
+    # the kernels read the stored values: a lazily conjugated tensor is conjugated here
+    spec = spec.resolve_conj()
+    history = None if history is None else history.resolve_conj()
     inputs = (spec, coefs) if history is None else (spec, coefs, history)
     if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
         if history is not None:

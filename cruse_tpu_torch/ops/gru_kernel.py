@@ -20,6 +20,17 @@ source holds two kernels, and the shape alone decides which one runs
 
 ``gru_sequence.launches`` counts every kernel launch,
 ``gru_sequence.resident_launches`` those of the resident kernel.
+
+Under a gradient (grad enabled and an input that requires it)
+``gru_sequence`` is an ``autograd.Function`` (f32 weights only): its forward
+is the same routed kernel, and its backward takes ``hp = h_prev . w_hh^T +
+b_hh`` for all t as one batched product, launches the backward kernel
+(``csrc/gru_bwd.cu``, one launch for all T steps, counted in
+``gru_sequence_bwd.launches``) for ``dx_proj``, ``dhp`` and ``dh0``, and takes
+``dw_hh`` and ``db_hh`` from ``dhp`` as two more products. The JAX step has no
+kernel here: XLA differentiates ``gru_scan``. On the CPU both directions run
+the plain versions (``gru_sequence_reference``,
+``gru_sequence_backward_reference``).
 """
 from __future__ import annotations
 
@@ -67,6 +78,47 @@ def gru_sequence_reference(x_proj, h0, w_hh, b_hh, weight_dtype=None):
         h = (1.0 - z) * n + z * h
         ys.append(h)
     return torch.stack(ys, dim=1), h
+
+
+def _h_prev(h0, y):
+    """The state each step starts from: h0, then y[:, :-1]. [B, T, G, H]."""
+    return torch.cat([h0[:, None], y[:, :-1]], dim=1)
+
+
+def gru_backward_walk_reference(dy, dh_last, x_proj, h0, w_hh, b_hh, y):
+    """The backward kernel's plain version: ``(dx_proj [B, T, G, 3H], dhp [B,
+    T, G, 3H], dh0 [B, G, H])``, an explicit loop over t from T - 1 down to 0
+    with the kernel's formulas (``hp`` recomputed each step from the saved
+    states). ``dh_last`` None means zeros."""
+    hdim = h0.shape[-1]
+    carry = torch.zeros_like(h0) if dh_last is None else dh_last
+    dx, dp = [None] * x_proj.shape[1], [None] * x_proj.shape[1]
+    for t in range(x_proj.shape[1] - 1, -1, -1):
+        h_prev = h0 if t == 0 else y[:, t - 1]
+        hp = torch.einsum("bgh,gkh->bgk", h_prev, w_hh) + b_hh
+        xr, xz, xn = x_proj[:, t].split(hdim, dim=-1)
+        hr, hz, hn = hp.split(hdim, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        dh = dy[:, t] + carry
+        dn_pre = dh * (1.0 - z) * (1.0 - n * n)
+        dz_pre = dh * (h_prev - n) * z * (1.0 - z)
+        dr_pre = dn_pre * hn * r * (1.0 - r)
+        dx[t] = torch.cat([dr_pre, dz_pre, dn_pre], dim=-1)
+        dp[t] = torch.cat([dr_pre, dz_pre, dn_pre * r], dim=-1)
+        carry = dh * z + torch.einsum("bgk,gkh->bgh", dp[t], w_hh)
+    return torch.stack(dx, dim=1), torch.stack(dp, dim=1), carry
+
+
+def gru_sequence_backward_reference(dy, dh_last, x_proj, h0, w_hh, b_hh, y):
+    """The plain backward of ``gru_sequence_reference`` (f32 weights): from the
+    gradients ``dy [B, T, G, H]`` and ``dh_last [B, G, H]`` (None: zeros) of its
+    outputs and the saved ``y``, ``(dx_proj, dh0, dw_hh, db_hh)``;
+    ``dw_hh = sum_{b,t} dhp_t (x) h_prev`` and ``db_hh = sum dhp_t``."""
+    dx_proj, dhp, dh0 = gru_backward_walk_reference(dy, dh_last, x_proj, h0, w_hh, b_hh, y)
+    dw_hh = torch.einsum("btgk,btgh->gkh", dhp, _h_prev(h0, y))
+    return dx_proj, dh0, dw_hh, dhp.sum(dim=(0, 1))
 
 
 def _check_shapes(x_proj, h0, w_hh, b_hh, weight_dtype):
@@ -179,10 +231,18 @@ def _check_launch(x_proj, h0, w_hh, b_hh, weight_dtype):
         if not tensor.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors.values()):
-        raise RuntimeError("the CUDA gru_sequence kernel has no backward; "
-                           "run it under torch.no_grad() or torch.inference_mode()")
+        raise RuntimeError("the forward kernels' launchers record no gradient: call gru_sequence, "
+                           "whose backward is a kernel too, or launch under torch.no_grad()")
     b, t, g, h3 = x_proj.shape
     return b, t, g, h3 // 3
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel():
+    fn = _build.load_library("gru_bwd").gru_bwd_f32
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _run(entry: str, x_proj, h0, weight, b_hh, ints: tuple):
@@ -231,20 +291,111 @@ def launch_resident(x_proj, h0, w_hh, b_hh, weight_dtype=None):
     return out
 
 
+def launch_gru_bwd(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0) -> None:
+    """The backward kernel on CUDA tensors, into ``dx_proj``, ``dhp`` ([B, T, G,
+    3H]) and ``dh0`` ([B, G, H]); ``hp`` is ``h_prev . w_hh^T + b_hh`` for all t
+    and ``dh_last`` None means zeros. Counted in ``gru_sequence_bwd.launches``."""
+    b, t, g, h3 = x_proj.shape
+    h = h3 // 3
+    shapes = {"x_proj": (b, t, g, h3), "hp": (b, t, g, h3), "y": (b, t, g, h), "h0": (b, g, h),
+              "dy": (b, t, g, h), "dh_last": (b, g, h), "w_hh": (g, h3, h), "dx_proj": (b, t, g, h3),
+              "dhp": (b, t, g, h3), "dh0": (b, g, h)}
+    tensors = dict(zip(shapes, (x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0)))
+    for name, tensor in tensors.items():
+        if tensor is None and name == "dh_last":
+            continue
+        if tensor.device.type != "cuda" or tensor.device != x_proj.device:
+            raise ValueError(f"the backward kernel launches on CUDA tensors of one device only, "
+                             f"{name} is on {tensor.device}")
+        if tuple(tensor.shape) != shapes[name] or tensor.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 {shapes[name]}, got {tensor.dtype} {tuple(tensor.shape)}")
+        if not tensor.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if h > MAX_HIDDEN:
+        raise ValueError(f"hidden size per group {h} > {MAX_HIDDEN}, the backward kernel's limit")
+    pointers = [None if x is None else x.data_ptr() for x in tensors.values()]
+    stream = torch.cuda.current_stream(x_proj.device).cuda_stream
+    with torch.cuda.device(x_proj.device):
+        err = _bwd_kernel()(*pointers, b, t, g, h, stream)
+    if err != 0:
+        raise RuntimeError(f"gru_bwd kernel launch failed with CUDA error {err} (B, T, G, H = {b, t, g, h})")
+    gru_sequence_bwd.launches += 1
+
+
+def gru_sequence_bwd(dy, dh_last, x_proj, h0, w_hh, b_hh, y):
+    """The recurrence's backward (f32 weights): ``(dx_proj, dh0, dw_hh,
+    db_hh)``, with the signature of ``gru_sequence_backward_reference``, which
+    it runs for CPU tensors. On CUDA tensors: ``hp`` for all t as one batched
+    product, one launch of the backward kernel, then ``dw_hh`` and ``db_hh``
+    from its ``dhp``."""
+    _check_shapes(x_proj, h0, w_hh, b_hh, None)
+    if dy.shape != y.shape or y.shape != (*x_proj.shape[:3], h0.shape[-1]):
+        raise ValueError(f"dy and y must be {(*x_proj.shape[:3], h0.shape[-1])}, "
+                         f"got {tuple(dy.shape)} and {tuple(y.shape)}")
+    if dh_last is not None and dh_last.shape != h0.shape:
+        raise ValueError(f"dh_last must be {tuple(h0.shape)}, got {tuple(dh_last.shape)}")
+    if _runs_plain(x_proj):
+        return gru_sequence_backward_reference(dy, dh_last, x_proj, h0, w_hh, b_hh, y)
+    h_prev = _h_prev(h0, y)
+    hp = torch.einsum("btgh,gkh->btgk", h_prev, w_hh).add_(b_hh).contiguous()
+    dx_proj, dhp, dh0 = torch.empty_like(x_proj), torch.empty_like(hp), torch.empty_like(h0)
+    launch_gru_bwd(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0)
+    del hp
+    return dx_proj, dh0, torch.einsum("btgk,btgh->gkh", dhp, h_prev), dhp.sum(dim=(0, 1))
+
+
+gru_sequence_bwd.launches = 0
+
+
+def _runs_plain(x_proj) -> bool:
+    """The plain versions run for CPU tensors only; other tensors go to the
+    kernels' launchers, which take CUDA tensors and raise on any other."""
+    return x_proj.device.type == "cpu"
+
+
+def _forward(x_proj, h0, w_hh, b_hh, weight_dtype):
+    if _runs_plain(x_proj):
+        return gru_sequence_reference(x_proj, h0, w_hh, b_hh, weight_dtype)
+    b, t, g, h3 = x_proj.shape
+    launch = launch_streamed if resident_plan(b, t, g, h3 // 3, weight_dtype) is None else launch_resident
+    return launch(x_proj, h0, w_hh, b_hh, weight_dtype)
+
+
+class _GruSequence(torch.autograd.Function):
+    """The recurrence under a gradient: the routed forward kernel, and
+    ``gru_sequence_bwd`` as its backward (plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, x_proj, h0, w_hh, b_hh):
+        y, h_last = _forward(x_proj, h0, w_hh, b_hh, None)
+        ctx.save_for_backward(x_proj, h0, w_hh, b_hh, y)
+        ctx.set_materialize_grads(False)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        x_proj, h0, w_hh, b_hh, y = ctx.saved_tensors
+        dy = torch.zeros_like(y) if dy is None else dy.contiguous()
+        dh_last = None if dh_last is None else dh_last.contiguous()
+        grads = gru_sequence_bwd(dy, dh_last, x_proj, h0, w_hh, b_hh, y)
+        return tuple(grad if needed else None for grad, needed in zip(grads, ctx.needs_input_grad))
+
+
 def gru_sequence(x_proj, h0, w_hh, b_hh, weight_dtype=None):
     """Grouped GRU recurrence over the whole sequence (see the module doc).
 
     ``weight_dtype=torch.bfloat16`` holds the recurrent weights in bf16 with
-    float32 accumulation, like ``gru_sequence_pallas(weight_dtype=bf16)``.
+    float32 accumulation, like ``gru_sequence_pallas(weight_dtype=bf16)``;
+    it has no backward. Under a gradient the call is differentiable in all
+    four inputs.
     """
     _check_shapes(x_proj, h0, w_hh, b_hh, weight_dtype)
-    if x_proj.device.type == "cpu":
-        return gru_sequence_reference(x_proj, h0, w_hh, b_hh, weight_dtype)
-    if x_proj.device.type == "cuda":
-        b, t, g, h3 = x_proj.shape
-        launch = launch_streamed if resident_plan(b, t, g, h3 // 3, weight_dtype) is None else launch_resident
-        return launch(x_proj, h0, w_hh, b_hh, weight_dtype)
-    raise ValueError(f"gru_sequence runs on cpu or cuda tensors, got {x_proj.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x_proj, h0, w_hh, b_hh)):
+        if weight_dtype == torch.bfloat16:
+            raise NotImplementedError("gru_sequence with weight_dtype=torch.bfloat16 has no backward "
+                                      "(only float32 weights are ported for training)")
+        return _GruSequence.apply(x_proj, h0, w_hh, b_hh)
+    return _forward(x_proj, h0, w_hh, b_hh, weight_dtype)
 
 
 gru_sequence.launches = 0

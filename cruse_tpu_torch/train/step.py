@@ -6,9 +6,11 @@ spectrum, one per model family, shared by the ``auto`` inference strategy and
 the train step. The JAX adapters take and return ``(params, batch_stats)``;
 here the weights and statistics live in the module, so an adapter takes the
 spectrum alone and returns the enhanced one. ``train`` must agree with the
-module's mode. Only ``complex_model_forward`` (MtfaaNet) runs with
-``train=True``; the CRUSE and CRUSE+DF adapters refuse it by name, because
-the GRU kernel has no backward yet (the deep filter's has one).
+module's mode. With ``train=True`` every adapter runs the model's training
+forward (BatchNorm on the batch's statistics, which it records in place),
+and the result carries the gradient: for CRUSE and CRUSE+DF through the GRU
+recurrence's backward kernel, for CRUSE+DF and MTFAA through the deep
+filter's.
 
 **The train step** (``make_train_step``): STFT of noisy and clean -> the
 model's training forward -> the losses on the enhanced spectrum (``si_snr``
@@ -57,11 +59,7 @@ def _magnitude_features(model, noisy_ri: torch.Tensor) -> torch.Tensor:
 
 
 def _check_eval(model, train: bool) -> None:
-    if train:
-        raise NotImplementedError(
-            f"the training forward of {type(model).__name__} is not ported: its GRU kernel "
-            "has no backward yet; only train=False runs")
-    if model.training:
+    if not train and model.training:
         raise ValueError("train=False needs the model in eval mode (model.eval()): "
                          "BatchNorm must use its running statistics")
 
@@ -72,7 +70,7 @@ def mask_model_forward(model) -> Callable:
 
     def forward(noisy_ri: torch.Tensor, train: bool = False) -> torch.Tensor:
         _check_eval(model, train)
-        mask, _ = model(_magnitude_features(model, noisy_ri))
+        mask, _ = model(_magnitude_features(model, noisy_ri), None, train)
         return noisy_ri * mask[..., None]
 
     return forward
@@ -84,7 +82,7 @@ def cruse_df_model_forward(model) -> Callable:
 
     def forward(noisy_ri: torch.Tensor, train: bool = False) -> torch.Tensor:
         _check_eval(model, train)
-        (mask, coefs), _ = model(_magnitude_features(model, noisy_ri))
+        (mask, coefs), _ = model(_magnitude_features(model, noisy_ri), None, train)
         spec = torch.complex(noisy_ri[..., 0], noisy_ri[..., 1])
         enhanced = apply_cruse_df(spec, mask, coefs, model.config, model.filter_fn)
         return torch.stack([enhanced.real, enhanced.imag], dim=-1)

@@ -352,3 +352,53 @@ def test_bwd_walk_reference_matches_plain_backward(rng, causal, t_dim, f_dim, sp
                                          causal, plan)
     for x, y in zip(got, _torch_backward(grad, spec, coefs, t_dim, f_dim, causal)):
         np.testing.assert_allclose(x.numpy(), y, atol=1e-5)
+
+
+def test_conjugated_tensors_reach_the_launchers_resolved(rng, monkeypatch):
+    """A lazily conjugated spec, history or cotangent (``.conj()``, or the
+    gradient that comes back through ``.conj()`` of the output) is resolved
+    before the launch: the kernels read ``data_ptr()``, the values before the
+    conjugation. The launchers are replaced by recorders that fill their
+    outputs with the plain versions, and the CUDA route is taken on CPU
+    tensors; the results match the plain versions on resolved inputs."""
+    import cruse_tpu_torch.ops.deep_filter_kernel as dfk
+
+    seen = []
+
+    def fake_fwd(spec, coefs, t_dim, f_dim, causal, history, plan, out):
+        seen.extend(x for x in (spec, coefs, history, out) if x is not None)
+        out.copy_(deep_filter_reference(spec, coefs, t_dim, f_dim, causal, history))
+
+    def fake_bwd(grad, spec, coefs, t_dim, f_dim, causal, plan, dspec, dcoefs):
+        seen.extend((grad, spec, coefs, dspec, dcoefs))
+        want = deep_filter_backward_reference(grad, spec, coefs, t_dim, f_dim, causal)
+        dspec.copy_(want[0])
+        dcoefs.copy_(want[1])
+
+    monkeypatch.setattr(dfk, "_runs_plain", lambda spec: False)
+    monkeypatch.setattr(dfk, "launch_df_fwd", fake_fwd)
+    monkeypatch.setattr(dfk, "launch_df_bwd", fake_bwd)
+    spec, coefs = (torch.from_numpy(a) for a in _inputs(rng, 2, 9, 16, 2, 1, True))
+    grad = torch.from_numpy(_cotangent(rng, 2, 9, 16))
+    history = torch.from_numpy(_cotangent(rng, 2, 4, 16))
+    plain = spec.conj().resolve_conj()
+
+    got = deep_filter(spec.conj(), coefs, 2, 1)
+    torch.testing.assert_close(got, deep_filter_reference(plain, coefs, 2, 1), rtol=0, atol=0)
+    got = deep_filter(spec.conj(), coefs, 2, 1, history=history.conj())
+    torch.testing.assert_close(got, deep_filter_reference(plain, coefs, 2, 1, history=history.conj().resolve_conj()),
+                               rtol=0, atol=0)
+    got = deep_filter_bwd(grad.conj(), spec.conj(), coefs, 2, 1)
+    for x, y in zip(got, deep_filter_backward_reference(grad.conj().resolve_conj(), plain, coefs, 2, 1)):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+    # through autograd: a conjugated spec in, and the cotangent back through .conj() of the output
+    results = []
+    for fn in (deep_filter, deep_filter_reference):
+        s, c = spec.clone().requires_grad_(), coefs.clone().requires_grad_()
+        out = fn(s.conj(), c, 2, 1)
+        loss = (out.conj() * grad).real.sum() + torch.stack([out.real, out.imag], -1).pow(2).sum()
+        results.append(torch.autograd.grad(loss, (s, c)))
+    for x, y in zip(*results):
+        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-6)
+    assert len(seen) == 3 + 4 + 5 + 3 + 5 and not any(x.is_conj() for x in seen)

@@ -1,0 +1,265 @@
+"""Port parity: the grouped-GRU recurrence's backward (the plain backward,
+``gru_sequence_bwd`` and the ``autograd.Function`` that ``gru_sequence``
+becomes under a gradient) against autograd and against cruse_tpu, on the CPU.
+
+The JAX package has no backward kernel: its train step differentiates
+``gru_scan`` under XLA's autodiff, so ``jax.vjp`` of ``gru_scan`` and
+``jax.grad`` of the flax layers are the references. Inputs come from a numpy
+seed. Tolerances: 1e-10 against autograd in float64 (the same formulas, summed
+in another order); 1e-5 against JAX in float32 (two float32 implementations
+of the same sums, over a dozen steps).
+"""
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from cruse_tpu.nn.gru import GGRUBottleneck as JaxGGRU
+from cruse_tpu.nn.gru import GroupedGRULayer as JaxGroupedGRULayer
+from cruse_tpu.nn.gru import gru_scan as jax_gru_scan
+
+from cruse_tpu_torch.nn.gru import GGRUBottleneck, GroupedGRULayer, gru_scan
+from cruse_tpu_torch.ops import gru_kernel
+from cruse_tpu_torch.ops.gru_kernel import (
+    gru_backward_walk_reference, gru_sequence, gru_sequence_backward_reference, gru_sequence_bwd,
+    gru_sequence_reference, launch_gru_bwd)
+from cruse_tpu_torch.utils.weights import flatten_tree
+
+# B, T, G, H: a ragged batch, one step, an odd H, one group
+SHAPES = [(3, 7, 2, 5), (2, 1, 3, 4), (4, 9, 1, 7), (1, 12, 2, 3)]
+
+
+def _inputs(rng, b, t, g, h, dtype=np.float32):
+    arrays = (rng.standard_normal((b, t, g, 3 * h)), rng.standard_normal((b, g, h)) * 0.5,
+              rng.standard_normal((g, 3 * h, h)) * 0.4, rng.standard_normal((g, 3 * h)) * 0.1,
+              rng.standard_normal((b, t, g, h)), rng.standard_normal((b, g, h)))
+    return [a.astype(dtype) for a in arrays]  # x_proj, h0, w_hh, b_hh, dy, dh_last
+
+
+@pytest.mark.parametrize("with_dh_last", [True, False], ids=["dh_last", "no_dh_last"])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_plain_backward_matches_autograd_float64(rng, shape, with_dh_last):
+    x, h0, w, b, dy, dh_last = (torch.from_numpy(a) for a in _inputs(rng, *shape, dtype=np.float64))
+    leaves = [a.clone().requires_grad_() for a in (x, h0, w, b)]
+    y, h_last = gru_sequence_reference(*leaves)
+    loss = (y * dy).sum() + ((h_last * dh_last).sum() if with_dh_last else 0.0)
+    want = torch.autograd.grad(loss, leaves)
+    got = gru_sequence_backward_reference(dy, dh_last if with_dh_last else None, x, h0, w, b, y.detach())
+    for name, g, ref in zip(("dx_proj", "dh0", "dw_hh", "db_hh"), got, want):
+        torch.testing.assert_close(g, ref, rtol=0, atol=1e-10, msg=name)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_plain_backward_matches_jax_vjp(rng, shape):
+    arrays = _inputs(rng, *shape)
+    (y_ref, _), vjp = jax.vjp(jax_gru_scan, *(jnp.asarray(a) for a in arrays[:4]))
+    want = vjp((jnp.asarray(arrays[4]), jnp.asarray(arrays[5])))
+    x, h0, w, b, dy, dh_last = (torch.from_numpy(a) for a in arrays)
+    y, _ = gru_sequence_reference(x, h0, w, b)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), atol=1e-5)
+    got = gru_sequence_backward_reference(dy, dh_last, x, h0, w, b, y)
+    for name, g, ref in zip(("dx_proj", "dh0", "dw_hh", "db_hh"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+def test_walk_splits_dhp_from_dx_proj(rng):
+    """The kernel's outputs: dhp equals dx_proj but for the n gate, which is
+    dn_pre * r; the walk's dh0 is the full backward's."""
+    x, h0, w, b, dy, dh_last = (torch.from_numpy(a) for a in _inputs(rng, 3, 6, 2, 5, np.float64))
+    y, _ = gru_sequence_reference(x, h0, w, b)
+    dx, dhp, dh0 = gru_backward_walk_reference(dy, dh_last, x, h0, w, b, y)
+    torch.testing.assert_close(dhp[..., :10], dx[..., :10], rtol=0, atol=0)
+    h_prev = torch.cat([h0[:, None], y[:, :-1]], dim=1)
+    hp = torch.einsum("btgh,gkh->btgk", h_prev, w) + b
+    r = torch.sigmoid(x[..., :5] + hp[..., :5])
+    torch.testing.assert_close(dhp[..., 10:], dx[..., 10:] * r, rtol=0, atol=1e-12)
+    full = gru_sequence_backward_reference(dy, dh_last, x, h0, w, b, y)
+    torch.testing.assert_close(full[0], dx, rtol=0, atol=0)
+    torch.testing.assert_close(full[1], dh0, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("use", ["y", "h_last", "both"])
+def test_function_matches_autograd_through_plain_recurrence(rng, use):
+    """gru_sequence under a gradient (the Function, plain backward on the CPU)
+    against autograd through the plain recurrence, whichever outputs the loss
+    reads (the other's gradient arrives as None); no launch is counted."""
+    x, h0, w, b, dy, dh_last = (torch.from_numpy(a) for a in _inputs(rng, 3, 8, 2, 6, np.float64))
+    before = gru_sequence.launches, gru_sequence_bwd.launches
+    results = []
+    for fn in (gru_sequence, gru_sequence_reference):
+        leaves = [a.clone().requires_grad_() for a in (x, h0, w, b)]
+        y, h_last = fn(*leaves)
+        loss = {"y": (y * dy).sum(), "h_last": (h_last * dh_last).sum(),
+                "both": (y * dy).sum() + (h_last * dh_last).sum()}[use]
+        results.append(torch.autograd.grad(loss, leaves))
+    assert (gru_sequence.launches, gru_sequence_bwd.launches) == before
+    for got, want in zip(*results):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-10)
+
+
+def test_function_gives_only_the_gradients_asked_for(rng):
+    x, h0, w, b, dy, _ = (torch.from_numpy(a) for a in _inputs(rng, 2, 5, 2, 4))
+    wq = w.clone().requires_grad_()
+    y, _ = gru_sequence(x, h0, wq, b)
+    assert y.requires_grad
+    (dw,) = torch.autograd.grad((y * dy).sum(), (wq,))
+    torch.testing.assert_close(dw, gru_sequence_backward_reference(dy, None, x, h0, w, b, y.detach())[2],
+                               rtol=0, atol=1e-6)
+    with torch.no_grad():  # no gradient wanted: the plain forward, nothing recorded
+        assert not gru_sequence(x, h0, wq, b)[0].requires_grad
+
+
+def test_gru_sequence_bwd_on_cpu_is_the_plain_backward_and_counts_no_launch(rng):
+    x, h0, w, b, dy, dh_last = (torch.from_numpy(a) for a in _inputs(rng, 3, 4, 2, 5))
+    y, _ = gru_sequence_reference(x, h0, w, b)
+    before = gru_sequence_bwd.launches
+    for dl in (dh_last, None):
+        got = gru_sequence_bwd(dy, dl, x, h0, w, b, y)
+        for g, want in zip(got, gru_sequence_backward_reference(dy, dl, x, h0, w, b, y)):
+            torch.testing.assert_close(g, want, rtol=0, atol=0)
+    assert gru_sequence_bwd.launches == before
+    zeros = gru_sequence_backward_reference(dy, torch.zeros_like(dh_last), x, h0, w, b, y)
+    for g, want in zip(gru_sequence_backward_reference(dy, None, x, h0, w, b, y), zeros):
+        torch.testing.assert_close(g, want, rtol=0, atol=0)
+
+
+def test_bf16_weights_under_a_gradient_raise(rng):
+    x, h0, w, b = (torch.from_numpy(a) for a in _inputs(rng, 2, 3, 2, 4)[:4])
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        gru_sequence(x.requires_grad_(), h0, w, b, weight_dtype=torch.bfloat16)
+    with torch.no_grad():  # the bf16 forward itself runs
+        assert gru_sequence(x, h0, w, b, weight_dtype=torch.bfloat16)[0].shape == (2, 3, 2, 4)
+
+
+@pytest.mark.parametrize("case", ["dy_shape", "dh_last_shape", "meta_device"])
+def test_gru_sequence_bwd_rejects(rng, case):
+    x, h0, w, b, dy, dh_last = (torch.from_numpy(a) for a in _inputs(rng, 2, 4, 2, 3))
+    y = torch.zeros_like(dy)
+    if case == "dy_shape":
+        dy = dy[:, :-1]
+    elif case == "dh_last_shape":
+        dh_last = dh_last[:1]
+    else:  # neither cpu nor cuda: no path runs the plain version instead
+        x, h0, w, b, dy, dh_last, y = (a.to("meta") for a in (x, h0, w, b, dy, dh_last, y))
+    with pytest.raises(ValueError):
+        gru_sequence_bwd(dy, dh_last, x, h0, w, b, y)
+
+
+def test_launcher_refuses_cpu_tensors(rng):
+    """The backward kernel's launcher never runs the plain version: on CPU
+    tensors it raises, and counts nothing."""
+    x, h0, w, b, dy, dh_last = (torch.from_numpy(a) for a in _inputs(rng, 2, 3, 2, 4))
+    before = gru_sequence_bwd.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        launch_gru_bwd(x, x.clone(), dy, h0, dy, dh_last, w, torch.empty_like(x), torch.empty_like(x),
+                       torch.empty_like(h0))
+    assert gru_sequence_bwd.launches == before
+    assert "gru_bwd" in {p.stem for p in gru_kernel._build.SRC_DIR.glob("*.cu")}
+
+
+def _layer_state(variables):
+    return {k.replace("/", ".").replace(".scale", ".weight"): torch.from_numpy(np.array(v))
+            for k, v in flatten_tree(variables["params"]).items()}
+
+
+def _jax_grads(module, variables, x, h0, dy, dh):
+    """jax.grad of sum(y * dy) + sum(h * dh) in the parameters and the input."""
+    def loss(params, xin):
+        y, state = module.apply({"params": params}, xin, h0)
+        hs = state if isinstance(state, tuple) else (state,)
+        return jnp.sum(y * dy) + sum(jnp.sum(s * d) for s, d in zip(hs, dh))
+
+    gp, gx = jax.grad(loss, argnums=(0, 1))(variables["params"], jnp.asarray(x))
+    return {k.replace("/", ".").replace(".scale", ".weight"): np.asarray(v)
+            for k, v in flatten_tree(gp).items()}, np.asarray(gx)
+
+
+def _torch_grads(module, x, h0, dy, dh):
+    xt = torch.from_numpy(x).requires_grad_()
+    y, state = module(xt, h0)
+    hs = state if isinstance(state, tuple) else (state,)
+    loss = (y * torch.from_numpy(dy)).sum() + sum((s * torch.from_numpy(d)).sum() for s, d in zip(hs, dh))
+    names, params = zip(*module.named_parameters())
+    grads = torch.autograd.grad(loss, (xt, *params))
+    return dict(zip(names, (g.numpy() for g in grads[1:]))), grads[0].numpy()
+
+
+@pytest.mark.parametrize("recurrence", ["function", "plain"])
+def test_grouped_gru_layer_gradients_match_jax(rng, recurrence):
+    b, t, i, hid, g = 3, 9, 12, 16, 4
+    x = rng.standard_normal((b, t, i)).astype(np.float32)
+    h0 = rng.standard_normal((b, g, hid // g)).astype(np.float32)
+    dy = rng.standard_normal((b, t, hid)).astype(np.float32)
+    dh = (rng.standard_normal((b, g, hid // g)).astype(np.float32),)
+    jl = JaxGroupedGRULayer(hid, g)
+    variables = jl.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    want_p, want_x = _jax_grads(jl, variables, x, jnp.asarray(h0), jnp.asarray(dy), tuple(map(jnp.asarray, dh)))
+    layer = GroupedGRULayer(i, hid, g)
+    layer.load_state_dict(_layer_state(variables), strict=True)
+    layer.recurrence = gru_sequence if recurrence == "function" else gru_scan
+    got_p, got_x = _torch_grads(layer, x, torch.from_numpy(h0), dy, dh)
+    np.testing.assert_allclose(got_x, want_x, rtol=1e-5, atol=1e-5)
+    assert got_p.keys() == want_p.keys() == {"w_ih", "w_hh", "b_ih", "b_hh"}
+    for name, want in want_p.items():
+        np.testing.assert_allclose(got_p[name], want, rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("recurrence", ["function", "plain"])
+def test_ggru_bottleneck_gradients_match_jax(rng, recurrence):
+    b, t, d, g = 2, 7, 16, 4
+    x = rng.standard_normal((b, t, d)).astype(np.float32)
+    state = tuple(rng.standard_normal((b, g, d // g)).astype(np.float32) for _ in range(2))
+    dy = rng.standard_normal((b, t, d)).astype(np.float32)
+    dh = tuple(rng.standard_normal((b, g, d // g)).astype(np.float32) for _ in range(2))
+    jm = JaxGGRU(groups=g)
+    variables = jm.init(jax.random.PRNGKey(1), jnp.asarray(x))
+    variables = jax.tree_util.tree_map(
+        lambda a: np.asarray(a) + rng.uniform(0.1, 0.3, a.shape).astype(np.float32), variables)
+    want_p, want_x = _jax_grads(jm, variables, x, tuple(map(jnp.asarray, state)), jnp.asarray(dy),
+                                tuple(map(jnp.asarray, dh)))
+    module = GGRUBottleneck(d, g)
+    module.load_state_dict(_layer_state(variables), strict=True)
+    for bank in (module.bank1, module.bank2):
+        bank.recurrence = gru_sequence if recurrence == "function" else gru_scan
+    got_p, got_x = _torch_grads(module, x, tuple(map(torch.from_numpy, state)), dy, dh)
+    np.testing.assert_allclose(got_x, want_x, rtol=1e-5, atol=1e-5)
+    assert got_p.keys() == want_p.keys() and len(want_p) == 12
+    for name, want in want_p.items():
+        np.testing.assert_allclose(got_p[name], want, rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+def test_cuda_route_with_stand_in_kernels_matches_autograd(rng, monkeypatch):
+    """gru_sequence under a gradient down the CUDA route (hp as one product,
+    one backward launch, dw_hh and db_hh from its dhp) on CPU tensors, with
+    the launchers replaced by stand-ins that run the kernels' plain versions
+    into the outputs: the gradients match autograd through the plain
+    recurrence, and each direction is one counted launch."""
+    def stand_in_forward(x, h0, w, b, weight_dtype=None):
+        gru_sequence.launches += 1
+        return gru_sequence_reference(x, h0, w, b, weight_dtype)
+
+    def stand_in_backward(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0):
+        assert all(t.is_contiguous() for t in (x_proj, hp, y, h0, dy, w_hh, dx_proj, dhp, dh0))
+        h_prev = torch.cat([h0[:, None], y[:, :-1]], dim=1)
+        torch.testing.assert_close(hp, torch.einsum("btgh,gkh->btgk", h_prev, w_hh) + b_hh_seen[0])
+        for out, want in zip((dx_proj, dhp, dh0), gru_backward_walk_reference(
+                dy, dh_last, x_proj, h0, w_hh, b_hh_seen[0], y)):
+            out.copy_(want)
+        gru_sequence_bwd.launches += 1
+
+    monkeypatch.setattr(gru_kernel, "_runs_plain", lambda x: False)
+    monkeypatch.setattr(gru_kernel, "launch_resident", stand_in_forward)
+    monkeypatch.setattr(gru_kernel, "launch_streamed", stand_in_forward)
+    monkeypatch.setattr(gru_kernel, "launch_gru_bwd", stand_in_backward)
+    x, h0, w, b, dy, dh_last = (torch.from_numpy(a) for a in _inputs(rng, 5, 7, 2, 6, np.float64))
+    b_hh_seen = [b]
+    before = gru_sequence.launches, gru_sequence_bwd.launches
+    results = []
+    for fn in (gru_sequence, gru_sequence_reference):
+        leaves = [a.clone().requires_grad_() for a in (x, h0, w, b)]
+        y, h_last = fn(*leaves)
+        results.append(torch.autograd.grad((y * dy).sum() + (h_last * dh_last).sum(), leaves))
+    assert (gru_sequence.launches - before[0], gru_sequence_bwd.launches - before[1]) == (1, 1)
+    for name, got, want in zip(("dx_proj", "dh0", "dw_hh", "db_hh"), *results):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-10, msg=name)

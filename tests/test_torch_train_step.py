@@ -277,9 +277,10 @@ def test_unported_entry_points_raise_by_name(monkeypatch):
     other = MtfaaNet(MtfaaConfig(**TINY))
     with pytest.raises(ValueError, match="another model"):
         make_train_step(other, cfg)(state, {"noisy": torch.zeros(1, 2048), "clean": torch.zeros(1, 2048)})
-    cruse = CruseNet(CruseConfig(), generator=torch.Generator().manual_seed(0)).train()
+    # a bare CRUSE trunk that emits its features has no adapter (CruseDfNet wraps it)
+    cruse = CruseNet(CruseConfig(emit_features=True), generator=torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="CruseNet"):
-        forward_for_model(cruse)(torch.zeros(1, 4, 161, 2), train=True)
+        forward_for_model(cruse)
     # the train step runs on the card unless asked for the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
