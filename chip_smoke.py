@@ -123,13 +123,18 @@ needed). In order, and any failure exits non-zero:
     ``"pallas"`` route (24 stencil forwards and backwards a step) and config 5
     (full-causal attention) the same way at B=4 x 4 s, and that a step on a
     batch with a NaN leaves everything unchanged;
-15. holds the GRU backward kernel against its plain version on the card at
-    config 2's shape (B=128, T=1001, G=4, H=176), B=13 (off the kernel's
-    8-row tile), H=33, T=1 and H=512, with dh_last None and nonzero: into
-    dx_proj, dhp and dh0 filled with NaN first, and through
-    ``gru_sequence_bwd`` (dx_proj, dh0, dw_hh, db_hh), each within 1e-4 of
-    its largest value (f32 sums over 1,001 steps); checks that a forward
-    kernel's launcher refuses tensors that want a gradient; then drives
+15. holds both GRU backward kernels (the resident one, whose weight stays in
+    a cluster's shared memory, at every cluster size that holds the weight
+    with a unit in every block, and the streamed one) against their plain
+    version on the card at config 2's shape (B=128, T=1001, G=4, H=176), B=13
+    and 17 (off the 8-row tile), H=33, T=1, H=512 (only the streamed kernel;
+    the resident launcher must refuse it, as it must every other cluster
+    size), H=200, 256 and 177 (planned clusters of 4 and 8), with dh_last
+    None and nonzero: into dx_proj, dhp and dh0 filled with NaN first, and
+    through ``gru_sequence_bwd`` (dx_proj, dh0, dw_hh, db_hh; one launch, of
+    the kernel ``resident_bwd_plan`` names, by the counters), each within
+    1e-4 of its largest value (f32 sums over 1,001 steps); checks that a
+    forward kernel's launcher refuses tensors that want a gradient; then drives
     config 2's CRUSE train step (``configs/cruse_base.toml``) and config 3's
     CRUSE+DF (``CruseDfConfig()``) as in 14: the first batch's losses,
     gradients (float64, leaf by leaf) and BatchNorm statistics at B=8 x 10 s,
@@ -163,12 +168,14 @@ needed). In order, and any failure exits non-zero:
     kernels and one with the plain deep filter (``mid_bwd``'s and the deep
     filter's device time a step, and a check that the step makes at least
     96 device launches fewer than the 6,270 it made with eight launches a
-    ``mid_bwd`` call); the GRU backward kernel alone at config 2's shape
-    (CUDA events), its wrapper, its plain walk, its bound and
-    ``autograd.grad`` through cuDNN's ``nn.GRU``, one call a group; one
-    config-2 step at B=128 x 10 s and one CRUSE+DF step at B=32 x 10 s (wall
-    ms, peak memory) and a profile of the config-2 step (2 launches of each
-    GRU kernel, busy time, idle share);
+    ``mid_bwd`` call); both GRU backward kernels alone at config 2's shape
+    and at B=32 (``ops/gru_bwd_timing.py``: CUDA events in turns, resident,
+    streamed, streamed, resident), the bound and ``autograd.grad`` through
+    cuDNN's ``nn.GRU``, one call a group, at both; the wrapper and the plain
+    walk at config 2; one config-2 step at B=128 x 10 s and one CRUSE+DF step
+    at B=32 x 10 s (wall ms, peak memory) and a profile of the config-2 step
+    (2 launches each of the resident GRU forward and backward kernels, none
+    of the streamed backward, busy time, idle share);
 17. prints a JSON line of the kernels (each with its launches on the main
     paths, its error, its time, the plain version's, the least time the card
     could take for its bytes or its multiply-adds, and the library call's time
@@ -216,8 +223,11 @@ from cruse_tpu_torch.ops.dw_kernel import (
 from cruse_tpu_torch.ops.dw_timing import describe as describe_dw
 from cruse_tpu_torch.ops.dw_timing import describe_step, dw_bound, time_dw
 from cruse_tpu_torch.ops.gru_kernel import (
-    MAX_HIDDEN, cluster_fit, gru_backward_walk_reference, gru_sequence, gru_sequence_backward_reference,
-    gru_sequence_bwd, gru_sequence_reference, launch_gru_bwd, launch_resident, launch_streamed, resident_plan)
+    CLUSTER_SIZES, MAX_HIDDEN, bwd_fit_at, cluster_fit, gru_backward_walk_reference, gru_sequence,
+    gru_sequence_backward_reference, gru_sequence_bwd, gru_sequence_reference, launch_gru_bwd_resident,
+    launch_gru_bwd_streamed, launch_resident, launch_streamed, resident_bwd_plan, resident_plan)
+from cruse_tpu_torch.ops.gru_bwd_timing import describe as describe_gru_bwd
+from cruse_tpu_torch.ops.gru_bwd_timing import time_kernels as time_gru_bwd_kernels
 from cruse_tpu_torch.ops.tfcm_kernel import (
     PARAM_KEYS, _blocking, _layer_plan, fold_eval_params, fused_tfcm_block_eval, fused_tfcm_stack_eval,
     layer_kernel_info, tfcm_stack_reference)
@@ -243,10 +253,12 @@ RAGGED_GRU = ((3, 7, 4, 176), (3, 7, 3, 50))
 # weights; f32 takes the streamed kernel); a size only the streamed kernel takes
 CLUSTER_GRU = ((17, 7, 4, 176), (3, 7, 2, 177), (5, 6, 2, 200), (3, 5, 2, 384), (3, 5, 2, 500))
 STEP_GRU = ((256, 1, 4, 176), (8, 1, 4, 176), (1, 1, 4, 176))  # the T=1 shapes that are timed
-# B, T, G, H of the GRU backward kernel's cases: config 2's banks at its published batch (B=128 x 10 s);
-# B off the kernel's 8-row tile; an odd H; T = 1; the largest H it takes
+# B, T, G, H of the GRU backward kernels' cases: config 2's banks at its published batch (B=128 x 10 s);
+# B off the 8-row tile; an odd H; T = 1; the largest H the streamed kernel takes (no cluster holds it);
+# planned clusters of 4 and 8, H off the unit groups
 CONFIG2_GRU = (128, 1001, 4, 176)
-GRU_BWD_SHAPES = (CONFIG2_GRU, (13, 37, 4, 176), (3, 5, 2, 33), (9, 1, 3, 50), (2, 4, 1, 512))
+GRU_BWD_SHAPES = (CONFIG2_GRU, (13, 37, 4, 176), (3, 5, 2, 33), (9, 1, 3, 50), (2, 4, 1, 512), (5, 6, 2, 200),
+                  (3, 5, 2, 256), (17, 4, 1, 177))
 GRU_BWD_TOL = 1e-4  # x max|ref| of each output: f32 sums over up to 1,001 steps, and over B x T terms
 # config 2's train step at its published batch, CRUSE+DF's at B=32, and both at B=8 for the float64 check
 CONFIG2_BATCH, CRUSE_DF_BATCH, CRUSE_CHECK_BATCH, CRUSE_SECONDS = 128, 32, 8, 10
@@ -322,7 +334,7 @@ HAND_WRITTEN = frozenset((  # the __global__ functions of ops/csrc/*.cu, as a pr
     "gru_sequence_kernel", "gru_resident_kernel", "deep_filter_kernel", "deep_filter_bwd_kernel", "tfcm_layer_kernel",
     "tattn_fwd_kernel",
     "tattn_dq_kernel", "tattn_dkv_kernel", "dw_fwd_kernel", "dw_bwd_kernel", "dw_finish_kernel",
-    "tail_bwd_kernel", "mid_tile_kernel", "mid_finish_kernel", "gru_bwd_kernel"))
+    "tail_bwd_kernel", "mid_tile_kernel", "mid_finish_kernel", "gru_bwd_kernel", "gru_bwd_resident_kernel"))
 # launches one config-5b train step makes: 6 stacks x 4 blocks, 3 attentions, 1 deep filter
 STEP_LAUNCHES = {"dw_stencil_fwd": 24, "dw_stencil_bwd": 0, "tail_bwd": 24, "mid_bwd": 24,
                  "tattn": 3, "tattn_dq": 3, "tattn_dkv": 3, "tfcm_stack": 0, "tfcm_block": 0,
@@ -511,6 +523,7 @@ def reset_counts() -> None:
     for kernel in COUNTERS.values():
         kernel.launches = 0
     gru_sequence.resident_launches = 0
+    gru_sequence_bwd.resident_launches = 0
 
 
 def counts() -> dict:
@@ -1522,40 +1535,63 @@ def gru_bwd_case(shape, device, seed: int, with_dh_last: bool):
 
 
 def check_gru_bwd(device) -> float:
-    """The GRU backward kernel against its plain version on the card at
-    GRU_BWD_SHAPES, with dh_last None and nonzero: launched into dx_proj, dhp
-    and dh0 filled with NaN first (so a value it never writes shows) against
-    the plain walk, and through ``gru_sequence_bwd`` (all four gradients,
-    one launch), each output within GRU_BWD_TOL of its largest value; and
-    that a forward kernel's launcher refuses tensors that want a gradient,
-    and bf16 weights under a gradient. Returns the kernel's largest max-abs
-    error (dx_proj, dhp, dh0) at config 2's shape."""
+    """Both GRU backward kernels against their plain version on the card at
+    GRU_BWD_SHAPES, with dh_last None and nonzero: the streamed kernel, and the
+    resident one at each cluster size that ``bwd_fit_at`` gives a fit (its
+    launcher must raise at the others), each launched into
+    dx_proj, dhp and dh0 filled with NaN first (so a value it never writes
+    shows) against the plain walk; and ``gru_sequence_bwd`` (all four
+    gradients, one launch, of the kernel ``resident_bwd_plan`` picks, read
+    from the counters). Each output within GRU_BWD_TOL of its largest value.
+    Also that a forward kernel's launcher refuses tensors that want a
+    gradient, and bf16 weights under a gradient. Returns the routed kernel's
+    largest max-abs error (dx_proj, dhp, dh0) at config 2's shape."""
     worst = 0.0
     for shape in GRU_BWD_SHAPES:
         for with_dh_last in (False, True):
             x, h0, w, b, y, dy, dh_last, hp = gru_bwd_case(shape, device, SEED + 11, with_dh_last)
             what = f"gru_sequence_bwd B, T, G, H = {shape}, dh_last {'nonzero' if with_dh_last else 'None'}"
+            plan = resident_bwd_plan(*shape)
             with torch.inference_mode():
-                outs = [torch.full_like(x, math.nan), torch.full_like(x, math.nan), torch.full_like(h0, math.nan)]
-                before = gru_sequence_bwd.launches
-                launch_gru_bwd(x, hp, y, h0, dy, dh_last, w, *outs)
+                walk = gru_backward_walk_reference(dy, dh_last, x, h0, w, b, y)
+                launchers = {"streamed": launch_gru_bwd_streamed}
+                for cs in CLUSTER_SIZES:
+                    launch = lambda *args, cs=cs: launch_gru_bwd_resident(*args, cs=cs)  # noqa: E731
+                    if bwd_fit_at(shape[3], cs) is not None:
+                        launchers[f"resident CS={cs}"] = launch
+                        continue
+                    try:
+                        launch(x, hp, y, h0, dy, dh_last, w, *(torch.empty_like(t) for t in (x, x, h0)))
+                        refused = False
+                    except ValueError:
+                        refused = True
+                    require(refused, f"{what}: the resident launcher refuses a cluster of {cs}, which does not "
+                                     f"hold the weight or leaves a block without a unit")
+                for label, launch in launchers.items():
+                    outs = [torch.full_like(x, math.nan), torch.full_like(x, math.nan), torch.full_like(h0, math.nan)]
+                    launch(x, hp, y, h0, dy, dh_last, w, *outs)
+                    torch.cuda.synchronize()
+                    for name, got, want in zip(("dx_proj", "dhp", "dh0"), outs, walk):
+                        err, scale = float((got - want).abs().max()), float(want.abs().max())
+                        require(bool(torch.isfinite(got).all()) and err <= GRU_BWD_TOL * scale,
+                                f"{what}, {label} kernel into NaN-filled outputs: {name} max-abs "
+                                f"{err:.3g} <= {GRU_BWD_TOL} x {scale:.3g}")
+                        routed = label == ("streamed" if plan is None else f"resident CS={plan[0]}")
+                        if shape == CONFIG2_GRU and routed:
+                            worst = max(worst, err)
+                before = gru_sequence_bwd.launches, gru_sequence_bwd.resident_launches
                 wrapped = gru_sequence_bwd(dy, dh_last, x, h0, w, b, y)
                 torch.cuda.synchronize()
-                checks = list(zip(("dx_proj", "dhp", "dh0"), outs,
-                                  gru_backward_walk_reference(dy, dh_last, x, h0, w, b, y)))
-                checks += list(zip(("dx_proj", "dh0", "dw_hh", "db_hh"), wrapped,
-                                   gru_sequence_backward_reference(dy, dh_last, x, h0, w, b, y)))
-                errs = []
-                for i, (name, got, want) in enumerate(checks):
+                for name, got, want in zip(("dx_proj", "dh0", "dw_hh", "db_hh"), wrapped,
+                                           gru_sequence_backward_reference(dy, dh_last, x, h0, w, b, y)):
                     err, scale = float((got - want).abs().max()), float(want.abs().max())
                     require(bool(torch.isfinite(got).all()) and err <= GRU_BWD_TOL * scale,
-                            f"{what}, {'kernel into NaN-filled outputs' if i < 3 else 'wrapper'}: {name} max-abs "
-                            f"{err:.3g} <= {GRU_BWD_TOL} x {scale:.3g}")
-                    errs.append(err)
-                require(gru_sequence_bwd.launches - before == 2, f"{what}: one launch a call")
-            if shape == CONFIG2_GRU:
-                worst = max(worst, *errs[:3])  # the kernel's own outputs
-            del x, h0, w, b, y, dy, dh_last, hp, outs, wrapped, checks
+                            f"{what}, wrapper: {name} max-abs {err:.3g} <= {GRU_BWD_TOL} x {scale:.3g}")
+                launched = (gru_sequence_bwd.launches - before[0], gru_sequence_bwd.resident_launches - before[1])
+                require(launched == (1, int(plan is not None)),
+                        f"{what}: the wrapper makes one launch, of the {'streamed' if plan is None else 'resident'} "
+                        f"kernel as resident_bwd_plan says ({plan}); counted {launched}")
+            del x, h0, w, b, y, dy, dh_last, hp, walk, outs, wrapped
     x, h0, w, b = gru_inputs(3, 5, 2, 16, device, SEED)
     try:
         launch_resident(x.requires_grad_(), h0, w, b)
@@ -1574,29 +1610,32 @@ def check_gru_bwd(device) -> float:
 
 
 def time_gru_bwd(device, smi, lib: dict) -> dict:
-    """The GRU backward kernel alone at config 2's shape (CUDA events, dh_last
-    None as in the step), the wrapper with its two products, its plain
-    version (the walk) and the library call; the bound from the least bytes
-    (x_proj, hp, y, dy, h0 and w_hh read once, dx_proj, dhp and dh0 written
-    once) and the multiply-adds of w_hh^T . dhp. Returns the kernels line's
-    numbers."""
+    """Both GRU backward kernels at config 2's shape and at CRUSE+DF's B=32
+    (``ops/gru_bwd_timing.py``: CUDA events in turns, resident, streamed,
+    streamed, resident; dh_last None as in the step; the bound from the least
+    bytes and the multiply-adds of w_hh^T . dhp); at config 2 also the wrapper
+    with its two products and its plain version (the walk); the library call
+    at both. Returns the kernels line's numbers (config 2, the resident
+    kernel, which the plan routes there, as ``ms``)."""
+    rows = {}
+    for b_, key, name in ((CONFIG2_BATCH, "gru_bwd", "config 2"), (CRUSE_DF_BATCH, "gru_bwd_b32", "CRUSE+DF")):
+        rows[b_] = row = time_gru_bwd_kernels((b_, *CONFIG2_GRU[1:]), device, SEED + 13)
+        print(f"{describe_gru_bwd(name, row)}; cuDNN nn.GRU backward, one call a group (it also takes the "
+              f"input projection's gradients) {lib[key]:.3f} ms; on {smi}", flush=True)
     b, t, g, h = CONFIG2_GRU
-    x, h0, w, bias, y, dy, _, hp = gru_bwd_case(CONFIG2_GRU, device, SEED + 13, False)
+    x, h0, w, bias, y, dy, _, _ = gru_bwd_case(CONFIG2_GRU, device, SEED + 13, False)
     with torch.inference_mode():
-        outs = [torch.empty_like(x), torch.empty_like(x), torch.empty_like(h0)]
-        kernel = lambda: launch_gru_bwd(x, hp, y, h0, dy, None, w, *outs)  # noqa: E731
         wrapper = lambda: gru_sequence_bwd(dy, None, x, h0, w, bias, y)  # noqa: E731
-        turns = [cuda_ms(fn, reps=3) for fn in (kernel, wrapper, wrapper, kernel)]
+        wrapper_ms = cuda_ms(wrapper, reps=3)
         plain_ms = cuda_ms(lambda: gru_backward_walk_reference(dy, None, x, h0, w, bias, y), reps=1)
-    entry = {"ms": (turns[0] + turns[3]) / 2, "wrapper_ms": (turns[1] + turns[2]) / 2, "plain_ms": plain_ms,
-             **bound(4 * (b * t * g * 14 * h + 2 * b * g * h + g * 3 * h * h), b * t * g * 3 * h * h),
-             "library_ms": lib["gru_bwd"]}
-    print(f"gru_sequence_bwd B={b} T={t} G={g} H={h} f32 on {smi}: kernel {turns[0]:.3f}, {turns[3]:.3f} ms "
-          f"({entry['ms'] / t * 1e3:.2f} us a step); wrapper (hp and dw_hh products + kernel) {turns[1]:.3f}, "
-          f"{turns[2]:.3f} ms; bound {entry['bound_ms']:.3f} ms ({entry['bound_by']}); plain walk "
-          f"{plain_ms:.1f} ms; cuDNN nn.GRU backward, one call a group (it also takes the input projection's "
-          f"gradients) {lib['gru_bwd']:.3f} ms", flush=True)
-    return entry
+    row = rows[CONFIG2_BATCH]
+    print(f"gru_sequence_bwd B={b} T={t} G={g} H={h} f32 on {smi}: wrapper (hp and dw_hh products + the resident "
+          f"kernel) {wrapper_ms:.3f} ms; plain walk {plain_ms:.1f} ms", flush=True)
+    return {"ms": sum(row["resident_ms"]) / 2, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": lib["gru_bwd"],
+            "resident_ms": sum(row["resident_ms"]) / 2, "streamed_ms": sum(row["streamed_ms"]) / 2,
+            "b32": {key: rows[CRUSE_DF_BATCH][key] for key in ("resident_ms", "streamed_ms", "bound_ms")}
+            | {"library_ms": lib["gru_bwd_b32"]}}
 
 
 def time_cruse_steps(device, smi) -> None:
@@ -1628,13 +1667,13 @@ def time_cruse_steps(device, smi) -> None:
                 box["state"], _ = step(box["state"], data)
 
             prof = profile_calls(one_step, 2, what)
-            print(f"{what}, on {smi}: gru_bwd_kernel {prof.device_ms.get('gru_bwd_kernel', 0.0):.3f} ms in "
-                  f"{prof.launches.get('gru_bwd_kernel', 0.0):.1f} launches, gru_resident_kernel "
-                  f"{prof.device_ms.get('gru_resident_kernel', 0.0):.3f} ms in "
-                  f"{prof.launches.get('gru_resident_kernel', 0.0):.1f} launches; {prof.kernels:.1f} device "
-                  f"launches a step", flush=True)
-            require(prof.launches.get("gru_bwd_kernel") == 2 and prof.launches.get("gru_resident_kernel") == 2,
-                    f"{what}: the profile shows 2 gru_bwd_kernel and 2 gru_resident_kernel launches a step")
+            gru = ("gru_bwd_resident_kernel", "gru_resident_kernel", "gru_bwd_kernel")
+            print(f"{what}, on {smi}: " + ", ".join(
+                f"{name} {prof.device_ms.get(name, 0.0):.3f} ms in {prof.launches.get(name, 0.0):.1f} launches"
+                for name in gru) + f"; {prof.kernels:.1f} device launches a step", flush=True)
+            require([prof.launches.get(name, 0) for name in gru] == [2, 2, 0],
+                    f"{what}: the profile shows 2 gru_bwd_resident_kernel and 2 gru_resident_kernel launches a "
+                    f"step, and no gru_bwd_kernel")
             del box
         del model, state, step, data
         torch.cuda.empty_cache()
@@ -1674,6 +1713,12 @@ def library_ms(device) -> dict:
     gy = torch.randn_like(out)
     leaves = (x, *gru.parameters())
     times["gru_bwd"] = g_ * cuda_ms(lambda: torch.autograd.grad(out, leaves, gy, retain_graph=True), reps=3)
+    # and at CRUSE+DF's step batch
+    x = torch.randn(CRUSE_DF_BATCH, t, h, device=device, requires_grad=True)
+    out, _ = gru(x)
+    gy = torch.randn_like(out)
+    leaves = (x, *gru.parameters())
+    times["gru_bwd_b32"] = g_ * cuda_ms(lambda: torch.autograd.grad(out, leaves, gy, retain_graph=True), reps=3)
     del x, out, gy, leaves
     return times
 

@@ -24,12 +24,17 @@ source holds two kernels, and the shape alone decides which one runs
 Under a gradient (grad enabled and an input that requires it)
 ``gru_sequence`` is an ``autograd.Function`` (f32 weights only): its forward
 is the same routed kernel, and its backward takes ``hp = h_prev . w_hh^T +
-b_hh`` for all t as one batched product, launches the backward kernel
-(``csrc/gru_bwd.cu``, one launch for all T steps, counted in
-``gru_sequence_bwd.launches``) for ``dx_proj``, ``dhp`` and ``dh0``, and takes
-``dw_hh`` and ``db_hh`` from ``dhp`` as two more products. The JAX step has no
-kernel here: XLA differentiates ``gru_scan``. On the CPU both directions run
-the plain versions (``gru_sequence_reference``,
+b_hh`` for all t as one batched product, launches a backward kernel
+(``csrc/gru_bwd.cu``, one launch for all T steps) for ``dx_proj``, ``dhp`` and
+``dh0``, and takes ``dw_hh`` and ``db_hh`` from ``dhp`` as two more products.
+That source also holds two kernels, and the shape alone decides which one
+runs (``resident_bwd_plan``): the resident backward keeps w_hh in the shared
+memory of a cluster for all T steps wherever its slice and the dhp tile fit;
+the streamed backward reads it from L2 every step and takes the rest.
+``gru_sequence_bwd.launches`` counts every backward launch,
+``gru_sequence_bwd.resident_launches`` those of the resident backward. The
+JAX step has no kernel here: XLA differentiates ``gru_scan``. On the CPU both
+directions run the plain versions (``gru_sequence_reference``,
 ``gru_sequence_backward_reference``).
 """
 from __future__ import annotations
@@ -53,6 +58,13 @@ MAX_UNITS = 96  # resident kernel: units a block owns, 4 threads a unit (kReside
 # 8, 1 the resident kernel takes 17-18 us of device time, the streamed one 45-46
 # (chip_smoke.py times both; PERF.md has the table).
 RESIDENT_MIN_T = 1
+# The resident backward (csrc/gru_bwd.cu, the k-prefixed constants there).
+BWD_TILE_ROWS = 8  # R, the batch rows a cluster (kBwdRows): at config 2 a cluster of 2, 3x as fast as
+# R = 16's cluster of 4 (ops/gru_bwd_timing.py --sweep on an H100, R = 16 from a copy of the source)
+BWD_PLANE_ROWS = 8  # batch rows a thread multiplies; the dhp tile holds R / 8 planes of them (kPlane)
+BWD_PARTS = 16  # parts of the j range a unit group's lanes split (kParts)
+BWD_MAX_THREADS = 512  # (U / 4) (R / 8) unit groups x 16 lanes (kBwdMaxThreads)
+BWD_PLANE_PAD = 4  # floats after each plane of the tile (kPlanePad)
 _WEIGHT_DTYPES = {None: "f32", torch.float32: "f32", torch.bfloat16: "bf16w"}
 
 
@@ -163,6 +175,58 @@ def resident_plan(b, t, g, h, weight_dtype=None):
     return cluster_fit(h, weight_dtype)
 
 
+def slice_stride(u: int) -> int:
+    """The resident backward's row of the weight slice in shared memory, in
+    16-byte chunks: ``U / 4`` rounded up to 2 mod 4, so that a quarter warp's
+    8 lanes (4 consecutive rows x 2 unit groups) read 8 bank groups."""
+    return u // 4 + (6 - u // 4 % 4) % 4
+
+
+def resident_bwd_bytes(h: int, u: int, rows: int = BWD_TILE_ROWS) -> int:
+    """Shared memory of a resident-backward block: the weight slice, ``3H``
+    rows of ``slice_stride(U)`` chunks, plus the double-buffered dhp tile,
+    ``[2][R / 8][3H][8]`` floats, each plane padded by ``BWD_PLANE_PAD``, and
+    its two 8-byte mbarriers."""
+    planes = rows // BWD_PLANE_ROWS
+    return 3 * h * slice_stride(u) * 16 + 2 * planes * (3 * h * BWD_PLANE_ROWS + BWD_PLANE_PAD) * 4 + 16
+
+
+def bwd_threads(u: int, rows: int = BWD_TILE_ROWS) -> int:
+    """Threads of a resident-backward block: 16 lanes a (unit group, plane)."""
+    return -(-(u // UNIT_GROUP) * (rows // BWD_PLANE_ROWS) // 2) * 32
+
+
+def bwd_fit_at(h: int, cs: int, rows: int = BWD_TILE_ROWS):
+    """``(CS, U, R, shared-memory bytes)`` of the resident backward with a
+    cluster of ``cs`` blocks: each holds its slice of the weight, ``[3H][U]``
+    with ``U = ceil(H / CS)`` units rounded up to a multiple of ``UNIT_GROUP``,
+    plus the dhp tile of ``rows`` rows. None where that exceeds
+    ``SHARED_LIMIT`` or ``BWD_MAX_THREADS``, or where a block would own no
+    hidden unit (``(CS - 1) U >= H``: it would leave while its peers still
+    send into its tile). ``rows`` other than ``BWD_TILE_ROWS`` is for a copy
+    of the source built with that R (the sweep)."""
+    u = -(-h // (cs * UNIT_GROUP)) * UNIT_GROUP
+    nbytes = resident_bwd_bytes(h, u, rows)
+    if nbytes > SHARED_LIMIT or bwd_threads(u, rows) > BWD_MAX_THREADS or (cs - 1) * u >= h:
+        return None
+    return cs, u, rows, nbytes
+
+
+def bwd_cluster_fit(h: int):
+    """``bwd_fit_at`` of the smallest cluster size that has one; None where no
+    cluster of up to ``CLUSTER_SIZES[-1]`` blocks holds the weight."""
+    return next(filter(None, (bwd_fit_at(h, cs) for cs in CLUSTER_SIZES)), None)
+
+
+def resident_bwd_plan(b, t, g, h):
+    """``bwd_cluster_fit`` where this shape takes the resident backward, None
+    where the streamed backward runs (no cluster holds the weight). b and g
+    only size the grid: ``CS * g`` by ``ceil(b / R)`` blocks."""
+    if min(b, t, g, h) < 1:
+        return None
+    return bwd_cluster_fit(h)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernels() -> dict:
     """Build and load the library once and declare its entries' prototypes."""
@@ -217,6 +281,20 @@ def packed_weight(w_hh: torch.Tensor, dtype: torch.dtype, cs: int) -> torch.Tens
     return _cached_layout(w_hh, "_gru_packed", (dtype, cs), make)
 
 
+def packed_weight_bwd(w_hh: torch.Tensor, cs: int) -> torch.Tensor:
+    """``w_hh [G, 3H, H]`` as the resident backward reads it: ``[G, CS, 3H, U]``
+    float32 with ``U = ceil(H / CS)`` rounded up to a multiple of ``UNIT_GROUP``;
+    ``[g, c, j, u]`` is ``w_hh[g, j, c * U + u]``, zero where ``c * U + u >= H``
+    (cached on the weight, see ``_cached_layout``)."""
+    def make():
+        g, h3, h = w_hh.shape
+        u = -(-h // (cs * UNIT_GROUP)) * UNIT_GROUP
+        w = torch.nn.functional.pad(w_hh, (0, cs * u - h))  # [g, j, unit]
+        return w.reshape(g, h3, cs, u).permute(0, 2, 1, 3).contiguous().float()
+
+    return _cached_layout(w_hh, "_gru_packed_bwd", (cs,), make)
+
+
 def _check_launch(x_proj, h0, w_hh, b_hh, weight_dtype):
     """What both kernels ask of their tensors; returns (B, T, G, H)."""
     tensors = {"x_proj": x_proj, "h0": h0, "w_hh": w_hh, "b_hh": b_hh}
@@ -238,11 +316,15 @@ def _check_launch(x_proj, h0, w_hh, b_hh, weight_dtype):
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_kernel():
-    fn = _build.load_library("gru_bwd").gru_bwd_f32
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _bwd_kernels() -> dict:
+    lib = _build.load_library("gru_bwd")
+    kernels = {}
+    for name, ints in (("gru_bwd_f32", 4), ("gru_bwd_resident_f32", 5)):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * ints + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        kernels[name] = fn
+    return kernels
 
 
 def _run(entry: str, x_proj, h0, weight, b_hh, ints: tuple):
@@ -291,10 +373,8 @@ def launch_resident(x_proj, h0, w_hh, b_hh, weight_dtype=None):
     return out
 
 
-def launch_gru_bwd(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0) -> None:
-    """The backward kernel on CUDA tensors, into ``dx_proj``, ``dhp`` ([B, T, G,
-    3H]) and ``dh0`` ([B, G, H]); ``hp`` is ``h_prev . w_hh^T + b_hh`` for all t
-    and ``dh_last`` None means zeros. Counted in ``gru_sequence_bwd.launches``."""
+def _check_bwd_launch(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0):
+    """What both backward kernels ask of their tensors; returns (B, T, G, H)."""
     b, t, g, h3 = x_proj.shape
     h = h3 // 3
     shapes = {"x_proj": (b, t, g, h3), "hp": (b, t, g, h3), "y": (b, t, g, h), "h0": (b, g, h),
@@ -305,29 +385,72 @@ def launch_gru_bwd(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0) -> N
         if tensor is None and name == "dh_last":
             continue
         if tensor.device.type != "cuda" or tensor.device != x_proj.device:
-            raise ValueError(f"the backward kernel launches on CUDA tensors of one device only, "
+            raise ValueError(f"the backward kernels launch on CUDA tensors of one device only, "
                              f"{name} is on {tensor.device}")
         if tuple(tensor.shape) != shapes[name] or tensor.dtype != torch.float32:
             raise ValueError(f"{name} must be float32 {shapes[name]}, got {tensor.dtype} {tuple(tensor.shape)}")
         if not tensor.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if h > MAX_HIDDEN:
-        raise ValueError(f"hidden size per group {h} > {MAX_HIDDEN}, the backward kernel's limit")
-    pointers = [None if x is None else x.data_ptr() for x in tensors.values()]
+    return b, t, g, h
+
+
+def _run_bwd(entry: str, x_proj, hp, y, h0, dy, dh_last, weight, dx_proj, dhp, dh0, ints: tuple) -> None:
+    """Launch one backward entry on x_proj's stream; raises if the launch is refused."""
+    pointers = [None if x is None else x.data_ptr() for x in (x_proj, hp, y, h0, dy, dh_last, weight,
+                                                               dx_proj, dhp, dh0)]
     stream = torch.cuda.current_stream(x_proj.device).cuda_stream
     with torch.cuda.device(x_proj.device):
-        err = _bwd_kernel()(*pointers, b, t, g, h, stream)
+        err = _bwd_kernels()[entry](*pointers, *ints, stream)
     if err != 0:
-        raise RuntimeError(f"gru_bwd kernel launch failed with CUDA error {err} (B, T, G, H = {b, t, g, h})")
+        raise RuntimeError(f"{entry} kernel launch failed with CUDA error {err} (B, T, G, H[, CS] = {ints})")
     gru_sequence_bwd.launches += 1
+
+
+def launch_gru_bwd_streamed(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0) -> None:
+    """The streamed backward kernel on CUDA tensors, whatever the shape's plan
+    says, into ``dx_proj``, ``dhp`` ([B, T, G, 3H]) and ``dh0`` ([B, G, H]);
+    ``hp`` is ``h_prev . w_hh^T + b_hh`` for all t and ``dh_last`` None means
+    zeros. Counted in ``gru_sequence_bwd.launches``."""
+    b, t, g, h = _check_bwd_launch(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0)
+    if h > MAX_HIDDEN:
+        raise ValueError(f"hidden size per group {h} > {MAX_HIDDEN}, the streamed backward kernel's limit")
+    _run_bwd("gru_bwd_f32", x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0, (b, t, g, h))
+
+
+def launch_gru_bwd_resident(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0, cs=None) -> None:
+    """The resident backward kernel on CUDA tensors, whatever the shape's plan
+    says, with the arguments of ``launch_gru_bwd_streamed``; raises where no
+    cluster holds the weight. ``cs`` (default: the smallest cluster that
+    fits) forces a cluster size, so that every instance can be checked and
+    timed; it raises where ``bwd_fit_at`` has no fit. Counted in
+    ``gru_sequence_bwd.launches`` and ``.resident_launches``."""
+    h = x_proj.shape[-1] // 3
+    fit = bwd_cluster_fit(h) if cs is None else bwd_fit_at(h, cs) if cs in CLUSTER_SIZES else None
+    if fit is None:
+        raise ValueError(f"no cluster of {CLUSTER_SIZES if cs is None else cs} blocks holds the recurrent weight "
+                         f"of hidden size per group {h} and a dhp tile in shared memory with a unit in every block")
+    b, t, g, h = _check_bwd_launch(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0)
+    _run_bwd("gru_bwd_resident_f32", x_proj, hp, y, h0, dy, dh_last, packed_weight_bwd(w_hh, fit[0]),
+             dx_proj, dhp, dh0, (b, t, g, h, fit[0]))
+    gru_sequence_bwd.resident_launches += 1
+
+
+def launch_gru_bwd(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0) -> None:
+    """The routed backward launcher: the resident kernel where
+    ``resident_bwd_plan`` fits, the streamed one elsewhere (both launch or
+    raise), with the arguments of ``launch_gru_bwd_streamed``."""
+    b, t, g, h3 = x_proj.shape
+    resident = resident_bwd_plan(b, t, g, h3 // 3) is not None
+    launch = launch_gru_bwd_resident if resident else launch_gru_bwd_streamed
+    launch(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0)
 
 
 def gru_sequence_bwd(dy, dh_last, x_proj, h0, w_hh, b_hh, y):
     """The recurrence's backward (f32 weights): ``(dx_proj, dh0, dw_hh,
     db_hh)``, with the signature of ``gru_sequence_backward_reference``, which
     it runs for CPU tensors. On CUDA tensors: ``hp`` for all t as one batched
-    product, one launch of the backward kernel, then ``dw_hh`` and ``db_hh``
-    from its ``dhp``."""
+    product, one launch of the backward kernel that ``resident_bwd_plan``
+    picks (``launch_gru_bwd``), then ``dw_hh`` and ``db_hh`` from its ``dhp``."""
     _check_shapes(x_proj, h0, w_hh, b_hh, None)
     if dy.shape != y.shape or y.shape != (*x_proj.shape[:3], h0.shape[-1]):
         raise ValueError(f"dy and y must be {(*x_proj.shape[:3], h0.shape[-1])}, "
@@ -345,6 +468,7 @@ def gru_sequence_bwd(dy, dh_last, x_proj, h0, w_hh, b_hh, y):
 
 
 gru_sequence_bwd.launches = 0
+gru_sequence_bwd.resident_launches = 0
 
 
 def _runs_plain(x_proj) -> bool:

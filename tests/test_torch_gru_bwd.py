@@ -7,7 +7,9 @@ The JAX package has no backward kernel: its train step differentiates
 ``jax.grad`` of the flax layers are the references. Inputs come from a numpy
 seed. Tolerances: 1e-10 against autograd in float64 (the same formulas, summed
 in another order); 1e-5 against JAX in float32 (two float32 implementations
-of the same sums, over a dozen steps).
+of the same sums, over a dozen steps). Also the resident backward kernel's
+plan, its packed layout of w_hh and its decomposition by unit slices, and
+the routing between the two backward kernels.
 """
 import numpy as np
 import pytest
@@ -22,8 +24,9 @@ from cruse_tpu.nn.gru import gru_scan as jax_gru_scan
 from cruse_tpu_torch.nn.gru import GGRUBottleneck, GroupedGRULayer, gru_scan
 from cruse_tpu_torch.ops import gru_kernel
 from cruse_tpu_torch.ops.gru_kernel import (
-    gru_backward_walk_reference, gru_sequence, gru_sequence_backward_reference, gru_sequence_bwd,
-    gru_sequence_reference, launch_gru_bwd)
+    BWD_MAX_THREADS, BWD_PARTS, BWD_TILE_ROWS, CLUSTER_SIZES, SHARED_LIMIT, bwd_cluster_fit, bwd_fit_at,
+    bwd_threads, gru_backward_walk_reference, gru_sequence, gru_sequence_backward_reference, gru_sequence_bwd,
+    gru_sequence_reference, launch_gru_bwd, packed_weight_bwd, resident_bwd_bytes, resident_bwd_plan)
 from cruse_tpu_torch.utils.weights import flatten_tree
 
 # B, T, G, H: a ragged batch, one step, an odd H, one group
@@ -150,11 +153,12 @@ def test_launcher_refuses_cpu_tensors(rng):
     """The backward kernel's launcher never runs the plain version: on CPU
     tensors it raises, and counts nothing."""
     x, h0, w, b, dy, dh_last = (torch.from_numpy(a) for a in _inputs(rng, 2, 3, 2, 4))
-    before = gru_sequence_bwd.launches
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        launch_gru_bwd(x, x.clone(), dy, h0, dy, dh_last, w, torch.empty_like(x), torch.empty_like(x),
-                       torch.empty_like(h0))
-    assert gru_sequence_bwd.launches == before
+    before = gru_sequence_bwd.launches, gru_sequence_bwd.resident_launches
+    for launch in (launch_gru_bwd, gru_kernel.launch_gru_bwd_resident, gru_kernel.launch_gru_bwd_streamed):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            launch(x, x.clone(), dy, h0, dy, dh_last, w, torch.empty_like(x), torch.empty_like(x),
+                   torch.empty_like(h0))
+    assert (gru_sequence_bwd.launches, gru_sequence_bwd.resident_launches) == before
     assert "gru_bwd" in {p.stem for p in gru_kernel._build.SRC_DIR.glob("*.cu")}
 
 
@@ -234,32 +238,212 @@ def test_cuda_route_with_stand_in_kernels_matches_autograd(rng, monkeypatch):
     one backward launch, dw_hh and db_hh from its dhp) on CPU tensors, with
     the launchers replaced by stand-ins that run the kernels' plain versions
     into the outputs: the gradients match autograd through the plain
-    recurrence, and each direction is one counted launch."""
+    recurrence, each direction is one counted launch, and the backward takes
+    the resident launcher where ``resident_bwd_plan`` fits and the streamed
+    one where it is None."""
     def stand_in_forward(x, h0, w, b, weight_dtype=None):
         gru_sequence.launches += 1
         return gru_sequence_reference(x, h0, w, b, weight_dtype)
 
-    def stand_in_backward(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0):
-        assert all(t.is_contiguous() for t in (x_proj, hp, y, h0, dy, w_hh, dx_proj, dhp, dh0))
-        h_prev = torch.cat([h0[:, None], y[:, :-1]], dim=1)
-        torch.testing.assert_close(hp, torch.einsum("btgh,gkh->btgk", h_prev, w_hh) + b_hh_seen[0])
-        for out, want in zip((dx_proj, dhp, dh0), gru_backward_walk_reference(
-                dy, dh_last, x_proj, h0, w_hh, b_hh_seen[0], y)):
-            out.copy_(want)
-        gru_sequence_bwd.launches += 1
+    def stand_in_backward(route):
+        def launch(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0):
+            assert all(t.is_contiguous() for t in (x_proj, hp, y, h0, dy, w_hh, dx_proj, dhp, dh0))
+            h_prev = torch.cat([h0[:, None], y[:, :-1]], dim=1)
+            torch.testing.assert_close(hp, torch.einsum("btgh,gkh->btgk", h_prev, w_hh) + b_hh_seen[0])
+            for out, want in zip((dx_proj, dhp, dh0), gru_backward_walk_reference(
+                    dy, dh_last, x_proj, h0, w_hh, b_hh_seen[0], y)):
+                out.copy_(want)
+            routes.append(route)
+            gru_sequence_bwd.launches += 1
+            gru_sequence_bwd.resident_launches += route == "resident"
+        return launch
 
     monkeypatch.setattr(gru_kernel, "_runs_plain", lambda x: False)
     monkeypatch.setattr(gru_kernel, "launch_resident", stand_in_forward)
     monkeypatch.setattr(gru_kernel, "launch_streamed", stand_in_forward)
-    monkeypatch.setattr(gru_kernel, "launch_gru_bwd", stand_in_backward)
+    monkeypatch.setattr(gru_kernel, "launch_gru_bwd_resident", stand_in_backward("resident"))
+    monkeypatch.setattr(gru_kernel, "launch_gru_bwd_streamed", stand_in_backward("streamed"))
     x, h0, w, b, dy, dh_last = (torch.from_numpy(a) for a in _inputs(rng, 5, 7, 2, 6, np.float64))
     b_hh_seen = [b]
-    before = gru_sequence.launches, gru_sequence_bwd.launches
-    results = []
-    for fn in (gru_sequence, gru_sequence_reference):
-        leaves = [a.clone().requires_grad_() for a in (x, h0, w, b)]
-        y, h_last = fn(*leaves)
-        results.append(torch.autograd.grad((y * dy).sum() + (h_last * dh_last).sum(), leaves))
-    assert (gru_sequence.launches - before[0], gru_sequence_bwd.launches - before[1]) == (1, 1)
-    for name, got, want in zip(("dx_proj", "dh0", "dw_hh", "db_hh"), *results):
-        torch.testing.assert_close(got, want, rtol=0, atol=1e-10, msg=name)
+    for route in ("resident", "streamed"):
+        if route == "streamed":  # a shape no cluster holds
+            monkeypatch.setattr(gru_kernel, "resident_bwd_plan", lambda *shape: None)
+        routes = []
+        before = gru_sequence.launches, gru_sequence_bwd.launches, gru_sequence_bwd.resident_launches
+        results = []
+        for fn in (gru_sequence, gru_sequence_reference):
+            leaves = [a.clone().requires_grad_() for a in (x, h0, w, b)]
+            y, h_last = fn(*leaves)
+            results.append(torch.autograd.grad((y * dy).sum() + (h_last * dh_last).sum(), leaves))
+        assert routes == [route]
+        assert (gru_sequence.launches - before[0], gru_sequence_bwd.launches - before[1],
+                gru_sequence_bwd.resident_launches - before[2]) == (1, 1, int(route == "resident"))
+        for name, got, want in zip(("dx_proj", "dh0", "dw_hh", "db_hh"), *results):
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-10, msg=f"{route}: {name}")
+
+
+@pytest.mark.parametrize("shape, want", [
+    ((128, 1001, 4, 176), (2, 88, 8, 219696)),  # config 2: 128 blocks of 352 threads
+    ((32, 1001, 4, 176), (2, 88, 8, 219696)),  # the CRUSE+DF step's batch
+    ((3, 5, 2, 33), (1, 36, 8, 22224)),
+    ((5, 6, 2, 200), (4, 52, 8, 172848)),
+    ((3, 5, 2, 256), (8, 32, 8, 172080)),
+    ((3, 5, 2, 350), None),
+    ((2, 4, 1, 512), None),  # the streamed backward's largest H
+], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) and len(v) == 4 else None)
+def test_resident_bwd_plan(shape, want):
+    """The smallest cluster whose block holds its [3H][U] slice (rows padded
+    to 2 mod 4 chunks), the dhp tile and its two mbarriers within
+    SHARED_LIMIT; every block owns a unit; None where no cluster of up to 8
+    does."""
+    plan = resident_bwd_plan(*shape)
+    assert plan == want
+    h = shape[3]
+    if plan is None:
+        assert all(resident_bwd_bytes(h, -(-h // (4 * cs)) * 4, BWD_TILE_ROWS) > SHARED_LIMIT for cs in CLUSTER_SIZES)
+        return
+    cs, u, rows, nbytes = plan
+    assert rows == BWD_TILE_ROWS and u % 4 == 0 and u * cs >= h > (cs - 1) * u
+    slice_bytes = 3 * h * 16 * (u // 4 + (6 - u // 4 % 4) % 4)
+    assert nbytes == slice_bytes + 2 * (rows // 8) * (24 * h + 4) * 4 + 16 <= SHARED_LIMIT
+    assert bwd_threads(u, rows) <= BWD_MAX_THREADS
+    for smaller in CLUSTER_SIZES[:CLUSTER_SIZES.index(cs)]:
+        assert resident_bwd_bytes(h, -(-h // (4 * smaller)) * 4, rows) > SHARED_LIMIT
+
+
+@pytest.mark.parametrize("h, cs, rows, want", [
+    (176, 1, 8, None), (176, 2, 8, (2, 88, 8, 219696)), (176, 4, 8, (4, 44, 8, 152112)),
+    (176, 8, 8, (8, 24, 8, 84528)),
+    (33, 2, 8, (2, 20, 8, 15888)), (33, 4, 8, None), (33, 8, 8, None),  # (CS - 1) U >= H: a block with no unit
+    (5, 2, 8, (2, 4, 8, 1488)), (5, 4, 8, None), (300, 8, 8, (8, 40, 8, 201648)), (350, 8, 8, None),
+    (1, 1, 8, (1, 4, 8, 336)),
+    (176, 2, 16, None), (176, 4, 16, (4, 44, 16, 185936)),  # the sweep's copy of the source at R = 16
+])
+def test_bwd_fit_at(h, cs, rows, want):
+    """A cluster size's fit: its bytes and threads within the limits, and a
+    unit in every block; the plan is the smallest cluster size that has one."""
+    fit = bwd_fit_at(h, cs, rows)
+    assert fit == want
+    if fit is not None:
+        u = fit[1]
+        assert fit[3] == resident_bwd_bytes(h, u, rows) <= SHARED_LIMIT and (cs - 1) * u < h <= cs * u
+    if rows == BWD_TILE_ROWS:
+        smallest = next((f for f in (bwd_fit_at(h, c) for c in CLUSTER_SIZES) if f), None)
+        assert bwd_cluster_fit(h) == smallest and (smallest is None or smallest[0] <= (cs if fit else 8))
+
+
+def test_resident_launcher_refuses_a_cluster_without_a_fit(rng):
+    """A forced cluster size raises, before any device check, where the
+    weight does not fit, where a block would own no unit (H = 33 in 8 blocks
+    of U = 8: blocks 5 to 7 have none) or where the size is not built; a size
+    that fits goes on to the launch's own checks (here: CPU tensors)."""
+    x, h0, w, b, dy, dh_last = (torch.from_numpy(a) for a in _inputs(rng, 2, 3, 1, 33))
+    args = (x, x.clone(), dy, h0, dy, dh_last, w, torch.empty_like(x), torch.empty_like(x), torch.empty_like(h0))
+    before = gru_sequence_bwd.launches, gru_sequence_bwd.resident_launches
+    for cs in (4, 8, 3):
+        with pytest.raises(ValueError, match="unit in every block"):
+            gru_kernel.launch_gru_bwd_resident(*args, cs=cs)
+    for cs in (1, 2):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            gru_kernel.launch_gru_bwd_resident(*args, cs=cs)
+    big = (torch.from_numpy(a) for a in _inputs(rng, 1, 2, 1, 350))
+    x, h0, w, b, dy, dh_last = big
+    with pytest.raises(ValueError, match="unit in every block"):
+        gru_kernel.launch_gru_bwd_resident(x, x.clone(), dy, h0, dy, dh_last, w, torch.empty_like(x),
+                                           torch.empty_like(x), torch.empty_like(h0))
+    assert (gru_sequence_bwd.launches, gru_sequence_bwd.resident_launches) == before
+
+
+@pytest.mark.parametrize("g, h, cs", [(2, 8, 1), (3, 10, 4), (2, 5, 4), (1, 13, 2), (2, 7, 8)])
+def test_packed_weight_bwd_matches_indexing(rng, g, h, cs):
+    """[g, c, j, u] is w_hh[g, j, c * U + u]; the padding is zero."""
+    w = torch.from_numpy(rng.standard_normal((g, 3 * h, h)).astype(np.float32))
+    packed = packed_weight_bwd(w, cs)
+    u = -(-h // (4 * cs)) * 4
+    assert packed.shape == (g, cs, 3 * h, u) and packed.dtype == torch.float32 and packed.is_contiguous()
+    want = torch.zeros(g, cs, 3 * h, u)
+    for c in range(cs):
+        for unit in range(u):
+            if c * u + unit < h:
+                want[:, c, :, unit] = w[:, :, c * u + unit]
+    torch.testing.assert_close(packed, want, rtol=0, atol=0)
+
+
+def test_packed_weight_bwd_cache_invalidates():
+    """The resident backward's copy of w_hh is made once per weight and
+    cluster size, and made again after any in-place write (an optimiser
+    step, ``load_state_dict``)."""
+    layer = GroupedGRULayer(8, 32, 2)  # H = 16 a group: U = 8 at CS = 2
+    layer.reset_parameters(torch.Generator().manual_seed(0))
+    w = layer.w_hh
+    first = packed_weight_bwd(w, 2)
+    assert packed_weight_bwd(w, 2) is first
+    assert packed_weight_bwd(w, 1) is not first
+    first = packed_weight_bwd(w, 2)
+    new_state = {k: v + 1.0 for k, v in layer.state_dict().items()}
+    layer.load_state_dict(new_state)
+    again = packed_weight_bwd(w, 2)
+    assert again is not first
+    torch.testing.assert_close(again[:, 0, :, 0], new_state["w_hh"][:, :, 0], rtol=0, atol=0)
+    with torch.no_grad():
+        w.mul_(2.0)
+    torch.testing.assert_close(packed_weight_bwd(w, 2)[:, 1, :, 1], w.detach()[:, :, 8 + 1], rtol=0, atol=0)
+    with torch.inference_mode():  # inference tensors have no version counter: no cache
+        frozen = torch.ones(2, 6, 2)
+        assert packed_weight_bwd(frozen, 2) is not packed_weight_bwd(frozen, 2)
+
+
+def _backward_by_slices(dy, dh_last, x_proj, h0, w_hh, b_hh, y, cs, parts=BWD_PARTS):
+    """The resident backward kernel's decomposition in plain PyTorch: each
+    step the gates of every (row, unit) give the dhp tile, which every block
+    of the cluster sees; block c adds the carry of the units [c * U, (c + 1) *
+    U) from its slice of the packed weight, each sum over j taken in `parts`
+    interleaved partial sums that are then added pairwise, after the direct
+    term dh z. Returns (dx_proj, dhp, dh0), as the walk does."""
+    hdim = h0.shape[-1]
+    packed = packed_weight_bwd(w_hh, cs)  # [G, CS, 3H, U]
+    u = packed.shape[-1]
+    carry = torch.zeros_like(h0) if dh_last is None else dh_last
+    dx, dp = [None] * x_proj.shape[1], [None] * x_proj.shape[1]
+    for t in range(x_proj.shape[1] - 1, -1, -1):
+        h_prev = h0 if t == 0 else y[:, t - 1]
+        hp = torch.einsum("bgh,gkh->bgk", h_prev, w_hh) + b_hh
+        xr, xz, xn = x_proj[:, t].split(hdim, dim=-1)
+        hr, hz, hn = hp.split(hdim, dim=-1)
+        r, z = torch.sigmoid(xr + hr), torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        dh = dy[:, t] + carry
+        dn = dh * (1.0 - z) * (1.0 - n * n)
+        dz = dh * (h_prev - n) * z * (1.0 - z)
+        dr = dn * hn * r * (1.0 - r)
+        dx[t] = torch.cat([dr, dz, dn], dim=-1)
+        dp[t] = tile = torch.cat([dr, dz, dn * r], dim=-1)  # [B, G, 3H]: what every block holds
+        new = []
+        for c in range(cs):
+            units = range(c * u, min(hdim, (c + 1) * u))
+            if not len(units):
+                continue
+            sums = [torch.einsum("bgj,gju->bgu", tile[:, :, p::parts], packed[:, c, p::parts]) for p in range(parts)]
+            while len(sums) > 1:
+                sums = [a + b for a, b in zip(sums[::2], sums[1::2])]
+            new.append((dh * z)[..., units.start:units.stop] + sums[0][..., :len(units)])
+        carry = torch.cat(new, dim=-1)
+    return torch.stack(dx, dim=1), torch.stack(dp, dim=1), carry
+
+
+@pytest.mark.parametrize("shape, cs", [((3, 9, 2, 8), 1), ((3, 9, 2, 8), 2), ((2, 6, 3, 10), 4),
+                                       ((9, 4, 1, 13), 2), ((2, 5, 2, 5), 4), ((2, 5, 1, 37), 8)])
+def test_backward_by_unit_slices_matches_walk_and_jax(rng, shape, cs):
+    arrays = _inputs(rng, *shape)
+    (_, _), vjp = jax.vjp(jax_gru_scan, *(jnp.asarray(a) for a in arrays[:4]))
+    want_dx, want_dh0 = (np.asarray(v) for v in vjp((jnp.asarray(arrays[4]), jnp.asarray(arrays[5])))[:2])
+    x, h0, w, b, dy, dh_last = (torch.from_numpy(a) for a in arrays)
+    y, _ = gru_sequence_reference(x, h0, w, b)
+    got = _backward_by_slices(dy, dh_last, x, h0, w, b, y, cs)
+    for name, g, ref in zip(("dx_proj", "dhp", "dh0"), got, gru_backward_walk_reference(dy, dh_last, x, h0, w, b, y)):
+        torch.testing.assert_close(g, ref, rtol=0, atol=1e-5, msg=name)
+    np.testing.assert_allclose(got[0].numpy(), want_dx, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got[2].numpy(), want_dh0, rtol=0, atol=1e-5)
+    zero = _backward_by_slices(dy, None, x, h0, w, b, y, cs)  # dh_last None: zeros
+    for g, ref in zip(zero, gru_backward_walk_reference(dy, None, x, h0, w, b, y)):
+        torch.testing.assert_close(g, ref, rtol=0, atol=1e-5)
