@@ -31,6 +31,7 @@ needed). In order, and any failure exits non-zero:
 6. holds the deep-filter kernels against their plain versions within 1e-5:
    the forward at config 3's offline shape (B=64, T=1001, F=96, t=2, f=1, the
    low bins of a 161-bin spectrum), the streaming hop's (B=256, T=1, with
+   history), config 5b's streaming hop (B=64, T=1, all 257 bins, with
    history), ragged ones (T < 2*t_dim, a symmetric layout) and MTFAA's (B=16,
    T=626, all 257 bins, t=1, f=1), the backward at each of them without
    history (two calls giving the same bits), both through autograd (one
@@ -56,7 +57,16 @@ needed). In order, and any failure exits non-zero:
    and with the plain versions (x-realtime), and one hop at B=1; profiles
    B=256 streaming hops (kernels per hop, device time by kernel, the
    device's busy time and idle share);
-10. holds the MTFAA kernels against their plain versions on the card: the
+10. drives config 4's streaming path: DFSMN at the JAX package's bench shape
+    (``DfsmnNet(in_freq=161, hidden_dim=256, num_blocks=6, left_frames=2,
+    right_frames=0)``, seeded weights and skip weights),
+    ``StreamingEnhancer.run`` on B=8 synthetic 4 s utterances; checks that a
+    hop launches none of the port's kernels (DFSMN has none), the output's
+    length and finiteness, the stream against the offline center=False path
+    past the first n_fft samples within 1e-4 and ``step_multi`` (k=4) against
+    4 steps; times B=256 x 10 s streams (x-realtime) and one hop at B=1, and
+    profiles 20 hops at B=256 and at B=1;
+11. holds the MTFAA kernels against their plain versions on the card: the
     eval TFCM stack at config 5b's four stage shapes (B=16, 10 s: [16,64,24,626],
     [16,32,32,626], [16,16,48,626], [16,128,4,626]) within 1e-4, the one-block
     case at d=1 and d=8 within 1e-5, ragged shapes (T=19 with a time tile of
@@ -68,15 +78,16 @@ needed). In order, and any failure exits non-zero:
     the 32-query warp, T = 1, 31 and 33, window 1 and 32, BF = 1, c = 3 with
     C = 12 and c = 16 with C = 48, within 1e-5, its logsumexp too (causal
     cases); tolerances scale with max(1, max|ref|);
-11. drives config 5b's path: full-width MTFAA from
+12. drives config 5b's path: full-width MTFAA from
     ``configs/mtfaa_windowed.toml`` (seeded weights, BatchNorm statistics and
     PReLU slopes), ``BatchInferencer(type="auto").run_batched`` on the six
     utterances in batches of 4; checks 6 TFCM-stack, 3 attention and 1
-    deep-filter launches per forward, the outputs, and the waveform against
+    deep-filter launches per forward (and none of the stencil: the adapter
+    asks for no streaming state), the outputs, and the waveform against
     the same batch through all plain versions within 1e-4; then config 5
     (``MtfaaConfig()``, full-causal attention) at B=4 x 4 s the same way, and
     a lone ``TFCMBlock`` (one block launch);
-12. times the TFCM stack at the four stage shapes and one block (ms, the
+13. times the TFCM stack at the four stage shapes and one block (ms, the
     bound, GB/s over the least bytes and over the design's bytes; for each
     layer its tile, buffers, shared memory a block, blocks an SM, registers
     and spills as the card reports them), the attention forward at stage 0
@@ -89,7 +100,20 @@ needed). In order, and any failure exits non-zero:
     the kernels and with the plain versions (x-realtime); profiles one B=16 forward (kernels per forward, device time
     by kernel, busy time and idle share) and checks that it shows 24
     ``tfcm_layer_kernel`` launches (6 stacks x 4 layers);
-13. holds the training kernels against their plain versions on the card at
+14. holds the stencil's forward kernel at the streaming hop's T = 1 (x_ext
+    of 1 + 2d frames) at config 5b's four stage shapes, B=64, d = 1, 2, 4, 8,
+    into outputs filled with NaN first (1e-5), and drives config 5b's
+    streaming path: the same MTFAA through ``StreamingEnhancer.run`` on B=8
+    synthetic 4 s utterances (n_fft 512, hop 256, center=False); checks 24
+    stencil and 1 deep-filter launches a hop and no other kernel (no TFCM
+    stack, no attention), the stream against the same stream through the
+    plain stencil and deep filter and against the offline windowed forward
+    (the stack and attention kernels) + iSTFT past n_fft samples, each within
+    1e-4, ``step_multi`` against steps, and two chunks carried through the
+    state of a state=None call against one call (2e-4); times B=64 x 10 s
+    streams and one hop at B=1, profiles 20 hops at B=64 and B=1, and times
+    the stencil at the hop's four stage shapes at B=1 (``ops/dw_timing.py``);
+15. holds the training kernels against their plain versions on the card at
     config 5b's four stage shapes and d = 1, 2, 4, 8, and on ragged shapes
     (T=19, K=5, C=4 with d=8 > T/2; d=64): the depthwise stencil forward and
     backward, ``tail_bwd`` and ``mid_bwd`` (elementwise outputs within 1e-5,
@@ -108,7 +132,7 @@ needed). In order, and any failure exits non-zero:
     ``tfcm_block_train``'s six outputs and thirteen gradients against autograd
     through the plain block (gradients: relative 2e-3 or absolute 1e-3 of the
     largest gradient);
-14. drives the training path: full-width config 5b, seeded weights, B=16 x 10 s
+16. drives the training path: full-width config 5b, seeded weights, B=16 x 10 s
     of seeded noisy/clean pairs, 3 steps of ``make_train_step``; checks 24
     stencil-forward, 24 ``tail_bwd``, 24 ``mid_bwd``, 3 attention-forward, 3 dq,
     3 dk/dv, 1 deep-filter forward and 1 deep-filter backward launches a step
@@ -123,7 +147,7 @@ needed). In order, and any failure exits non-zero:
     ``"pallas"`` route (24 stencil forwards and backwards a step) and config 5
     (full-causal attention) the same way at B=4 x 4 s, and that a step on a
     batch with a NaN leaves everything unchanged;
-15. holds both GRU backward kernels (the resident one, whose weight stays in
+17. holds both GRU backward kernels (the resident one, whose weight stays in
     a cluster's shared memory, at every cluster size that holds the weight
     with a unit in every block, and the streamed one) against their plain
     version on the card at config 2's shape (B=128, T=1001, G=4, H=176), B=13
@@ -136,12 +160,12 @@ needed). In order, and any failure exits non-zero:
     1e-4 of its largest value (f32 sums over 1,001 steps); checks that a
     forward kernel's launcher refuses tensors that want a gradient; then drives
     config 2's CRUSE train step (``configs/cruse_base.toml``) and config 3's
-    CRUSE+DF (``CruseDfConfig()``) as in 14: the first batch's losses,
+    CRUSE+DF (``CruseDfConfig()``) as in 16: the first batch's losses,
     gradients (float64, leaf by leaf) and BatchNorm statistics at B=8 x 10 s,
     then 3 steps at B=128 x 10 s (CRUSE) and B=32 x 10 s (CRUSE+DF) with 2
     GRU forward and 2 GRU backward launches a step (and 1 + 1 deep-filter
     launches for CRUSE+DF), no other kernel and no plain version;
-16. times every training kernel and its plain version at stage 0, ``tail_bwd``
+18. times every training kernel and its plain version at stage 0, ``tail_bwd``
     and ``mid_bwd`` at the four stage shapes and d = 1, 2, 4, 8
     (``ops/tfcm_bwd_timing.py``: the wrapper by CUDA events, the kernels
     alone and the device launches a call from a profile, the bound; for
@@ -154,11 +178,11 @@ needed). In order, and any failure exits non-zero:
     geometries with and without the window (``ops/tattn_timing.py``: the
     kernels alone from a profile, checked to be one device launch a call,
     the wrappers, the bound, the backward of ``scaled_dot_product_attention``
-    with the band mask as the library call (its forward is timed in 12),
+    with the band mask as the library call (its forward is timed in 13),
     the dk/dv instance's registers, spills and blocks an SM) and the plain
     dense backward at stage 0,
     the deep filter's forward and backward at config 5b and config 3 and the
-    forward at the hop (``ops/df_timing.py``: the kernels alone from a
+    forward at config 3's and config 5b's hops (``ops/df_timing.py``: the kernels alone from a
     profile, checked to be one device launch a call, the wrappers, the
     bound, the plain versions, the plan and its instance, and the plain
     forward + ``autograd.grad`` that the step ran before the backward
@@ -176,7 +200,7 @@ needed). In order, and any failure exits non-zero:
     at B=32 x 10 s (wall ms, peak memory) and a profile of the config-2 step
     (2 launches each of the resident GRU forward and backward kernels, none
     of the streamed backward, busy time, idle share);
-17. prints a JSON line of the kernels (each with its launches on the main
+19. prints a JSON line of the kernels (each with its launches on the main
     paths, its error, its time, the plain version's, the least time the card
     could take for its bytes or its multiply-adds, and the library call's time
     where there is one), then ``{"ok": true, "device": ...}``.
@@ -203,7 +227,8 @@ import cruse_tpu_torch
 from cruse_tpu_torch.dsp.stft import StftConfig, istft, stft
 from cruse_tpu_torch.infer.batch import BatchInferencer, InferencerConfig
 from cruse_tpu_torch.infer.streaming import StreamingEnhancer
-from cruse_tpu_torch.models import CruseDfConfig, CruseDfNet, CruseNet, MtfaaConfig, MtfaaNet, build_from_config
+from cruse_tpu_torch.models import (
+    CruseDfConfig, CruseDfNet, CruseNet, DfsmnConfig, DfsmnNet, MtfaaConfig, MtfaaNet, build_from_config)
 from cruse_tpu_torch.models.cruse_df import apply_cruse_df
 from cruse_tpu_torch.models.mtfaa import (
     AxialSelfAttention, BatchNormC, PReLUc, TFCM, TFCMBlock)
@@ -267,6 +292,8 @@ CONFIG3_DF = (256, 1001, 96, 2, 1, True, 161, False)
 MTFAA_DF = (16, 626, 257, 1, 1, True, 257, False)  # config 5b, B=16 x 10 s: every bin, K=9
 DF_SHAPES = ((64, 1001, 96, 2, 1, True, 161, False),  # config 3 offline
              (256, 1, 96, 2, 1, True, 161, True),  # config 3 streaming hop
+             (64, 1, 257, 1, 1, True, 257, True),  # config 5b's streaming hop: every bin, with history
+             (1, 1, 257, 1, 1, True, 257, True),  # config 5b's hop at B=1, as measure_rtf streams it
              (3, 7, 24, 1, 1, True, 24, False),  # ragged
              (3, 3, 24, 2, 1, True, 24, True),  # T < 2 * t_dim, with history
              (3, 3, 24, 2, 1, True, 24, False),  # T < 2 * t_dim, zero fill
@@ -349,6 +376,13 @@ DW_STAGE_KEYS = ("shape", "d", "kernel_ms", "wrapper_ms", "bound_ms", "library_m
 # and of the deep filter's timed shapes (ops/df_timing.py's rows)
 DF_STAGE_KEYS = ("shape", "b", "t", "f", "t_dim", "f_dim", "kernel_ms", "wrapper_ms", "bound_ms", "plain_ms", "span",
                  "bins")
+# config 4, the JAX package's bench shape (bench.py:205), and its streams: B=8 x 4 s checked, B=256 x 10 s timed
+DFSMN_CONFIG = DfsmnConfig(in_freq=161, hidden_dim=256, num_blocks=6, left_frames=2, right_frames=0)
+DFSMN_RTF_BATCH = 256
+# config 5b streamed: B=8 x 4 s checked, B=64 x 10 s timed; the stencil's T = 1 cases at every batch that streams
+MTFAA_STREAM_BATCH, MTFAA_STREAM_SECONDS, MTFAA_RTF_BATCH = 8, 4, 64
+HOP_DW_BATCHES = (1, MTFAA_STREAM_BATCH, MTFAA_RTF_BATCH)
+CHUNK_TOL = 2e-4  # two chunks carried through the state against one call: the JAX package's own bound
 STEP_KERNELS_BEFORE = 6270  # device launches of a config-5b train step when a mid_bwd call made 8
 MID_LAUNCHES_PER_CALL = 2  # mid_tile_kernel and mid_finish_kernel
 DW_LAUNCHES_PER_CALL = {"forward": 1, "backward": 2}  # dw_fwd_kernel; dw_bwd_kernel and dw_finish_kernel
@@ -1019,7 +1053,8 @@ def check_mtfaa_forward(inferencer, x, what: str) -> None:
 
 def check_mtfaa_path(inferencer) -> tuple[int, int, int]:
     """Drive BatchInferencer(type="auto").run_batched with config 5b once;
-    returns its (tfcm stack, tattn, deep_filter) launches."""
+    returns its (tfcm stack, tattn, deep_filter) launches. The adapter asks
+    for no streaming state, so no stencil runs for the TFCM histories."""
     wavs = noisy_utterances(SEED)
     names = [f"utt{i}" for i in range(len(wavs))]
     forwards = math.ceil(len(wavs) / BATCH)
@@ -1028,11 +1063,11 @@ def check_mtfaa_path(inferencer) -> tuple[int, int, int]:
     results = inferencer.run_batched(wavs, names, batch_size=BATCH, write=False)
     torch.cuda.synchronize()
     stack, block, attn, df = mtfaa_counts()
-    gru = gru_sequence.launches
-    require((stack, block, attn, df, gru) == (6 * forwards, 0, 3 * forwards, forwards, 0),
+    gru, dw = gru_sequence.launches, dw_stencil_fwd.launches
+    require((stack, block, attn, df, gru, dw) == (6 * forwards, 0, 3 * forwards, forwards, 0, 0),
             f"config-5b path launched tfcm stack {stack} = 6 x {forwards} forwards, tattn {attn} "
             f"= 3 x {forwards}, deep_filter {df} = 1 x {forwards}, tfcm block {block} = 0, "
-            f"gru_sequence {gru} = 0")
+            f"gru_sequence {gru} = 0, dw_stencil_fwd {dw} = 0 (no streaming state asked for)")
     require([r[0] for r in results] == names
             and all(r[1].shape == w.shape for r, w in zip(results, wavs))
             and all(0 < np.abs(r[1]).max() <= 32767 for r in results),
@@ -1043,6 +1078,157 @@ def check_mtfaa_path(inferencer) -> tuple[int, int, int]:
     x = torch.from_numpy(np.stack([np.pad(w, (0, padded - len(w))) for w in wavs[:BATCH]]))
     check_mtfaa_forward(inferencer, x.to(inferencer.device), "config-5b batch of 4 x 10 s")
     return stack, attn, df
+
+
+def check_dw_hop(device) -> float:
+    """The stencil's forward kernel at the streaming hop's T = 1 (x_ext of 1 +
+    2d frames) at config 5b's four stage shapes, at each batch the streams
+    run (HOP_DW_BATCHES, each with the tile ``dw_plan`` gives it), d = 1, 2,
+    4, 8, into outputs filled with NaN first; returns the largest error."""
+    worst = 0.0
+    for b in HOP_DW_BATCHES:
+        for _, k, c, _ in TFCM_STAGES:
+            for d in DILATIONS:
+                x_ext, _, _, wd, _ = stage_inputs(b, k, c, 1, d, device, SEED)
+                plan = dw_plan(b, k, c, 1, d)
+                y = torch.full((b, k, c, 1), math.nan, device=device)
+                with torch.inference_mode():
+                    launch_dw_fwd(x_ext, wd, d, plan, y)
+                    torch.cuda.synchronize()
+                    worst = max(worst, require_close(y, dw_taps_reference(x_ext, wd, d), ELEMENT_TOL,
+                                                     f"dw_stencil forward at the hop, {(b, k, c, 1)} d={d} "
+                                                     f"tile ({plan.kb}, {plan.tt})"))
+    return worst
+
+
+def build_dfsmn(device):
+    """Config 4 at the bench shape, seeded weights; the skip weights, zero
+    at initialisation as in the JAX package, seeded too so the skip chain counts."""
+    gen = torch.Generator().manual_seed(SEED + 11)
+    model = DfsmnNet(DFSMN_CONFIG, generator=gen)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("skip_weight"):
+                p.fill_(0.3 + 0.5 * float(torch.rand((), generator=gen)))
+    return model.to(device).eval()
+
+
+def check_stream(enh, wav, offline, what: str, kernels: dict) -> dict:
+    """Drive ``enh.run`` on wav once: the launches it made equal ``kernels``
+    (name -> launches a hop; every other kernel none), the output finite and
+    of the stream's length, within WAV_TOL of ``offline(wav)`` (the offline
+    center=False path) past the first n_fft samples, the first row's first
+    second streamed alone (B=1, the batch ``measure_rtf`` times) within
+    WAV_TOL of the batch's, and ``step_multi`` (k=4) within 1e-6 of 4 steps.
+    Returns the launches and the output."""
+    n, hop = enh.cfg.n_fft, enh.cfg.hop_length
+    hops = (wav.shape[-1] - (n - hop)) // hop
+    reset_counts()
+    streamed = enh.run(wav)
+    torch.cuda.synchronize()
+    launched = counts()
+    want = {name: kernels.get(name, 0) * hops for name in launched}
+    require(launched == want, f"{what}: {hops} hops launched {launched} = {want}")
+    require(tuple(streamed.shape) == (wav.shape[0], hops * hop) and bool(torch.isfinite(streamed).all()),
+            f"{what}: the stream is finite, shape {(wav.shape[0], hops * hop)}")
+    with torch.inference_mode():
+        reference = offline(wav)
+    m = min(streamed.shape[-1], reference.shape[-1])
+    err = float((streamed[:, n:m] - reference[:, n:m]).abs().max())
+    require(err <= WAV_TOL, f"{what}: stream vs offline center=False past {n} samples: max-abs {err:.3g} <= {WAV_TOL}")
+    alone = enh.run(wav[:1, :SR])
+    err = float((alone - streamed[:1, : alone.shape[-1]]).abs().max())
+    require(bool(torch.isfinite(alone).all()) and err <= WAV_TOL,
+            f"{what}: row 0's first second streamed alone (B=1) vs in the batch: max-abs {err:.3g} <= {WAV_TOL}")
+    state = enh.prime(enh.init_state(wav.shape[0]), wav[:, : n - hop])
+    x = wav[:, n - hop : n - hop + 8 * hop]
+    singles, single_state = [], state
+    for i in range(8):
+        out, single_state = enh.step(single_state, x[:, i * hop : (i + 1) * hop])
+        singles.append(out)
+    first, state = enh.step_multi(state, x[:, : 4 * hop])
+    second, state = enh.step_multi(state, x[:, 4 * hop :])
+    err = float((torch.cat([first, second], -1) - torch.cat(singles, -1)).abs().max())
+    require(err <= 1e-6, f"{what}: step_multi(k=4) x 2 vs 8 steps: max-abs {err:.3g} <= 1e-6")
+    return {"launches": launched, "stream": streamed}
+
+
+def time_stream(enh, wav, seconds: int, what: str, smi) -> None:
+    """x-realtime of ``enh.run`` on wav, one hop's wall time at B=1, and
+    profiles of 20 hops at wav's batch and at B=1."""
+    hop = enh.cfg.hop_length
+    audio = wav.shape[0] * ((wav.shape[-1] - (enh.cfg.n_fft - hop)) // hop) * hop / SR
+    run_s = stream_seconds(enh, wav)
+    print(f"streaming {what} B={wav.shape[0]} x {seconds} s on {smi}: {run_s * 1e3:.1f} ms = "
+          f"{audio / run_s:.1f}x realtime")
+    rtf = enh.measure_rtf(noisy_utterances(SEED, (2 * SR,))[0][None], sr=SR, num_frames=150)
+    print(f"streaming {what} B=1 on {smi}: {rtf * hop / SR * 1e3:.4f} ms per {hop}-sample hop, rtf {rtf:.4f}")
+    profile_stream(enh, wav)
+    profile_stream(enh, wav[:1])
+
+
+def check_dfsmn_stream(device, smi) -> None:
+    """Config 4 streamed (it has no kernel of its own; a hop launches none of the port's)."""
+    model = build_dfsmn(device)
+    cfg = StftConfig(n_fft=320, hop_length=160, center=False)
+    enh = StreamingEnhancer(model, cfg)
+    wav = torch.from_numpy(np.stack(noisy_utterances(SEED + 12, (STREAM_SECONDS * SR,) * STREAM_BATCH))).to(device)
+
+    def offline(x):
+        spec = stft(x, cfg)
+        mask, _ = model(model.compress(spec.abs()))
+        return istft(spec * mask, cfg)
+
+    check_stream(enh, wav, offline, f"DFSMN config 4 stream B={STREAM_BATCH} x {STREAM_SECONDS} s", {})
+    seconds = 10
+    wav = torch.from_numpy(np.random.default_rng(SEED).standard_normal((DFSMN_RTF_BATCH, seconds * SR))
+                           .astype(np.float32) * 0.1).to(device)
+    time_stream(enh, wav, seconds, "DFSMN config 4", smi)
+
+
+def check_mtfaa_stream(model, device, smi) -> tuple[int, int]:
+    """Config 5b streamed: the launches of a hop (24 stencils, 1 deep filter,
+    no TFCM-stack or attention kernel), the stream against the same stream
+    through the plain stencil and deep filter and against the offline
+    windowed forward (the stack and attention kernels) + iSTFT, step_multi,
+    then two chunks carried through a state=None call's state against one
+    call; times and profiles. Returns its (stencil, deep filter) launches."""
+    cfg = StftConfig(n_fft=512, hop_length=256, center=False)
+    enh = StreamingEnhancer(model, cfg)
+    wav = torch.from_numpy(np.stack(noisy_utterances(
+        SEED + 13, (MTFAA_STREAM_SECONDS * SR,) * MTFAA_STREAM_BATCH))).to(device)
+    blocks = 2 * len(model.config.channels) * model.config.tfcm_layers
+
+    def offline(x):
+        spec = stft(x, cfg)
+        (enhanced, _), _ = model(torch.stack([spec.real, spec.imag], dim=-1))
+        return istft(enhanced, cfg)
+
+    what = f"MTFAA config 5b stream B={MTFAA_STREAM_BATCH} x {MTFAA_STREAM_SECONDS} s"
+    done = check_stream(enh, wav, offline, what, {"dw_stencil_fwd": blocks, "deep_filter": 1})
+    set_plain_mtfaa(model, True)
+    plain = enh.run(wav)
+    set_plain_mtfaa(model, False)
+    err = float((done["stream"] - plain).abs().max())
+    require(err <= WAV_TOL, f"{what}, kernels vs the plain stencil and deep filter: max-abs {err:.3g} <= {WAV_TOL}")
+
+    with torch.inference_mode():
+        spec = stft(wav[:2], cfg)
+        cspec = torch.stack([spec.real, spec.imag], dim=-1)
+        (full, _), _ = model(cspec)
+        split = cspec.shape[1] // 3
+        (first, _), state = model(cspec[:, :split])
+        (second, _), _ = model(cspec[:, split:], state)
+    chunk_err = float((torch.cat([first, second], dim=1) - full).abs().max())
+    require(chunk_err <= CHUNK_TOL, f"MTFAA config 5b, {split} + {cspec.shape[1] - split} frames carried "
+            f"through the first call's state vs one call: max-abs {chunk_err:.3g} <= {CHUNK_TOL}")
+
+    seconds = 10
+    wav = torch.from_numpy(np.random.default_rng(SEED).standard_normal((MTFAA_RTF_BATCH, seconds * SR))
+                           .astype(np.float32) * 0.1).to(device)
+    time_stream(enh, wav, seconds, "MTFAA config 5b", smi)
+    launched = done["launches"]
+    return launched["dw_stencil_fwd"], launched["deep_filter"]
 
 
 def check_tfcm_block_path(device) -> int:
@@ -2036,6 +2222,8 @@ def main() -> int:
     profile_stream(enh, wav)
     del enh, wav, model
     torch.cuda.empty_cache()
+    check_dfsmn_stream(device, smi)
+    torch.cuda.empty_cache()
 
     tfcm_err, block_err = check_tfcm_kernel(device)
     attn_err = check_attn_kernel(device)
@@ -2066,8 +2254,29 @@ def main() -> int:
     require(launched.get("tfcm_layer_kernel") == 6 * len(DILATIONS) and "tfcm_eval_kernel" not in launched,
             f"the config-5b forward's profile shows {launched.get('tfcm_layer_kernel')} tfcm_layer_kernel "
             f"launches = 6 stacks x {len(DILATIONS)} layers, and no launch of the whole-ladder kernel")
+    with torch.inference_mode():
+        spec = stft(x, inferencer.cfg.stft)
+        cspec = torch.stack([spec.real, spec.imag], dim=-1)
 
-    del inferencer, mtfaa, x
+    def model_forward(with_state: bool):
+        with torch.inference_mode():
+            return mtfaa(cspec, with_state=with_state)
+
+    # what the state a state=None call returns costs; the offline adapters pass with_state=False
+    costs = [profile_calls(lambda: model_forward(with_state), 3, f"B={b} x {seconds} s config-5b model forward, "
+                           f"with_state={with_state}").kernels for with_state in (False, True)]
+    print(f"config-5b forward B={b} x {seconds} s on {smi}: the returned state costs {costs[1] - costs[0]:.1f} "
+          f"device launches a call ({costs[0]:.1f} -> {costs[1]:.1f})")
+    del x, spec, cspec
+    torch.cuda.empty_cache()
+
+    hop_dw_err = check_dw_hop(device)
+    stream_dw, stream_df_5b = check_mtfaa_stream(mtfaa, device, smi)
+    hop_rows = time_dw(device, shapes=[(1, k, c, 1) for _, k, c, _ in TFCM_STAGES])
+    for row in hop_rows:
+        print(f"at the config-5b hop (B=1, T=1) on {smi}: {describe_dw(row)}")
+
+    del inferencer, mtfaa
     torch.cuda.empty_cache()
 
     train_errs = check_train_kernels(device)
@@ -2144,7 +2353,8 @@ def main() -> int:
          "launches": cruse_launches["gru_sequence_bwd"] + cruse_df_launches["gru_sequence_bwd"],
          "max_abs_err": gru_bwd_err, **gru_bwd_times},
         {**entry("deep_filter", "deep_filter", "deep_filter_kernel.py:91",
-                 stream_df + auto_df + mtfaa_df + train_launches["deep_filter"] + cruse_df_launches["deep_filter"],
+                 stream_df + auto_df + mtfaa_df + train_launches["deep_filter"] + cruse_df_launches["deep_filter"]
+                 + stream_df_5b,
                  df_err,
                  (df_fwd["wrapper_ms"], df_fwd["plain_ms"]), {key: df_fwd[key] for key in ("bound_ms", "bound_by")},
                  None),
@@ -2163,8 +2373,9 @@ def main() -> int:
         {**entry("tattn", "tattn", "asa_kernel.py:190", attn_launches + train_launches["tattn"], attn_err,
                  times["tattn"], {key: attn_row[key] for key in ("bound_ms", "bound_by")}, attn_row["library_ms"]),
          "stages": [{key: row[key] for key in STAGE_KEYS} for row in times["tattn_stages"]]},
-        train_entry("dw_stencil_fwd", "dw_stencil", "dw_kernel.py:154", train_launches["dw_stencil_fwd"],
-                    train_errs["dw_fwd"]),
+        {**train_entry("dw_stencil_fwd", "dw_stencil", "dw_kernel.py:154",
+                       train_launches["dw_stencil_fwd"] + stream_dw, max(train_errs["dw_fwd"], hop_dw_err)),
+         "hop_stages": [{key: row[key] for key in DW_STAGE_KEYS} for row in hop_rows if row["kind"] == "forward"]},
         train_entry("dw_stencil_bwd", "dw_stencil", "dw_kernel.py:197", pallas_launches["dw_stencil_bwd"],
                     train_errs["dw_bwd"]),
         train_entry("tail_bwd", "tfcm_bwd", "tfcm_bwd_kernels.py:92", train_launches["tail_bwd"],

@@ -13,7 +13,10 @@ config's ``[inferencer] type`` (``mag_to_mag``, or ``auto``, the default as in
 (N > 1) enhances N utterances per forward, otherwise one per forward.
 ``--streaming`` runs each file as one stream (B=1) frame by frame through
 ``StreamingEnhancer`` with a ``center=False`` STFT, logging the per-hop
-real-time factor; ``--hops_per_step k`` feeds k hops per call. The model runs
+real-time factor; ``--hops_per_step k`` feeds k hops per call. It streams
+CRUSE, CRUSE+DF, DFSMN (``configs/tiny_dfsmn.toml``) and a windowed MTFAA
+(``configs/demo_mtfaa_windowed.toml``); a full-causal MTFAA
+(``configs/tiny_mtfaa.toml``) is refused, for it carries no attention state. The model runs
 on the card (``--device cuda``, the default) unless ``--device cpu`` asks for
 the CPU; a CUDA device that is not there is an error, never a quiet fall back
 to the CPU.

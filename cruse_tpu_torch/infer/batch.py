@@ -3,9 +3,10 @@
 Enhances (noisy, name) pairs with one of two strategies:
 
 - ``mag_to_mag``: STFT -> compressed magnitude -> model mask -> masked
-  magnitude with the noisy phase -> iSTFT (mask models: CRUSE);
+  magnitude with the noisy phase -> iSTFT (mask models: CRUSE, DFSMN);
 - ``auto``: STFT -> the model family's forward adapter
-  (``train.step.forward_for_model``) on the RI spectrum -> iSTFT (CRUSE;
+  (``train.step.forward_for_model``) on the RI spectrum -> iSTFT (CRUSE and
+  DFSMN, whose mask multiplies the noisy spectrum;
   CRUSE+DF, whose deep filter runs on the low bins; MTFAA, which emits the
   enhanced complex spectrum).
 

@@ -4,24 +4,30 @@
 Each hop carries:
 
 - the last ``n_fft - hop`` input samples (the analysis frame);
-- the model's state (conv histories and GRU states; for CRUSE+DF also the
-  deep filter's last ``2*t_dim`` masked low-bin frames);
+- the model's state (CRUSE: conv histories and GRU states, and for CRUSE+DF
+  the deep filter's last ``2*t_dim`` masked low-bin frames; DFSMN: each
+  block's left context; windowed MTFAA: its conv and TFCM histories, rolling
+  attention caches and deep-filter frames);
 - the overlap-add tail of the synthesis frames.
 
 A step assembles the frame, takes its windowed DFT (one small matrix
 product), runs the model at T = 1, applies the mask (and, for CRUSE+DF, the
-deep filter over the carried frames), takes the windowed inverse DFT,
-overlap-adds, and emits ``hop`` samples divided by the steady-state window
-envelope. Primed with the first ``n_fft - hop`` samples, the stream equals
-the offline ``center=False`` path after the overlap-add warm-up.
+deep filter over the carried frames; MTFAA takes the RI frame and returns
+the enhanced one itself), takes the windowed inverse DFT, overlap-adds, and
+emits ``hop`` samples divided by the steady-state window envelope. Primed
+with the first ``n_fft - hop`` samples, the stream equals the offline
+``center=False`` path after the overlap-add warm-up.
 
-On the card a hop launches the grouped-GRU kernel twice (one per bank) and,
-for CRUSE+DF, the deep-filter kernel once; the rest is PyTorch's own
+On the card a hop launches, for CRUSE, the grouped-GRU kernel twice (one per
+bank) and, for CRUSE+DF, the deep-filter kernel once; for a windowed MTFAA
+the stencil kernel once a TFCM block (24 at config 5b) and the deep-filter
+kernel once; DFSMN has no kernel of its own. The rest is PyTorch's own
 kernels. ``run`` is a host loop over hops (the JAX package runs it as one
 ``lax.scan`` dispatch, which eager PyTorch has no counterpart of).
 
-Ported for CruseNet and CruseDfNet only; the other families' streaming
-(MTFAA, multi-mic McCruse, FullSubNet, BSRNN) comes with their models.
+Ported for CruseNet, CruseDfNet, DfsmnNet and a windowed MtfaaNet; the other
+families' streaming (multi-mic McCruse, FullSubNet, BSRNN) comes with their
+models.
 """
 from __future__ import annotations
 
@@ -34,6 +40,10 @@ import torch
 from cruse_tpu_torch.dsp.stft import StftConfig, _analysis_kernel, _padded_window, _synthesis_kernel
 from cruse_tpu_torch.models.cruse import CruseNet, cruse_init_state
 from cruse_tpu_torch.models.cruse_df import CruseDfNet, apply_cruse_df_streaming, df_stream_init
+from cruse_tpu_torch.models.dfsmn import DfsmnNet
+from cruse_tpu_torch.models.mtfaa import MtfaaNet
+
+STREAMING_MODELS = (CruseNet, CruseDfNet, DfsmnNet, MtfaaNet)
 
 
 class StreamState(NamedTuple):
@@ -53,23 +63,33 @@ def _steady_envelope(cfg: StftConfig) -> np.ndarray:
 
 class StreamingEnhancer:
     """Drives a causal model frame by frame on the device its weights are
-    on: CruseNet applies its magnitude mask per frame; CruseDfNet also runs
-    its complex deep filter over the rolling masked-spectrum history
-    (benchmark config 3's streaming path)."""
+    on: CruseNet and DfsmnNet apply their magnitude mask per frame (DFSMN is
+    benchmark config 4); CruseDfNet also runs its complex deep filter over the
+    rolling masked-spectrum history (config 3's streaming path); a windowed
+    MtfaaNet (config 5b) enhances the RI spectrum through its own carried
+    state."""
 
     def __init__(self, model: torch.nn.Module, cfg: StftConfig):
         if cfg.center:
             raise ValueError("the streaming path takes a center=False StftConfig")
         if isinstance(model, CruseNet) and model.config.emit_features:
             raise ValueError("stream CRUSE+DF as a CruseDfNet, not as its emit_features trunk")
-        if not isinstance(model, (CruseNet, CruseDfNet)):
+        if not isinstance(model, STREAMING_MODELS):
             raise NotImplementedError(
-                f"streaming {type(model).__name__} is not ported (ported: CruseNet, CruseDfNet); "
-                "MTFAA, multi-mic McCruse, FullSubNet and BSRNN streaming come with their models")
+                f"streaming {type(model).__name__} is not ported (ported: "
+                f"{', '.join(m.__name__ for m in STREAMING_MODELS)}); multi-mic McCruse, FullSubNet "
+                "and BSRNN streaming come with their models")
+        if isinstance(model, MtfaaNet) and model.config.attention_window is None:
+            raise ValueError("MTFAA streaming needs a finite attention_window (the full-causal "
+                             "configuration cannot carry ASA state)")
+        if isinstance(model, DfsmnNet) and model.config.right_frames > 0:
+            raise ValueError("DFSMN streaming needs right_frames=0 (a look-ahead DfsmnNet reads "
+                             "future frames)")
         self.model = model.eval()
         self.cfg = cfg
         self.device = next(model.parameters()).device
         self._is_df = isinstance(model, CruseDfNet)
+        self._is_complex = isinstance(model, MtfaaNet)
         self._num_bins = cfg.num_bins
         self._ana = torch.from_numpy(_analysis_kernel(cfg).T.copy()).to(self.device)  # [N, 2F]
         self._syn = torch.from_numpy(_synthesis_kernel(cfg)).to(self.device)  # [2F, N]
@@ -80,8 +100,10 @@ class StreamingEnhancer:
         if self._is_df:
             model_state = (self.model.init_state(batch_size, self.device),
                            df_stream_init(batch_size, self.model.config, self.device))
-        else:
+        elif isinstance(self.model, CruseNet):
             model_state = cruse_init_state(self.model.config, batch_size, self.device)
+        else:
+            model_state = self.model.init_state(batch_size, self.device)
         return StreamState(input_tail=torch.zeros(batch_size, keep, device=self.device),
                            ola_tail=torch.zeros(batch_size, keep, device=self.device),
                            model_state=model_state)
@@ -103,6 +125,11 @@ class StreamingEnhancer:
         frame = torch.cat([state.input_tail, hop_samples.to(state.input_tail)], dim=-1)  # [B, n]
         ri = frame @ self._ana  # [B, 2F] windowed DFT
         real, imag = ri[:, :f], ri[:, f:]
+        if self._is_complex:
+            cspec = torch.stack([real, imag], dim=-1)[:, None]  # [B, 1, F, 2]
+            (enhanced, _mask), model_state = self.model(cspec, state.model_state)
+            enh_ri = torch.cat([enhanced[:, 0].real, enhanced[:, 0].imag], dim=-1)
+            return self._finish(state, frame, enh_ri, model_state)
         mag = torch.sqrt(real ** 2 + imag ** 2 + 1e-12)
         feat = self.model.compress(mag)[:, None, :]  # [B, 1, F]
         if self._is_df:

@@ -1,20 +1,24 @@
-"""Model zoo of the port. CRUSE, CRUSE+DF and MTFAA (offline eval) are
-ported; the other families are not yet."""
+"""Model zoo of the port. CRUSE, CRUSE+DF, DFSMN and MTFAA are ported; the
+other families are not yet."""
 
 from cruse_tpu_torch.models.cruse import CruseConfig, CruseNet  # noqa: F401
 from cruse_tpu_torch.models.cruse_df import CruseDfConfig, CruseDfNet  # noqa: F401
+from cruse_tpu_torch.models.dfsmn import DfsmnBlock, DfsmnConfig, DfsmnNet  # noqa: F401
 from cruse_tpu_torch.models.deep_filter import DeepFilterHead, deep_filter_apply  # noqa: F401
 from cruse_tpu_torch.models.mtfaa import MtfaaConfig, MtfaaNet  # noqa: F401
 
 _NETWORKS = {"CruseConfig": (CruseConfig, CruseNet), "CruseDfConfig": (CruseDfConfig, CruseDfNet),
-             "MtfaaConfig": (MtfaaConfig, MtfaaNet)}
+             "MtfaaConfig": (MtfaaConfig, MtfaaNet),
+             # the JAX DFSMN has no config dataclass: [model] names the network with its fields
+             "DfsmnNet": (DfsmnConfig, DfsmnNet)}
 
 
 def build_from_config(model_section: dict, generator=None):
     """The ``[model]`` table of a config (``path`` + ``args``) -> network.
 
     The class named by the last component of ``path`` (for example
-    ``cruse_tpu.models.cruse.CruseConfig``) selects the port's counterpart;
+    ``cruse_tpu.models.cruse.CruseConfig``, or ``cruse_tpu.models.dfsmn.DfsmnNet``,
+    whose args are the network's own fields) selects the port's counterpart;
     the path itself is never imported. A nested table (CRUSE+DF's
     ``[model.args.cruse]``) arrives as a dict, which the config coerces.
     ``generator`` seeds the weights.

@@ -1,6 +1,6 @@
 """MTFAA: multi-scale temporal-frequency axial attention (counterpart of
-``cruse_tpu/models/mtfaa.py``), offline: the eval forward and the training
-forward with its backward.
+``cruse_tpu/models/mtfaa.py``): the eval forward, the training forward with
+its backward, and, with ``attention_window`` set, streaming with carried state.
 
 cspec ``[B, T, F, 2]`` -> phase encoder -> linear band split -> encoder stages
 (band-downsampling conv, BatchNorm, PReLU, TFCM stack, axial self-attention)
@@ -41,10 +41,31 @@ kernel and the backward kernel (``ops/deep_filter_kernel.py::deep_filter``,
 through its ``torch.autograd.Function``); the reference trains through its
 plain shift-MAC, whose autodiff the backward kernel computes.
 
-Not ported yet, and refused by name: streaming with carried state (the MTFAA
-streaming slice). ``asa_impl``, ``tfcm_remat`` and ``asa_remat`` are accepted
-so that one config file builds both packages; the port has one
-implementation per device, so they change nothing.
+Streaming (a windowed model, ``attention_window`` set): ``forward(cspec,
+state)`` takes a chunk of T >= 1 frames after the frames whose state it
+carries and returns the new state, a dict with the JAX package's keys and
+shapes (``init_state``): the phase encoder's and each band conv's last input
+frames, each TFCM block's last 2d stencil inputs, each attention's rolling
+key/value caches of ``window - 1`` frames with a per-stream count of the
+frames they hold, and the deep filter's last ``2 * df_taps_t`` masked
+frames. Every stateful module has ``carry(x, state) -> (y, new_state)``
+beside its ``forward``. With a carried state a TFCM block runs unfused, the
+route the JAX package streams through: PyTorch's 1x1 products and PReLUs on
+the block's folded parameters (the BatchNorms folded in as for the kernels)
+around the stencil kernel (``dw_fn``, ``ops/dw_kernel.py``) on its history and
+the chunk; the temporal attention over the cache is
+PyTorch's (einsum, band and validity mask, softmax), as the JAX package's is;
+the deep filter is the kernel with its ``history`` argument. A windowed call
+with ``state=None`` runs the offline kernels and returns the state too: the
+band-conv histories, the attention caches and the deep-filter history are
+tails of tensors the forward has, and a TFCM stack's histories come from its
+unfused blocks re-run over the last ``2 (2^L - 1)`` frames of its input,
+which is all they depend on. A full-causal model (no window) returns no state
+and refuses one; no path trains through a carried state.
+
+``asa_impl``, ``tfcm_remat`` and ``asa_remat`` are accepted so that one
+config file builds both packages; the port has one implementation per device,
+so they change nothing.
 """
 from __future__ import annotations
 
@@ -62,11 +83,11 @@ from cruse_tpu_torch.ops.asa_kernel import flash_tattn_tm
 from cruse_tpu_torch.ops.deep_filter_kernel import deep_filter
 from cruse_tpu_torch.ops.dw_kernel import dw_causal_tm
 from cruse_tpu_torch.ops.tfcm_kernel import (
-    fold_eval_params, fused_tfcm_block_eval, fused_tfcm_stack_eval)
+    _unfold_layer, fold_eval_params, fused_tfcm_block_eval, fused_tfcm_stack_eval)
 from cruse_tpu_torch.ops.tfcm_train import batch_stats, tfcm_block_train
 
-_STREAMING = ("streaming MTFAA with carried state (conv and TFCM histories, rolling "
-              "attention K/V caches) comes with the MTFAA streaming slice; only state=None runs")
+_NO_STATE_TRAINING = ("no path trains through a carried state: stream in eval mode "
+                      "(model.eval(), train=False)")
 BN_MOMENTUM = 0.9  # running = 0.9 * running + 0.1 * batch
 
 
@@ -115,9 +136,34 @@ class Banks(nn.Module):
 # ---------------- helpers ----------------
 
 
-def causal_ext(x: torch.Tensor, ctx: int) -> torch.Tensor:
-    """Prepend ``ctx`` zero frames on the minor (time) axis."""
-    return F.pad(x, (ctx, 0)) if ctx else x
+def causal_ext(x: torch.Tensor, ctx: int, hist: torch.Tensor | None = None):
+    """Prepend ``ctx`` frames of time context on the minor axis: the carried
+    ``hist [..., ctx]`` when streaming, zeros otherwise. Returns ``(x_ext [...,
+    T + ctx], new_hist)``, the new history being x_ext's last ``ctx`` frames
+    (None where ctx is 0)."""
+    if ctx == 0:
+        return x, None
+    x_ext = F.pad(x, (ctx, 0)) if hist is None else torch.cat([hist, x], dim=-1)
+    return x_ext, x_ext[..., x_ext.shape[-1] - ctx :]
+
+
+def _tail(x: torch.Tensor, n: int, dim: int = -1) -> torch.Tensor:
+    """The last ``n`` entries of ``x`` along ``dim``, zero-filled in front where x has fewer."""
+    size = x.shape[dim]
+    tail = x.narrow(dim, max(size - n, 0), min(size, n))
+    if size >= n:
+        return tail
+    pad = [0, 0] * (x.dim() - 1 - dim % x.dim()) + [n - size, 0]
+    return F.pad(tail, pad)
+
+
+def _detached(tree):
+    """Every tensor of a state tree (tuples, dicts) cut from autograd."""
+    if isinstance(tree, dict):
+        return {key: _detached(value) for key, value in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_detached(value) for value in tree)
+    return tree.detach() if isinstance(tree, torch.Tensor) else tree
 
 
 def _bias_tm(b: torch.Tensor) -> torch.Tensor:
@@ -149,13 +195,7 @@ def _zeros(*shape) -> nn.Parameter:
     return nn.Parameter(torch.zeros(shape))
 
 
-def _check_no_state(state) -> None:
-    if state is not None:
-        raise NotImplementedError(_STREAMING)
-
-
-def _check_mode(module: nn.Module, state, train: bool) -> None:
-    _check_no_state(state)
+def _check_mode(module: nn.Module, train: bool) -> None:
     if train != module.training:
         raise ValueError(f"train={train} but the module is in "
                          f"{'training' if module.training else 'eval'} mode: call "
@@ -183,8 +223,13 @@ class ComplexConv(nn.Module):
         self.imag_bias = _zeros(cout2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.carry(x)[0]
+
+    def carry(self, x: torch.Tensor, hist: torch.Tensor | None = None):
+        """``x [B, F, Cin, T]`` after the frames whose last ``kt - 1`` ``hist``
+        holds (zeros without) -> ``(y [B, F, Cout, T], new_hist)``."""
         kt, kf = self.kernel_size
-        x = causal_ext(x, kt - 1)
+        x, new_hist = causal_ext(x, kt - 1, hist)
         real, imag = complex_split(x)
         t_out = x.shape[-1] - (kt - 1)
         f_out = x.shape[1] - (kf - 1)
@@ -202,7 +247,7 @@ class ComplexConv(nn.Module):
         i2i = conv(imag, self.imag_kernel) + bi
         r2i = conv(real, self.imag_kernel) + bi
         i2r = conv(imag, self.real_kernel) + br
-        return torch.cat([r2r - i2i, r2i + i2r], dim=2)
+        return torch.cat([r2r - i2i, r2i + i2r], dim=2), new_hist
 
 
 class PhaseEncoder(nn.Module):
@@ -217,8 +262,14 @@ class PhaseEncoder(nn.Module):
         self.clp = ComplexConv(cout * 2, cout * 2, (1, 1), generator=gen)
 
     def forward(self, cspec: torch.Tensor) -> torch.Tensor:
-        pr, pi = complex_split(self.clp(self.cconv_0(cspec)))
-        return torch.sqrt(pr ** 2 + pi ** 2 + 1e-8) ** 0.5
+        return self.carry(cspec)[0]
+
+    def carry(self, cspec: torch.Tensor, state=None):
+        """-> ``(amp, (new_hist [B, F, 2, 2],))``: the (3, 1) conv's history,
+        as the JAX package's one-signal state tuple."""
+        h, hist = self.cconv_0.carry(cspec, None if state is None else state[0])
+        pr, pi = complex_split(self.clp(h))
+        return torch.sqrt(pr ** 2 + pi ** 2 + 1e-8) ** 0.5, (hist,)
 
 
 # ---------------- normalization ----------------
@@ -274,7 +325,8 @@ class TFCMBlock(nn.Module):
     + input. In eval mode the whole block is one launch of the TFCM kernel on
     the card (``block_fn``, with the BatchNorms folded into the convs). In
     training ``dw_impl`` picks the route (see the module doc): ``fused*`` ->
-    ``train_fn``, else the unfused block with the stencil ``dw_fn``."""
+    ``train_fn``, else the unfused block with the stencil ``dw_fn``. ``carry``
+    streams: the unfused block in eval mode over a carried history."""
 
     def __init__(self, channels: int, dilation: int = 1, dw_impl: str = "fused_fold",
                  generator: torch.Generator | None = None):
@@ -304,30 +356,65 @@ class TFCMBlock(nn.Module):
                 "g2": self.bn2.scale, "be2": self.bn2.bias, "m2": self.bn2.mean, "v2": self.bn2.var,
                 "a2": self.prelu2.negative_slope, "w2": self.pconv2_kernel, "b2": self.pconv2_bias}
 
-    def forward(self, x: torch.Tensor, hist=None, train: bool = False) -> torch.Tensor:
-        _check_mode(self, hist, train)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        _check_mode(self, train)
         if not train:
             return self.block_fn(x.contiguous(), _folded(self, [self]), dilation=self.dilation)
+        return self.train_forward(x)[0]
+
+    def carry(self, x: torch.Tensor, hist: torch.Tensor | None = None):
+        """Eval: ``x [B, K, C, T]`` after the frames whose last 2d stencil
+        inputs ``hist`` holds (zeros without) -> ``(y, new_hist [B, K, C, 2d])``,
+        through the unfused block: PyTorch's ops on the folded parameters
+        around the stencil kernel (``dw_fn``)."""
+        _check_mode(self, False)
+        layer = self.eval_layer()
+        p_ext, new_hist = causal_ext(self.stencil_input(x, layer), 2 * self.dilation, hist)
+        return self.finish(p_ext, x, layer), new_hist
+
+    def eval_layer(self) -> tuple:
+        """The folded eval parameters ``(w1, b1, wd, bd, w2, b2, a1, a2)``: the
+        BatchNorms folded into the 1x1 conv and the stencil, as the kernel reads them."""
+        return _unfold_layer(_folded(self, [self])[0], self.channels)
+
+    @staticmethod
+    def stencil_input(x: torch.Tensor, layer: tuple) -> torch.Tensor:
+        """pconv1, BN1, PReLU1 (folded ``layer``), frame by frame."""
+        w1, b1, _, _, _, _, a1, _ = layer
+        h = _conv_tm(x, w1) + _bias_tm(b1)
+        return torch.where(h >= 0, h, a1 * h)
+
+    def finish(self, p_ext: torch.Tensor, x: torch.Tensor, layer: tuple) -> torch.Tensor:
+        """The stencil (``dw_fn``) over ``p_ext [B, K, C, T + 2d]``, BN2, PReLU2,
+        pconv2 (folded ``layer``) and the residual ``x``."""
+        _, _, wd, bd, w2, b2, _, a2 = layer
+        z = self.dw_fn(p_ext, wd, self.dilation) + _bias_tm(bd)
+        return _conv_tm(torch.where(z >= 0, z, a2 * z), w2) + _bias_tm(b2) + x
+
+    def train_forward(self, x: torch.Tensor):
+        """The training forward by the ``dw_impl`` route -> ``(y, the stencil
+        input's last 2d frames, cut from autograd)``."""
         if self.dw_impl.startswith("fused"):
             params = (self.pconv1_kernel, self.pconv1_bias, self.bn1.scale, self.bn1.bias,
                       self.prelu1.negative_slope, self.dw_kernel, self.dw_bias, self.bn2.scale,
                       self.bn2.bias, self.prelu2.negative_slope, self.pconv2_kernel,
                       self.pconv2_bias)
-            y, _hist, m1, v1, m2, v2 = self.train_fn(x.contiguous(), params, self.dilation,
-                                                     self.bn1.eps)
+            y, hist, m1, v1, m2, v2 = self.train_fn(x.contiguous(), params, self.dilation,
+                                                    self.bn1.eps)
             self.bn1.update_running(m1, v1)
             self.bn2.update_running(m2, v2)
-            return y
+            return y, hist
         h = self.prelu1(self.bn1(_conv_tm(x, self.pconv1_kernel) + _bias_tm(self.pconv1_bias)))
-        h = self.dw_fn(causal_ext(h, 2 * self.dilation), self.dw_kernel, self.dilation)
-        h = self.prelu2(self.bn2(h + _bias_tm(self.dw_bias)))
-        return _conv_tm(h, self.pconv2_kernel) + _bias_tm(self.pconv2_bias) + x
+        h_ext, hist = causal_ext(h, 2 * self.dilation)
+        h = self.prelu2(self.bn2(self.dw_fn(h_ext, self.dw_kernel, self.dilation) + _bias_tm(self.dw_bias)))
+        return _conv_tm(h, self.pconv2_kernel) + _bias_tm(self.pconv2_bias) + x, hist.detach()
 
 
 class TFCM(nn.Module):
     """Stack of TFCM blocks with dilations 2^idx. In eval mode the whole
     ladder is one launch of the TFCM kernel on the card (``stack_fn``); in
-    training the blocks run one after another, each by its ``dw_impl`` route."""
+    training the blocks run one after another, each by its ``dw_impl`` route.
+    ``carry`` also returns the per-layer histories (see the module doc)."""
 
     def __init__(self, channels: int, num_layers: int = 6, dw_impl: str = "fused_fold",
                  generator: torch.Generator | None = None):
@@ -341,15 +428,60 @@ class TFCM(nn.Module):
     def blocks(self):
         return [getattr(self, f"block_{idx}") for idx in range(self.num_layers)]
 
-    def forward(self, x: torch.Tensor, state=None, train: bool = False) -> torch.Tensor:
-        _check_mode(self, state, train)
-        blocks = self.blocks()
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        _check_mode(self, train)
         if train:
-            for block in blocks:
-                x = block(x, train=True)
-            return x
+            return self.carry(x, train=True)[0]
+        blocks = self.blocks()
         return self.stack_fn(x.contiguous(), _folded(self, blocks),
                              dilations=tuple(b.dilation for b in blocks))
+
+    def carry(self, x: torch.Tensor, state=None, train: bool = False):
+        """``x`` after the frames whose per-layer histories ``state`` holds ->
+        ``(y, new histories)``. A carried state runs the blocks' ``carry`` one
+        after another; without one, the stack's forward runs and the
+        histories come from ``histories``."""
+        _check_mode(self, train)
+        blocks = self.blocks()
+        if state is not None:
+            if train:
+                raise NotImplementedError(_NO_STATE_TRAINING)
+            hists = []
+            for block, hist in zip(blocks, state, strict=True):
+                x, hist = block.carry(x, hist)
+                hists.append(hist)
+            return x, tuple(hists)
+        if train:
+            hists = []
+            for block in blocks:
+                x, hist = block.train_forward(x)
+                hists.append(hist)
+            return x, tuple(hists)
+        return self(x), self.histories(x)
+
+    @torch.no_grad()
+    def histories(self, x: torch.Tensor) -> tuple:
+        """The per-layer histories that a chunk ``x`` leaves (eval), without a
+        second pass over it: layer l's are its stencil inputs at the last
+        2 d_l frames, which depend on the stack's input at its last 2 (d_0 +
+        ... + d_l) frames only. So the unfused blocks run over the input's
+        last 2 (2^L - 1) frames, each layer's output losing the first 2d
+        frames it cannot know; a chunk no longer than that runs whole, from
+        the zero history."""
+        blocks = self.blocks()
+        need = 2 * sum(block.dilation for block in blocks)
+        whole = x.shape[-1] <= need
+        u = x if whole else x[..., x.shape[-1] - need :]
+        hists = []
+        for i, block in enumerate(blocks):
+            layer = block.eval_layer()
+            p_ext, hist = causal_ext(block.stencil_input(u, layer), 2 * block.dilation)
+            hists.append(hist)
+            if i + 1 < len(blocks):
+                u = block.finish(p_ext, u, layer)
+                if not whole:
+                    u = u[..., 2 * block.dilation :]
+        return tuple(hists)
 
 
 def _folded(owner: nn.Module, blocks) -> torch.Tensor:
@@ -375,7 +507,12 @@ class AxialSelfAttention(nn.Module):
     ``channels``. The temporal branch is one launch of the attention kernel
     on the card (``attn_fn``): causal, optionally windowed, or with
     ``causal=False`` over every frame (the window is then unused). Under a
-    gradient ``attn_fn`` also runs its backward kernels."""
+    gradient ``attn_fn`` also runs its backward kernels. ``carry`` streams a
+    causal, windowed attention over rolling key/value caches
+    ``(k_cache [B, F, c_att, window - 1], v_cache [B, F, C, window - 1],
+    count [B])``, ``count`` being the frames each stream's caches hold (the
+    rest are zeros no query may see), so that the streams of a batch may be
+    at different points."""
 
     def __init__(self, channels: int, causal: bool = True, window: Optional[int] = None,
                  generator: torch.Generator | None = None):
@@ -392,19 +529,65 @@ class AxialSelfAttention(nn.Module):
     def _proj(self, u: torch.Tensor, name: str) -> torch.Tensor:
         return _conv_tm(u, getattr(self, f"{name}_kernel")) + _bias_tm(getattr(self, f"{name}_bias"))
 
-    def forward(self, x: torch.Tensor, state=None) -> torch.Tensor:
-        _check_no_state(state)
-        b, f, c, t = x.shape
-        inv_scale = 1.0 / math.sqrt(self.c_att)
-        # frequency attention
+    def _frequency(self, x: torch.Tensor):
+        """The frequency attention (each frame on its own), then the temporal
+        branch's projections: ``(x, qt, kt, vt)``."""
         qf, kf, vf = self._proj(x, "q_f"), self._proj(x, "k_f"), self._proj(x, "v_f")
-        attn = torch.softmax(torch.einsum("bkct,bqct->bkqt", qf, kf) * inv_scale, dim=2)
+        attn = torch.softmax(torch.einsum("bkct,bqct->bkqt", qf, kf) * (1.0 / math.sqrt(self.c_att)), dim=2)
         x = x + torch.einsum("bkqt,bqct->bkct", attn, vf)
-        # temporal attention
-        qt, kt, vt = self._proj(x, "q_t"), self._proj(x, "k_t"), self._proj(x, "v_t")
+        return x, self._proj(x, "q_t"), self._proj(x, "k_t"), self._proj(x, "v_t")
+
+    def _attend(self, x: torch.Tensor):
+        """-> (output, kt, vt): the temporal branch through ``attn_fn``."""
+        b, f, c, t = x.shape
+        x, qt, kt, vt = self._frequency(x)
         xt = self.attn_fn(*(u.reshape(b * f, -1, t).contiguous() for u in (qt, kt, vt)),
                           self.window if self.causal else None, causal=self.causal)
-        return x + xt.reshape(b, f, c, t)
+        return x + xt.reshape(b, f, c, t), kt, vt
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._attend(x)[0]
+
+    def carry(self, x: torch.Tensor, state=None):
+        """``x [B, F, C, T]`` after the frames whose caches ``state`` holds ->
+        ``(y, new caches)``. Without a state the kernel runs and the caches
+        are the last window - 1 frames of its keys and values (zero-filled in
+        front). Only a causal, windowed attention streams; another returns
+        no state and refuses one."""
+        w = self.window
+        if w is None or not self.causal:
+            if state is not None:
+                raise ValueError("streaming attention needs a finite window and causal=True "
+                                 f"(window={w}, causal={self.causal})")
+            return self(x), None
+        if state is None:
+            y, kt, vt = self._attend(x)
+            count = torch.full((x.shape[0],), min(x.shape[-1], w - 1), dtype=torch.int32, device=x.device)
+            return y, (_tail(kt, w - 1).detach(), _tail(vt, w - 1).detach(), count)
+        k_cache, v_cache, count = state
+        t = x.shape[-1]
+        x, qt, kt, vt = self._frequency(x)
+        keys, vals = torch.cat([k_cache, kt], dim=-1), torch.cat([v_cache, vt], dim=-1)
+        s = keys.shape[-1]
+        logits = torch.einsum("bfct,bfcs->bfts", qt, keys) * (1.0 / math.sqrt(self.c_att))
+        # query i sits at slot w - 1 + i and sees slots i .. w - 1 + i; a cache
+        # slot below w - 1 - count holds no frame of its stream yet
+        qi = torch.arange(t, device=x.device)[:, None]
+        si = torch.arange(s, device=x.device)[None, :]
+        band = (si >= qi) & (si <= qi + w - 1)  # [T, S]
+        valid = si[None] >= (w - 1 - count).clamp(min=0)[:, None, None]  # [B, 1, S]
+        logits = logits.masked_fill(~(band & valid)[:, None], -1e9)
+        xt = torch.einsum("bfts,bfcs->bfct", torch.softmax(logits, dim=-1), vals)
+        return x + xt, (keys[..., s - (w - 1) :], vals[..., s - (w - 1) :], (count + t).clamp(max=w - 1))
+
+    def init_stream_state(self, batch_size: int, f: int, device: torch.device | str = "cpu"):
+        """Empty caches for ``batch_size`` streams over ``f`` bands."""
+        if self.window is None:
+            raise ValueError("streaming attention needs a finite window")
+        w = self.window
+        return (torch.zeros(batch_size, f, self.c_att, w - 1, device=device),
+                torch.zeros(batch_size, f, self.channels, w - 1, device=device),
+                torch.zeros(batch_size, dtype=torch.int32, device=device))
 
 
 # ---------------- band up/down sampling convs ----------------
@@ -424,10 +607,15 @@ class BandDownConv(nn.Module):
         self.bias = _zeros(channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.carry(x)[0]
+
+    def carry(self, x: torch.Tensor, hist: torch.Tensor | None = None):
+        """``x`` after the frame ``hist [B, K, Cin, 1]`` (zeros without) ->
+        ``(y, new_hist)``."""
         k_in = x.shape[1]
         s, w = self.stride, self.kernel
         k_out = (k_in - 1) // s + 1
-        x = causal_ext(x, 1)
+        x, new_hist = causal_ext(x, 1, hist)
         xp = F.pad(x, (0, 0, 0, 0, 1, 1))
         t_out = x.shape[-1] - 1
         if s == 2 and k_in % 2 == 0:
@@ -436,13 +624,13 @@ class BandDownConv(nn.Module):
             views = (r[:, :k_out, 0], r[:, :k_out, 1], r[:, 1 : k_out + 1, 0])
             xcat = torch.cat([v[..., dt : dt + t_out] for v in views for dt in range(2)], dim=2)
             wf = torch.cat([w[dt, dk] for dk in range(3) for dt in range(2)], dim=0)
-            return _conv_tm(xcat, wf) + _bias_tm(self.bias)
+            return _conv_tm(xcat, wf) + _bias_tm(self.bias), new_hist
         acc = None
         for dt in range(2):
             for dk in range(3):
                 term = _conv_tm(xp[:, dk : dk + s * (k_out - 1) + 1 : s, :, dt : dt + t_out], w[dt, dk])
                 acc = term if acc is None else acc + term
-        return acc + _bias_tm(self.bias)
+        return acc + _bias_tm(self.bias), new_hist
 
 
 class BandUpConv(nn.Module):
@@ -459,9 +647,14 @@ class BandUpConv(nn.Module):
         self.bias = _zeros(channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.carry(x)[0]
+
+    def carry(self, x: torch.Tensor, hist: torch.Tensor | None = None):
+        """``x`` after the frame ``hist [B, K, Cin, 1]`` (zeros without) ->
+        ``(y, new_hist)``."""
         b, k_in = x.shape[0], x.shape[1]
         w = self.kernel
-        x = causal_ext(x, 1)
+        x, new_hist = causal_ext(x, 1, hist)
         t_out = x.shape[-1] - 1
 
         def tap(u, dt, dk):
@@ -471,7 +664,7 @@ class BandUpConv(nn.Module):
         even = tap(x, 0, 1) + tap(x, 1, 1)
         odd = (tap(x, 0, 2) + tap(x, 1, 2)) + (tap(x_next, 0, 0) + tap(x_next, 1, 0))
         y = torch.stack([even, odd], dim=2).reshape(b, 2 * k_in, self.channels, t_out)
-        return y + _bias_tm(self.bias)
+        return y + _bias_tm(self.bias), new_hist
 
 
 # ---------------- full network ----------------
@@ -512,12 +705,15 @@ class MtfaaConfig:
 
 
 class MtfaaNet(nn.Module):
-    """cspec [B, T, F, 2] -> ((enhanced complex64 [B, T, F], mask [B, T, F]), None).
+    """cspec [B, T, F, 2] -> ((enhanced complex64 [B, T, F], mask [B, T, F]), state).
 
     ``train`` must agree with the module's mode (``.train()`` / ``.eval()``).
     With ``train=True`` BatchNorm uses and records batch statistics, and the
     TFCM blocks, the attention and the deep filter (``filter_fn``) run their
-    differentiable routes. A carried ``state`` raises."""
+    differentiable routes. A windowed model (``attention_window`` set) takes
+    and returns the streaming state (see the module doc; ``init_state``), in
+    training too, cut from autograd; a full-causal one returns None and
+    refuses a state."""
 
     def __init__(self, config: MtfaaConfig = MtfaaConfig(), generator: torch.Generator | None = None):
         super().__init__()
@@ -563,26 +759,52 @@ class MtfaaNet(nn.Module):
     def compress(self, mag: torch.Tensor) -> torch.Tensor:
         return torch.clamp(mag, min=1e-12) ** 0.5
 
-    def forward(self, cspec: torch.Tensor, state=None, train: bool = False):
-        _check_mode(self, state, train)
+    def forward(self, cspec: torch.Tensor, state=None, train: bool = False, with_state: bool = True):
+        """``with_state=False`` is for callers that drop the state (the
+        offline adapters): a ``state=None`` call then returns None and skips
+        the state's work, as the JAX package's jitted forward drops a state
+        its caller does not use."""
+        _check_mode(self, train)
         cfg = self.config
+        stateful = cfg.attention_window is not None and (with_state or state is not None)
+        if state is not None and train:
+            raise NotImplementedError(_NO_STATE_TRAINING)
+        if state is not None and cfg.attention_window is None:
+            raise ValueError("MTFAA streaming needs a finite attention_window (the full-causal "
+                             "configuration cannot carry ASA state)")
+        if state is not None and set(state) != set(self.state_keys()):
+            raise ValueError(f"state must be a dict of init_state's keys {self.state_keys()}, "
+                             f"got {sorted(state)}")
         if cspec.dim() != 4 or cspec.shape[-1] != 2 or cspec.shape[-2] != cfg.num_bins:
             raise ValueError(f"cspec must be [B, T, {cfg.num_bins}, 2], got {tuple(cspec.shape)}")
+        st, new_state = state or {}, {}
+
+        def run(name, x, **kw):
+            """The named module's forward, or its carry with its state."""
+            module = getattr(self, name)
+            if not stateful:
+                return module(x, **kw)
+            y, new_state[name] = module.carry(x, st.get(name), **kw)
+            return y
 
         cspec_tm = cspec.permute(0, 2, 3, 1)  # [B, F, 2, T]
-        x = self.banks.amp2bank_tm(self.phase_enc(cspec_tm))  # [B, K, C, T]
+        if stateful:
+            amp, new_state["pe"] = self.phase_enc.carry(cspec_tm, st.get("pe"))
+        else:
+            amp = self.phase_enc(cspec_tm)
+        x = self.banks.amp2bank_tm(amp)  # [B, K, C, T]
         skips = []
         for si in range(len(cfg.channels)):
-            x = getattr(self, f"enc_conv_{si}")(x)
+            x = run(f"enc_conv_{si}", x)
             x = getattr(self, f"enc_prelu_{si}")(getattr(self, f"enc_bn_{si}")(x))
-            x = getattr(self, f"enc_tfcm_{si}")(x, train=train)
+            x = run(f"enc_tfcm_{si}", x, train=train)
             if cfg.asa_enabled:
-                x = getattr(self, f"enc_asa_{si}")(x)
+                x = run(f"enc_asa_{si}", x)
             skips.append(x)
         for si in reversed(range(len(cfg.channels))):
-            x = getattr(self, f"dec_conv_{si}")(x + skips[si])
+            x = run(f"dec_conv_{si}", x + skips[si])
             x = getattr(self, f"dec_prelu_{si}")(getattr(self, f"dec_bn_{si}")(x))
-            x = getattr(self, f"dec_tfcm_{si}")(x, train=train)
+            x = run(f"dec_tfcm_{si}", x, train=train)
 
         # magnitude mask at band resolution -> full bins
         band_mask = _conv_tm(x, self.mask_head_kernel)[:, :, 0] + self.mask_head_bias  # [B, K, T]
@@ -600,5 +822,57 @@ class MtfaaNet(nn.Module):
             taps = self.num_taps
             coefs = (feats @ self.df_coef_kernel + self.df_coef_bias) / taps
             coefs = coefs.view(b, t, cfg.num_bins, taps, 2)
-            enhanced = self.filter_fn(enhanced, coefs, cfg.df_taps_t, cfg.df_taps_f, causal=True)
-        return (enhanced, mask), None
+            # a carried history holds the masked spectrum's last 2 t_dim frames
+            history = None if state is None else torch.complex(*st["df"])
+            filtered = self.filter_fn(enhanced, coefs, cfg.df_taps_t, cfg.df_taps_f, causal=True,
+                                      history=history)
+            if stateful:
+                past = enhanced if history is None else torch.cat([history, enhanced], dim=1)
+                new_state["df"] = tuple(_tail(part, 2 * cfg.df_taps_t, dim=1) for part in (past.real, past.imag))
+            enhanced = filtered
+        return (enhanced, mask), (_detached(new_state) if stateful else None)
+
+    def state_keys(self) -> list:
+        """The keys of the streaming state, in the order the forward fills them."""
+        cfg = self.config
+        stages = range(len(cfg.channels))
+        return (["pe"] + [f"enc_{part}_{si}" for si in stages
+                          for part in ("conv", "tfcm", "asa")[: 3 if cfg.asa_enabled else 2]]
+                + [f"dec_{part}_{si}" for si in reversed(stages) for part in ("conv", "tfcm")]
+                + (["df"] if cfg.use_deep_filter else []))
+
+    def init_state(self, batch_size: int, device: torch.device | str = "cpu") -> dict:
+        """A fresh streaming state (a windowed model only), with the JAX
+        package's keys and shapes: every conv and TFCM history ``[B, K, C,
+        ctx]``, each attention's caches ``[B, K, c, window - 1]`` and count
+        ``[B]``, the deep filter's ``(real, imag) [B, 2 t_dim, F]``."""
+        cfg = self.config
+        if cfg.attention_window is None:
+            raise ValueError("MTFAA streaming needs a finite attention_window (the full-causal "
+                             "configuration cannot carry ASA state)")
+
+        def zeros(*shape):
+            return torch.zeros(shape, device=device)
+
+        bands = [cfg.n_bands]
+        for stride in cfg.band_strides:
+            bands.append((bands[-1] - 1) // stride + 1)
+        st = {"pe": (zeros(batch_size, cfg.num_bins, 2, 2),)}
+        ch_in = cfg.phase_channels
+        for si, ch in enumerate(cfg.channels):
+            st[f"enc_conv_{si}"] = zeros(batch_size, bands[si], ch_in, 1)
+            st[f"enc_tfcm_{si}"] = tuple(zeros(batch_size, bands[si + 1], ch, 2 * 2 ** idx)
+                                         for idx in range(cfg.tfcm_layers))
+            if cfg.asa_enabled:
+                st[f"enc_asa_{si}"] = getattr(self, f"enc_asa_{si}").init_stream_state(
+                    batch_size, bands[si + 1], device)
+            ch_in = ch
+        for si in reversed(range(len(cfg.channels))):
+            ch_out = cfg.channels[si - 1] if si > 0 else cfg.phase_channels
+            st[f"dec_conv_{si}"] = zeros(batch_size, bands[si + 1], cfg.channels[si], 1)
+            st[f"dec_tfcm_{si}"] = tuple(zeros(batch_size, bands[si], ch_out, 2 * 2 ** idx)
+                                         for idx in range(cfg.tfcm_layers))
+        if cfg.use_deep_filter:
+            st["df"] = (zeros(batch_size, 2 * cfg.df_taps_t, cfg.num_bins),
+                        zeros(batch_size, 2 * cfg.df_taps_t, cfg.num_bins))
+        return st

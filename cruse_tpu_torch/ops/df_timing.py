@@ -5,8 +5,10 @@ card.
     python3 -m cruse_tpu_torch.ops.df_timing [--out rows.json] [--sweep] [--source FILE.cu ...]
 
 Shapes: config 5b (B=16 x 10 s: T=626, all F=257 bins, K=9), config 3
-(B=256 x 10 s: T=1001, the low F=96 of 161 bins, K=15) and config 3's
-streaming hop (B=256, T=1, with 4 frames of history; forward only). For each
+(B=256 x 10 s: T=1001, the low F=96 of 161 bins, K=15), config 3's
+streaming hop (B=256, T=1, with 4 frames of history; forward only) and
+config 5b's (B=1, T=1, all 257 bins, with 2 frames of history; forward
+only). For each
 shape and direction it prints the wrapper's time (CUDA events around
 back-to-back calls), the kernel's device time alone and the device launches
 a call (a torch.profiler trace of a few calls between marker kernels,
@@ -51,7 +53,8 @@ from cruse_tpu_torch.ops.tfcm_bwd_timing import bound, card, events_ms, profiled
 CONFIG5B = (16, 626, 257, 1, 1, True, 257, False)
 CONFIG3 = (256, 1001, 96, 2, 1, True, 161, False)
 HOP = (256, 1, 96, 2, 1, True, 161, True)
-SHAPES = {"5b": CONFIG5B, "config 3": CONFIG3, "config-3 hop": HOP}
+HOP_5B = (1, 1, 257, 1, 1, True, 257, True)
+SHAPES = {"5b": CONFIG5B, "config 3": CONFIG3, "config-3 hop": HOP, "5b hop": HOP_5B}
 KERNEL_NAME = re.compile(r"\bdeep_filter\w*_kernel\b")
 KINDS = ("forward", "backward")
 SWEEP_SPANS = (1, 2, 4, 8, 13, 19, 32, 64, 128, None)  # None: all of T

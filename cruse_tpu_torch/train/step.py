@@ -94,10 +94,11 @@ def complex_model_forward(model) -> Callable:
     """Models that take the RI spectrum and emit the enhanced complex
     spectrum directly (MtfaaNet): enhanced RI [B, T, F, 2]. With
     ``train=True`` the model runs its training forward (batch statistics,
-    which it records in place) and the result carries the gradient."""
+    which it records in place) and the result carries the gradient. A
+    windowed model's streaming state is not asked for."""
 
     def forward(noisy_ri: torch.Tensor, train: bool = False) -> torch.Tensor:
-        (enhanced, _mask), _ = model(noisy_ri, None, train)
+        (enhanced, _mask), _ = model(noisy_ri, None, train, with_state=False)
         return torch.stack([enhanced.real, enhanced.imag], dim=-1)
 
     return forward
@@ -107,16 +108,17 @@ def forward_for_model(model) -> Callable:
     """The forward adapter for a ported model."""
     from cruse_tpu_torch.models.cruse import CruseNet
     from cruse_tpu_torch.models.cruse_df import CruseDfNet
+    from cruse_tpu_torch.models.dfsmn import DfsmnNet
     from cruse_tpu_torch.models.mtfaa import MtfaaNet
 
     if isinstance(model, MtfaaNet):
         return complex_model_forward(model)
     if isinstance(model, CruseDfNet):
         return cruse_df_model_forward(model)
-    if isinstance(model, CruseNet) and not model.config.emit_features:
+    if isinstance(model, DfsmnNet) or (isinstance(model, CruseNet) and not model.config.emit_features):
         return mask_model_forward(model)
     raise NotImplementedError(f"no forward adapter for {type(model).__name__} is ported "
-                              "(ported: CruseNet, CruseDfNet, MtfaaNet)")
+                              "(ported: CruseNet, CruseDfNet, DfsmnNet, MtfaaNet)")
 
 
 # ---------------- the train step ----------------

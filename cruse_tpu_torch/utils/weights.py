@@ -1,5 +1,5 @@
 """Weight bridge: cruse_tpu flax variables -> the port's ``CruseNet``,
-``CruseDfNet`` and ``MtfaaNet`` state_dicts.
+``CruseDfNet``, ``DfsmnNet`` and ``MtfaaNet`` state_dicts.
 
 The JAX side's ``{"params", "batch_stats"}`` tree, as numpy arrays, maps onto
 the port by path, because the port names its submodules after the flax ones
@@ -20,7 +20,11 @@ MTFAA keeps the flax shapes and names (its kernels read them as they are),
 so its mapping is the path alone: ``/`` becomes ``.``, for the parameters
 and the BatchNorm ``mean``/``var`` alike.
 
-``mtfaa_flax_from_named`` is that mapping's inverse, for the parameters, their
+DFSMN (``dfsmn_state_dict_from_flax``) keeps its memory kernels and skip
+weights in their flax shapes too; only its Dense kernels ``[in, out]`` become
+``Linear`` weights ``[out, in]``.
+
+``mtfaa_flax_from_named`` is MTFAA's mapping's inverse, for the parameters, their
 gradients or the statistics of a trained port model, so that tests compare
 the two packages leaf by leaf.
 
@@ -117,6 +121,20 @@ def mtfaa_state_dict_from_flax(variables_np: Mapping[str, Any]) -> Dict[str, tor
             for path, value in flatten_tree(variables_np.get(collection, {})).items()}
 
 
+def dfsmn_state_dict_from_flax(variables_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """cruse_tpu ``DfsmnNet`` variables -> state_dict of the port's ``DfsmnNet``:
+    ``proj_in``, ``block_i/{in_conv, out_conv}`` and ``mask_head`` Dense
+    kernels transposed to ``Linear`` weights, their biases as they are, and
+    ``block_i/{left_kernel, right_kernel, skip_weight}`` in their flax shapes."""
+    state = {}
+    for path, value in flatten_tree(variables_np.get("params", {})).items():
+        value = np.array(value, np.float32)
+        if path.endswith("/kernel"):  # Dense [in, out] -> Linear [out, in]
+            path, value = path[: -len("kernel")] + "weight", np.ascontiguousarray(value.T)
+        state[path.replace("/", ".")] = torch.from_numpy(value)
+    return state
+
+
 def mtfaa_flax_from_named(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """The inverse of ``mtfaa_state_dict_from_flax``: tensors by the port's
     dotted names (a ``state_dict``, or gradients by parameter name) -> a
@@ -132,11 +150,14 @@ def mtfaa_flax_from_named(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
 
 def state_dict_from_flax(variables_np: Mapping[str, Any], model) -> Dict[str, torch.Tensor]:
     """cruse_tpu variables -> state_dict of the port's ``model``: an
-    MtfaaNet, a CruseNet, or a CruseDfNet, whose trunk is under ``cruse.``
-    and head is ``df_head``. The CRUSE trunk's config (``config.cruse`` of a
-    CruseDfNet) fixes the encoder kernels' layout."""
+    MtfaaNet, a DfsmnNet, a CruseNet, or a CruseDfNet, whose trunk is under
+    ``cruse.`` and head is ``df_head``. The CRUSE trunk's config
+    (``config.cruse`` of a CruseDfNet) fixes the encoder kernels' layout."""
+    from cruse_tpu_torch.models.dfsmn import DfsmnNet
     from cruse_tpu_torch.models.mtfaa import MtfaaNet
 
     if isinstance(model, MtfaaNet):
         return mtfaa_state_dict_from_flax(variables_np)
+    if isinstance(model, DfsmnNet):
+        return dfsmn_state_dict_from_flax(variables_np)
     return cruse_state_dict_from_flax(variables_np, getattr(model.config, "cruse", model.config))

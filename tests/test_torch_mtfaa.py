@@ -106,7 +106,8 @@ def test_mask_and_enhanced_match_jax(rng, args):
     (ref_enh, ref_mask), _ = jax_model.apply(variables, jnp.asarray(cspec))
     with torch.no_grad():
         (enhanced, mask), state = model(torch.from_numpy(cspec))
-    assert state is None and enhanced.dtype == torch.complex64 and tuple(mask.shape) == (2, 20, 257)
+    assert (state is None) == ("attention_window" not in args)  # a windowed net returns its state
+    assert enhanced.dtype == torch.complex64 and tuple(mask.shape) == (2, 20, 257)
     np.testing.assert_allclose(mask.numpy(), np.asarray(ref_mask), atol=1e-5)
     np.testing.assert_allclose(enhanced.numpy(), np.asarray(ref_enh), atol=1e-5)
 
@@ -198,7 +199,8 @@ def test_training_forward_matches_jax(rng, route, jax_impl):
     ((ref_enh, ref_mask), _), updated = jax_model.apply(variables, jnp.asarray(cspec), None, True,
                                                         mutable=["batch_stats"])
     (enhanced, mask), state = model.train()(torch.from_numpy(cspec), train=True)
-    assert state is None and enhanced.requires_grad
+    assert enhanced.requires_grad  # the windowed net's state is cut from autograd
+    assert not any(t.requires_grad for t in jax.tree_util.tree_leaves(state, is_leaf=torch.is_tensor))
     np.testing.assert_allclose(mask.detach().numpy(), np.asarray(ref_mask), atol=2e-4)
     np.testing.assert_allclose(enhanced.detach().numpy(), np.asarray(ref_enh), atol=2e-4)
     ours = mtfaa_flax_from_named(model.state_dict())["batch_stats"]
@@ -223,13 +225,16 @@ def test_unported_paths_raise():
         model(cspec, train=True)
     with pytest.raises(ValueError, match="training mode"):
         model.train()(cspec)
-    with pytest.raises(NotImplementedError, match="streaming slice"):
-        model(cspec, state={}, train=True)
+    with pytest.raises(NotImplementedError, match="carried state"):  # no path trains through a state
+        model.train()(cspec, state=model.init_state(1), train=True)
     model.eval()
-    with pytest.raises(NotImplementedError, match="streaming slice"):
+    with pytest.raises(ValueError, match="init_state"):
         model(cspec, state={})
-    with pytest.raises(NotImplementedError, match="MtfaaNet"):
-        StreamingEnhancer(model, StftConfig(center=False, **STFT))
+    causal = MtfaaNet(MtfaaConfig(**TINY)).eval()
+    with pytest.raises(ValueError, match="attention_window"):  # a full-causal net carries no state
+        causal(cspec, state=model.init_state(1))
+    with pytest.raises(ValueError, match="attention_window"):
+        StreamingEnhancer(causal, StftConfig(center=False, **STFT))
     with pytest.raises(ValueError, match="auto"):
         BatchInferencer(model, InferencerConfig(type="mag_to_mag"))
     with pytest.raises(ValueError, match="cspec"):
@@ -239,7 +244,7 @@ def test_unported_paths_raise():
 def test_cli_enhances_a_directory(rng, tmp_path):
     """-C configs/tiny_mtfaa.toml --batch 2 (no [inferencer] table: the
     default strategy is auto, as in tools/infer.py) writes every wav; with
-    --streaming an MTFAA config is refused by name."""
+    --streaming this full-causal MTFAA config is refused for its lack of a window."""
     (tmp_path / "in").mkdir()
     lengths = (4000, 6543, 9100)
     for i, n in enumerate(lengths):
@@ -250,5 +255,5 @@ def test_cli_enhances_a_directory(rng, tmp_path):
     for i, n in enumerate(lengths):
         out, sr = read_wav(str(tmp_path / "out" / f"utt{i}.wav"))
         assert sr == 16000 and out.shape == (n,) and np.abs(out).max() > 0
-    with pytest.raises(NotImplementedError, match="MtfaaNet"):
+    with pytest.raises(ValueError, match="attention_window"):
         cli_main(args + ["--streaming"])

@@ -202,5 +202,5 @@ def test_wrapper_checks_its_inputs():
             flash_tattn_tm(*args)
     with pytest.raises(ValueError, match="window"):
         flash_tattn_tm(q, q, v, 0)
-    with pytest.raises(NotImplementedError, match="streaming"):
-        AxialSelfAttention(8)(torch.zeros(1, 2, 8, 5), state=(None, None, None))
+    with pytest.raises(ValueError, match="streaming attention needs a finite window"):
+        AxialSelfAttention(8).carry(torch.zeros(1, 2, 8, 5), state=(None, None, None))
