@@ -32,8 +32,9 @@ needed). In order, and any failure exits non-zero:
    the forward at config 3's offline shape (B=64, T=1001, F=96, t=2, f=1, the
    low bins of a 161-bin spectrum), the streaming hop's (B=256, T=1, with
    history), config 5b's streaming hop (B=64, T=1, all 257 bins, with
-   history), ragged ones (T < 2*t_dim, a symmetric layout) and MTFAA's (B=16,
-   T=626, all 257 bins, t=1, f=1), the backward at each of them without
+   history), both hops in the server's pools (B=16 and B=8), ragged ones
+   (T < 2*t_dim, a symmetric layout) and MTFAA's (B=16, T=626, all 257
+   bins, t=1, f=1), the backward at each of them without
    history (two calls giving the same bits), both through autograd (one
    launch each), and both at forced ``df_plan`` tiles (T off the span, T <
    2*t_dim, one span, a misaligned coefficient base, the strided 161-bin
@@ -113,7 +114,24 @@ needed). In order, and any failure exits non-zero:
     state of a state=None call against one call (2e-4); times B=64 x 10 s
     streams and one hop at B=1, profiles 20 hops at B=64 and B=1, and times
     the stencil at the hop's four stage shapes at B=1 (``ops/dw_timing.py``);
-15. holds the training kernels against their plain versions on the card at
+15. serves config 3 and config 5b at once: one ``MultiModelServer`` with a
+    pool of full-width CRUSE+DF (16 slots) and one of config 5b (8 slots), the
+    same models as above; 17 and 9 synthetic sessions of 0.5 to 3 s and 0.5 to
+    1 s, of priorities 0 to 2, opened in stages (more sessions than slots, so
+    slots are reused), fed a hop an iteration, stepped with every third
+    iteration rationed to one dispatch, drained at the end of their input and
+    closed; checks that every server call launched exactly 2 GRU and 1
+    deep-filter kernels a config-3 step and 24 stencil and 1 deep-filter
+    kernels a config-5b step, and each session against the same session
+    streamed alone (B=1) with the kernels and, in one batch, through the plain
+    versions, within 1e-4; times config 3's pool at 256 slots x 10 s
+    (aggregate x-realtime, ms a step), ``StreamingEnhancer.run`` on the same
+    audio, and profiles 20 server steps; then runs the serve CLI
+    (``python -m cruse_tpu_torch.infer.serve``) as a subprocess with config 1
+    (``configs/cruse_base.toml``, priority 1) and config 5b, 10 sessions of 2
+    s, ``--realtime --max_dispatches 1``: it must exit 0 and write every
+    session at its input's length; prints its p50, p99 and missed deadlines;
+16. holds the training kernels against their plain versions on the card at
     config 5b's four stage shapes and d = 1, 2, 4, 8, and on ragged shapes
     (T=19, K=5, C=4 with d=8 > T/2; d=64): the depthwise stencil forward and
     backward, ``tail_bwd`` and ``mid_bwd`` (elementwise outputs within 1e-5,
@@ -132,7 +150,7 @@ needed). In order, and any failure exits non-zero:
     ``tfcm_block_train``'s six outputs and thirteen gradients against autograd
     through the plain block (gradients: relative 2e-3 or absolute 1e-3 of the
     largest gradient);
-16. drives the training path: full-width config 5b, seeded weights, B=16 x 10 s
+17. drives the training path: full-width config 5b, seeded weights, B=16 x 10 s
     of seeded noisy/clean pairs, 3 steps of ``make_train_step``; checks 24
     stencil-forward, 24 ``tail_bwd``, 24 ``mid_bwd``, 3 attention-forward, 3 dq,
     3 dk/dv, 1 deep-filter forward and 1 deep-filter backward launches a step
@@ -147,7 +165,7 @@ needed). In order, and any failure exits non-zero:
     ``"pallas"`` route (24 stencil forwards and backwards a step) and config 5
     (full-causal attention) the same way at B=4 x 4 s, and that a step on a
     batch with a NaN leaves everything unchanged;
-17. holds both GRU backward kernels (the resident one, whose weight stays in
+18. holds both GRU backward kernels (the resident one, whose weight stays in
     a cluster's shared memory, at every cluster size that holds the weight
     with a unit in every block, and the streamed one) against their plain
     version on the card at config 2's shape (B=128, T=1001, G=4, H=176), B=13
@@ -165,7 +183,7 @@ needed). In order, and any failure exits non-zero:
     then 3 steps at B=128 x 10 s (CRUSE) and B=32 x 10 s (CRUSE+DF) with 2
     GRU forward and 2 GRU backward launches a step (and 1 + 1 deep-filter
     launches for CRUSE+DF), no other kernel and no plain version;
-18. times every training kernel and its plain version at stage 0, ``tail_bwd``
+19. times every training kernel and its plain version at stage 0, ``tail_bwd``
     and ``mid_bwd`` at the four stage shapes and d = 1, 2, 4, 8
     (``ops/tfcm_bwd_timing.py``: the wrapper by CUDA events, the kernels
     alone and the device launches a call from a profile, the bound; for
@@ -200,7 +218,7 @@ needed). In order, and any failure exits non-zero:
     at B=32 x 10 s (wall ms, peak memory) and a profile of the config-2 step
     (2 launches each of the resident GRU forward and backward kernels, none
     of the streamed backward, busy time, idle share);
-19. prints a JSON line of the kernels (each with its launches on the main
+20. prints a JSON line of the kernels (each with its launches on the main
     paths, its error, its time, the plain version's, the least time the card
     could take for its bytes or its multiply-adds, and the library call's time
     where there is one), then ``{"ok": true, "device": ...}``.
@@ -224,8 +242,10 @@ import numpy as np
 import torch
 
 import cruse_tpu_torch
+from cruse_tpu_torch.data.wavio import read_wav, write_wav
 from cruse_tpu_torch.dsp.stft import StftConfig, istft, stft
 from cruse_tpu_torch.infer.batch import BatchInferencer, InferencerConfig
+from cruse_tpu_torch.infer.server import MultiModelServer, StreamingServer, tree_leaves
 from cruse_tpu_torch.infer.streaming import StreamingEnhancer
 from cruse_tpu_torch.models import (
     CruseDfConfig, CruseDfNet, CruseNet, DfsmnConfig, DfsmnNet, MtfaaConfig, MtfaaNet, build_from_config)
@@ -272,7 +292,7 @@ SEED = 0
 KERNELS = ("gru_sequence", "gru_bwd", "deep_filter", "tfcm_eval", "tattn", "dw_stencil", "tfcm_bwd",
            "tattn_bwd")  # csrc/<name>.cu
 CONFIG1_GRU = (256, 1001, 4, 176)  # B, T, G, H of config 1's bottleneck banks
-STREAM_GRU = ((256, 1, 4, 176), (8, 1, 4, 176))  # config 3's streaming hop
+STREAM_GRU = ((256, 1, 4, 176), (8, 1, 4, 176), (16, 1, 4, 176))  # config 3's streaming hop; the server's pool
 RAGGED_GRU = ((3, 7, 4, 176), (3, 7, 3, 50))
 # a row tile with one live row; an odd split of the units; clusters of 4 (f32) and of 8 (bf16
 # weights; f32 takes the streamed kernel); a size only the streamed kernel takes
@@ -294,6 +314,8 @@ DF_SHAPES = ((64, 1001, 96, 2, 1, True, 161, False),  # config 3 offline
              (256, 1, 96, 2, 1, True, 161, True),  # config 3 streaming hop
              (64, 1, 257, 1, 1, True, 257, True),  # config 5b's streaming hop: every bin, with history
              (1, 1, 257, 1, 1, True, 257, True),  # config 5b's hop at B=1, as measure_rtf streams it
+             (16, 1, 96, 2, 1, True, 161, True),  # config 3's hop in the server's 16-slot pool
+             (8, 1, 257, 1, 1, True, 257, True),  # config 5b's hop in the server's 8-slot pool
              (3, 7, 24, 1, 1, True, 24, False),  # ragged
              (3, 3, 24, 2, 1, True, 24, True),  # T < 2 * t_dim, with history
              (3, 3, 24, 2, 1, True, 24, False),  # T < 2 * t_dim, zero fill
@@ -383,6 +405,14 @@ DFSMN_RTF_BATCH = 256
 MTFAA_STREAM_BATCH, MTFAA_STREAM_SECONDS, MTFAA_RTF_BATCH = 8, 4, 64
 HOP_DW_BATCHES = (1, MTFAA_STREAM_BATCH, MTFAA_RTF_BATCH)
 CHUNK_TOL = 2e-4  # two chunks carried through the state against one call: the JAX package's own bound
+# the server: one MultiModelServer with a config-3 pool and a config-5b pool, each session checked against
+# the same session streamed alone; sessions (count, shortest and longest seconds) of each pool
+SERVER_POOLS = {"cruse_df": 16, "mtfaa_5b": 8}  # slots
+SERVER_SESSIONS = {"cruse_df": (17, 0.5, 3.0), "mtfaa_5b": (9, 0.5, 1.0)}
+SERVER_LAUNCHES = {"cruse_df": {"gru_sequence": 2, "deep_filter": 1},  # a step of each pool
+                   "mtfaa_5b": {"dw_stencil_fwd": 24, "deep_filter": 1}}
+SERVER_RTF_SLOTS, SERVER_RTF_SECONDS = 256, 10  # config 3's pool timed
+SERVE_CLI_SESSIONS, SERVE_CLI_SECONDS = 10, 2  # the serve CLI's run, half on each model
 STEP_KERNELS_BEFORE = 6270  # device launches of a config-5b train step when a mid_bwd call made 8
 MID_LAUNCHES_PER_CALL = 2  # mid_tile_kernel and mid_finish_kernel
 DW_LAUNCHES_PER_CALL = {"forward": 1, "backward": 2}  # dw_fwd_kernel; dw_bwd_kernel and dw_finish_kernel
@@ -1229,6 +1259,188 @@ def check_mtfaa_stream(model, device, smi) -> tuple[int, int]:
     time_stream(enh, wav, seconds, "MTFAA config 5b", smi)
     launched = done["launches"]
     return launched["dw_stencil_fwd"], launched["deep_filter"]
+
+
+def single_stream(enh, wav: np.ndarray) -> np.ndarray:
+    """wav streamed alone (B=1, unprimed) zero-padded to whole hops and
+    trimmed to its length: what a server session returns."""
+    padded = np.pad(wav, (0, (-len(wav)) % enh.cfg.hop_length))
+    out, _ = enh.step_multi(enh.init_state(1), torch.from_numpy(padded[None]).to(enh.device))
+    return out[0, : len(wav)].cpu().numpy()
+
+
+def plain_streams(enh, wavs: list, set_plain_fn) -> list:
+    """The wavs streamed as one batch through the model's plain versions
+    (zero-padded to the longest, whole hops), each trimmed to its length."""
+    hop = enh.cfg.hop_length
+    longest = -(-max(len(w) for w in wavs) // hop) * hop
+    x = torch.from_numpy(np.stack([np.pad(w, (0, longest - len(w))) for w in wavs])).to(enh.device)
+    set_plain_fn(enh.model, True)
+    out, _ = enh.step_multi(enh.init_state(len(wavs)), x)
+    set_plain_fn(enh.model, False)
+    out = out.cpu().numpy()
+    return [out[i, : len(w)] for i, w in enumerate(wavs)]
+
+
+def check_server(cruse_df, mtfaa, device, smi) -> dict:
+    """One MultiModelServer with a config-3 pool (CRUSE+DF, 16 slots) and a
+    config-5b pool (8 slots) on the card: sessions of mixed priorities opened
+    in stages (more than a pool's slots, so slots are reused), fed a hop an
+    iteration, stepped with some iterations rationed to one dispatch, drained
+    and closed. Each step launches exactly its pools' kernels; each session
+    equals the same session streamed alone at B=1 with the kernels and, with
+    the plain versions, within WAV_TOL. Returns the launches of the server's
+    steps by kernel."""
+    t0 = time.perf_counter()
+    configs = {"cruse_df": (cruse_df, StftConfig(n_fft=320, hop_length=160, center=False), set_plain),
+               "mtfaa_5b": (mtfaa, StftConfig(n_fft=512, hop_length=256, center=False), set_plain_mtfaa)}
+    server = MultiModelServer()
+    for name, (model, cfg, _) in configs.items():
+        server.add_model(name, model, cfg, max_streams=SERVER_POOLS[name], device=device)
+    rng = np.random.default_rng(SEED + 19)
+    queue = []  # (pool, priority, wav), the pools' sessions interleaved
+    for p, (name, (count, shortest, longest)) in enumerate(SERVER_SESSIONS.items()):
+        lengths = (rng.uniform(shortest, longest, count) * SR).astype(int)
+        queue += [(name, i % 3, w) for i, w in enumerate(noisy_utterances(SEED + 20 + p, lengths))]
+    queue.sort(key=lambda q: rng.uniform())
+    sessions, live, opened = [], {}, {name: set() for name in configs}
+    launched = {name: 0 for name in COUNTERS}
+    wrong: list = []
+
+    def dispatch(call, *args):
+        """A server call; its launches must be its pools' steps' exactly."""
+        steps = {name: server.pool(name).steps for name in configs}
+        reset_counts()
+        res = call(*args)
+        got = counts()
+        taken = {name: server.pool(name).steps - steps[name] for name in configs}
+        want = {k: sum(n * SERVER_LAUNCHES[name].get(k, 0) for name, n in taken.items()) for k in got}
+        if got != want:
+            wrong.append((taken, got))
+        for k, v in got.items():
+            launched[k] += v
+        return res
+
+    def admit(limit: int):
+        while queue and len(live) < limit:
+            name, priority, wav = queue[0]
+            try:
+                handle = server.open(name, priority)
+            except RuntimeError:
+                return  # the pool is full
+            queue.pop(0)
+            opened[name].add(handle[1])
+            live[handle] = {"name": name, "wav": wav, "pos": 0, "outs": []}
+            sessions.append(live[handle])
+
+    admit(sum(SERVER_POOLS.values()) // 2)  # the first stage half fills the slots
+    iteration = 0
+    while live or queue:
+        for handle, s in live.items():
+            hop = configs[s["name"]][1].hop_length
+            server.feed(handle, s["wav"][s["pos"] : s["pos"] + hop])
+            s["pos"] = min(s["pos"] + hop, len(s["wav"]))
+        for handle, out in dispatch(server.step, 1 if iteration % 3 == 1 else None).items():
+            live[handle]["outs"].append(out)
+        for handle, s in list(live.items()):
+            if s["pos"] == len(s["wav"]) and not server.ready(handle):
+                s["outs"].append(dispatch(server.drain, handle))
+                server.close(handle)
+                del live[handle]
+        iteration += 1
+        admit(len(live) + 2 if iteration < 40 else len(queue) + len(live))  # then stages of two
+    torch.cuda.synchronize()
+    served_s = time.perf_counter() - t0
+    steps = {name: server.pool(name).steps for name in configs}
+    require(not wrong, f"server: every call launched its pools' steps' kernels exactly ({wrong[:3]})")
+    want = {k: sum(steps[name] * SERVER_LAUNCHES[name].get(k, 0) for name in configs) for k in launched}
+    require(launched == want, f"server: {steps} steps launched {launched} = {want} "
+            "(2 GRU + 1 deep filter a config-3 step, 24 stencil + 1 deep filter a config-5b step)")
+    for name in configs:
+        count = SERVER_SESSIONS[name][0]
+        require(len(opened[name]) < count, f"server pool {name}: {count} sessions in {len(opened[name])} "
+                f"slots of {SERVER_POOLS[name]}: slots reused")
+    for name, (model, cfg, plain_fn) in configs.items():
+        enh = StreamingEnhancer(model, cfg)
+        mine = [s for s in sessions if s["name"] == name]
+        plain = plain_streams(enh, [s["wav"] for s in mine], plain_fn)
+        worst, whole = [0.0, 0.0], True
+        for s, want_plain in zip(mine, plain):
+            got = np.concatenate(s["outs"])
+            whole &= got.shape == s["wav"].shape and bool(np.isfinite(got).all())
+            worst[0] = max(worst[0], float(np.abs(got - single_stream(enh, s["wav"])).max()))
+            worst[1] = max(worst[1], float(np.abs(got - want_plain).max()))
+        require(whole, f"server pool {name}: each session returns its input's length, finite")
+        require(max(worst) <= WAV_TOL, f"server pool {name}: {len(mine)} sessions vs each streamed alone at B=1 "
+                f"with the kernels, and with the plain versions: max-abs {worst[0]:.3g}, {worst[1]:.3g} <= {WAV_TOL}")
+        print(f"server pool {name}: {len(tree_leaves(server.pool(name)._state))} masked state leaves, "
+              f"{server.pool(name).steps} steps")
+    print(f"server check on {smi}: {len(sessions)} sessions in {iteration} iterations, {served_s:.2f} s; "
+          f"the phase {time.perf_counter() - t0:.2f} s")
+    return launched
+
+
+def time_server(model, device, smi) -> None:
+    """Config 3's pool at SERVER_RTF_SLOTS slots, every slot fed 10 s at
+    once and stepped until empty (aggregate x-realtime, wall ms a step),
+    ``StreamingEnhancer.run`` on the same audio, and a profile of 20 steps."""
+    t0 = time.perf_counter()
+    cfg = StftConfig(n_fft=320, hop_length=160, center=False)
+    server = StreamingServer(model, cfg, SERVER_RTF_SLOTS, device=device)
+    wav = np.random.default_rng(SEED).standard_normal((SERVER_RTF_SLOTS, SERVER_RTF_SECONDS * SR)) \
+        .astype(np.float32) * 0.1
+    sids = [server.open() for _ in range(SERVER_RTF_SLOTS)]
+    for sid in sids:
+        server.feed(sid, wav[sid])
+    server.step()  # warm-up
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    steps = 0
+    while server.step():
+        steps += 1
+    seconds = time.perf_counter() - t1
+    audio = SERVER_RTF_SLOTS * steps * cfg.hop_length / SR
+    print(f"server config 3, {SERVER_RTF_SLOTS} slots x {SERVER_RTF_SECONDS} s on {smi}: {steps} steps in "
+          f"{seconds * 1e3:.1f} ms = {seconds / steps * 1e3:.4f} ms a step = {audio / seconds:.1f}x realtime "
+          f"aggregate; {len(tree_leaves(server._state))} masked state leaves")
+    x = torch.from_numpy(wav).to(device)
+    run_s = stream_seconds(server.enhancer, x)
+    audio = SERVER_RTF_SLOTS * ((x.shape[-1] - (cfg.n_fft - cfg.hop_length)) // cfg.hop_length) * cfg.hop_length / SR
+    print(f"StreamingEnhancer.run config 3, B={SERVER_RTF_SLOTS} x {SERVER_RTF_SECONDS} s on {smi} (the same "
+          f"call): {run_s * 1e3:.1f} ms = {audio / run_s:.1f}x realtime")
+    for sid in sids:
+        server.feed(sid, wav[sid, : 45 * cfg.hop_length])
+    profile_calls(server.step, 20, f"config-3 server step, {SERVER_RTF_SLOTS} slots (a call is one step)")
+    print(f"server timing phase: {time.perf_counter() - t0:.2f} s")
+
+
+def check_serve_cli(smi) -> None:
+    """The serve CLI as a subprocess, config 1 and config 5b registered,
+    SERVE_CLI_SESSIONS sessions of 2 s (half each, the config-1 ones at a
+    higher priority), --realtime --max_dispatches 1: it must exit 0 with
+    every output as long as its input; prints its QoS line."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        wavs = noisy_utterances(SEED + 21, (SERVE_CLI_SECONDS * SR + 77,) * SERVE_CLI_SESSIONS)
+        for i, w in enumerate(wavs):
+            write_wav(str(tmp / ("base" if i % 2 else "m5b") / f"s{i}.wav"), w, SR)
+        cmd = [sys.executable, "-m", "cruse_tpu_torch.infer.serve",
+               "-M", f"base={ROOT / 'configs/cruse_base.toml'}", "-M", f"m5b={ROOT / 'configs/mtfaa_windowed.toml'}",
+               "-I", f"{tmp / 'base'}@base:1", "-I", f"{tmp / 'm5b'}@m5b:0", "-O", str(tmp / "out"),
+               "--realtime", "--max_dispatches", "1"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+        seconds = time.perf_counter() - t0
+        require(proc.returncode == 0, f"serve CLI exits 0 ({proc.returncode}; {proc.stderr[-1500:]})")
+        lengths = {f.stem: read_wav(str(f))[0].shape[-1] for f in (tmp / "out").glob("*.wav")}
+        require(lengths == {f"s{i}": len(w) for i, w in enumerate(wavs)},
+                f"serve CLI wrote all {len(wavs)} sessions, each as long as its input")
+        lines = [line for line in proc.stdout.splitlines() if "realtime" in line]
+        require(any("realtime QoS" in line for line in lines), "serve CLI printed its realtime QoS line")
+    for line in lines:
+        print(f"serve CLI on {smi} ({seconds:.1f} s with start-up): {line}")
 
 
 def check_tfcm_block_path(device) -> int:
@@ -2276,6 +2488,13 @@ def main() -> int:
     for row in hop_rows:
         print(f"at the config-5b hop (B=1, T=1) on {smi}: {describe_dw(row)}")
 
+    cruse_df = build_cruse_df(device)
+    server_launches = check_server(cruse_df, mtfaa, device, smi)
+    time_server(cruse_df, device, smi)
+    del cruse_df
+    torch.cuda.empty_cache()
+    check_serve_cli(smi)
+
     del inferencer, mtfaa
     torch.cuda.empty_cache()
 
@@ -2345,19 +2564,22 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         {**entry("gru_sequence", "gru_sequence", "gru_kernel.py:82",
-                 launches + stream_gru + auto_gru + cruse_launches["gru_sequence"] + cruse_df_launches["gru_sequence"],
+                 launches + stream_gru + auto_gru + cruse_launches["gru_sequence"] + cruse_df_launches["gru_sequence"]
+                 + server_launches["gru_sequence"],
                  gru_err, (kernel_ms, plain_ms), gru_bound, lib["gru"]),
-         "resident_ms": gru_times["f32"][0], "streamed_ms": gru_times["f32"][1]},
+         "resident_ms": gru_times["f32"][0], "streamed_ms": gru_times["f32"][1],
+         "server_launches": server_launches["gru_sequence"]},
         {"name": "gru_sequence_bwd", "route": "cuda", "source": "cruse_tpu_torch/ops/csrc/gru_bwd.cu",
          "replaces": "cruse_tpu/nn/gru.py:30 (no TPU kernel: the JAX step differentiates gru_scan)",
          "launches": cruse_launches["gru_sequence_bwd"] + cruse_df_launches["gru_sequence_bwd"],
          "max_abs_err": gru_bwd_err, **gru_bwd_times},
         {**entry("deep_filter", "deep_filter", "deep_filter_kernel.py:91",
                  stream_df + auto_df + mtfaa_df + train_launches["deep_filter"] + cruse_df_launches["deep_filter"]
-                 + stream_df_5b,
+                 + stream_df_5b + server_launches["deep_filter"],
                  df_err,
                  (df_fwd["wrapper_ms"], df_fwd["plain_ms"]), {key: df_fwd[key] for key in ("bound_ms", "bound_by")},
                  None),
+         "server_launches": server_launches["deep_filter"],
          "stages": [{key: row[key] for key in DF_STAGE_KEYS} for row in df_rows if row["kind"] == "forward"]},
         {"name": "deep_filter_bwd", "route": "cuda", "source": "cruse_tpu_torch/ops/csrc/deep_filter.cu",
          "replaces": "cruse_tpu/models/deep_filter.py:94 (no TPU kernel: the JAX step differentiates the plain "
@@ -2374,7 +2596,9 @@ def main() -> int:
                  times["tattn"], {key: attn_row[key] for key in ("bound_ms", "bound_by")}, attn_row["library_ms"]),
          "stages": [{key: row[key] for key in STAGE_KEYS} for row in times["tattn_stages"]]},
         {**train_entry("dw_stencil_fwd", "dw_stencil", "dw_kernel.py:154",
-                       train_launches["dw_stencil_fwd"] + stream_dw, max(train_errs["dw_fwd"], hop_dw_err)),
+                       train_launches["dw_stencil_fwd"] + stream_dw + server_launches["dw_stencil_fwd"],
+                       max(train_errs["dw_fwd"], hop_dw_err)),
+         "server_launches": server_launches["dw_stencil_fwd"],
          "hop_stages": [{key: row[key] for key in DW_STAGE_KEYS} for row in hop_rows if row["kind"] == "forward"]},
         train_entry("dw_stencil_bwd", "dw_stencil", "dw_kernel.py:197", pallas_launches["dw_stencil_bwd"],
                     train_errs["dw_bwd"]),

@@ -1,1 +1,1 @@
-"""Data IO of the port: wav read/write."""
+"""Data IO of the port: wav read/write and manifests."""

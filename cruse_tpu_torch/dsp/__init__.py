@@ -1,1 +1,1 @@
-"""Signal processing of the port: windows and STFT/iSTFT."""
+"""Signal processing of the port: windows, STFT/iSTFT, mask post-filters and chunk stitching."""

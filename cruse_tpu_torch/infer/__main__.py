@@ -1,7 +1,8 @@
 """Enhancement CLI of the port:
 
     python -m cruse_tpu_torch.infer -C cfg.toml -I wav_dir -O out_dir \\
-        [--weights w.npz] [--seed N] [--batch N] [--device cpu]
+        [--weights w.npz] [--seed N] [--batch N | --chunk_seconds S] \\
+        [--postfilter sin|envelope] [--device cpu]
     python -m cruse_tpu_torch.infer -C cfg.toml -I wav_dir -O out_dir \\
         --streaming [--hops_per_step k] [--weights w.npz] [--device cpu]
 
@@ -11,6 +12,11 @@ without ``--weights``, are made from ``--seed``. The offline mode uses the
 config's ``[inferencer] type`` (``mag_to_mag``, or ``auto``, the default as in
 ``tools/infer.py``); ``--batch N``
 (N > 1) enhances N utterances per forward, otherwise one per forward.
+``--postfilter sin|envelope`` overrides the config's ``[inferencer]
+postfilter`` (``mag_to_mag`` applies it to the mask; ``auto`` ignores it).
+``--chunk_seconds S`` enhances each file, one per forward, as 50 %
+overlapping chunks of S seconds (``BatchInferencer.enhance_long``); it takes
+precedence over ``--batch``.
 ``--streaming`` runs each file as one stream (B=1) frame by frame through
 ``StreamingEnhancer`` with a ``center=False`` STFT, logging the per-hop
 real-time factor; ``--hops_per_step k`` feeds k hops per call. It streams
@@ -44,10 +50,15 @@ def main(argv=None):
     parser.add_argument("--hops_per_step", type=int, default=1,
                         help="Streaming: hops per step_multi call (k > 1 adds (k-1)*hop/sr "
                              "seconds of latency).")
+    parser.add_argument("--postfilter", choices=["sin", "envelope"], default=None,
+                        help="Mask post-filter of mag_to_mag (overrides [inferencer] postfilter).")
+    parser.add_argument("--chunk_seconds", type=float, default=0.0,
+                        help="Long-audio mode: each file as 50%% overlapping chunks of this many "
+                             "seconds, stitched (one file per forward; takes precedence over --batch).")
     args = parser.parse_args(argv)
-    if args.streaming and args.batch > 1:
+    if args.streaming and (args.batch > 1 or args.chunk_seconds > 0):
         raise SystemExit("--streaming is the one-stream low-latency path; it does not "
-                         "compose with --batch")
+                         "compose with --batch or --chunk_seconds")
 
     import torch
 
@@ -85,14 +96,34 @@ def main(argv=None):
         sr=sr,
         stft=StftConfig(n_fft=int(ac["n_fft"]), hop_length=int(ac["hop_length"])),
         output_dir=args.output_dir,
-        postfilter=config.get("inferencer", {}).get("postfilter"),
+        postfilter=args.postfilter or config.get("inferencer", {}).get("postfilter"),
     )
     inferencer = BatchInferencer(model, icfg, device)
-    if args.batch > 1:
+    if args.chunk_seconds > 0:
+        long_audio(inferencer, files, args.chunk_seconds, sr)
+    elif args.batch > 1:
         inferencer.run_batched([read_wav(str(f), sr=sr)[0] for f in files],
                                [f.stem for f in files], batch_size=args.batch)
     else:
         inferencer({"noisy": read_wav(str(f), sr=sr)[0][None], "name": [f.stem]} for f in files)
+
+
+def long_audio(inferencer, files, chunk_seconds: float, sr: int) -> None:
+    """Each file through ``enhance_long``, one file per forward."""
+    import time
+
+    import torch
+
+    from cruse_tpu_torch.data.wavio import read_wav
+    from cruse_tpu_torch.utils.config import log
+
+    for f in files:
+        wav = torch.from_numpy(read_wav(str(f), sr=sr)[0][None])
+        t1 = time.perf_counter()
+        out = inferencer.enhance_long(wav, chunk_seconds=chunk_seconds)[0].cpu().numpy()
+        rtf = (time.perf_counter() - t1) / (len(out) / sr)
+        log(f"{f.stem} ({len(out) / sr:.1f}s in {chunk_seconds:g}s chunks), rtf: {rtf}")
+        inferencer._emit(f.stem, out, rtf, write=True)
 
 
 def stream(model, files, args, ac: dict, sr: int, device) -> None:

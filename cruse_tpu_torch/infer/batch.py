@@ -10,12 +10,15 @@ Enhances (noisy, name) pairs with one of two strategies:
   CRUSE+DF, whose deep filter runs on the low bins; MTFAA, which emits the
   enhanced complex spectrum).
 
+``mag_to_mag`` applies the optional mask post-filter (``sin`` or
+``envelope``, ``dsp/mask.py``); ``auto`` ignores it, as the JAX package
+does, and says so once. ``enhance_long`` enhances long audio as 50 %
+overlapping chunks, one strategy call a chunk, stitched by ``overlap_cat``.
 Outputs are scaled to int16 at 0.8 of full scale, logged with their
 real-time factor and optionally written as wavs.
 
 Not ported yet, and refused rather than ignored: the complex and
-multi-channel strategies, mask post-filters, the device mesh,
-``enhance_long`` and int8 weights.
+multi-channel strategies, the device mesh and int8 weights.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ import numpy as np
 import torch
 
 from cruse_tpu_torch.data.wavio import to_int16_scaled, write_wav
+from cruse_tpu_torch.dsp.features import overlap_cat
+from cruse_tpu_torch.dsp.mask import envelope_postfilter, postfilter_sin
 from cruse_tpu_torch.dsp.stft import StftConfig, istft, istft_mag_phase, stft
 from cruse_tpu_torch.models.cruse_df import CruseDfNet
 from cruse_tpu_torch.models.mtfaa import MtfaaNet
@@ -41,7 +46,10 @@ class InferencerConfig:
     sr: int = 16000
     stft: StftConfig = StftConfig(n_fft=320, hop_length=160)
     output_dir: str = "enhanced"
-    postfilter: Optional[str] = None
+    postfilter: Optional[str] = None  # mask post-filter of mag_to_mag: "sin" or "envelope"
+
+
+POSTFILTERS = {"sin": postfilter_sin, "envelope": envelope_postfilter}
 
 
 class BatchInferencer:
@@ -55,8 +63,10 @@ class BatchInferencer:
         if config.type not in ("mag_to_mag", "auto"):
             raise NotImplementedError(f"inferencer strategy {config.type!r} is not ported "
                                       "(ported: mag_to_mag, auto)")
-        if config.postfilter is not None:
-            raise NotImplementedError(f"mask post-filter {config.postfilter!r} is not ported")
+        if config.postfilter is not None and config.postfilter not in POSTFILTERS:
+            raise ValueError(f"unknown postfilter {config.postfilter!r} (known: {', '.join(POSTFILTERS)})")
+        if config.postfilter is not None and config.type == "auto":
+            log(f"postfilter {config.postfilter!r} is ignored by the auto strategy (mag_to_mag applies it)")
         if config.type == "mag_to_mag" and isinstance(model, (CruseDfNet, MtfaaNet)):
             raise ValueError(f"mag_to_mag takes a mask model; {type(model).__name__} runs "
                              "with type='auto'")
@@ -76,6 +86,8 @@ class BatchInferencer:
         """[B, L] noisy -> [B, L] enhanced: magnitude mask, noisy phase."""
         spec = stft(noisy, self.cfg.stft)
         mask, _ = self.model(self.model.compress(spec.abs()))
+        if self.cfg.postfilter is not None:
+            mask = POSTFILTERS[self.cfg.postfilter](mask)
         return istft_mag_phase(spec.abs() * mask, spec.angle(), self.cfg.stft,
                                length=noisy.shape[-1])
 
@@ -87,6 +99,27 @@ class BatchInferencer:
         enhanced_ri = self._forward(torch.stack([spec.real, spec.imag], dim=-1))
         return istft((enhanced_ri[..., 0], enhanced_ri[..., 1]), self.cfg.stft,
                      length=noisy.shape[-1])
+
+    @torch.inference_mode()
+    def enhance_long(self, noisy: torch.Tensor, chunk_seconds: float = 30.0) -> torch.Tensor:
+        """[B, L] -> [B, L] with bounded memory: the strategy on 50 %
+        overlapping chunks of ``chunk_seconds`` (cut to an even number of
+        hops), the audio zero-padded to whole half-chunks, the chunks stitched
+        by ``overlap_cat`` (their shared halves averaged) and trimmed to L.
+        Audio no longer than a chunk takes one strategy call."""
+        chunk = int(chunk_seconds * self.cfg.sr)
+        chunk -= chunk % (2 * self.cfg.stft.hop_length)  # even and hop-aligned
+        if chunk <= 0:
+            raise ValueError(f"chunk_seconds={chunk_seconds} is shorter than two hops")
+        noisy = noisy.to(self.device)
+        length = noisy.shape[-1]
+        if length <= chunk:
+            return self._strategy(noisy)
+        half = chunk // 2
+        num_halves = -(-(length - chunk) // half)
+        noisy = torch.nn.functional.pad(noisy, (0, num_halves * half + chunk - length))
+        outs = [self._strategy(noisy[..., i * half : i * half + chunk]) for i in range(num_halves + 1)]
+        return overlap_cat(outs)[..., :length]
 
     def _enhance(self, noisy: np.ndarray) -> tuple[np.ndarray, float]:
         """Enhance on the device; returns (enhanced, wall seconds)."""

@@ -126,16 +126,19 @@ def test_inferencer_defaults_to_the_card(monkeypatch, rng):
     assert BatchInferencer(model, InferencerConfig(), device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("cfg", [
-    dict(type="auto"), dict(type="complex_mask"), dict(type="multi_channel_mag_to_mag"),
-    dict(postfilter="sin"),
+@pytest.mark.parametrize("cfg,error", [
+    (dict(type="auto"), NotImplementedError), (dict(type="complex_mask"), NotImplementedError),
+    (dict(type="multi_channel_mag_to_mag"), NotImplementedError), (dict(postfilter="wiener"), ValueError),
 ], ids=["auto", "complex_mask", "multi_channel", "postfilter"])
-def test_unported_strategies_are_refused(cfg):
+def test_unported_strategies_are_refused(cfg, error):
     """``auto`` is ported for CRUSE and CRUSE+DF (tests/test_torch_cruse_df.py);
-    for a model family whose forward adapter is not ported it is refused."""
+    for a model family whose forward adapter is not ported it is refused. The
+    post-filters ``sin`` and ``envelope`` are ported
+    (tests/test_torch_infer_long.py); any other name is refused, as the JAX
+    package refuses it."""
     model = CruseNet(CruseConfig(**SMALL))
     if cfg.get("type") == "auto":
         BatchInferencer(model, InferencerConfig(**cfg), device="cpu")
         model = torch.nn.Linear(2, 2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error):
         BatchInferencer(model, InferencerConfig(**cfg), device="cpu")
