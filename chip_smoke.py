@@ -178,7 +178,7 @@ needed). In order, and any failure exits non-zero:
     1e-4 of its largest value (f32 sums over 1,001 steps); checks that a
     forward kernel's launcher refuses tensors that want a gradient; then drives
     config 2's CRUSE train step (``configs/cruse_base.toml``) and config 3's
-    CRUSE+DF (``CruseDfConfig()``) as in 16: the first batch's losses,
+    CRUSE+DF (``CruseDfConfig()``) as in 17: the first batch's losses,
     gradients (float64, leaf by leaf) and BatchNorm statistics at B=8 x 10 s,
     then 3 steps at B=128 x 10 s (CRUSE) and B=32 x 10 s (CRUSE+DF) with 2
     GRU forward and 2 GRU backward launches a step (and 1 + 1 deep-filter
@@ -218,7 +218,24 @@ needed). In order, and any failure exits non-zero:
     at B=32 x 10 s (wall ms, peak memory) and a profile of the config-2 step
     (2 launches each of the resident GRU forward and backward kernels, none
     of the streamed backward, busy time, idle share);
-20. prints a JSON line of the kernels (each with its launches on the main
+20. drives the deployment path: config 1 (``configs/cruse_base.toml``, seeded
+    weights and BatchNorm statistics) exported offline at B=16 x 10 s on the
+    card in float32 and int8 (``infer/export.py``, ``nn/quantize.py``),
+    saved and loaded (``infer/artifact.py``): 2 resident GRU launches a call
+    and nothing else, within 1e-5 of eager ``mag_to_mag`` on the same
+    (dequantized) weights, float32 within 1e-4 of the plain recurrence, int8
+    against float32 above 25 dB; config 3 (``CruseDfConfig()``) exported as
+    the streaming step at B=1 and B=16 (and int8 at B=1), primed and run 100
+    hops against ``StreamingEnhancer`` within 1e-5, exactly 2 GRU and 1
+    deep-filter launch a hop; times a call and a B=1 hop (the eager hop with
+    and without the custom ops' dispatch, in turns), file sizes, and profiles
+    a float32 and an int8 artifact hop (the launches the in-program
+    dequantize adds); then five fresh CLI processes at once: ``run_exported``
+    on the config-1 artifact (each wav as the artifact enhances it here),
+    ``infer --quantize int8`` (config 1) and ``serve --quantize int8``
+    (config 1 with 5b), each against the same run on the dequantized weights
+    within 1e-6;
+21. prints a JSON line of the kernels (each with its launches on the main
     paths, its error, its time, the plain version's, the least time the card
     could take for its bytes or its multiply-adds, and the library call's time
     where there is one), then ``{"ok": true, "device": ...}``.
@@ -228,8 +245,10 @@ in full float32.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -242,9 +261,14 @@ import numpy as np
 import torch
 
 import cruse_tpu_torch
-from cruse_tpu_torch.data.wavio import read_wav, write_wav
+import cruse_tpu_torch.ops.deep_filter_kernel as deep_filter_kernel
+import cruse_tpu_torch.ops.gru_kernel as gru_kernel
+from cruse_tpu_torch.data.wavio import read_wav, to_int16_scaled, write_wav
 from cruse_tpu_torch.dsp.stft import StftConfig, istft, stft
+from cruse_tpu_torch.infer import artifact as artifact_lib
 from cruse_tpu_torch.infer.batch import BatchInferencer, InferencerConfig
+from cruse_tpu_torch.infer.export import export_offline, export_streaming
+from cruse_tpu_torch.infer.serve import build_model as serve_build_model
 from cruse_tpu_torch.infer.server import MultiModelServer, StreamingServer, tree_leaves
 from cruse_tpu_torch.infer.streaming import StreamingEnhancer
 from cruse_tpu_torch.models import (
@@ -253,6 +277,8 @@ from cruse_tpu_torch.models.cruse_df import apply_cruse_df
 from cruse_tpu_torch.models.mtfaa import (
     AxialSelfAttention, BatchNormC, PReLUc, TFCM, TFCMBlock)
 from cruse_tpu_torch.nn.gru import GroupedGRULayer
+from cruse_tpu_torch.nn.quantize import (
+    attach_int8, dequantize_tree, int8_state_dict, load_dequantized, quantize_variables, report_line)
 from cruse_tpu_torch.ops import _build
 from cruse_tpu_torch.ops.asa_kernel import (
     _launch_dkv, _launch_dq, _launch_fwd, band_mask, flash_tattn_tm, tattn_bwd_reference, tattn_dkv, tattn_dkv_info,
@@ -286,6 +312,7 @@ from cruse_tpu_torch.ops.tfcm_train import PARAM_NAMES, tfcm_block_reference, tf
 from cruse_tpu_torch.train.step import (
     StepConfig, init_train_state, make_loss_gradients, make_train_step)
 from cruse_tpu_torch.utils.config import load_config
+from cruse_tpu_torch.utils.weights import flax_from_state_dict, save_flax_npz
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -413,6 +440,15 @@ SERVER_LAUNCHES = {"cruse_df": {"gru_sequence": 2, "deep_filter": 1},  # a step 
                    "mtfaa_5b": {"dw_stencil_fwd": 24, "deep_filter": 1}}
 SERVER_RTF_SLOTS, SERVER_RTF_SECONDS = 256, 10  # config 3's pool timed
 SERVE_CLI_SESSIONS, SERVE_CLI_SECONDS = 10, 2  # the serve CLI's run, half on each model
+# the deployment path: config 1's offline artifact (float32 and int8) at B=16 x 10 s; config 3's streaming
+# artifact at B=1 and B=16 over 100 hops (and int8 at B=1); the CLIs' runs on utterances of 2 s
+DEPLOY_BATCH, DEPLOY_SECONDS = 16, 10
+DEPLOY_STREAM_BATCHES, DEPLOY_HOPS = (1, 16), 100
+DEPLOY_TOL = 1e-5  # an artifact against the eager path on the same weights
+INT8_SNR_DB = 25.0  # int8 against float32 waveforms (the JAX package's tests/test_quantize.py bound)
+CLI_TOL = 1e-6  # --quantize int8 against the same run on the dequantized weights, in floats
+WAV_STEP = 1.0 / 32768  # the CLIs' int16 wavs of one run in two processes: cuDNN's algorithms vary by a rounding
+CLI_FILES, CLI_SECONDS = 4, 2
 STEP_KERNELS_BEFORE = 6270  # device launches of a config-5b train step when a mid_bwd call made 8
 MID_LAUNCHES_PER_CALL = 2  # mid_tile_kernel and mid_finish_kernel
 DW_LAUNCHES_PER_CALL = {"forward": 1, "backward": 2}  # dw_fwd_kernel; dw_bwd_kernel and dw_finish_kernel
@@ -1441,6 +1477,329 @@ def check_serve_cli(smi) -> None:
         require(any("realtime QoS" in line for line in lines), "serve CLI printed its realtime QoS line")
     for line in lines:
         print(f"serve CLI on {smi} ({seconds:.1f} s with start-up): {line}")
+
+
+def snr_db(ref, test) -> float:
+    ref, test = ref.double(), test.double()
+    return float(10 * torch.log10((ref ** 2).sum() / ((ref - test) ** 2).sum().clamp_min(1e-300)))
+
+
+def clone_model(model, device, state=None, keep_int8: bool = False):
+    """A copy of ``model`` on ``device`` with its weights, or with ``state``'s
+    int8 ones loaded dequantized (eager serving) or kept as int8 codes and
+    scales (``attach_int8``, what an int8 artifact is exported from)."""
+    clone = type(model)(model.config)
+    clone.load_state_dict(model.state_dict())
+    if state is not None:
+        (attach_int8 if keep_int8 else load_dequantized)(clone, state)
+    return clone.to(device).eval()
+
+
+@contextlib.contextmanager
+def direct_forwards():
+    """The two wrappers calling their launchers without the custom ops'
+    dispatch, as they did before the ops were registered."""
+    saved = gru_kernel._forward, deep_filter_kernel._forward
+    gru_kernel._forward, deep_filter_kernel._forward = gru_kernel._forward_impl, deep_filter_kernel._forward_impl
+    try:
+        yield
+    finally:
+        gru_kernel._forward, deep_filter_kernel._forward = saved
+
+
+def require_launches(what: str, gru: int, df: int) -> None:
+    """The counters since ``reset_counts``: exactly ``gru`` launches of the
+    resident GRU kernel and ``df`` of the deep filter's, and nothing else."""
+    torch.cuda.synchronize()
+    got = counts()
+    want = {**{name: 0 for name in got}, "gru_sequence": gru, "deep_filter": df}
+    require(got == want and gru_sequence.resident_launches == gru,
+            f"{what}: launches {({k: v for k, v in got.items() if v})} = {gru} resident GRU, {df} deep filter")
+
+
+def hop_ms(step, state, hops) -> float:
+    """Wall ms a hop of ``step`` over ``hops`` (a list of [B, hop] tensors),
+    synchronised at the end, after a warm-up hop."""
+    _, state = step(state, hops[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for hop in hops:
+        _, state = step(state, hop)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / len(hops) * 1e3
+
+
+def dispatch_us(device, smi, calls: int = 1000) -> None:
+    """Host µs a call of ``gru_sequence`` and ``deep_filter`` at the config-3
+    B=1 hop's shapes (G=4, H=176; 96 bins, 15 taps, a history), through the
+    custom op and with the launcher called directly, in turns (each run of
+    ``calls`` calls synchronised at its end): the op's dispatch cost."""
+    gru_args = gru_inputs(1, 1, 4, 176, device, SEED)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    spec = torch.randn(1, 1, 96, dtype=torch.complex64, device=device, generator=gen)
+    coefs = torch.randn(1, 1, 96, 15, 2, device=device, generator=gen)
+    history = torch.randn(1, 4, 96, dtype=torch.complex64, device=device, generator=gen)
+    fns = {"gru_sequence": lambda: gru_sequence(*gru_args),
+           "deep_filter": lambda: deep_filter(spec, coefs, 2, 1, True, history)}
+    for name, fn in fns.items():
+        times = {"custom op": [], "direct": []}
+        for mode in ("custom op", "direct", "direct", "custom op"):
+            with torch.inference_mode(), direct_forwards() if mode == "direct" else contextlib.nullcontext():
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                times[mode].append((time.perf_counter() - t0) / calls * 1e6)
+        print(f"{name} at the config-3 B=1 hop on {smi}: " + "; ".join(
+            f"{mode} " + ", ".join(f"{t:.2f}" for t in ts) + " us a call" for mode, ts in times.items()))
+
+
+def check_offline_artifacts(device, smi, tmp: Path) -> tuple[int, Path]:
+    """Config 1 (``configs/cruse_base.toml``, seeded weights and BatchNorm
+    statistics) exported offline at B=16 x 10 s on the card, float32 and
+    int8, saved and loaded: each call 2 resident GRU launches and nothing
+    else; each within DEPLOY_TOL of eager ``mag_to_mag`` on the same
+    (dequantized) weights, float32 within WAV_TOL of the plain recurrence,
+    int8 against float32 above INT8_SNR_DB; times and file sizes. Returns
+    the GRU launches and the float32 artifact's path."""
+    config = load_config(str(ROOT / "configs" / "cruse_base.toml"))
+    gen = torch.Generator().manual_seed(SEED + 30)
+    model = build_from_config(config["model"], generator=gen)
+    seed_batch_norm_stats(model, gen)
+    ac = config["acoustics"]
+    icfg = InferencerConfig(type=config["inferencer"]["type"], sr=int(ac["sr"]),
+                            stft=StftConfig(n_fft=int(ac["n_fft"]), hop_length=int(ac["hop_length"])))
+    state, report = int8_state_dict(model)
+    print(f"config 1: {report_line(report)}")
+    length = DEPLOY_SECONDS * SR
+    x = torch.from_numpy(np.stack(noisy_utterances(SEED + 31, (length,) * DEPLOY_BATCH))).to(device)
+    outs, launches = {}, 0
+    for quant in (None, "int8"):
+        what = f"config-1 offline artifact ({quant or 'fp32'}, B={DEPLOY_BATCH} x {DEPLOY_SECONDS} s)"
+        t0 = time.perf_counter()
+        program = export_offline(clone_model(model, device, state if quant else None, keep_int8=True), icfg,
+                                 DEPLOY_BATCH, length, device)
+        path = tmp / f"config1_{quant or 'fp32'}.zip"
+        artifact_lib.save_offline(str(path), program, {"model": config["model"]["path"], "sr": SR,
+                                                       "n_fft": icfg.stft.n_fft, "hop_length": icfg.stft.hop_length,
+                                                       "batch": DEPLOY_BATCH, "length": length, "quantized": quant,
+                                                       "device": str(device)})
+        export_s = time.perf_counter() - t0
+        art = artifact_lib.load(str(path), device)
+        params = sum(t.numel() * t.element_size() for t in art.program.state_dict.values())
+        reset_counts()
+        got = art.enhance(x)
+        require_launches(what, 2, 0)
+        launches += 2
+        require(tuple(got.shape) == tuple(x.shape) and bool(torch.isfinite(got).all()), f"{what}: finite, {tuple(x.shape)}")
+        eager = BatchInferencer(clone_model(model, device, state if quant else None), icfg, device)
+        err = float((got - eager.mag_to_mag(x)).abs().max())
+        require(err <= DEPLOY_TOL, f"{what} vs eager mag_to_mag on the same weights: max-abs {err:.3g} <= {DEPLOY_TOL}")
+        if quant is None:
+            set_recurrence(eager.model, gru_sequence_reference)
+            plain_err = float((got - eager.mag_to_mag(x)).abs().max())
+            set_recurrence(eager.model, gru_sequence)
+            require(plain_err <= WAV_TOL, f"{what} vs the plain recurrence: max-abs {plain_err:.3g} <= {WAV_TOL}")
+        art_s, eager_s = enhancement_seconds(art.enhance, x), enhancement_seconds(eager.mag_to_mag, x)
+        print(f"{what} on {smi}: {art_s * 1e3:.3f} ms a call, eager mag_to_mag {eager_s * 1e3:.3f} ms; file "
+              f"{path.stat().st_size / 1e6:.3f} MB, parameters {params / 1e6:.3f} MB; export and save {export_s:.1f} s")
+        outs[quant] = got
+    snr = snr_db(outs[None], outs["int8"])
+    require(snr > INT8_SNR_DB, f"config-1 int8 artifact against float32: {snr:.2f} dB > {INT8_SNR_DB} dB")
+    return launches, tmp / "config1_fp32.zip"
+
+
+def check_streaming_artifacts(device, smi, tmp: Path) -> tuple[int, int]:
+    """Config 3 (``CruseDfConfig()``, seeded) exported as the streaming step on
+    the card at B=1 and B=16, saved and loaded, primed and run DEPLOY_HOPS
+    hops against ``StreamingEnhancer`` on the same hops (within DEPLOY_TOL),
+    exactly 2 resident GRU and 1 deep-filter launch a hop; the same for an
+    int8 artifact at B=1 against the eager path on the dequantized weights.
+    Times a B=1 hop of the artifact and of the eager path with the custom ops
+    and without them (the wrappers calling the launchers directly), in turns,
+    and profiles a float32 and an int8 artifact hop. Returns the (GRU, deep
+    filter) launches."""
+    model = build_cruse_df(device)
+    cfg = StftConfig(n_fft=320, hop_length=160, center=False)
+    keep, hop = cfg.n_fft - cfg.hop_length, cfg.hop_length
+    state, report = int8_state_dict(model)
+    print(f"config 3: {report_line(report)}")
+    gru_total = df_total = 0
+    arts = {}
+    for b, quant in [(b, None) for b in DEPLOY_STREAM_BATCHES] + [(1, "int8")]:
+        what = f"config-3 streaming artifact ({quant or 'fp32'}, B={b}, {DEPLOY_HOPS} hops)"
+        t0 = time.perf_counter()
+        program, init = export_streaming(clone_model(model, device, state if quant else None, keep_int8=True), cfg,
+                                         b, device)
+        path = tmp / f"config3_{quant or 'fp32'}_b{b}.zip"
+        artifact_lib.save_streaming(str(path), program, init, {"model": "CruseDfConfig()", "sr": SR, "n_fft": cfg.n_fft,
+                                                               "hop_length": hop, "batch": b, "quantized": quant,
+                                                               "device": str(device)})
+        export_s = time.perf_counter() - t0
+        art = artifact_lib.load(str(path), device)
+        enh = StreamingEnhancer(clone_model(model, device, state if quant else None), cfg)
+        wav = torch.from_numpy(np.stack(noisy_utterances(SEED + 32 + b, (keep + DEPLOY_HOPS * hop,) * b))).to(device)
+        hops = [wav[:, keep + i * hop : keep + (i + 1) * hop] for i in range(DEPLOY_HOPS)]
+        a_state, e_state = art.prime(art.init_state(), wav[:, :keep]), enh.prime(enh.init_state(b), wav[:, :keep])
+        reset_counts()
+        got = []
+        for h in hops:
+            out, a_state = art.step(a_state, h)
+            got.append(out)
+        require_launches(what, 2 * DEPLOY_HOPS, DEPLOY_HOPS)
+        gru_total, df_total = gru_total + 2 * DEPLOY_HOPS, df_total + DEPLOY_HOPS
+        want = []
+        for h in hops:
+            out, e_state = enh.step(e_state, h)
+            want.append(out)
+        got, want = torch.cat(got, -1), torch.cat(want, -1)
+        err = float((got - want).abs().max())
+        require(bool(torch.isfinite(got).all()) and err <= DEPLOY_TOL,
+                f"{what} vs StreamingEnhancer on the same weights: max-abs {err:.3g} <= {DEPLOY_TOL}")
+        print(f"{what}: file {path.stat().st_size / 1e6:.3f} MB; export and save {export_s:.1f} s")
+        if b == 1:
+            arts[quant] = (art, enh, a_state, e_state, hops)
+    art, enh, a_state, e_state, hops = arts[None]
+
+    def direct_hop_ms():
+        with direct_forwards():
+            return hop_ms(enh.step, e_state, hops)
+
+    runs = {"eager, direct launchers": direct_hop_ms, "eager, custom ops": lambda: hop_ms(enh.step, e_state, hops),
+            "artifact": lambda: hop_ms(art.step, a_state, hops),
+            "int8 artifact": lambda: hop_ms(arts["int8"][0].step, arts["int8"][2], hops)}
+    times = {key: [] for key in runs}
+    for key in [*runs, *reversed(runs)] * 2:  # in turns, each four times
+        times[key].append(runs[key]())
+    print(f"config-3 B=1 hop on {smi}: " + "; ".join(
+        f"{key} " + ", ".join(f"{t:.4f}" for t in ts) + " ms" for key, ts in times.items()))
+    dispatch_us(device, smi)
+    kernels = {}
+    for quant, (a, _, st, _, _) in (("fp32", arts[None]), ("int8", arts["int8"])):
+        carry = {"state": st, "i": 0}
+
+        def one_hop():
+            _, carry["state"] = a.step(carry["state"], hops[carry["i"] % len(hops)])
+            carry["i"] += 1
+
+        kernels[quant] = profile_calls(one_hop, 20, f"config-3 B=1 {quant} streaming artifact hop").kernels
+    print(f"config-3 B=1 hop on {smi}: the int8 artifact makes {kernels['int8']:.1f} device launches a hop, the "
+          f"float32 one {kernels['fp32']:.1f}: {kernels['int8'] - kernels['fp32']:.1f} more (each int8 weight "
+          f"dequantized, and w_hh laid out again for the resident kernel, every hop)")
+    return gru_total, df_total
+
+
+def run_cli(args: list) -> subprocess.Popen:
+    return subprocess.Popen([sys.executable, "-m", *map(str, args)], cwd=ROOT, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def wav_dir_err(got: Path, want: Path, names: list) -> float:
+    """Largest max-abs difference between same-named wavs of two directories."""
+    worst = 0.0
+    for name in names:
+        a, b = read_wav(str(got / f"{name}.wav"))[0], read_wav(str(want / f"{name}.wav"))[0]
+        if a.shape != b.shape or a.size == 0:
+            raise RuntimeError(f"check failed: {got.name}/{name}.wav is {a.shape}, {want.name}'s {b.shape}")
+        worst = max(worst, float(np.abs(a - b).max()))
+    return worst
+
+
+def check_deploy_clis(device, smi, tmp: Path, artifact: Path) -> None:
+    """The CLIs on the card, five fresh subprocesses at once: ``run_exported``
+    on the config-1 artifact (each wav as the artifact enhances it in this
+    process); ``infer --quantize int8`` on config 1 and ``serve --quantize
+    int8`` on config 1 with config 5b, seeded weights, each against the same
+    run on the dequantized weights (a bridge ``.npz``). The CLIs write int16
+    wavs, and one run in two processes differs by a rounding (cuDNN's
+    transposed-conv algorithms), so wavs agree within WAV_STEP; the same
+    weights through the CLIs' own loaders (``infer.serve.build_model``) give
+    enhanced floats within CLI_TOL in this process (``mag_to_mag``, and one
+    session of each served model)."""
+    names = [f"u{i}" for i in range(CLI_FILES)]
+    wavs = noisy_utterances(SEED + 40, (CLI_SECONDS * SR + 77,) * CLI_FILES)
+    for name, w in zip(names, wavs):  # the same audio as each model's sessions, under names of their own
+        for sub, prefix in (("in", ""), ("in_base", "base_"), ("in_m5b", "m5b_")):
+            write_wav(str(tmp / sub / f"{prefix}{name}.wav"), w, SR)
+    base, m5b = ROOT / "configs/cruse_base.toml", ROOT / "configs/mtfaa_windowed.toml"
+    seed = SEED + 41
+    for config, npz in ((base, "base.npz"), (m5b, "m5b.npz")):
+        model, _, _ = serve_build_model(str(config), None, seed)
+        save_flax_npz(dequantize_tree(quantize_variables(flax_from_state_dict(model))), str(tmp / npz))
+    serve = ["-I", f"{tmp / 'in_base'}@base:1", "-I", f"{tmp / 'in_m5b'}@m5b:0", "--max_streams", "2"]
+    procs = {
+        "run_exported": run_cli(["cruse_tpu_torch.infer.run_exported", "-A", artifact, "-I", tmp / "in",
+                                 "-O", tmp / "run_exported", "--device", device]),
+        "infer int8": run_cli(["cruse_tpu_torch.infer", "-C", base, "-I", tmp / "in", "-O", tmp / "infer_int8",
+                               "--batch", CLI_FILES, "--seed", seed, "--quantize", "int8", "--device", device]),
+        "infer dequantized": run_cli(["cruse_tpu_torch.infer", "-C", base, "-I", tmp / "in", "-O", tmp / "infer_deq",
+                                      "--batch", CLI_FILES, "--weights", tmp / "base.npz", "--device", device]),
+        "serve int8": run_cli(["cruse_tpu_torch.infer.serve", "-M", f"base={base}", "-M", f"m5b={m5b}", *serve,
+                               "-O", tmp / "serve_int8", "--seed", seed, "--quantize", "int8", "--device", device]),
+        "serve dequantized": run_cli(["cruse_tpu_torch.infer.serve", "-M", f"base={base}:{tmp / 'base.npz'}",
+                                      "-M", f"m5b={m5b}:{tmp / 'm5b.npz'}", *serve, "-O", tmp / "serve_deq",
+                                      "--device", device]),
+    }
+    t0 = time.perf_counter()
+    logs = {}
+    for key, proc in procs.items():
+        out, err = proc.communicate(timeout=600)
+        require(proc.returncode == 0, f"{key} CLI exits 0 ({proc.returncode}; {err[-1500:]})")
+        logs[key] = out
+    print(f"the five CLI runs on {smi} took {time.perf_counter() - t0:.1f} s together, start-up included")
+    require(any("int8 weights:" in line for line in logs["infer int8"].splitlines())
+            and sum("int8 weights:" in line for line in logs["serve int8"].splitlines()) == 2,
+            "infer and serve logged their int8 report lines")
+    art = artifact_lib.load(str(artifact), device)
+    batch, length = art.input_shape
+    x = np.zeros((batch, length), np.float32)
+    for i, name in enumerate(names):
+        x[i, : len(wavs[i])] = read_wav(str(tmp / "in" / f"{name}.wav"))[0]
+    want = art.enhance(torch.from_numpy(x).to(device)).cpu().numpy()
+    for i, name in enumerate(names):
+        write_wav(str(tmp / "run_here" / f"{name}.wav"), to_int16_scaled(want[i, : len(wavs[i])]), SR)
+    err = wav_dir_err(tmp / "run_exported", tmp / "run_here", names)
+    require(err <= WAV_STEP, f"run_exported (a fresh process) vs the artifact in this one: max-abs {err:.3g} "
+            "<= one int16 step")
+    for cli, outputs in (("infer", names), ("serve", [f"{m}_{n}" for m in ("base", "m5b") for n in names])):
+        err = wav_dir_err(tmp / f"{cli}_int8", tmp / f"{cli}_deq", outputs)
+        require(err <= WAV_STEP, f"{cli} --quantize int8 vs {cli} on the dequantized weights (wavs): max-abs "
+                f"{err:.3g} <= one int16 step")
+    clip = torch.from_numpy(x[:CLI_FILES, : CLI_SECONDS * SR]).to(device)
+    for config, npz in ((base, "base.npz"), (m5b, "m5b.npz")):
+        pair = [serve_build_model(str(config), None, seed, "int8"), serve_build_model(str(config), str(tmp / npz), seed)]
+        model, cfg, _ = pair[0]
+        if config == base:
+            icfg = InferencerConfig(type="mag_to_mag", sr=SR, stft=StftConfig(n_fft=cfg.n_fft, hop_length=cfg.hop_length))
+            got, want = (BatchInferencer(m, icfg, device).mag_to_mag(clip) for m, _, _ in pair)
+            err = float((got - want).abs().max())
+            require(err <= CLI_TOL, f"config 1 mag_to_mag, int8 loaded vs the dequantized .npz: max-abs {err:.3g} "
+                    f"<= {CLI_TOL}")
+        padded = np.pad(x[0, : CLI_SECONDS * SR], (0, (-CLI_SECONDS * SR) % cfg.hop_length))
+        got, want = (StreamingServer(m, c, 1, device=device).run_session(padded) for m, c, _ in pair)
+        err = float(np.abs(got - want).max())
+        require(err <= CLI_TOL, f"{config.name} served session, int8 loaded vs the dequantized .npz: max-abs "
+                f"{err:.3g} <= {CLI_TOL}")
+    for line in logs["serve int8"].splitlines()[-1:]:
+        print(f"serve --quantize int8 on {smi}: {line}")
+
+
+def check_deployment(device, smi) -> dict:
+    """The deployment path (``check_offline_artifacts``,
+    ``check_streaming_artifacts``, ``check_deploy_clis``) in one temporary
+    directory; returns the kernel launches its artifacts made."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        gru_offline, artifact = check_offline_artifacts(device, smi, tmp)
+        torch.cuda.empty_cache()
+        gru_stream, df_stream = check_streaming_artifacts(device, smi, tmp)
+        torch.cuda.empty_cache()
+        check_deploy_clis(device, smi, tmp, artifact)
+    return {"gru_sequence": gru_offline + gru_stream, "deep_filter": df_stream}
 
 
 def check_tfcm_block_path(device) -> int:
@@ -2537,6 +2896,8 @@ def main() -> int:
     time_train_step(device, smi)
     gru_bwd_times = time_gru_bwd(device, smi, lib)
     time_cruse_steps(device, smi)
+    torch.cuda.empty_cache()
+    deploy_launches = check_deployment(device, smi)  # last: torch.export's tracing machinery after every profile
 
     # least bytes (each input read once, each output written once) and
     # multiply-adds of the kernels of the earlier slices, at the timed shapes
@@ -2565,21 +2926,21 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {**entry("gru_sequence", "gru_sequence", "gru_kernel.py:82",
                  launches + stream_gru + auto_gru + cruse_launches["gru_sequence"] + cruse_df_launches["gru_sequence"]
-                 + server_launches["gru_sequence"],
+                 + server_launches["gru_sequence"] + deploy_launches["gru_sequence"],
                  gru_err, (kernel_ms, plain_ms), gru_bound, lib["gru"]),
          "resident_ms": gru_times["f32"][0], "streamed_ms": gru_times["f32"][1],
-         "server_launches": server_launches["gru_sequence"]},
+         "server_launches": server_launches["gru_sequence"], "artifact_launches": deploy_launches["gru_sequence"]},
         {"name": "gru_sequence_bwd", "route": "cuda", "source": "cruse_tpu_torch/ops/csrc/gru_bwd.cu",
          "replaces": "cruse_tpu/nn/gru.py:30 (no TPU kernel: the JAX step differentiates gru_scan)",
          "launches": cruse_launches["gru_sequence_bwd"] + cruse_df_launches["gru_sequence_bwd"],
          "max_abs_err": gru_bwd_err, **gru_bwd_times},
         {**entry("deep_filter", "deep_filter", "deep_filter_kernel.py:91",
                  stream_df + auto_df + mtfaa_df + train_launches["deep_filter"] + cruse_df_launches["deep_filter"]
-                 + stream_df_5b + server_launches["deep_filter"],
+                 + stream_df_5b + server_launches["deep_filter"] + deploy_launches["deep_filter"],
                  df_err,
                  (df_fwd["wrapper_ms"], df_fwd["plain_ms"]), {key: df_fwd[key] for key in ("bound_ms", "bound_by")},
                  None),
-         "server_launches": server_launches["deep_filter"],
+         "server_launches": server_launches["deep_filter"], "artifact_launches": deploy_launches["deep_filter"],
          "stages": [{key: row[key] for key in DF_STAGE_KEYS} for row in df_rows if row["kind"] == "forward"]},
         {"name": "deep_filter_bwd", "route": "cuda", "source": "cruse_tpu_torch/ops/csrc/deep_filter.cu",
          "replaces": "cruse_tpu/models/deep_filter.py:94 (no TPU kernel: the JAX step differentiates the plain "

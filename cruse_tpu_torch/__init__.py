@@ -7,10 +7,10 @@ tested against, and mirrors its module paths:
   for center=False), windows, the windowed DFT bases
 - ``cruse_tpu_torch.ops``    -- hand-written CUDA kernels with their plain versions
   (grouped-GRU recurrence, deep filter)
-- ``cruse_tpu_torch.nn``     -- causal conv block, grouped GRU bottleneck
+- ``cruse_tpu_torch.nn``     -- causal conv block, grouped GRU bottleneck, int8 weights
 - ``cruse_tpu_torch.models`` -- CRUSE, CRUSE+DF, DFSMN, MTFAA, the deep filter
 - ``cruse_tpu_torch.train``  -- the forward adapters (eval mode)
-- ``cruse_tpu_torch.infer``  -- batch and streaming inference, and their CLI
+- ``cruse_tpu_torch.infer``  -- batch and streaming inference, serving, export artifacts, and their CLIs
 - ``cruse_tpu_torch.data``   -- wav IO
 - ``cruse_tpu_torch.utils``  -- the weight bridge from flax variables
 

@@ -2,7 +2,7 @@
 
     python -m cruse_tpu_torch.infer -C cfg.toml -I wav_dir -O out_dir \\
         [--weights w.npz] [--seed N] [--batch N | --chunk_seconds S] \\
-        [--postfilter sin|envelope] [--device cpu]
+        [--postfilter sin|envelope] [--quantize int8] [--device cpu]
     python -m cruse_tpu_torch.infer -C cfg.toml -I wav_dir -O out_dir \\
         --streaming [--hops_per_step k] [--weights w.npz] [--device cpu]
 
@@ -17,6 +17,9 @@ postfilter`` (``mag_to_mag`` applies it to the mask; ``auto`` ignores it).
 ``--chunk_seconds S`` enhances each file, one per forward, as 50 %
 overlapping chunks of S seconds (``BatchInferencer.enhance_long``); it takes
 precedence over ``--batch``.
+``--quantize int8`` quantizes the weights (bridged or seeded) by the JAX
+package's rule (``nn.quantize``) and loads them dequantized once: the model
+runs the int8 weights' values in float32, so the device holds float32.
 ``--streaming`` runs each file as one stream (B=1) frame by frame through
 ``StreamingEnhancer`` with a ``center=False`` STFT, logging the per-hop
 real-time factor; ``--hops_per_step k`` feeds k hops per call. It streams
@@ -52,6 +55,9 @@ def main(argv=None):
                              "seconds of latency).")
     parser.add_argument("--postfilter", choices=["sin", "envelope"], default=None,
                         help="Mask post-filter of mag_to_mag (overrides [inferencer] postfilter).")
+    parser.add_argument("--quantize", choices=["int8"], default=None,
+                        help="Weight-only per-channel int8 (the JAX package's rule), dequantized once "
+                             "when loaded: the device holds float32 weights.")
     parser.add_argument("--chunk_seconds", type=float, default=0.0,
                         help="Long-audio mode: each file as 50%% overlapping chunks of this many "
                              "seconds, stitched (one file per forward; takes precedence over --batch).")
@@ -66,7 +72,8 @@ def main(argv=None):
     from cruse_tpu_torch.dsp.stft import StftConfig
     from cruse_tpu_torch.infer.batch import BatchInferencer, InferencerConfig
     from cruse_tpu_torch.models import build_from_config
-    from cruse_tpu_torch.utils.config import load_config
+    from cruse_tpu_torch.nn.quantize import load_int8_for_serving
+    from cruse_tpu_torch.utils.config import load_config, log
     from cruse_tpu_torch.utils.weights import load_flax_npz, state_dict_from_flax
 
     device = torch.device(args.device)
@@ -77,8 +84,11 @@ def main(argv=None):
     ac = config["acoustics"]
     sr = int(ac.get("sr", 16000))
     model = build_from_config(config["model"], generator=torch.Generator().manual_seed(args.seed))
-    if args.weights:
-        model.load_state_dict(state_dict_from_flax(load_flax_npz(args.weights), model), strict=True)
+    variables = load_flax_npz(args.weights) if args.weights else None
+    if args.quantize == "int8":
+        log(load_int8_for_serving(model, variables))
+    elif variables is not None:
+        model.load_state_dict(state_dict_from_flax(variables, model), strict=True)
 
     inp = Path(args.input)
     if not inp.is_dir():

@@ -17,8 +17,9 @@ overlapping chunks, one strategy call a chunk, stitched by ``overlap_cat``.
 Outputs are scaled to int16 at 0.8 of full scale, logged with their
 real-time factor and optionally written as wavs.
 
-Not ported yet, and refused rather than ignored: the complex and
-multi-channel strategies, the device mesh and int8 weights.
+Int8 weights are loaded dequantized (``nn.quantize.load_dequantized``):
+the inferencer runs float32 weights. Not ported yet, and refused rather
+than ignored: the complex and multi-channel strategies and the device mesh.
 """
 from __future__ import annotations
 
@@ -84,6 +85,18 @@ class BatchInferencer:
     @torch.inference_mode()
     def mag_to_mag(self, noisy: torch.Tensor) -> torch.Tensor:
         """[B, L] noisy -> [B, L] enhanced: magnitude mask, noisy phase."""
+        return self._mag_to_mag_impl(noisy)
+
+    @torch.inference_mode()
+    def auto(self, noisy: torch.Tensor) -> torch.Tensor:
+        """[B, L] noisy -> [B, L] enhanced through the model family's
+        forward adapter (mask models, CRUSE+DF and MTFAA)."""
+        return self._auto_impl(noisy)
+
+    # the strategies' bodies without their inference mode, for torch.export
+    # (infer/export.py traces them under torch.no_grad())
+
+    def _mag_to_mag_impl(self, noisy: torch.Tensor) -> torch.Tensor:
         spec = stft(noisy, self.cfg.stft)
         mask, _ = self.model(self.model.compress(spec.abs()))
         if self.cfg.postfilter is not None:
@@ -91,10 +104,7 @@ class BatchInferencer:
         return istft_mag_phase(spec.abs() * mask, spec.angle(), self.cfg.stft,
                                length=noisy.shape[-1])
 
-    @torch.inference_mode()
-    def auto(self, noisy: torch.Tensor) -> torch.Tensor:
-        """[B, L] noisy -> [B, L] enhanced through the model family's
-        forward adapter (mask models, CRUSE+DF and MTFAA)."""
+    def _auto_impl(self, noisy: torch.Tensor) -> torch.Tensor:
         spec = stft(noisy, self.cfg.stft)
         enhanced_ri = self._forward(torch.stack([spec.real, spec.imag], dim=-1))
         return istft((enhanced_ri[..., 0], enhanced_ri[..., 1]), self.cfg.stft,

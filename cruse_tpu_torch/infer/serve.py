@@ -4,7 +4,7 @@ concurrent enhancement sessions, over one model or several, through the
 
     python -m cruse_tpu_torch.infer.serve -M NAME=CONFIG.toml[:WEIGHTS.npz] [-M ...] \\
         -I PATH[@MODEL[:PRIORITY]] [-I ...] -O out_dir [--max_streams 8] \\
-        [--max_dispatches 0] [--feed_chunk 1] [--realtime] [--seed 0] [--device cuda]
+        [--max_dispatches 0] [--feed_chunk 1] [--realtime] [--quantize int8] [--seed 0] [--device cuda]
 
 Each ``-M`` registers a model with its own pool of stream slots; its weights
 come from a bridge ``.npz`` (``cruse_tpu_torch.utils.weights.save_flax_npz``)
@@ -20,8 +20,10 @@ p99 of an iteration against that budget and the share of missed deadlines.
 
 The models run on the card (``--device cuda``, the default) unless
 ``--device cpu`` asks for the CPU; a CUDA device that is not there is an
-error. Not ported, and refused by name: ``--quantize int8`` (int8 weights)
-and ``-N`` (slots sharded over a torch.distributed mesh of cards).
+error. ``--quantize int8`` quantizes every model's weights by the JAX
+package's rule (``nn.quantize``) and loads them dequantized once, so the
+device holds float32 weights. Not ported, and refused by name: ``-N``
+(slots sharded over a torch.distributed mesh of cards).
 """
 from __future__ import annotations
 
@@ -30,21 +32,26 @@ import time
 from pathlib import Path
 
 
-def build_model(config_path: str, weights: str | None, seed: int):
-    """A model from its TOML config, with bridged or seeded weights; returns
-    (model, center=False StftConfig, sample rate)."""
+def build_model(config_path: str, weights: str | None, seed: int, quantize: str | None = None):
+    """A model from its TOML config, with bridged or seeded weights (int8,
+    loaded dequantized, with ``quantize="int8"``); returns (model,
+    center=False StftConfig, sample rate)."""
     import torch
 
     from cruse_tpu_torch.dsp.stft import StftConfig
     from cruse_tpu_torch.models import build_from_config
-    from cruse_tpu_torch.utils.config import load_config
+    from cruse_tpu_torch.nn.quantize import load_int8_for_serving
+    from cruse_tpu_torch.utils.config import load_config, log
     from cruse_tpu_torch.utils.weights import load_flax_npz, state_dict_from_flax
 
     config = load_config(config_path)
     ac = config["acoustics"]
     model = build_from_config(config["model"], generator=torch.Generator().manual_seed(seed))
-    if weights:
-        model.load_state_dict(state_dict_from_flax(load_flax_npz(weights), model), strict=True)
+    variables = load_flax_npz(weights) if weights else None
+    if quantize == "int8":
+        log(f"{config_path}: {load_int8_for_serving(model, variables)}")
+    elif variables is not None:
+        model.load_state_dict(state_dict_from_flax(variables, model), strict=True)
     cfg = StftConfig(n_fft=int(ac["n_fft"]), hop_length=int(ac["hop_length"]), center=False)
     return model, cfg, int(ac.get("sr", 16000))
 
@@ -99,7 +106,8 @@ def main(argv=None) -> None:
                         help="Hops of input fed a session an iteration (>1 simulates bursty "
                              "arrivals; the backlog drains at one hop an iteration).")
     parser.add_argument("--quantize", choices=["int8"], default=None,
-                        help="Weight-only int8 serving (not ported: refused).")
+                        help="Weight-only per-channel int8 for every registered model, dequantized once "
+                             "when loaded (the device holds float32 weights).")
     parser.add_argument("-N", "--num_devices", type=int, default=0,
                         help="Shard every pool's slots over N cards (not ported: refused for N > 1).")
     parser.add_argument("--realtime", action="store_true",
@@ -108,8 +116,6 @@ def main(argv=None) -> None:
     parser.add_argument("--seed", type=int, default=0, help="Seed of the weights of a model without a .npz.")
     parser.add_argument("--device", default="cuda", help="cuda (the default), cuda:N, or cpu.")
     args = parser.parse_args(argv)
-    if args.quantize == "int8":
-        raise SystemExit("--quantize int8: int8 weights are not ported to cruse_tpu_torch yet")
     if args.num_devices > 1:
         raise SystemExit(f"-N {args.num_devices}: serving over a mesh of cards is not ported "
                          "(it waits for torch.distributed)")
@@ -129,7 +135,7 @@ def main(argv=None) -> None:
     hops, srs = {}, {}
     for spec in args.model:
         name, config_path, weights = parse_model(spec)
-        model, cfg, sr = build_model(config_path, weights, args.seed)
+        model, cfg, sr = build_model(config_path, weights, args.seed, args.quantize)
         server.add_model(name, model, cfg, max_streams=args.max_streams, device=device)
         hops[name], srs[name] = cfg.hop_length, sr
         log(f"registered model {name!r} (hop {cfg.hop_length}, {sr} Hz, {args.max_streams} slots)")

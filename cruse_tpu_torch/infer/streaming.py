@@ -32,26 +32,19 @@ models.
 from __future__ import annotations
 
 import time
-from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
 from cruse_tpu_torch.dsp.stft import StftConfig, _analysis_kernel, _padded_window, _synthesis_kernel
+# the carry's type lives with the artifact loader, which must read it without the models
+from cruse_tpu_torch.infer.artifact import StreamState
 from cruse_tpu_torch.models.cruse import CruseNet, cruse_init_state
 from cruse_tpu_torch.models.cruse_df import CruseDfNet, apply_cruse_df_streaming, df_stream_init
 from cruse_tpu_torch.models.dfsmn import DfsmnNet
 from cruse_tpu_torch.models.mtfaa import MtfaaNet
 
 STREAMING_MODELS = (CruseNet, CruseDfNet, DfsmnNet, MtfaaNet)
-
-
-class StreamState(NamedTuple):
-    """Per-hop streaming carry."""
-
-    input_tail: Any  # [B, n_fft - hop] analysis-buffer samples
-    ola_tail: Any  # [B, n_fft - hop] synthesis overlap-add tail
-    model_state: Any  # the model family's state
 
 
 def _steady_envelope(cfg: StftConfig) -> np.ndarray:
@@ -121,6 +114,11 @@ class StreamingEnhancer:
     @torch.inference_mode()
     def step(self, state: StreamState, hop_samples: torch.Tensor):
         """One real-time hop: hop_samples [B, hop] -> ([B, hop], new state)."""
+        return self._step_impl(state, hop_samples)
+
+    def _step_impl(self, state: StreamState, hop_samples: torch.Tensor):
+        """``step`` without its inference mode, for ``torch.export``
+        (``infer/export.py`` traces it under ``torch.no_grad()``)."""
         f = self._num_bins
         frame = torch.cat([state.input_tail, hop_samples.to(state.input_tail)], dim=-1)  # [B, n]
         ri = frame @ self._ana  # [B, 2F] windowed DFT

@@ -32,8 +32,13 @@ through a ``torch.autograd.Function`` whose backward is ``deep_filter_bwd``:
 the backward kernel on a CUDA device, ``deep_filter_backward_reference`` on
 the CPU. A gradient through a history raises: no path trains through the
 streaming form. ``deep_filter.launches`` and ``deep_filter_bwd.launches``
-count kernel launches. A block of either kernel owns one batch row, a span
-of frames and a range of bins (``df_plan``) and walks down its frames;
+count kernel launches. The forward is the custom op
+``torch.ops.cruse_tpu_torch.deep_filter`` (``deep_filter_op``), so that
+``torch.export`` can trace a model that runs it. Its implementation runs the
+plain version on CPU tensors and the launch at ``df_plan``'s tile on CUDA
+tensors; its fake implementation gives the output's shape. A block of either
+kernel owns one batch row, a span of frames and a range of bins
+(``df_plan``) and walks down its frames;
 ``deep_filter_bwd_walk_reference`` is the backward's walk in PyTorch.
 """
 from __future__ import annotations
@@ -41,7 +46,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -418,14 +423,32 @@ def _runs_plain(spec) -> bool:
     return spec.device.type == "cpu"
 
 
-def _forward(spec, coefs, t_dim, f_dim, causal, history):
+def _forward_impl(spec: torch.Tensor, coefs: torch.Tensor, t_dim: int, f_dim: int, causal: bool,
+                  history: Optional[torch.Tensor]) -> torch.Tensor:
+    """The forward on tensors with storage: the plain version on CPU tensors,
+    on CUDA tensors the kernel at ``df_plan``'s tile (it launches or raises)."""
     if _runs_plain(spec):
-        return deep_filter_reference(spec, coefs, t_dim, f_dim, causal, history)
+        return deep_filter_reference(spec, coefs, t_dim, f_dim, causal, history).contiguous()
     b, t, f = spec.shape
     out = torch.empty((b, t, f), dtype=torch.complex64, device=spec.device)
     launch_df_fwd(spec, coefs, t_dim, f_dim, causal, history,
                   df_plan(b, t, f, t_dim, f_dim, causal, history is not None), out)
     return out
+
+
+# the forward as the traceable op torch.ops.cruse_tpu_torch.deep_filter
+deep_filter_op = torch.library.custom_op("cruse_tpu_torch::deep_filter", _forward_impl, mutates_args=(),
+                                         device_types=("cpu", "cuda"))
+
+
+@deep_filter_op.register_fake
+def _deep_filter_fake(spec, coefs, t_dim, f_dim, causal, history):
+    """Shapes only, for tracing (``torch.export``) on tensors without storage."""
+    return spec.new_empty(spec.shape, dtype=torch.complex64)
+
+
+def _forward(spec, coefs, t_dim, f_dim, causal, history):
+    return torch.ops.cruse_tpu_torch.deep_filter(spec, coefs, t_dim, f_dim, causal, history)
 
 
 def deep_filter_bwd(grad, spec, coefs, t_dim: int, f_dim: int, causal: bool = True):

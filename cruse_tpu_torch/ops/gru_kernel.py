@@ -21,6 +21,13 @@ source holds two kernels, and the shape alone decides which one runs
 ``gru_sequence.launches`` counts every kernel launch,
 ``gru_sequence.resident_launches`` those of the resident kernel.
 
+The forward is the custom op ``torch.ops.cruse_tpu_torch.gru_sequence``
+(``gru_sequence_op``), so that ``torch.export`` can trace a model that runs
+it. Its implementation runs the plain version on CPU tensors and the routed
+launch on CUDA tensors; its fake implementation gives the outputs' shapes.
+The plan, the weight layouts cached on ``w_hh`` and the launch counters run
+inside the implementation, on tensors with storage.
+
 Under a gradient (grad enabled and an input that requires it)
 ``gru_sequence`` is an ``autograd.Function`` (f32 weights only): its forward
 is the same routed kernel, and its backward takes ``hp = h_prev . w_hh^T +
@@ -41,6 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -148,6 +156,8 @@ def _check_shapes(x_proj, h0, w_hh, b_hh, weight_dtype):
                              f"{tuple(x_proj.shape)}, got {tuple(tensor.shape)}")
     if h3 % 3 or b < 1 or t < 1:
         raise ValueError(f"x_proj {tuple(x_proj.shape)}: need B, T >= 1 and 3H gates")
+    if x_proj.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"gru_sequence runs on cpu or cuda tensors, got {x_proj.device}")
 
 
 def cluster_fit(h, weight_dtype=None):
@@ -477,12 +487,33 @@ def _runs_plain(x_proj) -> bool:
     return x_proj.device.type == "cpu"
 
 
-def _forward(x_proj, h0, w_hh, b_hh, weight_dtype):
+def _forward_impl(x_proj: torch.Tensor, h0: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+                  weight_dtype: Optional[torch.dtype] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward on tensors with storage: the plain version on CPU tensors,
+    on CUDA tensors the kernel that ``resident_plan`` picks (it launches or
+    raises)."""
     if _runs_plain(x_proj):
-        return gru_sequence_reference(x_proj, h0, w_hh, b_hh, weight_dtype)
+        y, h_last = gru_sequence_reference(x_proj, h0, w_hh, b_hh, weight_dtype)
+        return y.contiguous(), h_last.contiguous()
     b, t, g, h3 = x_proj.shape
     launch = launch_streamed if resident_plan(b, t, g, h3 // 3, weight_dtype) is None else launch_resident
     return launch(x_proj, h0, w_hh, b_hh, weight_dtype)
+
+
+# the forward as the traceable op torch.ops.cruse_tpu_torch.gru_sequence
+gru_sequence_op = torch.library.custom_op("cruse_tpu_torch::gru_sequence", _forward_impl, mutates_args=(),
+                                          device_types=("cpu", "cuda"))
+
+
+@gru_sequence_op.register_fake
+def _gru_sequence_fake(x_proj, h0, w_hh, b_hh, weight_dtype=None):
+    """Shapes only, for tracing (``torch.export``) on tensors without storage."""
+    b, t, g, h3 = x_proj.shape
+    return x_proj.new_empty((b, t, g, h3 // 3)), x_proj.new_empty((b, g, h3 // 3))
+
+
+def _forward(x_proj, h0, w_hh, b_hh, weight_dtype):
+    return torch.ops.cruse_tpu_torch.gru_sequence(x_proj, h0, w_hh, b_hh, weight_dtype)
 
 
 class _GruSequence(torch.autograd.Function):
