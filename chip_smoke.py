@@ -234,7 +234,24 @@ needed). In order, and any failure exits non-zero:
     on the config-1 artifact (each wav as the artifact enhances it here),
     ``infer --quantize int8`` (config 1) and ``serve --quantize int8``
     (config 1 with 5b), each against the same run on the dequantized weights
-    within 1e-6;
+    within 1e-6. Then MTFAA: config 5b (``configs/mtfaa_windowed.toml``)
+    exported offline at B=16 x 10 s in float32 and int8, 6 TFCM stack calls
+    (24 layer launches), 3 attention and 1 deep-filter launch a call and
+    nothing else, within 1e-5 of eager ``auto`` on the same (dequantized)
+    weights, float32 within 1e-4 of the plain versions, int8 against float32
+    above 25 dB, each call timed in turns with eager and profiled (device
+    launches a call against eager's); config 5 (``MtfaaConfig()``, full
+    causal) offline at B=4 x 4 s with the eager forward's launches; config
+    5b as the streaming step at B=1 and B=8 (and int8 at B=1), 100 hops
+    against ``StreamingEnhancer`` within 1e-5, 24 stencil and 1 deep-filter
+    launches a hop, the B=1 hop's latency (each hop synchronised) in turns
+    with the eager hop with and without the five custom ops' dispatch, the
+    host cost of the three MTFAA ops' dispatch, and profiles of the eager,
+    float32 and int8 hops (the float32 artifact hop may launch no more device
+    kernels than the eager hop: it folds nothing per call); last ``export
+    --streaming`` and ``run_exported`` on config 5b against the eager
+    ``infer --streaming`` CLI on the same seeded weights, within one int16
+    step;
 21. prints a JSON line of the kernels (each with its launches on the main
     paths, its error, its time, the plain version's, the least time the card
     could take for its bytes or its multiply-adds, and the library call's time
@@ -261,8 +278,11 @@ import numpy as np
 import torch
 
 import cruse_tpu_torch
+import cruse_tpu_torch.ops.asa_kernel as asa_kernel
 import cruse_tpu_torch.ops.deep_filter_kernel as deep_filter_kernel
+import cruse_tpu_torch.ops.dw_kernel as dw_kernel
 import cruse_tpu_torch.ops.gru_kernel as gru_kernel
+import cruse_tpu_torch.ops.tfcm_kernel as tfcm_kernel
 from cruse_tpu_torch.data.wavio import read_wav, to_int16_scaled, write_wav
 from cruse_tpu_torch.dsp.stft import StftConfig, istft, stft
 from cruse_tpu_torch.infer import artifact as artifact_lib
@@ -449,6 +469,11 @@ INT8_SNR_DB = 25.0  # int8 against float32 waveforms (the JAX package's tests/te
 CLI_TOL = 1e-6  # --quantize int8 against the same run on the dequantized weights, in floats
 WAV_STEP = 1.0 / 32768  # the CLIs' int16 wavs of one run in two processes: cuDNN's algorithms vary by a rounding
 CLI_FILES, CLI_SECONDS = 4, 2
+# config 5b's artifacts: a call offline (6 stacks of 4 layers, 3 attentions, the deep filter) and a hop
+# streamed (24 blocks' stencils, the deep filter); the streams' batches
+MTFAA_CALL_LAUNCHES = {"tfcm_stack": 6, "tattn": 3, "deep_filter": 1}
+MTFAA_HOP_LAUNCHES = {"dw_stencil_fwd": 24, "deep_filter": 1}
+MTFAA_DEPLOY_BATCHES = (1, MTFAA_STREAM_BATCH)
 STEP_KERNELS_BEFORE = 6270  # device launches of a config-5b train step when a mid_bwd call made 8
 MID_LAUNCHES_PER_CALL = 2  # mid_tile_kernel and mid_finish_kernel
 DW_LAUNCHES_PER_CALL = {"forward": 1, "backward": 2}  # dw_fwd_kernel; dw_bwd_kernel and dw_finish_kernel
@@ -1495,26 +1520,33 @@ def clone_model(model, device, state=None, keep_int8: bool = False):
     return clone.to(device).eval()
 
 
+OP_MODULES = (gru_kernel, deep_filter_kernel, tfcm_kernel, asa_kernel, dw_kernel)  # a custom op's _forward each
+
+
 @contextlib.contextmanager
 def direct_forwards():
-    """The two wrappers calling their launchers without the custom ops'
+    """The five wrappers calling their launchers without the custom ops'
     dispatch, as they did before the ops were registered."""
-    saved = gru_kernel._forward, deep_filter_kernel._forward
-    gru_kernel._forward, deep_filter_kernel._forward = gru_kernel._forward_impl, deep_filter_kernel._forward_impl
+    saved = [module._forward for module in OP_MODULES]
+    for module in OP_MODULES:
+        module._forward = module._forward_impl
     try:
         yield
     finally:
-        gru_kernel._forward, deep_filter_kernel._forward = saved
+        for module, forward in zip(OP_MODULES, saved):
+            module._forward = forward
 
 
-def require_launches(what: str, gru: int, df: int) -> None:
-    """The counters since ``reset_counts``: exactly ``gru`` launches of the
-    resident GRU kernel and ``df`` of the deep filter's, and nothing else."""
+def require_launches(what: str, want: dict) -> None:
+    """The counters since ``reset_counts``: exactly ``want`` (a counter's
+    name -> its launches; every GRU launch the resident kernel's), and
+    nothing else."""
     torch.cuda.synchronize()
     got = counts()
-    want = {**{name: 0 for name in got}, "gru_sequence": gru, "deep_filter": df}
-    require(got == want and gru_sequence.resident_launches == gru,
-            f"{what}: launches {({k: v for k, v in got.items() if v})} = {gru} resident GRU, {df} deep filter")
+    want = {**{name: 0 for name in got}, **want}
+    require(got == want and gru_sequence.resident_launches == want["gru_sequence"],
+            f"{what}: launches {({k: v for k, v in got.items() if v})} = {({k: v for k, v in want.items() if v})}"
+            + (", every GRU launch the resident kernel's" if want["gru_sequence"] else ""))
 
 
 def hop_ms(step, state, hops) -> float:
@@ -1529,18 +1561,70 @@ def hop_ms(step, state, hops) -> float:
     return (time.perf_counter() - t0) / len(hops) * 1e3
 
 
+def in_turns(runs: dict, rounds: int = 2) -> dict:
+    """Each of ``runs`` (name -> a function returning a list of times) called
+    in turns, forwards then backwards, ``rounds`` times: name -> every time."""
+    times = {key: [] for key in runs}
+    for key in [*runs, *reversed(runs)] * rounds:
+        times[key] += runs[key]()
+    return times
+
+
+def hop_latencies_ms(step, state, hops) -> list:
+    """Wall ms of each hop of ``step`` over ``hops``, each synchronised (a
+    real-time hop's latency), after a warm-up hop."""
+    _, state = step(state, hops[0])
+    torch.cuda.synchronize()
+    times = []
+    for hop in hops:
+        t0 = time.perf_counter()
+        _, state = step(state, hop)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def median_range(times: list) -> str:
+    ordered = sorted(times)
+    return f"median {ordered[len(ordered) // 2]:.4f} ms, range {ordered[0]:.4f}-{ordered[-1]:.4f} ms"
+
+
 def dispatch_us(device, smi, calls: int = 1000) -> None:
     """Host µs a call of ``gru_sequence`` and ``deep_filter`` at the config-3
     B=1 hop's shapes (G=4, H=176; 96 bins, 15 taps, a history), through the
-    custom op and with the launcher called directly, in turns (each run of
-    ``calls`` calls synchronised at its end): the op's dispatch cost."""
+    custom op and with the launcher called directly (``op_dispatch_us``)."""
     gru_args = gru_inputs(1, 1, 4, 176, device, SEED)
     gen = torch.Generator(device=device).manual_seed(SEED)
     spec = torch.randn(1, 1, 96, dtype=torch.complex64, device=device, generator=gen)
     coefs = torch.randn(1, 1, 96, 15, 2, device=device, generator=gen)
     history = torch.randn(1, 4, 96, dtype=torch.complex64, device=device, generator=gen)
-    fns = {"gru_sequence": lambda: gru_sequence(*gru_args),
-           "deep_filter": lambda: deep_filter(spec, coefs, 2, 1, True, history)}
+    op_dispatch_us({"gru_sequence": lambda: gru_sequence(*gru_args),
+                    "deep_filter": lambda: deep_filter(spec, coefs, 2, 1, True, history)},
+                   "at the config-3 B=1 hop", smi, calls)
+
+
+def mtfaa_dispatch_us(device, smi, calls: int = 1000) -> None:
+    """The same for the three MTFAA ops at config 5b's stage 0 at B=1 and one
+    frame (K=64, C=24; c=6 for the attention; d=1 for the stencil, its hop
+    shape), shapes at which the host's time is the call's."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, device=device, generator=gen) * 0.3
+
+    x, params = randn(1, 64, 24, 1), randn(len(DILATIONS), 2 * 24 * 24 + 12 * 24 + 2)
+    q, k, v = randn(64, 6, 1), randn(64, 6, 1), randn(64, 24, 1)
+    x_ext, wd = randn(1, 64, 24, 3), randn(3, 3, 24)
+    op_dispatch_us({"tfcm_eval": lambda: fused_tfcm_stack_eval(x, params, dilations=DILATIONS),
+                    "tattn_fwd": lambda: flash_tattn_tm(q, k, v, WINDOW),
+                    "dw_fwd": lambda: dw_causal_tm(x_ext, wd, 1)},
+                   "at config 5b's stage 0, B=1, T=1", smi, calls)
+
+
+def op_dispatch_us(fns: dict, where: str, smi, calls: int) -> None:
+    """Each of ``fns`` (name -> a call of a wrapper) through its custom op and
+    with the launcher called directly (``direct_forwards``), in turns, each
+    run of ``calls`` calls synchronised at its end: host µs a call."""
     for name, fn in fns.items():
         times = {"custom op": [], "direct": []}
         for mode in ("custom op", "direct", "direct", "custom op"):
@@ -1552,7 +1636,7 @@ def dispatch_us(device, smi, calls: int = 1000) -> None:
                     fn()
                 torch.cuda.synchronize()
                 times[mode].append((time.perf_counter() - t0) / calls * 1e6)
-        print(f"{name} at the config-3 B=1 hop on {smi}: " + "; ".join(
+        print(f"{name} {where} on {smi}: " + "; ".join(
             f"{mode} " + ", ".join(f"{t:.2f}" for t in ts) + " us a call" for mode, ts in times.items()))
 
 
@@ -1591,7 +1675,7 @@ def check_offline_artifacts(device, smi, tmp: Path) -> tuple[int, Path]:
         params = sum(t.numel() * t.element_size() for t in art.program.state_dict.values())
         reset_counts()
         got = art.enhance(x)
-        require_launches(what, 2, 0)
+        require_launches(what, {"gru_sequence": 2})
         launches += 2
         require(tuple(got.shape) == tuple(x.shape) and bool(torch.isfinite(got).all()), f"{what}: finite, {tuple(x.shape)}")
         eager = BatchInferencer(clone_model(model, device, state if quant else None), icfg, device)
@@ -1648,7 +1732,7 @@ def check_streaming_artifacts(device, smi, tmp: Path) -> tuple[int, int]:
         for h in hops:
             out, a_state = art.step(a_state, h)
             got.append(out)
-        require_launches(what, 2 * DEPLOY_HOPS, DEPLOY_HOPS)
+        require_launches(what, {"gru_sequence": 2 * DEPLOY_HOPS, "deep_filter": DEPLOY_HOPS})
         gru_total, df_total = gru_total + 2 * DEPLOY_HOPS, df_total + DEPLOY_HOPS
         want = []
         for h in hops:
@@ -1667,12 +1751,10 @@ def check_streaming_artifacts(device, smi, tmp: Path) -> tuple[int, int]:
         with direct_forwards():
             return hop_ms(enh.step, e_state, hops)
 
-    runs = {"eager, direct launchers": direct_hop_ms, "eager, custom ops": lambda: hop_ms(enh.step, e_state, hops),
-            "artifact": lambda: hop_ms(art.step, a_state, hops),
-            "int8 artifact": lambda: hop_ms(arts["int8"][0].step, arts["int8"][2], hops)}
-    times = {key: [] for key in runs}
-    for key in [*runs, *reversed(runs)] * 2:  # in turns, each four times
-        times[key].append(runs[key]())
+    times = in_turns({"eager, direct launchers": lambda: [direct_hop_ms()],
+                      "eager, custom ops": lambda: [hop_ms(enh.step, e_state, hops)],
+                      "artifact": lambda: [hop_ms(art.step, a_state, hops)],
+                      "int8 artifact": lambda: [hop_ms(arts["int8"][0].step, arts["int8"][2], hops)]})
     print(f"config-3 B=1 hop on {smi}: " + "; ".join(
         f"{key} " + ", ".join(f"{t:.4f}" for t in ts) + " ms" for key, ts in times.items()))
     dispatch_us(device, smi)
@@ -1786,10 +1868,217 @@ def check_deploy_clis(device, smi, tmp: Path, artifact: Path) -> None:
         print(f"serve --quantize int8 on {smi}: {line}")
 
 
+def check_mtfaa_offline_artifacts(device, smi, tmp: Path) -> dict:
+    """Config 5b (``configs/mtfaa_windowed.toml``, seeded weights and
+    statistics) exported offline at B=16 x 10 s on the card, float32 and
+    int8, saved and loaded: each call MTFAA_CALL_LAUNCHES and nothing else,
+    within DEPLOY_TOL of eager ``auto`` on the same (dequantized) weights,
+    float32 within WAV_TOL of the plain versions, int8 against float32 above
+    INT8_SNR_DB; a call timed in turns with eager, file sizes, and the device
+    launches a call of both from a profile. Then config 5 (``MtfaaConfig()``,
+    full causal) at B=4 x 4 s in float32: the eager forward's launches, within
+    DEPLOY_TOL of it. Returns the launches its artifacts made."""
+    model = build_mtfaa(None, device, SEED + 50)
+    icfg = mtfaa_inferencer(model, device).cfg
+    state, report = int8_state_dict(model)
+    print(f"config 5b: {report_line(report)}")
+    length = MTFAA_SECONDS * SR
+    x = torch.from_numpy(np.stack(noisy_utterances(SEED + 51, (length,) * MTFAA_BATCH))).to(device)
+    launched = {name: 0 for name in MTFAA_CALL_LAUNCHES}
+    outs = {}
+    for quant in (None, "int8"):
+        what = f"config-5b offline artifact ({quant or 'fp32'}, B={MTFAA_BATCH} x {MTFAA_SECONDS} s)"
+        t0 = time.perf_counter()
+        program = export_offline(clone_model(model, device, state if quant else None, keep_int8=True), icfg,
+                                 MTFAA_BATCH, length, device)
+        path = tmp / f"config5b_{quant or 'fp32'}.zip"
+        artifact_lib.save_offline(str(path), program, {"model": "configs/mtfaa_windowed.toml", "sr": SR,
+                                                       "n_fft": icfg.stft.n_fft, "hop_length": icfg.stft.hop_length,
+                                                       "batch": MTFAA_BATCH, "length": length, "quantized": quant,
+                                                       "device": str(device)})
+        export_s = time.perf_counter() - t0
+        art = artifact_lib.load(str(path), device)
+        reset_counts()
+        got = art.enhance(x)
+        require_launches(what, MTFAA_CALL_LAUNCHES)
+        launched = {name: n + MTFAA_CALL_LAUNCHES[name] for name, n in launched.items()}
+        require(tuple(got.shape) == tuple(x.shape) and bool(torch.isfinite(got).all()),
+                f"{what}: finite, {tuple(x.shape)}")
+        eager = mtfaa_inferencer(clone_model(model, device, state if quant else None), device)
+        err = float((got - eager.auto(x)).abs().max())
+        require(err <= DEPLOY_TOL, f"{what} vs eager auto on the same weights: max-abs {err:.3g} <= {DEPLOY_TOL}")
+        if quant is None:
+            set_plain_mtfaa(eager.model, True)
+            plain_err = float((got - eager.auto(x)).abs().max())
+            set_plain_mtfaa(eager.model, False)
+            require(plain_err <= WAV_TOL, f"{what} vs the plain versions: max-abs {plain_err:.3g} <= {WAV_TOL}")
+        times = in_turns({"artifact": lambda: [enhancement_seconds(art.enhance, x) * 1e3],
+                          "eager auto": lambda: [enhancement_seconds(eager.auto, x) * 1e3]}, rounds=1)
+        kernels = {key: profile_calls(fn, 3, f"{what}, {key}").kernels
+                   for key, fn in (("artifact", lambda: art.enhance(x)), ("eager auto", lambda: eager.auto(x)))}
+        print(f"{what} on {smi}: " + "; ".join(f"{key} " + ", ".join(f"{t:.3f}" for t in ts) + " ms a call"
+                                               for key, ts in times.items())
+              + f"; device launches a call: artifact {kernels['artifact']:.1f}, eager {kernels['eager auto']:.1f}; "
+              f"file {path.stat().st_size / 1e6:.3f} MB; export and save {export_s:.1f} s")
+        outs[quant] = got
+        del eager, art, program
+    snr = snr_db(outs[None], outs["int8"])
+    require(snr > INT8_SNR_DB, f"config-5b int8 artifact against float32: {snr:.2f} dB > {INT8_SNR_DB} dB")
+    del outs, x
+    torch.cuda.empty_cache()
+
+    what = f"config-5 offline artifact (fp32, B={CAUSAL_BATCH} x {CAUSAL_SECONDS} s)"
+    eager = mtfaa_inferencer(build_mtfaa(MtfaaConfig(), device, SEED + 52), device)
+    x = torch.from_numpy(np.stack(noisy_utterances(SEED + 53, (CAUSAL_SECONDS * SR,) * CAUSAL_BATCH))).to(device)
+    reset_counts()
+    want = eager.auto(x)
+    torch.cuda.synchronize()
+    eager_launches = {name: n for name, n in counts().items() if n}
+    t0 = time.perf_counter()
+    program = export_offline(clone_model(eager.model, device), eager.cfg, CAUSAL_BATCH, CAUSAL_SECONDS * SR, device)
+    path = tmp / "config5_fp32.zip"
+    artifact_lib.save_offline(str(path), program, {"model": "MtfaaConfig()", "sr": SR, "n_fft": 512, "hop_length": 256,
+                                                   "batch": CAUSAL_BATCH, "length": CAUSAL_SECONDS * SR,
+                                                   "quantized": None, "device": str(device)})
+    export_s = time.perf_counter() - t0
+    art = artifact_lib.load(str(path), device)
+    reset_counts()
+    got = art.enhance(x)
+    require_launches(f"{what}, as the eager forward's", eager_launches)
+    launched = {name: n + eager_launches.get(name, 0) for name, n in launched.items()}
+    err = float((got - want).abs().max())
+    require(bool(torch.isfinite(got).all()) and err <= DEPLOY_TOL,
+            f"{what} vs eager auto on the same weights: max-abs {err:.3g} <= {DEPLOY_TOL}")
+    print(f"{what}: file {path.stat().st_size / 1e6:.3f} MB; export and save {export_s:.1f} s")
+    return launched
+
+
+def check_mtfaa_streaming_artifacts(device, smi, tmp: Path) -> dict:
+    """Config 5b exported as the streaming step on the card at B=1 and B=8
+    (and int8 at B=1), saved and loaded, primed and run DEPLOY_HOPS hops
+    against ``StreamingEnhancer`` on the same hops (within DEPLOY_TOL), each
+    hop MTFAA_HOP_LAUNCHES and nothing else. The B=1 hop's latency (each hop
+    synchronised) of the eager path with and without the custom ops'
+    dispatch and of both artifacts, in turns; the MTFAA ops' dispatch cost;
+    profiles of an eager, a float32 and an int8 hop, the float32 artifact's
+    launching no more device kernels than the eager one's. Returns the
+    launches its artifacts made."""
+    model = build_mtfaa(None, device, SEED + 54)
+    cfg = StftConfig(n_fft=512, hop_length=256, center=False)
+    keep, hop = cfg.n_fft - cfg.hop_length, cfg.hop_length
+    state, _ = int8_state_dict(model)
+    launched = {name: 0 for name in MTFAA_HOP_LAUNCHES}
+    per_run = {name: n * DEPLOY_HOPS for name, n in MTFAA_HOP_LAUNCHES.items()}
+    arts = {}
+    for b, quant in [(b, None) for b in MTFAA_DEPLOY_BATCHES] + [(1, "int8")]:
+        what = f"config-5b streaming artifact ({quant or 'fp32'}, B={b}, {DEPLOY_HOPS} hops)"
+        t0 = time.perf_counter()
+        program, init = export_streaming(clone_model(model, device, state if quant else None, keep_int8=True), cfg,
+                                         b, device)
+        path = tmp / f"config5b_{quant or 'fp32'}_b{b}.zip"
+        artifact_lib.save_streaming(str(path), program, init, {"model": "configs/mtfaa_windowed.toml", "sr": SR,
+                                                               "n_fft": cfg.n_fft, "hop_length": hop, "batch": b,
+                                                               "quantized": quant, "device": str(device)})
+        export_s = time.perf_counter() - t0
+        art = artifact_lib.load(str(path), device)
+        enh = StreamingEnhancer(clone_model(model, device, state if quant else None), cfg)
+        wav = torch.from_numpy(np.stack(noisy_utterances(SEED + 55 + b, (keep + DEPLOY_HOPS * hop,) * b))).to(device)
+        hops = [wav[:, keep + i * hop : keep + (i + 1) * hop] for i in range(DEPLOY_HOPS)]
+        a_state, e_state = art.prime(art.init_state(), wav[:, :keep]), enh.prime(enh.init_state(b), wav[:, :keep])
+        reset_counts()
+        got = []
+        for h in hops:
+            out, a_state = art.step(a_state, h)
+            got.append(out)
+        require_launches(what, per_run)
+        launched = {name: n + per_run[name] for name, n in launched.items()}
+        want = []
+        for h in hops:
+            out, e_state = enh.step(e_state, h)
+            want.append(out)
+        got, want = torch.cat(got, -1), torch.cat(want, -1)
+        err = float((got - want).abs().max())
+        require(bool(torch.isfinite(got).all()) and err <= DEPLOY_TOL,
+                f"{what} vs StreamingEnhancer on the same weights: max-abs {err:.3g} <= {DEPLOY_TOL}")
+        print(f"{what}: file {path.stat().st_size / 1e6:.3f} MB; export and save {export_s:.1f} s")
+        if b == 1:
+            arts[quant] = (art, enh, a_state, e_state, hops)
+    art, enh, a_state, e_state, hops = arts[None]
+
+    def eager_direct():
+        with direct_forwards():
+            return hop_latencies_ms(enh.step, e_state, hops)
+
+    times = in_turns({"eager, direct launchers": eager_direct,
+                      "eager, custom ops": lambda: hop_latencies_ms(enh.step, e_state, hops),
+                      "artifact": lambda: hop_latencies_ms(art.step, a_state, hops),
+                      "int8 artifact": lambda: hop_latencies_ms(arts["int8"][0].step, arts["int8"][2], hops)},
+                     rounds=1)
+    print(f"config-5b B=1 hop on {smi}, {2 * DEPLOY_HOPS} hops each, each synchronised: " + "; ".join(
+        f"{key} {median_range(ts)}" for key, ts in times.items()))
+    mtfaa_dispatch_us(device, smi)
+    kernels = {}
+    for key, step, st in (("eager", enh.step, e_state), ("fp32", art.step, a_state),
+                          ("int8", arts["int8"][0].step, arts["int8"][2])):
+        carry = {"state": st, "i": 0}
+
+        def one_hop():
+            _, carry["state"] = step(carry["state"], hops[carry["i"] % len(hops)])
+            carry["i"] += 1
+
+        kernels[key] = profile_calls(one_hop, 20, f"config-5b B=1 {key} streaming hop").kernels
+    require(kernels["fp32"] <= kernels["eager"],
+            f"config-5b B=1 hop: the float32 artifact makes {kernels['fp32']:.1f} device launches a hop <= the eager "
+            f"hop's {kernels['eager']:.1f} (it folds nothing per call)")
+    print(f"config-5b B=1 hop on {smi}: the int8 artifact makes {kernels['int8']:.1f} device launches a hop, the "
+          f"float32 one {kernels['fp32']:.1f}: {kernels['int8'] - kernels['fp32']:.1f} more (each int8 weight "
+          f"dequantized, and stage 2's TFCM parameters folded, every hop)")
+    return launched
+
+
+def check_mtfaa_clis(device, smi, tmp: Path) -> None:
+    """``export --streaming`` of config 5b (``configs/mtfaa_windowed.toml``,
+    seeded weights) at B=CLI_FILES and the eager ``infer --streaming`` CLI on
+    the same seed, at once, then ``run_exported`` on the artifact, all fresh
+    processes on the card, over CLI_FILES utterances of about CLI_SECONDS
+    (whole hops past the prime, so both write every hop): wav by wav within
+    WAV_STEP."""
+    names = [f"m{i}" for i in range(CLI_FILES)]
+    hop = 256  # config 5b's, and its prime n_fft - hop
+    length = hop + (CLI_SECONDS * SR - hop) // hop * hop
+    for name, w in zip(names, noisy_utterances(SEED + 56, (length,) * CLI_FILES)):
+        write_wav(str(tmp / "in_mtfaa" / f"{name}.wav"), w, SR)
+    config, seed, artifact = ROOT / "configs/mtfaa_windowed.toml", SEED + 57, tmp / "m5b_stream.zip"
+    t0 = time.perf_counter()
+    procs = {"export --streaming": run_cli(["cruse_tpu_torch.infer.export", "-C", config, "-O", artifact,
+                                            "--seed", seed, "--batch", CLI_FILES, "--streaming", "--device", device]),
+             "infer --streaming": run_cli(["cruse_tpu_torch.infer", "-C", config, "-I", tmp / "in_mtfaa",
+                                           "-O", tmp / "m5b_infer", "--streaming", "--seed", seed, "--device", device])}
+    logs = {}
+    for key, proc in procs.items():
+        out, err = proc.communicate(timeout=600)
+        failed = f" ({proc.returncode}; {err[-1500:]})" if proc.returncode else ""
+        require(proc.returncode == 0, f"{key} CLI on config 5b exits 0{failed}")
+        logs[key] = out
+    require("reload check OK" in logs["export --streaming"], "export --streaming reloaded and ran its artifact")
+    proc = run_cli(["cruse_tpu_torch.infer.run_exported", "-A", artifact, "-I", tmp / "in_mtfaa",
+                    "-O", tmp / "m5b_run_exported", "--device", device])
+    out, err = proc.communicate(timeout=600)
+    failed = f" ({proc.returncode}; {err[-1500:]})" if proc.returncode else ""
+    require(proc.returncode == 0, f"run_exported on the config-5b stream exits 0{failed}")
+    print(f"the config-5b CLI runs on {smi} took {time.perf_counter() - t0:.1f} s, start-up included; run_exported: "
+          f"{out.strip().splitlines()[-1]}")
+    err = wav_dir_err(tmp / "m5b_run_exported", tmp / "m5b_infer", names)
+    require(err <= WAV_STEP, f"run_exported on the config-5b stream (B={CLI_FILES}) vs infer --streaming (B=1) on the "
+            f"same seed: max-abs {err:.3g} <= one int16 step")
+
+
 def check_deployment(device, smi) -> dict:
     """The deployment path (``check_offline_artifacts``,
-    ``check_streaming_artifacts``, ``check_deploy_clis``) in one temporary
-    directory; returns the kernel launches its artifacts made."""
+    ``check_streaming_artifacts``, ``check_deploy_clis``, then MTFAA's
+    ``check_mtfaa_offline_artifacts``, ``check_mtfaa_streaming_artifacts``,
+    ``check_mtfaa_clis``) in one temporary directory; returns the kernel
+    launches its artifacts made."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1799,7 +2088,15 @@ def check_deployment(device, smi) -> dict:
         gru_stream, df_stream = check_streaming_artifacts(device, smi, tmp)
         torch.cuda.empty_cache()
         check_deploy_clis(device, smi, tmp, artifact)
-    return {"gru_sequence": gru_offline + gru_stream, "deep_filter": df_stream}
+        mtfaa_offline = check_mtfaa_offline_artifacts(device, smi, tmp)
+        torch.cuda.empty_cache()
+        mtfaa_stream = check_mtfaa_streaming_artifacts(device, smi, tmp)
+        torch.cuda.empty_cache()
+        check_mtfaa_clis(device, smi, tmp)
+    return {"gru_sequence": gru_offline + gru_stream,
+            "deep_filter": df_stream + mtfaa_offline["deep_filter"] + mtfaa_stream["deep_filter"],
+            "tfcm_stack": mtfaa_offline["tfcm_stack"], "tattn": mtfaa_offline["tattn"],
+            "dw_stencil_fwd": mtfaa_stream["dw_stencil_fwd"]}
 
 
 def check_tfcm_block_path(device) -> int:
@@ -2949,17 +3246,20 @@ def main() -> int:
          "max_abs_err": df_bwd_err, "ms": df_bwd["wrapper_ms"], "plain_ms": df_bwd["plain_ms"],
          "bound_ms": df_bwd["bound_ms"], "bound_by": df_bwd["bound_by"], "library_ms": None,
          "stages": [{key: row[key] for key in DF_STAGE_KEYS} for row in df_rows if row["kind"] == "backward"]},
-        entry("tfcm_stack", "tfcm_eval", "tfcm_kernel.py:212", stack_launches, tfcm_err,
-              times["tfcm_stack"], stack_bound, None),
+        {**entry("tfcm_stack", "tfcm_eval", "tfcm_kernel.py:212", stack_launches + deploy_launches["tfcm_stack"],
+                 tfcm_err, times["tfcm_stack"], stack_bound, None),
+         "artifact_launches": deploy_launches["tfcm_stack"]},
         entry("tfcm_block", "tfcm_eval", "tfcm_kernel.py:103", block_launches, block_err,
               times["tfcm_block"], block_bound, None),
-        {**entry("tattn", "tattn", "asa_kernel.py:190", attn_launches + train_launches["tattn"], attn_err,
-                 times["tattn"], {key: attn_row[key] for key in ("bound_ms", "bound_by")}, attn_row["library_ms"]),
+        {**entry("tattn", "tattn", "asa_kernel.py:190",
+                 attn_launches + train_launches["tattn"] + deploy_launches["tattn"], attn_err, times["tattn"], {key: attn_row[key] for key in ("bound_ms", "bound_by")},
+                 attn_row["library_ms"]),
+         "artifact_launches": deploy_launches["tattn"],
          "stages": [{key: row[key] for key in STAGE_KEYS} for row in times["tattn_stages"]]},
         {**train_entry("dw_stencil_fwd", "dw_stencil", "dw_kernel.py:154",
-                       train_launches["dw_stencil_fwd"] + stream_dw + server_launches["dw_stencil_fwd"],
-                       max(train_errs["dw_fwd"], hop_dw_err)),
-         "server_launches": server_launches["dw_stencil_fwd"],
+                       train_launches["dw_stencil_fwd"] + stream_dw + server_launches["dw_stencil_fwd"]
+                       + deploy_launches["dw_stencil_fwd"], max(train_errs["dw_fwd"], hop_dw_err)),
+         "server_launches": server_launches["dw_stencil_fwd"], "artifact_launches": deploy_launches["dw_stencil_fwd"],
          "hop_stages": [{key: row[key] for key in DW_STAGE_KEYS} for row in hop_rows if row["kind"] == "forward"]},
         train_entry("dw_stencil_bwd", "dw_stencil", "dw_kernel.py:197", pallas_launches["dw_stencil_bwd"],
                     train_errs["dw_bwd"]),

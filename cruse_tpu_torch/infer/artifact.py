@@ -1,9 +1,9 @@
 """Self-contained deployment artifacts (counterpart of
 ``cruse_tpu/infer/artifact.py``): a zip container around ``torch.export``
-programs plus JSON metadata, so that a consumer needs only torch, the two
-kernel ops' registrations (``cruse_tpu_torch.ops.gru_kernel`` and
-``deep_filter_kernel``, imported here) and this file: no model classes, no
-configs, no weight files.
+programs plus JSON metadata, so that a consumer needs only torch, the five
+kernel ops' registrations (``cruse_tpu_torch.ops.gru_kernel``,
+``deep_filter_kernel``, ``tfcm_kernel``, ``asa_kernel`` and ``dw_kernel``,
+imported here) and this file: no model classes, no configs, no weight files.
 
   meta.json   {"format": "cruse-tpu-torch-artifact/1", "kind": "offline" |
                "streaming", "sr", "n_fft", "hop_length", "batch", "length"
@@ -35,8 +35,11 @@ from typing import Any, NamedTuple
 import torch
 import torch.utils._pytree as pytree
 
+import cruse_tpu_torch.ops.asa_kernel  # noqa: F401  registers torch.ops.cruse_tpu_torch.tattn_fwd
 import cruse_tpu_torch.ops.deep_filter_kernel  # noqa: F401  registers torch.ops.cruse_tpu_torch.deep_filter
+import cruse_tpu_torch.ops.dw_kernel  # noqa: F401  registers torch.ops.cruse_tpu_torch.dw_fwd
 import cruse_tpu_torch.ops.gru_kernel  # noqa: F401  registers torch.ops.cruse_tpu_torch.gru_sequence
+import cruse_tpu_torch.ops.tfcm_kernel  # noqa: F401  registers torch.ops.cruse_tpu_torch.tfcm_eval
 
 FORMAT = "cruse-tpu-torch-artifact/1"
 

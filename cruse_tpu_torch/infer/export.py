@@ -12,21 +12,29 @@ STFT, the model through the config's ``[inferencer] type`` (``mag_to_mag``,
 or ``auto``, the default, through the family's forward adapter), iSTFT. With
 ``--streaming`` it is the per-hop step ``(state, hop [B, hop]) -> (out,
 state')`` of ``StreamingEnhancer``, shipped with its initial state. Both are
-traced under ``torch.no_grad()`` from the inferencers' bodies, in which the
-grouped GRU and the deep filter are the custom ops
-``torch.ops.cruse_tpu_torch.gru_sequence`` and ``deep_filter``: the saved
-program launches the hand-written kernels on the card, the plain versions on
-the CPU. The program is fixed to the device it was exported on (``--device``,
-the card by default; a CUDA device that is not there is an error).
+traced under ``torch.no_grad()`` from the inferencers' bodies, in which every
+hand-written kernel on the path is a custom op: ``torch.ops.cruse_tpu_torch``
+``.gru_sequence`` (CRUSE, CRUSE+DF), ``deep_filter`` (CRUSE+DF, MTFAA),
+``tfcm_eval`` and ``tattn_fwd`` (MTFAA offline: a TFCM stack, a temporal
+attention) and ``dw_fwd`` (MTFAA streamed: the TFCM blocks' stencil). The
+saved program launches the hand-written kernels on the card, the plain
+versions on the CPU. The program is fixed to the device it was exported on
+(``--device``, the card by default; a CUDA device that is not there is an
+error).
 
 ``--quantize int8`` keeps the large weights as int8 codes and float32 scales
 in the program, which dequantizes them on every call (``nn.quantize``,
 ``attach_int8``), and logs the quantization report. The export reloads the
 artifact through ``artifact.load`` and runs it once before it exits 0.
 
-Exported: CRUSE, CRUSE+DF and DFSMN, whose forward crosses only registered
-ops. MTFAA raises ``NotImplementedError``: its forward kernels are not yet
-registered as custom ops.
+Exported: CRUSE, CRUSE+DF, DFSMN and MTFAA (configs 5 and 5b offline, a
+windowed MTFAA also streamed; a full-causal one streamed raises
+``StreamingEnhancer``'s ``ValueError``). The MTFAA offline program runs the
+model without its streaming state (``with_state=False``, as the ``auto``
+adapter does). Its TFCM parameters are folded once, before tracing
+(``models/mtfaa.py::frozen_folds``), and held as constants of a float32
+program; a stack whose weights hold int8 leaves folds in the program after
+the dequantize, as ``tools/export.py`` does.
 """
 from __future__ import annotations
 
@@ -37,9 +45,7 @@ import torch
 import torch.utils._pytree as pytree
 from torch import nn
 
-# MTFAA's forward kernels that have no custom-op registration yet
-UNREGISTERED_MTFAA_KERNELS = ("tfcm_layer", "tattn_fwd", "dw_fwd")
-
+from cruse_tpu_torch.models.mtfaa import frozen_folds
 
 class _Program(nn.Module):
     """An inferencer's body as a module, so that ``torch.export`` lifts the
@@ -71,24 +77,14 @@ class _FlatStep(nn.Module):
         return out, new._replace(model_state=tuple(pytree.tree_leaves(new.model_state)))
 
 
-def check_exportable(model: nn.Module) -> None:
-    from cruse_tpu_torch.models.mtfaa import MtfaaNet
-
-    if isinstance(model, MtfaaNet):
-        raise NotImplementedError(
-            "MTFAA export is not ported: its forward kernels "
-            f"({', '.join(UNREGISTERED_MTFAA_KERNELS)}) are not yet registered as custom ops")
-
-
 def export_offline(model: nn.Module, icfg, batch: int, length: int, device):
     """The ``torch.export`` program of enhanced [B, L] = graph(noisy [B, L])."""
     from cruse_tpu_torch.infer.batch import BatchInferencer
 
-    check_exportable(model)
     inferencer = BatchInferencer(model, icfg, device)
     body = inferencer._mag_to_mag_impl if icfg.type == "mag_to_mag" else inferencer._auto_impl
     example = torch.zeros(batch, length, device=inferencer.device)
-    with torch.no_grad():
+    with torch.no_grad(), frozen_folds(inferencer.model):
         program = torch.export.export(_Program(inferencer.model, body), (example,))
     program.example_inputs = None  # else the saved program carries the [B, L] batch of zeros
     return program
@@ -100,13 +96,12 @@ def export_streaming(model: nn.Module, cfg, batch: int, device):
     from cruse_tpu_torch.infer.artifact import StreamState
     from cruse_tpu_torch.infer.streaming import StreamingEnhancer
 
-    check_exportable(model)
     enhancer = StreamingEnhancer(model.to(device), cfg)
     state = enhancer.init_state(batch)
     leaves, spec = pytree.tree_flatten(state.model_state)
     init = StreamState(state.input_tail, state.ola_tail, tuple(leaves))
     hop = torch.zeros(batch, cfg.hop_length, device=enhancer.device)
-    with torch.no_grad():
+    with torch.no_grad(), frozen_folds(enhancer.model):
         program = torch.export.export(_FlatStep(enhancer, spec), (init, hop))
     program.example_inputs = None  # the initial state ships once, as init.pt
     return program, init
@@ -121,7 +116,6 @@ def build(config: dict, weights: str | None, seed: int, quantize: str | None):
     from cruse_tpu_torch.utils.weights import load_flax_npz, state_dict_from_flax
 
     model = build_from_config(config["model"], generator=torch.Generator().manual_seed(seed))
-    check_exportable(model)
     variables = load_flax_npz(weights) if weights else None
     if quantize == "int8":
         state, report = int8_state_dict(model, variables)

@@ -63,12 +63,20 @@ unfused blocks re-run over the last ``2 (2^L - 1)`` frames of its input,
 which is all they depend on. A full-causal model (no window) returns no state
 and refuses one; no path trains through a carried state.
 
+Export (``infer/export.py``): each kernel's wrapper reaches it through a
+custom op (``torch.ops.cruse_tpu_torch.tfcm_eval``, ``tattn_fwd``,
+``dw_fwd``, ``deep_filter``), which ``torch.export`` traces; the trace runs
+inside ``frozen_folds``, which hands each TFCM stack and block whose weights
+hold no int8 leaf its folded parameters as a constant of the program, and
+``_folded`` neither reads nor writes the eager cache under a trace.
+
 ``asa_impl``, ``tfcm_remat`` and ``asa_remat`` are accepted so that one
 config file builds both packages; the port has one implementation per device,
 so they change nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -78,6 +86,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.utils import parametrize
 
 from cruse_tpu_torch.ops.asa_kernel import flash_tattn_tm
 from cruse_tpu_torch.ops.deep_filter_kernel import deep_filter
@@ -485,10 +494,18 @@ class TFCM(nn.Module):
 
 
 def _folded(owner: nn.Module, blocks) -> torch.Tensor:
-    """``fold_eval_params`` of ``blocks``, kept on ``owner`` until one of the
-    tensors it folds is replaced or changed in place (a load, a move, an
-    optimizer step), so a forward folds nothing."""
+    """``fold_eval_params`` of ``blocks``. Eager: kept on ``owner`` until one
+    of the tensors it folds is replaced or changed in place (a load, a move,
+    an optimizer step), so a forward folds nothing. Under ``torch.export``:
+    the owner's frozen fold (``frozen_folds``), a constant of the program, or
+    where it has none (int8 leaves) the fold of the weights as the program
+    dequantizes them, on every call; a trace reads no cache and writes none."""
+    frozen = owner.__dict__.get("_frozen_fold")
+    if frozen is not None:
+        return frozen
     params = [b.eval_params() for b in blocks]
+    if torch.compiler.is_compiling():
+        return fold_eval_params(params)
     key = tuple((t.data_ptr(), t._version) for p in params for t in p.values())
     cached = getattr(owner, "_folded_cache", None)
     if cached is None or cached[0] != key:
@@ -496,6 +513,29 @@ def _folded(owner: nn.Module, blocks) -> torch.Tensor:
             cached = (key, fold_eval_params(params))
         owner._folded_cache = cached
     return cached[1]
+
+
+@contextlib.contextmanager
+def frozen_folds(model: nn.Module):
+    """For ``torch.export``: every TFCM stack and block of ``model`` whose
+    weights hold no int8 leaf (``nn.quantize.attach_int8``'s
+    parametrizations) gets its folded parameters, folded once here, which a
+    program that reads them lifts as a constant, so that a float32 program
+    folds nothing per call; a stack or block with int8 leaves folds in the
+    program after the dequantize, as the JAX package's export does. The
+    folds go when the block ends, and the eager path keeps its own cache."""
+    owners = [m for m in model.modules() if isinstance(m, (TFCM, TFCMBlock))]
+    try:
+        for owner in owners:
+            blocks = owner.blocks() if isinstance(owner, TFCM) else [owner]
+            if not any(parametrize.is_parametrized(b) for b in blocks):
+                with torch.no_grad():
+                    folded = fold_eval_params([b.eval_params() for b in blocks])
+                owner.__dict__["_frozen_fold"] = folded
+        yield model
+    finally:
+        for owner in owners:
+            owner.__dict__.pop("_frozen_fold", None)
 
 
 # ---------------- ASA ----------------

@@ -15,7 +15,9 @@ causal whatever it is given; this one is not.
 ``flash_tattn_tm`` runs the plain version for tensors on the CPU (its
 autograd is the plain backward) and launches the hand-written kernels for
 tensors on a CUDA device; on a CUDA device it launches or raises. Without a
-gradient to compute it is one launch of the forward kernel
+gradient to compute it is the op ``torch.ops.cruse_tpu_torch.tattn_fwd``
+(``_forward_impl``, which ``torch.export`` traces into a saved program): one
+launch of the forward kernel
 (``csrc/tattn.cu``, flash-style: no T x T tensor; a warp walks the 32-key
 tiles of its own 32 queries' band with a base-2 online softmax, which
 ``tattn_band_tiles`` and ``tattn_online_reference`` spell out in PyTorch).
@@ -419,19 +421,45 @@ class _FlashTattn(torch.autograd.Function):
         return dq, dk, dv, None
 
 
-def flash_tattn_tm(q, k, v, window: Optional[int] = None, causal: bool = True):
-    """Temporal attention, T-minor, differentiable when causal (see the module doc)."""
-    _check(q, k, v, window)
+def _forward_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[int],
+                  causal: bool) -> torch.Tensor:
+    """The forward without a gradient on tensors with storage: the plain
+    version on CPU tensors, one launch of the forward kernel (no logsumexp)
+    on CUDA tensors (it launches or raises)."""
     if q.device.type == "cpu":
-        return tattn_reference(q, k, v, window, causal)
-    if q.device.type != "cuda":
+        return tattn_reference(q, k, v, window, causal).contiguous()
+    return _launch_fwd(q, k, v, window, causal, with_lse=False)[0]
+
+
+# the forward as the traceable op torch.ops.cruse_tpu_torch.tattn_fwd
+tattn_fwd_op = torch.library.custom_op("cruse_tpu_torch::tattn_fwd", _forward_impl, mutates_args=(),
+                                       device_types=("cpu", "cuda"))
+
+
+@tattn_fwd_op.register_fake
+def _tattn_fwd_fake(q, k, v, window, causal):
+    """Shapes only, for tracing (``torch.export``) on tensors without storage."""
+    return torch.empty_like(v, memory_format=torch.contiguous_format)
+
+
+def _forward(q, k, v, window, causal):
+    return torch.ops.cruse_tpu_torch.tattn_fwd(q, k, v, window, causal)
+
+
+def flash_tattn_tm(q, k, v, window: Optional[int] = None, causal: bool = True):
+    """Temporal attention, T-minor, differentiable when causal (see the module
+    doc). Without a gradient it is the op ``torch.ops.cruse_tpu_torch.tattn_fwd``."""
+    _check(q, k, v, window)
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_tattn_tm runs on cpu or cuda tensors, got {q.device}")
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        if q.device.type == "cpu":  # the plain version's autograd
+            return tattn_reference(q, k, v, window, causal)
         if not causal:
             raise NotImplementedError("the non-causal attention kernel has no backward (the "
                                       "models train causally); run it without a gradient")
         return _FlashTattn.apply(q, k, v, window)
-    return _launch_fwd(q, k, v, window, causal, with_lse=False)[0]
+    return _forward(q, k, v, None if window is None else int(window), causal)
 
 
 flash_tattn_tm.launches = 0

@@ -24,7 +24,10 @@ The backward is two launches: the tiles, each writing its nine f32 tap sums
 into ``part [C, 9, tiles]`` (``dw_partials_reference``), then a kernel that
 adds each channel's tiles in float64 in a fixed order
 (``dw_finish_reference``), so the tap sums do not vary from run to run.
-``dw_causal_tm`` is the differentiable function built from the two.
+``dw_causal_tm`` is the differentiable function built from the two; its
+forward is the op ``torch.ops.cruse_tpu_torch.dw_fwd`` (``_forward_impl``,
+the body of ``dw_stencil_fwd``), which ``torch.export`` traces into a saved
+program, and without a gradient to compute it is that op alone.
 """
 from __future__ import annotations
 
@@ -235,17 +238,39 @@ def _need_contiguous(**tensors):
             raise ValueError(f"{name} must be contiguous, strides {tensor.stride()}")
 
 
-def dw_stencil_fwd(x_ext: torch.Tensor, wd: torch.Tensor, d: int) -> torch.Tensor:
-    """The stencil's forward alone (no autograd): see the module doc."""
-    _check(x_ext, wd, d)
+def _forward_impl(x_ext: torch.Tensor, wd: torch.Tensor, d: int) -> torch.Tensor:
+    """The forward on tensors with storage: the plain version on CPU tensors,
+    on CUDA tensors the kernel at ``dw_plan``'s tile (it launches or raises)."""
     if x_ext.device.type == "cpu":
-        return dw_taps_reference(x_ext, wd, d)
+        return dw_taps_reference(x_ext, wd, d).contiguous()
     if x_ext.device.type != "cuda":
         raise ValueError(f"dw_stencil_fwd runs on cpu or cuda tensors, got {x_ext.device}")
     b, k, c, t_ext = x_ext.shape
     y = torch.empty((b, k, c, t_ext - 2 * d), dtype=torch.float32, device=x_ext.device)
     launch_dw_fwd(x_ext, wd, d, dw_plan(b, k, c, t_ext - 2 * d, d), y)
     return y
+
+
+# the forward as the traceable op torch.ops.cruse_tpu_torch.dw_fwd
+dw_fwd_op = torch.library.custom_op("cruse_tpu_torch::dw_fwd", _forward_impl, mutates_args=(),
+                                    device_types=("cpu", "cuda"))
+
+
+@dw_fwd_op.register_fake
+def _dw_fwd_fake(x_ext, wd, d):
+    """Shapes only, for tracing (``torch.export``) on tensors without storage."""
+    b, k, c, t_ext = x_ext.shape
+    return x_ext.new_empty((b, k, c, t_ext - 2 * d))
+
+
+def _forward(x_ext, wd, d):
+    return torch.ops.cruse_tpu_torch.dw_fwd(x_ext, wd, d)
+
+
+def dw_stencil_fwd(x_ext: torch.Tensor, wd: torch.Tensor, d: int) -> torch.Tensor:
+    """The stencil's forward alone (no autograd): see the module doc."""
+    _check(x_ext, wd, d)
+    return _forward_impl(x_ext, wd, d)
 
 
 def launch_dw_fwd(x_ext, wd, d: int, plan: DwPlan, y) -> None:
@@ -310,7 +335,7 @@ class _DwCausal(torch.autograd.Function):
     def forward(ctx, x_ext, wd, d):
         ctx.save_for_backward(x_ext, wd)
         ctx.d = d
-        return dw_stencil_fwd(x_ext, wd, d)
+        return _forward(x_ext, wd, d)
 
     @staticmethod
     def backward(ctx, g):
@@ -321,6 +346,12 @@ class _DwCausal(torch.autograd.Function):
 
 def dw_causal_tm(x_ext: torch.Tensor, wd: torch.Tensor, d: int) -> torch.Tensor:
     """The differentiable stencil, ``x_ext [B, K, C, T + 2d]``, ``wd [3, 3, C]``
-    -> ``[B, K, C, T]``: forward ``dw_stencil_fwd``, backward
-    ``dw_stencil_bwd`` (on the CPU, their plain versions)."""
-    return _DwCausal.apply(x_ext, wd, d)
+    -> ``[B, K, C, T]``: forward the op ``torch.ops.cruse_tpu_torch.dw_fwd``
+    (``dw_stencil_fwd``'s body), backward ``dw_stencil_bwd`` (on the CPU,
+    their plain versions). Without a gradient to compute it is the op alone."""
+    _check(x_ext, wd, d)
+    if x_ext.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"dw_causal_tm runs on cpu or cuda tensors, got {x_ext.device}")
+    if torch.is_grad_enabled() and (x_ext.requires_grad or wd.requires_grad):
+        return _DwCausal.apply(x_ext, wd, d)
+    return _forward(x_ext, wd, d)

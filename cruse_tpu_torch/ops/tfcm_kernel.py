@@ -23,15 +23,18 @@ run the plain version for tensors on the CPU and the hand-written kernel
 (``csrc/tfcm_eval.cu``: ``tfcm_layer_kernel``, one device launch a dilation
 layer, x passing between layers through two ping-pong buffers, all L
 launches made by one C call) for tensors on a CUDA device; on a CUDA device
-they launch or raise. ``<fn>.launches`` counts the calls that launched, one a
-stack or a block whatever L. The kernel has no backward: it raises when a
-gradient is requested.
+they launch or raise. Without a gradient both go through the op
+``torch.ops.cruse_tpu_torch.tfcm_eval`` (``_forward_impl``), which
+``torch.export`` traces into a saved program. ``<fn>.launches`` counts the
+calls that launched, one a stack or a block whatever L, in eager code and in
+a program alike. The kernel has no backward: on a CUDA device it raises when
+a gradient is requested (the CPU's plain version takes one).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -224,9 +227,6 @@ def layer_kernel_info(c: int, smem_bytes: int) -> dict:
 def _launch(x, params, dilations, t_chunk, k_chunk):
     if not x.is_contiguous() or not params.is_contiguous():
         raise ValueError("x and params must be contiguous")
-    if torch.is_grad_enabled() and (x.requires_grad or params.requires_grad):
-        raise RuntimeError("the CUDA TFCM kernel has no backward; "
-                           "run it under torch.no_grad() or torch.inference_mode()")
     b, k, c, t = x.shape
     if c not in KERNEL_CHANNELS:
         raise ValueError(f"the TFCM kernel takes C in {KERNEL_CHANNELS}, got {c}")
@@ -254,16 +254,46 @@ def _launch(x, params, dilations, t_chunk, k_chunk):
     return buffers["out"]
 
 
-def _run(x, params, dilations, t_chunk, k_chunk, counter):
+def _forward_impl(x: torch.Tensor, params: torch.Tensor, dilations: list[int], t_chunk: Optional[int],
+                  k_chunk: Optional[int], block: bool) -> torch.Tensor:
+    """The stack on tensors with storage: the plain version on CPU tensors,
+    on CUDA tensors the layer kernel at ``_layer_plan``'s tiles (it launches
+    or raises), counted in ``fused_tfcm_block_eval.launches`` when ``block``,
+    else in ``fused_tfcm_stack_eval.launches``."""
+    dilations = tuple(int(d) for d in dilations)
+    if x.device.type == "cpu":
+        return tfcm_stack_reference(x, params, dilations).contiguous()
+    out = _launch(x, params, dilations, t_chunk, k_chunk)
+    (fused_tfcm_block_eval if block else fused_tfcm_stack_eval).launches += 1
+    return out
+
+
+# the stack (or a lone block) as the traceable op torch.ops.cruse_tpu_torch.tfcm_eval
+tfcm_eval_op = torch.library.custom_op("cruse_tpu_torch::tfcm_eval", _forward_impl, mutates_args=(),
+                                       device_types=("cpu", "cuda"))
+
+
+@tfcm_eval_op.register_fake
+def _tfcm_eval_fake(x, params, dilations, t_chunk, k_chunk, block):
+    """Shapes only, for tracing (``torch.export``) on tensors without storage."""
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def _forward(x, params, dilations, t_chunk, k_chunk, block):
+    return torch.ops.cruse_tpu_torch.tfcm_eval(x, params, dilations, t_chunk, k_chunk, block)
+
+
+def _run(x, params, dilations, t_chunk, k_chunk, block: bool):
     dilations = tuple(int(d) for d in dilations)
     _check(x, params, dilations)
-    if x.device.type == "cpu":
-        return tfcm_stack_reference(x, params, dilations)
-    if x.device.type == "cuda":
-        out = _launch(x, params, dilations, t_chunk, k_chunk)
-        counter.launches += 1
-        return out
-    raise ValueError(f"the TFCM kernels run on cpu or cuda tensors, got {x.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the TFCM kernels run on cpu or cuda tensors, got {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or params.requires_grad):
+        if x.device.type == "cpu":  # the plain version is differentiable
+            return tfcm_stack_reference(x, params, dilations)
+        raise RuntimeError("the CUDA TFCM kernel has no backward; "
+                           "run it under torch.no_grad() or torch.inference_mode()")
+    return _forward(x, params, list(dilations), t_chunk, k_chunk, block)
 
 
 def fused_tfcm_stack_eval(x, params, *, dilations, t_chunk: int | None = None,
@@ -273,14 +303,14 @@ def fused_tfcm_stack_eval(x, params, *, dilations, t_chunk: int | None = None,
     layer kernel, one a block, counted as one call. ``t_chunk`` and
     ``k_chunk`` fix every layer's time and band tile (``_layer_plan``
     chooses them otherwise)."""
-    return _run(x, params, dilations, t_chunk, k_chunk, fused_tfcm_stack_eval)
+    return _run(x, params, dilations, t_chunk, k_chunk, block=False)
 
 
 def fused_tfcm_block_eval(x, params, *, dilation: int, t_chunk: int | None = None,
                           k_chunk: int | None = None):
     """One eval TFCM block, params [1, P]: the stack's one-layer case (one
     launch of the layer kernel on a CUDA device)."""
-    return _run(x, params, (dilation,), t_chunk, k_chunk, fused_tfcm_block_eval)
+    return _run(x, params, (dilation,), t_chunk, k_chunk, block=True)
 
 
 fused_tfcm_stack_eval.launches = 0

@@ -34,7 +34,6 @@ from cruse_tpu_torch.infer import artifact as artifact_lib
 from cruse_tpu_torch.infer import export as export_lib
 from cruse_tpu_torch.infer.batch import BatchInferencer, InferencerConfig
 from cruse_tpu_torch.infer.streaming import StreamingEnhancer
-from cruse_tpu_torch.models import MtfaaConfig, MtfaaNet
 from cruse_tpu_torch.nn import quantize as tq
 from cruse_tpu_torch.utils.weights import save_flax_npz
 from tests.test_torch_cruse import SMALL as SMALL_CRUSE
@@ -299,16 +298,6 @@ def test_dfsmn_exports_offline_and_streaming(rng):
             out, state = step(state, hop)
         e_out, e_state = enh.step(e_state, hop)
         assert (out - e_out).abs().max() < EAGER_TOL
-
-
-def test_mtfaa_export_names_its_unregistered_kernels():
-    model = MtfaaNet(MtfaaConfig(n_fft=256, n_bands=16, channels=(4, 4), band_strides=(2, 2), tfcm_layers=1,
-                                 attention_window=4))
-    icfg = InferencerConfig(type="auto", stft=StftConfig(n_fft=256, hop_length=128))
-    for call in (lambda: export_lib.export_offline(model, icfg, 1, 2048, "cpu"),
-                 lambda: export_lib.export_streaming(model, StftConfig(256, 128, center=False), 1, "cpu")):
-        with pytest.raises(NotImplementedError, match="tfcm_layer, tattn_fwd, dw_fwd"):
-            call()
 
 
 def test_load_refuses_another_device(exported, tmp_path):
