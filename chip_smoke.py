@@ -218,7 +218,26 @@ needed). In order, and any failure exits non-zero:
     at B=32 x 10 s (wall ms, peak memory) and a profile of the config-2 step
     (2 launches each of the resident GRU forward and backward kernels, none
     of the streamed backward, busy time, idle share);
-20. drives the deployment path: config 1 (``configs/cruse_base.toml``, seeded
+20. drives the trainer slice: writes a synthetic corpus (24 clean clips of
+    4 s of tones under a syllable envelope, 24 noise clips) and a copy of
+    ``configs/cruse_base.toml`` pointed at it, 2 epochs of 4 steps, every
+    other field as published (B=32 x 3 s training, 2 batches of 8 x 5 s
+    validation); runs ``python -m cruse_tpu_torch.train``'s ``main`` in this
+    process on the card: native host I/O, on-card mixing, the prefetcher,
+    asynchronous validation scoring, checkpoints; checks 2 + 2 GRU launches
+    a step and 2 a validation batch and nothing else, finite epoch means,
+    both validations and their composite scores in the log, the native
+    assembler's calls, ``latest``, ``best`` and ``model_0002.npz``; serves
+    that snapshot with ``python -m cruse_tpu_torch.infer --weights`` on two
+    clips, within 1e-4 of the trainer's own enhancement; resumes with
+    ``-R`` at 3 epochs (the restored state equal to ``latest`` bit for bit,
+    epoch 3 alone run); holds one step's losses (1e-5 relative) and
+    gradients (tests/test_torch_train_step.py's bounds) against the plain
+    recurrence on a pre-mixed batch; prints the trainer's ms a step against
+    the bare ``make_train_step`` on pre-mixed batches, the data stages'
+    ms a batch, the validation's device and scoring times, the checkpoint
+    saves, and profiles a 12-step epoch (device idle share);
+21. drives the deployment path: config 1 (``configs/cruse_base.toml``, seeded
     weights and BatchNorm statistics) exported offline at B=16 x 10 s on the
     card in float32 and int8 (``infer/export.py``, ``nn/quantize.py``),
     saved and loaded (``infer/artifact.py``): 2 resident GRU launches a call
@@ -252,7 +271,7 @@ needed). In order, and any failure exits non-zero:
     --streaming`` and ``run_exported`` on config 5b against the eager
     ``infer --streaming`` CLI on the same seeded weights, within one int16
     step;
-21. prints a JSON line of the kernels (each with its launches on the main
+22. prints a JSON line of the kernels (each with its launches on the main
     paths, its error, its time, the plain version's, the least time the card
     could take for its bytes or its multiply-adds, and the library call's time
     where there is one), then ``{"ok": true, "device": ...}``.
@@ -283,6 +302,9 @@ import cruse_tpu_torch.ops.deep_filter_kernel as deep_filter_kernel
 import cruse_tpu_torch.ops.dw_kernel as dw_kernel
 import cruse_tpu_torch.ops.gru_kernel as gru_kernel
 import cruse_tpu_torch.ops.tfcm_kernel as tfcm_kernel
+from cruse_tpu_torch.data import native as native_io
+from cruse_tpu_torch.data.manifest import write_manifest
+from cruse_tpu_torch.data.mixer import draw_mix, mix_batch
 from cruse_tpu_torch.data.wavio import read_wav, to_int16_scaled, write_wav
 from cruse_tpu_torch.dsp.stft import StftConfig, istft, stft
 from cruse_tpu_torch.infer import artifact as artifact_lib
@@ -329,6 +351,9 @@ from cruse_tpu_torch.ops.tattn_timing import attn_inputs, time_tattn_bwd, time_t
 from cruse_tpu_torch.ops.tattn_timing import describe as describe_tattn
 from cruse_tpu_torch.ops.tfcm_bwd_timing import bound, describe, time_tfcm_bwd
 from cruse_tpu_torch.ops.tfcm_train import PARAM_NAMES, tfcm_block_reference, tfcm_block_train
+from cruse_tpu_torch.train import checkpoint as checkpoint_lib
+from cruse_tpu_torch.train.__main__ import build_trainer, dataset_from, parse_args
+from cruse_tpu_torch.train.__main__ import main as train_main
 from cruse_tpu_torch.train.step import (
     StepConfig, init_train_state, make_loss_gradients, make_train_step)
 from cruse_tpu_torch.utils.config import load_config
@@ -474,6 +499,10 @@ CLI_FILES, CLI_SECONDS = 4, 2
 MTFAA_CALL_LAUNCHES = {"tfcm_stack": 6, "tattn": 3, "deep_filter": 1}
 MTFAA_HOP_LAUNCHES = {"dw_stencil_fwd": 24, "deep_filter": 1}
 MTFAA_DEPLOY_BATCHES = (1, MTFAA_STREAM_BATCH)
+TRAINER_CLIPS, TRAINER_VALID_CLIPS, TRAINER_CLIP_SECONDS = 24, 4, 4  # the trainer phase's corpus
+TRAINER_EPOCHS, TRAINER_STEPS = 2, 4  # the train CLI's run (then -R for one more epoch)
+TRAINER_VALID_BATCHES = 2  # the CLI validates on two batches, as tools/train.py does
+TRAINER_PROFILE_STEPS = 12  # the profiled epoch
 STEP_KERNELS_BEFORE = 6270  # device launches of a config-5b train step when a mid_bwd call made 8
 MID_LAUNCHES_PER_CALL = 2  # mid_tile_kernel and mid_finish_kernel
 DW_LAUNCHES_PER_CALL = {"forward": 1, "backward": 2}  # dw_fwd_kernel; dw_bwd_kernel and dw_finish_kernel
@@ -2073,6 +2102,255 @@ def check_mtfaa_clis(device, smi, tmp: Path) -> None:
             f"same seed: max-abs {err:.3g} <= one int16 step")
 
 
+def write_trainer_corpus(root: Path) -> None:
+    """TRAINER_CLIPS clean clips of TRAINER_CLIP_SECONDS s (three tones under a
+    syllable-rate envelope, as examples/make_tiny_corpus.py makes them) and as
+    many noise clips, with train / validation manifests (the last
+    TRAINER_VALID_CLIPS of each for validation)."""
+    rng = np.random.default_rng(SEED + 7)
+    n = TRAINER_CLIP_SECONDS * SR
+    t = np.arange(n) / SR
+    files = {"clean": [], "noise": []}
+    for i in range(TRAINER_CLIPS):
+        env = 0.5 * (1 + np.sin(2 * np.pi * 3 * t + rng.uniform(0, 6)))
+        tones = sum(np.sin(2 * np.pi * f * t + rng.uniform(0, 6)) for f in (210, 430, 870))
+        files["clean"].append(str(root / f"clean_{i}.wav"))
+        write_wav(files["clean"][-1], (env * tones / 3 * 0.3).astype(np.float32), SR)
+        files["noise"].append(str(root / f"noise_{i}.wav"))
+        write_wav(files["noise"][-1], (rng.standard_normal(n) * 0.1).astype(np.float32), SR)
+    split = TRAINER_CLIPS - TRAINER_VALID_CLIPS
+    for kind, paths in files.items():
+        write_manifest(paths[:split], str(root / f"{kind}_train.txt"))
+        write_manifest(paths[split:], str(root / f"{kind}_valid.txt"))
+
+
+def trainer_config(root: Path, epochs: int) -> Path:
+    """configs/cruse_base.toml with its manifests pointed at the corpus under
+    root, its runs written there, and TRAINER_STEPS steps an epoch for
+    ``epochs`` epochs; every other field as published."""
+    text = (ROOT / "configs" / "cruse_base.toml").read_text()
+    for old, new in (('save_dir = "runs"', f'save_dir = "{root / "runs"}"'),
+                     ("epochs = 100", f"epochs = {epochs}"),
+                     ("steps_per_epoch = 200", f"steps_per_epoch = {TRAINER_STEPS}"),
+                     ("manifests/", f"{root}/")):
+        if old not in text:
+            raise RuntimeError(f"check failed: configs/cruse_base.toml has no {old!r}")
+        text = text.replace(old, new)
+    path = root / f"cruse_base_{epochs}.toml"
+    path.write_text(text)
+    return path
+
+
+def epoch_lines(log_text: str, epoch: int) -> dict:
+    """The trainer's logged epoch means: metric -> value."""
+    return {m.group(1): float(m.group(2))
+            for m in re.finditer(rf"  epoch {epoch} (\w+): (\S+)", log_text)}
+
+
+def served_against_trainer(trainer, config: Path, snapshot: Path, root: Path) -> None:
+    """``python -m cruse_tpu_torch.infer --weights model_NNNN.npz`` on two
+    validation clips against the trainer's own enhancement of them (the
+    CLI writes int16 at 0.8 of full scale: the trainer's output is scaled the
+    same way and held within 1e-4)."""
+    clips, out = root / "clips", root / "served"
+    clips.mkdir()
+    names = [f"clean_{i}" for i in range(TRAINER_CLIPS - 2, TRAINER_CLIPS)]
+    for name in names:
+        os.link(root / f"{name}.wav", clips / f"{name}.wav")
+    t0 = time.perf_counter()
+    proc = run_cli(["cruse_tpu_torch.infer", "-C", config, "-I", clips, "-O", out, "--weights", snapshot])
+    _, stderr = proc.communicate(timeout=600)
+    require(proc.returncode == 0, f"infer --weights {snapshot.name} exits 0 ({stderr[-2000:]})")
+    worst = 0.0
+    for name in names:
+        wav = torch.from_numpy(read_wav(str(clips / f"{name}.wav"))[0][None]).to(trainer.device)
+        own = trainer.enhance(wav)[0].cpu().numpy()
+        own = 0.8 * 32767 * own / np.abs(own).max() / 32768
+        served = read_wav(str(out / f"{name}.wav"))[0]
+        require(served.shape == own.shape, f"served {name}: {served.shape} samples = {own.shape}")
+        worst = max(worst, float(np.abs(served - own).max()))
+    require(worst <= WAV_TOL, f"infer --weights {snapshot.name} on {len(names)} clips against the trainer's "
+            f"enhancement: max-abs {worst:.3g} <= {WAV_TOL} ({time.perf_counter() - t0:.1f} s with start-up)")
+
+
+def trainer_state_equals(trainer, saved: dict) -> bool:
+    """The trainer's state equals a checkpoint's tensors bit for bit."""
+    state = trainer.state
+    model = state.model.state_dict()
+    return (all(torch.equal(model[k].cpu(), v) for k, v in saved["model"].items()) and model.keys() == saved["model"].keys()
+            and all(torch.equal(a.cpu(), b) for a, b in zip(state.opt_state.mu + state.opt_state.nu,
+                                                          saved["opt_mu"] + saved["opt_nu"]))
+            and len(state.opt_state.mu) == len(saved["opt_mu"]) and state.opt_state.count == saved["opt_count"]
+            and all(torch.equal(state.balancer_state.total[k].cpu(), v) for k, v in saved["balancer_total"].items())
+            and all(torch.equal(state.balancer_state.fix[k].cpu(), v) for k, v in saved["balancer_fix"].items())
+            and state.step == saved["step"])
+
+
+def check_trainer_step(trainer, batch) -> None:
+    """One step's forward and backward from the trainer's weights on one
+    pre-mixed batch, with the GRU kernels and with the plain recurrence
+    (``set_recurrence``): losses within 1e-5 relative, gradients leaf by leaf
+    within tests/test_torch_train_step.py's bounds (relative 2e-3, or 3e-3
+    of the largest gradient + 1e-3)."""
+    model, cfg = trainer.state.model, trainer.step_cfg
+    kept = {k: v.clone() for k, v in model.state_dict().items()}
+    runs = {}
+    for name, recurrence in (("kernels", gru_sequence), ("plain", gru_sequence_reference)):
+        set_recurrence(model, recurrence)
+        grads, losses, _ = make_loss_gradients(model, cfg)(trainer.state.balancer_state, batch)
+        runs[name] = ([g.detach().clone() for g in grads], {k: float(v) for k, v in losses.items()})
+        model.load_state_dict(kept)  # the forward moved the BatchNorm statistics
+    set_recurrence(model, gru_sequence)
+    (grads, losses), (plain_grads, plain_losses) = runs["kernels"], runs["plain"]
+    for name, value in plain_losses.items():
+        require(abs(losses[name] - value) <= 1e-5 * abs(value),
+                f"trainer step: loss {name} {losses[name]:.7g}, kernels vs plain recurrence within 1e-5 relative")
+    gscale = max(float(g.abs().max()) for g in plain_grads)
+    bad = []
+    for (name, _), got, want in zip(model.named_parameters(), grads, plain_grads):
+        err = float((got - want).abs().max())
+        if not (err <= 2e-3 * float(want.abs().max()) or err <= 3e-3 * gscale + 1e-3):
+            bad.append((name, err))
+    require(not bad, f"trainer step: {len(grads)} gradient leaves, kernels vs plain recurrence (relative 2e-3, or "
+            f"3e-3 x {gscale:.3g} + 1e-3); failing {bad[:5]}")
+
+
+def time_trainer_data(ds, batches: int = 6) -> dict:
+    """ms a batch of the dataset's three stages, each synchronised: host
+    assembly (native I/O), the pinned host-to-device copy, the mixing on
+    the card; the first batch is a warm-up."""
+    gen = torch.Generator(device=ds.device).manual_seed(SEED)
+    stages = {"host": [], "copy": [], "mix": []}
+    for _ in range(batches + 1):
+        t0 = time.perf_counter()
+        arrays = ds.host_batch()
+        t1 = time.perf_counter()
+        clean, noise, rir, rir_noise = ds.to_device(arrays)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        mix_batch(clean, noise, ds.mixer_cfg, draw_mix(gen, ds.cfg.batch_size, ds.mixer_cfg), rir, rir_noise)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for key, seconds in zip(stages, (t1 - t0, t2 - t1, t3 - t2)):
+            stages[key].append(seconds)
+    return {key: float(np.mean(v[1:])) * 1e3 for key, v in stages.items()}
+
+
+def time_bare_steps(trainer, ds, steps: int) -> float:
+    """ms a step of the bare ``make_train_step`` on pre-mixed batches on the
+    card (after a warm-up step), the trainer's model and state."""
+    batches = list(ds.batches(num_batches=TRAINER_STEPS))
+    step = make_train_step(trainer.state.model, trainer.step_cfg)
+    state, _ = step(trainer.state, batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        state, _ = step(state, batches[i % len(batches)])
+    torch.cuda.synchronize()
+    trainer.state = state
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def check_trainer(device, smi) -> dict:
+    """The trainer slice on the card through the train CLI in this process
+    (so that the kernel counters can be read): config 2 at its published
+    batch on a synthetic corpus, resumed, its step against the plain
+    recurrence, its snapshot served by the infer CLI; then its timings.
+    Returns the GRU launches of the two CLI runs."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_trainer_corpus(root)
+        config = trainer_config(root, TRAINER_EPOCHS)
+        runs = root / "runs" / "cruse_base"
+        assembled = native_io.assemble_batch.calls
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer = train_main(["-C", str(config)])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        steps = TRAINER_EPOCHS * TRAINER_STEPS
+        require_launches(f"train CLI, config 2, {TRAINER_EPOCHS} epochs x {TRAINER_STEPS} steps + "
+                         f"{TRAINER_EPOCHS} validations of {TRAINER_VALID_BATCHES} batches",
+                         {"gru_sequence": 2 * steps + 2 * TRAINER_VALID_BATCHES * TRAINER_EPOCHS,
+                          "gru_sequence_bwd": 2 * steps})
+        launched = counts()
+        log_text = (runs / "train.log").read_text()
+        for epoch in range(1, TRAINER_EPOCHS + 1):
+            means = epoch_lines(log_text, epoch)
+            require(set(means) >= {"loss_si_snr", "loss_spec", "grad_norm"}
+                    and all(math.isfinite(v) for v in means.values()) and means["nonfinite_skipped"] == 0,
+                    f"train CLI epoch {epoch}: finite means {means}")
+        require("NON-FINITE" not in log_text and log_text.count("composite score") == TRAINER_EPOCHS,
+                f"train CLI: {TRAINER_EPOCHS} validations logged with their composite scores")
+        print("\n".join(line for line in log_text.splitlines() if "composite score" in line or ": noisy " in line))
+        batches_assembled = native_io.assemble_batch.calls - assembled
+        require(batches_assembled == 2 * (steps + TRAINER_VALID_BATCHES),
+                f"train CLI: host I/O native, {batches_assembled} assemble_batch calls = 2 x "
+                f"({steps} train + {TRAINER_VALID_BATCHES} validation batches)")
+        print(f"trainer host I/O path: native ({native_io.library_path()})", flush=True)
+        ckpt = runs / "checkpoints"
+        require(all((ckpt / name).is_file() for name in ("latest", "best", f"model_{TRAINER_EPOCHS:04d}",
+                                                         f"model_{TRAINER_EPOCHS:04d}.npz")),
+                f"train CLI wrote latest, best, model_{TRAINER_EPOCHS:04d} and its .npz")
+        served_against_trainer(trainer, config, ckpt / f"model_{TRAINER_EPOCHS:04d}.npz", root)
+
+        resumed_config = trainer_config(root, TRAINER_EPOCHS + 1)
+        resumed = build_trainer(parse_args(["-C", str(resumed_config), "-R"]))
+        saved = checkpoint_lib.load_checkpoint(ckpt / "latest")
+        require(resumed.start_epoch == TRAINER_EPOCHS + 1 and trainer_state_equals(resumed, saved),
+                f"-R restores latest bit for bit (model, Adam's moments and count, balancer, step {saved['step']}) "
+                f"and resumes at epoch {resumed.start_epoch}")
+        reset_counts()
+        resumed.train()
+        require_launches("train CLI -R, one epoch + one validation",
+                         {"gru_sequence": 2 * TRAINER_STEPS + 2 * TRAINER_VALID_BATCHES,
+                          "gru_sequence_bwd": 2 * TRAINER_STEPS})
+        launched = {k: v + counts()[k] for k, v in launched.items()}
+        log_text = (runs / "train.log").read_text()
+        require(resumed.state.step == steps + TRAINER_STEPS and log_text.count("1 epoch =") == 1
+                and log_text.count(f"{TRAINER_EPOCHS + 1} epoch =") == 1,
+                f"-R ran epoch {TRAINER_EPOCHS + 1} alone: step {resumed.state.step}")
+
+        ds = dataset_from(load_config(str(config))["train_dataset"], device)
+        check_trainer_step(resumed, next(ds.batches(num_batches=1)))
+
+        batch_size, seconds = ds.cfg.batch_size, ds.cfg.sub_sample_seconds
+        step_s = trainer.timings["step"][1:]
+        trainer_ms = float(np.mean(step_s)) * 1e3
+        print(f"trainer (config 2, B={batch_size} x {seconds:g} s) on {smi}: {trainer_ms:.2f} ms a step = "
+              f"{batch_size * seconds / trainer_ms * 1e3:.1f}x realtime, over the {len(step_s)} steps after the first "
+              f"(median {np.median(step_s) * 1e3:.2f} ms; {np.mean(trainer.timings['data_wait'][1:]) * 1e3:.2f} ms "
+              f"of a step waiting for data; the first step {trainer.timings['step'][0] * 1e3:.1f} ms)")
+        bare_ms = time_bare_steps(resumed, ds, 2 * TRAINER_STEPS)
+        print(f"bare make_train_step (config 2, B={batch_size} x {seconds:g} s, pre-mixed batches) on {smi}: "
+              f"{bare_ms:.2f} ms a step = {batch_size * seconds / bare_ms * 1e3:.1f}x realtime; the trainer's "
+              f"step / the bare step = {trainer_ms / bare_ms:.3f}")
+        data_ms = time_trainer_data(ds)
+        print(f"trainer data (B={batch_size} x {seconds:g} s, native I/O) on {smi}: host assembly "
+              f"{data_ms['host']:.2f} ms, host-to-device copy {data_ms['copy']:.2f} ms, device mixing "
+              f"{data_ms['mix']:.2f} ms a batch")
+        timings = trainer.timings
+        print(f"trainer validation ({TRAINER_VALID_BATCHES} batches of "
+              f"{resumed.validation_batches[0]['noisy'].shape[0]} x "
+              f"{resumed.validation_batches[0]['noisy'].shape[1] / SR:g} s) on {smi}: device enhancement "
+              + ", ".join(f"{s * 1e3:.1f}" for s in timings["validation_enhance"]) + " ms; host scoring ("
+              + ", ".join(resumed.cfg.metrics) + ") " + ", ".join(f"{s:.2f}" for s in timings["scoring"])
+              + " s; checkpoint saves " + ", ".join(f"{s * 1e3:.1f}" for s in timings["save"]) + " ms")
+        resumed.cfg.steps_per_epoch = TRAINER_PROFILE_STEPS
+        epoch = iter(range(100, 200))
+        profile_calls(lambda: resumed._train_epoch(next(epoch)), 1,
+                      f"trainer epoch of {TRAINER_PROFILE_STEPS} steps, config 2 B={batch_size} x {seconds:g} s, "
+                      f"on {smi}")
+        print(f"trainer phase: the first CLI run {run_s:.1f} s, the phase {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+        del trainer, resumed, ds
+    torch.cuda.empty_cache()
+    return launched
+
+
 def check_deployment(device, smi) -> dict:
     """The deployment path (``check_offline_artifacts``,
     ``check_streaming_artifacts``, ``check_deploy_clis``, then MTFAA's
@@ -3194,6 +3472,7 @@ def main() -> int:
     gru_bwd_times = time_gru_bwd(device, smi, lib)
     time_cruse_steps(device, smi)
     torch.cuda.empty_cache()
+    trainer_launches = check_trainer(device, smi)
     deploy_launches = check_deployment(device, smi)  # last: torch.export's tracing machinery after every profile
 
     # least bytes (each input read once, each output written once) and
@@ -3223,14 +3502,17 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {**entry("gru_sequence", "gru_sequence", "gru_kernel.py:82",
                  launches + stream_gru + auto_gru + cruse_launches["gru_sequence"] + cruse_df_launches["gru_sequence"]
-                 + server_launches["gru_sequence"] + deploy_launches["gru_sequence"],
+                 + server_launches["gru_sequence"] + deploy_launches["gru_sequence"]
+                 + trainer_launches["gru_sequence"],
                  gru_err, (kernel_ms, plain_ms), gru_bound, lib["gru"]),
          "resident_ms": gru_times["f32"][0], "streamed_ms": gru_times["f32"][1],
-         "server_launches": server_launches["gru_sequence"], "artifact_launches": deploy_launches["gru_sequence"]},
+         "server_launches": server_launches["gru_sequence"], "artifact_launches": deploy_launches["gru_sequence"],
+         "trainer_launches": trainer_launches["gru_sequence"]},
         {"name": "gru_sequence_bwd", "route": "cuda", "source": "cruse_tpu_torch/ops/csrc/gru_bwd.cu",
          "replaces": "cruse_tpu/nn/gru.py:30 (no TPU kernel: the JAX step differentiates gru_scan)",
-         "launches": cruse_launches["gru_sequence_bwd"] + cruse_df_launches["gru_sequence_bwd"],
-         "max_abs_err": gru_bwd_err, **gru_bwd_times},
+         "launches": cruse_launches["gru_sequence_bwd"] + cruse_df_launches["gru_sequence_bwd"]
+         + trainer_launches["gru_sequence_bwd"],
+         "max_abs_err": gru_bwd_err, **gru_bwd_times, "trainer_launches": trainer_launches["gru_sequence_bwd"]},
         {**entry("deep_filter", "deep_filter", "deep_filter_kernel.py:91",
                  stream_df + auto_df + mtfaa_df + train_launches["deep_filter"] + cruse_df_launches["deep_filter"]
                  + stream_df_5b + server_launches["deep_filter"] + deploy_launches["deep_filter"],

@@ -9,13 +9,15 @@ tested against, and mirrors its module paths:
   (grouped-GRU recurrence, deep filter)
 - ``cruse_tpu_torch.nn``     -- causal conv block, grouped GRU bottleneck, int8 weights
 - ``cruse_tpu_torch.models`` -- CRUSE, CRUSE+DF, DFSMN, MTFAA, the deep filter
-- ``cruse_tpu_torch.train``  -- the forward adapters (eval mode)
+- ``cruse_tpu_torch.train``  -- the forward adapters, the train step, checkpoints, the
+  trainer and its CLI
 - ``cruse_tpu_torch.infer``  -- batch and streaming inference, serving, export artifacts, and their CLIs
-- ``cruse_tpu_torch.data``   -- wav IO
-- ``cruse_tpu_torch.utils``  -- the weight bridge from flax variables
+- ``cruse_tpu_torch.data``   -- wav IO, manifests, the on-card mixer, the dataset and prefetcher
+- ``cruse_tpu_torch.metrics`` -- STOI, SI-SDR, PESQ, PMOS (numpy copies of cruse_tpu's)
+- ``cruse_tpu_torch.utils``  -- the weight bridge from flax variables, configs, logging
 
-The package imports torch and numpy, never jax or flax. From cruse_tpu it
-shares only the jax-free ``cruse_tpu.utils`` (config loading, logging).
+The package imports torch and numpy, never jax or flax, and nothing of
+cruse_tpu: what it needs of the JAX package's jax-free modules it copies.
 """
 
 __version__ = "0.1.0"

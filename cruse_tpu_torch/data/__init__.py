@@ -1,1 +1,2 @@
-"""Data IO of the port: wav read/write and manifests."""
+"""Data of the port: wav read/write, manifests, the on-card mixer, the
+synthetic-mixing dataset, its prefetcher and the native I/O bindings."""

@@ -1,2 +1,3 @@
-"""Training pieces of the port. So far only the forward adapters of
-``step.py``, in eval mode, which the ``auto`` inference strategy uses."""
+"""Training of the port: the train step and forward adapters (``step.py``),
+checkpoints, the epoch trainer and the CLI (``python -m
+cruse_tpu_torch.train``)."""

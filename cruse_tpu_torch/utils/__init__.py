@@ -1,2 +1,2 @@
 """Utilities of the port: the weight bridge from cruse_tpu flax variables,
-config files and log lines."""
+config files, the logger and timing helpers."""

@@ -1,14 +1,16 @@
 """Config files and log lines of the port, without the JAX package.
 
 ``load_config`` reads the repo's TOML configs (``configs/*.toml``) into the
-nested dict that ``cruse_tpu.utils.config.load_config`` gives; ``log``
-prints the same timestamped line as ``cruse_tpu.utils.logger.log``.
+nested dict that ``cruse_tpu.utils.config.load_config`` gives; ``log`` is
+``utils/logger.py``'s, re-exported here for the modules that import it from
+this one.
 """
 from __future__ import annotations
 
-import datetime
 import tomllib
 from typing import Any, Dict
+
+from cruse_tpu_torch.utils.logger import log  # noqa: F401
 
 
 def load_config(path: str) -> Dict[str, Any]:
@@ -16,8 +18,3 @@ def load_config(path: str) -> Dict[str, Any]:
     with open(path, "rb") as f:
         return tomllib.load(f)
 
-
-def log(*args) -> None:
-    """Timestamped line to stdout."""
-    stamp = datetime.datetime.now().strftime("%Y-%m-%d %H:%M:%S")
-    print(f"[{stamp}] " + " ".join(str(a) for a in args), flush=True)

@@ -212,17 +212,19 @@ def _unconvert(flax_path: str, value: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.transpose(value, (2, 3, 1, 0)))  # Conv [out, in, kh, kw] -> [kh, kw, in, out]
 
 
-def flax_from_state_dict(model) -> Dict[str, Any]:
+def flax_from_state_dict(model, state_dict: Mapping[str, torch.Tensor] | None = None) -> Dict[str, Any]:
     """The inverse of ``state_dict_from_flax``: the port ``model``'s weights
+    (or ``state_dict``, one of that model's, such as a trainer's snapshot)
     -> the cruse_tpu variables tree (``{"params", "batch_stats"}`` of numpy
     arrays) that the bridge maps onto them, so that a rule stated on the flax
     tree (int8 quantization) runs on seeded weights too."""
     from cruse_tpu_torch.models.dfsmn import DfsmnNet
     from cruse_tpu_torch.models.mtfaa import MtfaaNet
 
+    state_dict = model.state_dict() if state_dict is None else state_dict
     if isinstance(model, MtfaaNet):
-        return mtfaa_flax_from_named(model.state_dict())
-    named = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+        return mtfaa_flax_from_named(state_dict)
+    named = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
     flat: Dict[str, Dict[str, np.ndarray]] = {"params": {}, "batch_stats": {}}
     if isinstance(model, DfsmnNet):
         for key, value in named.items():
