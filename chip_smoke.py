@@ -237,7 +237,28 @@ needed). In order, and any failure exits non-zero:
     the bare ``make_train_step`` on pre-mixed batches, the data stages'
     ms a batch, the validation's device and scoring times, the checkpoint
     saves, and profiles a 12-step epoch (device idle share);
-21. drives the deployment path: config 1 (``configs/cruse_base.toml``, seeded
+21. drives the train step's features through the same CLI in this process:
+    config 2 at its published batch taught by config 3 (``CruseDfConfig()``,
+    seeded weights and BatchNorm statistics saved as a flax ``.npz`` and
+    loaded through ``[trainer.distillation]``), with AdamW (weight decay
+    0.01), an EMA (0.999), ``freeze = ["enc_"]``, ``grad_accum_steps = 2``
+    and the losses si_snr, spec, distill and pmsqe, 2 epochs of 4 steps and
+    ``-R`` for a third; checks 2 GRU forward + 2 backward launches a student
+    step, 2 GRU + 1 deep-filter launch a teacher call, 2 GRU a validation
+    batch and nothing else; the frozen parameters bit for bit unmoved, the
+    others moved at every second step alone, one update's EMA against ``d e
+    + (1 - d) p`` of the recorded tensors, the resumed state (EMA and
+    accumulator included) equal to ``latest``, the served
+    ``model_0002.npz`` carrying the EMA and within 1e-4 of the trainer's
+    enhancement, one featured step against the plain versions; each of the
+    step's losses and its gradient on the card against the CPU at a B=4 x
+    3 s batch, both in float32 against the CPU in float64 (``LOSS_FLOOR``,
+    ``LOSS_FACTOR``); three DFSMN steps at the bench width, B=32 x
+    3 s, each against the same step on the CPU from the same state (no
+    kernel launched); and prints the featured step's median ms against the
+    trainer phase's plain one, the teacher's ms a step, and the update's ms
+    with AdamW + freeze + EMA (and k = 2) against plain Adam;
+22. drives the deployment path: config 1 (``configs/cruse_base.toml``, seeded
     weights and BatchNorm statistics) exported offline at B=16 x 10 s on the
     card in float32 and int8 (``infer/export.py``, ``nn/quantize.py``),
     saved and loaded (``infer/artifact.py``): 2 resident GRU launches a call
@@ -271,7 +292,7 @@ needed). In order, and any failure exits non-zero:
     --streaming`` and ``run_exported`` on config 5b against the eager
     ``infer --streaming`` CLI on the same seeded weights, within one int16
     step;
-22. prints a JSON line of the kernels (each with its launches on the main
+23. prints a JSON line of the kernels (each with its launches on the main
     paths, its error, its time, the plain version's, the least time the card
     could take for its bytes or its multiply-adds, and the library call's time
     where there is one), then ``{"ok": true, "device": ...}``.
@@ -282,6 +303,7 @@ in full float32.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -352,10 +374,11 @@ from cruse_tpu_torch.ops.tattn_timing import describe as describe_tattn
 from cruse_tpu_torch.ops.tfcm_bwd_timing import bound, describe, time_tfcm_bwd
 from cruse_tpu_torch.ops.tfcm_train import PARAM_NAMES, tfcm_block_reference, tfcm_block_train
 from cruse_tpu_torch.train import checkpoint as checkpoint_lib
+from cruse_tpu_torch.train import step as step_lib
 from cruse_tpu_torch.train.__main__ import build_trainer, dataset_from, parse_args
 from cruse_tpu_torch.train.__main__ import main as train_main
 from cruse_tpu_torch.train.step import (
-    StepConfig, init_train_state, make_loss_gradients, make_train_step)
+    StepConfig, forward_for_model, init_train_state, make_loss_gradients, make_train_step, param_masks, step_losses)
 from cruse_tpu_torch.utils.config import load_config
 from cruse_tpu_torch.utils.weights import flax_from_state_dict, save_flax_npz
 
@@ -503,6 +526,21 @@ TRAINER_CLIPS, TRAINER_VALID_CLIPS, TRAINER_CLIP_SECONDS = 24, 4, 4  # the train
 TRAINER_EPOCHS, TRAINER_STEPS = 2, 4  # the train CLI's run (then -R for one more epoch)
 TRAINER_VALID_BATCHES = 2  # the CLI validates on two batches, as tools/train.py does
 TRAINER_PROFILE_STEPS = 12  # the profiled epoch
+FEATURE_OPTIONS = {"weight_decay": "0.01", "ema_decay": "0.999", "freeze": '["enc_"]'}  # [optimizer] lines
+FEATURE_LOSSES = {"si_snr": 1.0, "spec": 1.0, "distill": 1.0, "pmsqe": 1.0}  # [loss.weights]
+FEATURE_ACCUM = 2  # [trainer.train] grad_accum_steps
+# each loss and its gradient on the card against the CPU at B=4 x 3 s, both in float32 and held to the CPU in
+# float64: the card's error may reach LOSS_FACTOR x the CPU's own float32 error, or this floor, whichever is
+# larger: (value, relative; gradient, relative L2), each 10x the CPU's float32 error on a B=4 x 3 s batch. The
+# gradients of multi_res (|X|^-0.7 at near-empty bins), sdnr and cirm (a division by the noisy power) are the
+# worst conditioned. The L2 error leaves out the elements KINK_TOL of the largest away from float64, which
+# may be at most KINK_SHARE of them: where a loss has a kink (|x| in wo_male and pmsqe, a clamp, a where), an
+# element within rounding of it takes the other side's gradient on one device and not on the other.
+LOSS_FLOOR = {"si_snr": (1e-6, 1e-5), "spec": (1e-6, 3e-5), "wo_male": (1e-6, 1e-5), "multi_res": (1e-6, 1e-4),
+              "sdnr": (1e-6, 3e-4), "cirm": (2e-6, 4e-3), "pmsqe": (1e-6, 1e-5), "distill": (1e-6, 3e-5)}
+LOSS_FACTOR, KINK_TOL, KINK_SHARE = 3.0, 1e-3, 1e-4
+LOSS_BATCH, LOSS_SECONDS = 4, 3
+DFSMN_TRAIN_BATCH, DFSMN_TRAIN_SECONDS, DFSMN_TRAIN_STEPS = 32, 3, 3
 STEP_KERNELS_BEFORE = 6270  # device launches of a config-5b train step when a mid_bwd call made 8
 MID_LAUNCHES_PER_CALL = 2  # mid_tile_kernel and mid_finish_kernel
 DW_LAUNCHES_PER_CALL = {"forward": 1, "backward": 2}  # dw_fwd_kernel; dw_bwd_kernel and dw_finish_kernel
@@ -2173,34 +2211,48 @@ def served_against_trainer(trainer, config: Path, snapshot: Path, root: Path) ->
             f"enhancement: max-abs {worst:.3g} <= {WAV_TOL} ({time.perf_counter() - t0:.1f} s with start-up)")
 
 
+def tensors_equal(mine, saved) -> bool:
+    """Two lists of tensors (or two Nones) equal bit for bit."""
+    if mine is None or saved is None:
+        return mine is None and saved is None
+    return len(mine) == len(saved) and all(torch.equal(a.cpu(), b) for a, b in zip(mine, saved))
+
+
 def trainer_state_equals(trainer, saved: dict) -> bool:
-    """The trainer's state equals a checkpoint's tensors bit for bit."""
-    state = trainer.state
+    """The trainer's state equals a checkpoint's tensors bit for bit: model,
+    Adam's moments and count, accumulator and mini-step, balancer, step, EMA."""
+    state, opt = trainer.state, trainer.state.opt_state
     model = state.model.state_dict()
     return (all(torch.equal(model[k].cpu(), v) for k, v in saved["model"].items()) and model.keys() == saved["model"].keys()
-            and all(torch.equal(a.cpu(), b) for a, b in zip(state.opt_state.mu + state.opt_state.nu,
-                                                          saved["opt_mu"] + saved["opt_nu"]))
-            and len(state.opt_state.mu) == len(saved["opt_mu"]) and state.opt_state.count == saved["opt_count"]
+            and tensors_equal(opt.mu + opt.nu, saved["opt_mu"] + saved["opt_nu"]) and opt.count == saved["opt_count"]
+            and tensors_equal(opt.acc, saved["opt_acc"]) and opt.mini_step == saved["opt_mini_step"]
             and all(torch.equal(state.balancer_state.total[k].cpu(), v) for k, v in saved["balancer_total"].items())
             and all(torch.equal(state.balancer_state.fix[k].cpu(), v) for k, v in saved["balancer_fix"].items())
-            and state.step == saved["step"])
+            and state.step == saved["step"] and tensors_equal(state.ema, saved["ema"]))
 
 
 def check_trainer_step(trainer, batch) -> None:
     """One step's forward and backward from the trainer's weights on one
     pre-mixed batch, with the GRU kernels and with the plain recurrence
-    (``set_recurrence``): losses within 1e-5 relative, gradients leaf by leaf
+    (``set_recurrence``; a distillation teacher with both plain versions,
+    ``set_plain``): losses within 1e-5 relative, gradients leaf by leaf
     within tests/test_torch_train_step.py's bounds (relative 2e-3, or 3e-3
     of the largest gradient + 1e-3)."""
-    model, cfg = trainer.state.model, trainer.step_cfg
+    model, cfg, teacher = trainer.state.model, trainer.step_cfg, trainer.teacher
     kept = {k: v.clone() for k, v in model.state_dict().items()}
     runs = {}
-    for name, recurrence in (("kernels", gru_sequence), ("plain", gru_sequence_reference)):
-        set_recurrence(model, recurrence)
-        grads, losses, _ = make_loss_gradients(model, cfg)(trainer.state.balancer_state, batch)
+    for name, plain in (("kernels", False), ("plain", True)):
+        set_recurrence(model, gru_sequence_reference if plain else gru_sequence)
+        if teacher is not None:
+            set_plain(teacher, plain)
+        grads, losses, _ = make_loss_gradients(
+            model, cfg, teacher=None if teacher is None else (forward_for_model(teacher), teacher))(
+            trainer.state.balancer_state, batch)
         runs[name] = ([g.detach().clone() for g in grads], {k: float(v) for k, v in losses.items()})
         model.load_state_dict(kept)  # the forward moved the BatchNorm statistics
     set_recurrence(model, gru_sequence)
+    if teacher is not None:
+        set_plain(teacher, False)
     (grads, losses), (plain_grads, plain_losses) = runs["kernels"], runs["plain"]
     for name, value in plain_losses.items():
         require(abs(losses[name] - value) <= 1e-5 * abs(value),
@@ -2251,12 +2303,13 @@ def time_bare_steps(trainer, ds, steps: int) -> float:
     return (time.perf_counter() - t0) / steps * 1e3
 
 
-def check_trainer(device, smi) -> dict:
+def check_trainer(device, smi) -> tuple[dict, float]:
     """The trainer slice on the card through the train CLI in this process
     (so that the kernel counters can be read): config 2 at its published
     batch on a synthetic corpus, resumed, its step against the plain
     recurrence, its snapshot served by the infer CLI; then its timings.
-    Returns the GRU launches of the two CLI runs."""
+    Returns the GRU launches of the two CLI runs and the median ms of the
+    trainer's steps after the first."""
     import tempfile
 
     t_phase = time.perf_counter()
@@ -2346,6 +2399,344 @@ def check_trainer(device, smi) -> dict:
                       f"on {smi}")
         print(f"trainer phase: the first CLI run {run_s:.1f} s, the phase {time.perf_counter() - t_phase:.1f} s",
               flush=True)
+        del trainer, resumed, ds
+    torch.cuda.empty_cache()
+    return launched, float(np.median(step_s)) * 1e3
+
+
+def write_teacher(root: Path) -> tuple[Path, Path]:
+    """Config 3's teacher for the features phase: a TOML whose ``[model]`` is
+    ``CruseDfConfig()`` at full width, and seeded weights with seeded
+    BatchNorm statistics saved as a flax-layout ``.npz`` through the port."""
+    gen = torch.Generator().manual_seed(SEED + 20)
+    teacher = CruseDfNet(CruseDfConfig(), generator=gen)
+    seed_batch_norm_stats(teacher, gen)
+    config, weights = root / "teacher.toml", root / "teacher.npz"
+    config.write_text('[model]\npath = "cruse_tpu.models.cruse_df.CruseDfConfig"\n')
+    save_flax_npz(flax_from_state_dict(teacher), str(weights))
+    return config, weights
+
+
+def features_config(root: Path, epochs: int, teacher: tuple[Path, Path]) -> Path:
+    """``trainer_config``'s copy of configs/cruse_base.toml with the step's
+    features: FEATURE_OPTIONS under [optimizer], FEATURE_LOSSES as the loss
+    weights, FEATURE_ACCUM mini-steps an update, and the teacher under
+    [trainer.distillation]; its runs under another experiment name."""
+    text = trainer_config(root, epochs).read_text()
+    weights = "\n".join(f"{k} = {v}" for k, v in FEATURE_LOSSES.items())
+    options = "\n".join(f"{k} = {v}" for k, v in FEATURE_OPTIONS.items())
+    for old, new in (('experiment_name = "cruse_base"', 'experiment_name = "cruse_features"'),
+                     ("beta2 = 0.999", f"beta2 = 0.999\n{options}"),
+                     ("si_snr = 1.0\nspec = 1.0", weights),
+                     ("clip_grad_norm_value = 10.0", f"clip_grad_norm_value = 10.0\ngrad_accum_steps = {FEATURE_ACCUM}")):
+        if old not in text:
+            raise RuntimeError(f"check failed: the trainer config has no {old!r}")
+        text = text.replace(old, new)
+    text += f'\n[trainer.distillation]\nconfig = "{teacher[0]}"\ncheckpoint = "{teacher[1]}"\n'
+    path = root / f"cruse_features_{epochs}.toml"
+    path.write_text(text)
+    return path
+
+
+def record_steps(trainer) -> list:
+    """Wrap the trainer's step so that every call appends (parameters, EMA),
+    copies on the card, to the returned list, which starts with the state
+    before the first step."""
+    def now(state):
+        return [p.detach().clone() for p in state.model.parameters()], [e.clone() for e in state.ema]
+
+    records, step = [now(trainer.state)], trainer._train_step
+
+    def recorded(state, batch):
+        state, metrics = step(state, batch)
+        records.append(now(state))
+        return state, metrics
+
+    trainer._train_step = recorded
+    return records
+
+
+def check_feature_updates(trainer, records: list) -> None:
+    """The frozen parameters bit for bit where they started; every other
+    parameter unmoved by a mini-step that ends no accumulation and moved by
+    one that does; one update's EMA against d e + (1 - d) p in float64."""
+    frozen, _ = param_masks(trainer.state.model, trainer.step_cfg)
+    names = [n for n, _ in trainer.state.model.named_parameters()]
+    start = records[0][0]
+    require(any(frozen) and all(n.startswith("enc_") for n, f in zip(names, frozen) if f),
+            f"freeze {FEATURE_OPTIONS['freeze']}: {sum(frozen)} frozen parameters, all the encoder's")
+    for i in range(1, len(records)):
+        update = i % FEATURE_ACCUM == 0
+        bad = [name for name, f, before, after, first in zip(names, frozen, records[i - 1][0], records[i][0], start)
+               if (not torch.equal(after, first) if f else torch.equal(after, before) == update)]
+        require(not bad, f"step {i}: the frozen parameters unmoved, the {len(names) - sum(frozen)} others "
+                f"{'moved' if update else 'unmoved'} (the mini-step {'ends' if update else 'ends no'} accumulation "
+                f"of {FEATURE_ACCUM}); failing {bad[:5]}")
+    d = trainer.step_cfg.ema_decay
+    worst = 0.0
+    (_, ema_before), (params, ema) = records[FEATURE_ACCUM - 1], records[FEATURE_ACCUM]
+    for e0, p, e in zip(ema_before, params, ema):
+        want = d * e0.double() + (1 - d) * p.double()
+        worst = max(worst, float((e.double() - want).abs().max() / (want.abs().max() + 1e-30)))
+    require(worst <= 1e-6, f"the EMA after update 1 = {d} e + (1 - {d}) p of the recorded tensors: "
+            f"{worst:.3g} of the largest element <= 1e-6")
+    print(f"featured steps: {sum(frozen)} frozen leaves bit for bit, {len(names) - sum(frozen)} others moved at "
+          f"steps {list(range(FEATURE_ACCUM, len(records), FEATURE_ACCUM))} alone; EMA within {worst:.3g}", flush=True)
+
+
+def check_losses_on_card(cfg: StepConfig, batch: dict, device) -> None:
+    """Each of the step's losses and its gradient with respect to the
+    enhanced spectrum, from one B=LOSS_BATCH batch (the enhanced spectrum a
+    seeded [0, 1] mask of the noisy one, the teacher's another), on the card
+    in float32 against the CPU in float32 and in float64: the card's error
+    against float64 within LOSS_FACTOR x the CPU's own float32 error or
+    LOSS_FLOOR, whichever is larger."""
+    noisy, clean = (batch[k][:LOSS_BATCH].cpu() for k in ("noisy", "clean"))
+    gen = torch.Generator().manual_seed(SEED + 21)
+    masks = None
+    runs = {}
+    for where, dtype in (("cpu", torch.float64), ("cpu", torch.float32), (device, torch.float32)):
+        n, c = noisy.to(where, dtype), clean.to(where, dtype)
+        noisy_spec, clean_spec = stft(n, cfg.stft), stft(c, cfg.stft)
+        noisy_ri = torch.stack([noisy_spec.real, noisy_spec.imag], -1)
+        if masks is None:
+            masks = torch.rand((2, *noisy_ri.shape[:-1], 1), generator=gen, dtype=torch.float64)
+        out, teacher_ri = (noisy_ri * m.to(where, dtype) for m in masks)
+        losses = {}
+        for name, fn in step_losses(cfg, n, c, noisy_spec, clean_spec, teacher_ri).items():
+            x = out.detach().requires_grad_(True)
+            value = fn(x)
+            (grad,) = torch.autograd.grad(value, x)
+            losses[name] = (float(value.detach()), grad.double().cpu())
+        runs[(str(where), dtype)] = losses
+    exact, cpu, card = runs[("cpu", torch.float64)], runs[("cpu", torch.float32)], runs[(str(device), torch.float32)]
+    require(sorted(card) == sorted(LOSS_FLOOR), f"the step's losses {sorted(card)} each have a tolerance")
+
+    def errors(run, name):
+        """(value's relative error, gradient's relative L2 error off the kinks, the kinks' share)"""
+        (value, grad), (want, want_grad) = run[name], exact[name]
+        kink = (grad - want_grad).abs() > KINK_TOL * want_grad.abs().max()
+        smooth = torch.where(kink, 0.0, grad - want_grad)
+        return (abs(value - want) / abs(want), float(smooth.norm() / want_grad.norm()),
+                float(kink.double().mean()))
+
+    report = []
+    for name, floors in LOSS_FLOOR.items():
+        mine, theirs = errors(card, name), errors(cpu, name)
+        limits = [max(floor, LOSS_FACTOR * e) for floor, e in zip(floors, theirs)]
+        require(math.isfinite(card[name][0]) and torch.isfinite(card[name][1]).all()
+                and mine[0] <= limits[0] and mine[1] <= limits[1] and mine[2] <= KINK_SHARE,
+                f"loss {name} on the card (B={LOSS_BATCH} x {LOSS_SECONDS} s) against float64: value {mine[0]:.3g}, "
+                f"gradient {mine[1]:.3g} (relative L2) <= {limits[0]:.3g}, {limits[1]:.3g}; {mine[2]:.3g} of the "
+                f"elements off by {KINK_TOL} of the largest <= {KINK_SHARE} (the CPU's float32: {theirs[0]:.3g}, "
+                f"{theirs[1]:.3g}, {theirs[2]:.3g})")
+        report.append(f"{name} {mine[0]:.2g}/{mine[1]:.2g}/{mine[2]:.2g} (CPU {theirs[0]:.2g}/{theirs[1]:.2g}/"
+                      f"{theirs[2]:.2g})")
+    print("losses against float64, card (CPU) float32, value relative / gradient relative L2 / share at a kink: "
+          + ", ".join(report), flush=True)
+
+
+def copy_train_state(src, dst) -> None:
+    """dst's model, Adam state and balancer state := src's (another device)."""
+    with torch.no_grad():
+        dst.model.load_state_dict(src.model.state_dict())
+        for a, b in zip(dst.opt_state.mu + dst.opt_state.nu, src.opt_state.mu + src.opt_state.nu):
+            a.copy_(b)
+    dst.opt_state.count = src.opt_state.count
+    dst.balancer_state.total = {k: v.cpu() for k, v in src.balancer_state.total.items()}
+    dst.balancer_state.fix = {k: v.cpu() for k, v in src.balancer_state.fix.items()}
+
+
+def check_dfsmn_training(device, smi) -> None:
+    """DFSMN_TRAIN_STEPS DFSMN steps (config 4's bench width, seeded weights
+    and skip weights) at B=DFSMN_TRAIN_BATCH x DFSMN_TRAIN_SECONDS s on the
+    card, each against the same step on the CPU from the same state: losses
+    within 1e-4 relative, the gradient norm 1e-3; every updated element
+    within 2.02 lr, and 99 % of each leaf's within 2e-2 lr (an element whose
+    gradient is within rounding of zero takes Adam's full step either way,
+    and Adam's first three steps reach at most 1.0013 lr, ADAM_REACH of
+    tests/test_torch_trainer.py)."""
+    import copy
+
+    cfg = train_config("cruse_base.toml")
+    model = build_dfsmn(device).train()
+    state = init_train_state(model, cfg, device)
+    cpu_model = copy.deepcopy(model).cpu()
+    cpu_state = init_train_state(cpu_model, cfg, "cpu")
+    step, cpu_step = make_train_step(model, cfg), make_train_step(cpu_model, cfg)
+    lr, worst, times = cfg.learning_rate, 0.0, []
+    for i in range(DFSMN_TRAIN_STEPS):
+        batch = noisy_clean_pairs(SEED + 30 + i, DFSMN_TRAIN_BATCH, DFSMN_TRAIN_SECONDS, device)
+        copy_train_state(state, cpu_state)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        require_launches(f"DFSMN train step {i + 1}", {})
+        cpu_state, cpu_metrics = cpu_step(cpu_state, {k: v.cpu() for k, v in batch.items()})
+        for key, want in cpu_metrics.items():
+            rtol = 1e-3 if key == "grad_norm" else 1e-4
+            require(abs(float(metrics[key]) - float(want)) <= rtol * abs(float(want)) + 1e-12,
+                    f"DFSMN step {i + 1} {key}: card {float(metrics[key]):.7g} vs CPU {float(want):.7g} within {rtol}")
+        far, near = 0.0, 1.0  # the largest error in lr, the least share of a leaf within 2e-2 lr
+        for p, q in zip(model.parameters(), cpu_model.parameters()):
+            err = (p.detach().cpu() - q.detach()).abs()
+            far, near = max(far, float(err.max()) / lr), min(near, float((err <= 2e-2 * lr).float().mean()))
+        require(far <= 2.02 and near >= 0.99, f"DFSMN step {i + 1}: parameters card vs CPU within {far:.3g} lr <= 2.02, "
+                f"{near:.4f} of every leaf within 2e-2 lr >= 0.99")
+        worst = max(worst, far)
+    print(f"DFSMN train steps (bench width, B={DFSMN_TRAIN_BATCH} x {DFSMN_TRAIN_SECONDS} s) on {smi}: "
+          f"{DFSMN_TRAIN_STEPS} steps against the CPU, parameters within {worst:.3g} lr; "
+          + ", ".join(f"{t:.1f}" for t in times) + " ms a step (the first with warm-up)", flush=True)
+
+
+@contextlib.contextmanager
+def fixed_gradients(grads: list):
+    """``make_train_step`` with its loss pass replaced by ``grads`` (one loss,
+    0): the step is then the norms, the one host read, the optimiser and the
+    EMA."""
+    made = step_lib.make_loss_gradients
+    step_lib.make_loss_gradients = lambda *a, **k: (
+        lambda balancer_state, batch: (grads, {"si_snr": torch.zeros((), device=grads[0].device)}, balancer_state))
+    try:
+        yield
+    finally:
+        step_lib.make_loss_gradients = made
+
+
+def time_updates(model, cfg: StepConfig, smi, calls: int = 20) -> None:
+    """ms of an update with the step's features against plain Adam, on the
+    student's parameters, from fixed gradients, in turns: the step with its
+    loss pass replaced (``fixed_gradients``), each call ending in its host
+    read, under the same config but for the features."""
+    import copy
+
+    grads = [torch.randn(p.shape, generator=torch.Generator().manual_seed(i)).to(p.device) * 1e-3
+             for i, p in enumerate(model.parameters())]
+    plain = dataclasses.replace(cfg, weight_decay=0.0, freeze=(), ema_decay=None, grad_accum_steps=1)
+    variants = {"Adam": plain, "AdamW + freeze + EMA": dataclasses.replace(cfg, grad_accum_steps=1),
+                f"AdamW + freeze + EMA, k = {cfg.grad_accum_steps}": cfg}
+    batch = {"noisy": torch.zeros(1, 1), "clean": torch.zeros(1, 1)}
+    runs = {}
+    with fixed_gradients(grads):
+        for name, variant in variants.items():
+            m = copy.deepcopy(model)
+            state = init_train_state(m, variant, next(model.parameters()).device)
+            step = make_train_step(m, variant)
+
+            def run(step=step, box={"state": state}):
+                out = []
+                for _ in range(calls):
+                    t0 = time.perf_counter()
+                    box["state"], _ = step(box["state"], batch)
+                    out.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            run()
+            runs[name] = run
+        times = in_turns(runs)
+    print(f"optimiser update (config 2's {sum(p.numel() for p in model.parameters())} parameters, fixed gradients) "
+          f"on {smi}: " + "; ".join(f"{k} {median_range(v)}" for k, v in times.items()), flush=True)
+
+
+def teacher_ms(teacher, batch: dict, cfg: StepConfig, calls: int = 10) -> float:
+    """Median ms of the teacher's eval forward a step (no gradient) on one
+    training batch, by CUDA events."""
+    forward = forward_for_model(teacher.eval())
+    with torch.no_grad():
+        spec = stft(batch["noisy"], cfg.stft)
+        ri = torch.stack([spec.real, spec.imag], -1)
+        forward(ri)
+        out = []
+        for _ in range(calls):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            forward(ri)
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+    return float(np.median(out))
+
+
+def check_step_features(device, smi, plain_step_ms: float) -> dict:
+    """The train step's features on the card through the train CLI in this
+    process: config 2 taught by config 3, AdamW, freeze, EMA, gradient
+    accumulation and four losses (2 epochs, then -R), its launches, updates,
+    EMA, resumed state, served snapshot and one step against the plain
+    versions; then every loss against the CPU, DFSMN's steps against the
+    CPU, and the times. Returns the launches of the two CLI runs."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_trainer_corpus(root)
+        teacher_files = write_teacher(root)
+        config = features_config(root, TRAINER_EPOCHS, teacher_files)
+        runs = root / "runs" / "cruse_features"
+        reset_counts()
+        trainer = build_trainer(parse_args(["-C", str(config)]))
+        records = record_steps(trainer)
+        trainer.train()
+        torch.cuda.synchronize()
+        steps = TRAINER_EPOCHS * TRAINER_STEPS
+        valid = TRAINER_VALID_BATCHES * TRAINER_EPOCHS
+        require_launches(f"train CLI with the features, config 2 taught by config 3, {TRAINER_EPOCHS} epochs x "
+                         f"{TRAINER_STEPS} steps + {TRAINER_EPOCHS} validations of {TRAINER_VALID_BATCHES} batches",
+                         {"gru_sequence": 2 * steps + 2 * steps + 2 * valid, "gru_sequence_bwd": 2 * steps,
+                          "deep_filter": steps})
+        launched = counts()
+        require(trainer.state.opt_state.count == steps // FEATURE_ACCUM and trainer.state.ema is not None,
+                f"{steps} mini-steps made {trainer.state.opt_state.count} updates of {FEATURE_ACCUM}")
+        check_feature_updates(trainer, records)
+        del records
+        log_text = (runs / "train.log").read_text()
+        for epoch in range(1, TRAINER_EPOCHS + 1):
+            means = epoch_lines(log_text, epoch)
+            require(set(means) >= {f"loss_{k}" for k in FEATURE_LOSSES} | {"grad_norm"}
+                    and all(math.isfinite(v) for v in means.values()) and means["nonfinite_skipped"] == 0,
+                    f"featured train CLI epoch {epoch}: finite means {means}")
+        require("distillation teacher" in log_text and log_text.count("composite score") == TRAINER_EPOCHS,
+                f"featured train CLI: the teacher loaded, {TRAINER_EPOCHS} validations logged")
+        ckpt = runs / "checkpoints"
+        snapshot = ckpt / f"model_{TRAINER_EPOCHS:04d}.npz"
+        with np.load(snapshot) as data:
+            ema_keys = [k for k in data.files if k.startswith("ema_params/")]
+        require(len(ema_keys) == len(list(trainer.state.model.parameters())),
+                f"{snapshot.name} carries the EMA: {len(ema_keys)} ema_params leaves")
+        served_against_trainer(trainer, config, snapshot, root)
+
+        resumed = build_trainer(parse_args(["-C", str(features_config(root, TRAINER_EPOCHS + 1, teacher_files)), "-R"]))
+        saved = checkpoint_lib.load_checkpoint(ckpt / "latest")
+        require(resumed.start_epoch == TRAINER_EPOCHS + 1 and trainer_state_equals(resumed, saved),
+                "-R restores latest bit for bit with the features (model, moments, accumulator and mini-step "
+                f"{saved['opt_mini_step']}, balancer, step {saved['step']}, EMA)")
+        reset_counts()
+        resumed.train()
+        require_launches("featured train CLI -R, one epoch + one validation",
+                         {"gru_sequence": 4 * TRAINER_STEPS + 2 * TRAINER_VALID_BATCHES,
+                          "gru_sequence_bwd": 2 * TRAINER_STEPS, "deep_filter": TRAINER_STEPS})
+        launched = {k: v + counts()[k] for k, v in launched.items()}
+
+        ds = dataset_from(load_config(str(config))["train_dataset"], device)
+        batch = next(ds.batches(num_batches=1))
+        check_trainer_step(resumed, batch)
+        check_losses_on_card(resumed.step_cfg, batch, device)
+        check_dfsmn_training(device, smi)
+
+        step_s = trainer.timings["step"][1:]
+        featured_ms = float(np.median(step_s)) * 1e3
+        print(f"featured trainer step (config 2 taught by config 3, B={ds.cfg.batch_size} x "
+              f"{ds.cfg.sub_sample_seconds:g} s, AdamW + freeze + EMA, k = {FEATURE_ACCUM}, losses "
+              f"{', '.join(FEATURE_LOSSES)}) on {smi}: median {featured_ms:.2f} ms over the {len(step_s)} steps after "
+              f"the first (range {min(step_s) * 1e3:.2f}-{max(step_s) * 1e3:.2f}); the trainer phase's plain step "
+              f"{plain_step_ms:.2f} ms; ratio {featured_ms / plain_step_ms:.3f}")
+        print(f"teacher (config 3, eval, no gradient) at B={ds.cfg.batch_size} x {ds.cfg.sub_sample_seconds:g} s on "
+              f"{smi}: {teacher_ms(resumed.teacher, batch, resumed.step_cfg):.2f} ms a step")
+        time_updates(resumed.state.model, resumed.step_cfg, smi)
+        print(f"step features phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
         del trainer, resumed, ds
     torch.cuda.empty_cache()
     return launched
@@ -3472,7 +3863,9 @@ def main() -> int:
     gru_bwd_times = time_gru_bwd(device, smi, lib)
     time_cruse_steps(device, smi)
     torch.cuda.empty_cache()
-    trainer_launches = check_trainer(device, smi)
+    trainer_launches, plain_step_ms = check_trainer(device, smi)
+    torch.cuda.empty_cache()
+    feature_launches = check_step_features(device, smi, plain_step_ms)
     deploy_launches = check_deployment(device, smi)  # last: torch.export's tracing machinery after every profile
 
     # least bytes (each input read once, each output written once) and
@@ -3503,23 +3896,26 @@ def main() -> int:
         {**entry("gru_sequence", "gru_sequence", "gru_kernel.py:82",
                  launches + stream_gru + auto_gru + cruse_launches["gru_sequence"] + cruse_df_launches["gru_sequence"]
                  + server_launches["gru_sequence"] + deploy_launches["gru_sequence"]
-                 + trainer_launches["gru_sequence"],
+                 + trainer_launches["gru_sequence"] + feature_launches["gru_sequence"],
                  gru_err, (kernel_ms, plain_ms), gru_bound, lib["gru"]),
          "resident_ms": gru_times["f32"][0], "streamed_ms": gru_times["f32"][1],
          "server_launches": server_launches["gru_sequence"], "artifact_launches": deploy_launches["gru_sequence"],
-         "trainer_launches": trainer_launches["gru_sequence"]},
+         "trainer_launches": trainer_launches["gru_sequence"], "features_launches": feature_launches["gru_sequence"]},
         {"name": "gru_sequence_bwd", "route": "cuda", "source": "cruse_tpu_torch/ops/csrc/gru_bwd.cu",
          "replaces": "cruse_tpu/nn/gru.py:30 (no TPU kernel: the JAX step differentiates gru_scan)",
          "launches": cruse_launches["gru_sequence_bwd"] + cruse_df_launches["gru_sequence_bwd"]
-         + trainer_launches["gru_sequence_bwd"],
-         "max_abs_err": gru_bwd_err, **gru_bwd_times, "trainer_launches": trainer_launches["gru_sequence_bwd"]},
+         + trainer_launches["gru_sequence_bwd"] + feature_launches["gru_sequence_bwd"],
+         "max_abs_err": gru_bwd_err, **gru_bwd_times, "trainer_launches": trainer_launches["gru_sequence_bwd"],
+         "features_launches": feature_launches["gru_sequence_bwd"]},
         {**entry("deep_filter", "deep_filter", "deep_filter_kernel.py:91",
                  stream_df + auto_df + mtfaa_df + train_launches["deep_filter"] + cruse_df_launches["deep_filter"]
-                 + stream_df_5b + server_launches["deep_filter"] + deploy_launches["deep_filter"],
+                 + stream_df_5b + server_launches["deep_filter"] + deploy_launches["deep_filter"]
+                 + feature_launches["deep_filter"],
                  df_err,
                  (df_fwd["wrapper_ms"], df_fwd["plain_ms"]), {key: df_fwd[key] for key in ("bound_ms", "bound_by")},
                  None),
          "server_launches": server_launches["deep_filter"], "artifact_launches": deploy_launches["deep_filter"],
+         "features_launches": feature_launches["deep_filter"],
          "stages": [{key: row[key] for key in DF_STAGE_KEYS} for row in df_rows if row["kind"] == "forward"]},
         {"name": "deep_filter_bwd", "route": "cuda", "source": "cruse_tpu_torch/ops/csrc/deep_filter.cu",
          "replaces": "cruse_tpu/models/deep_filter.py:94 (no TPU kernel: the JAX step differentiates the plain "

@@ -8,20 +8,26 @@ save_dir, experiment_name; ``[acoustics]``; ``[model]`` path + args (the
 class named by the path's last component); ``[train_dataset]`` /
 ``[validation_dataset]`` path + args of ``SynMixConfig`` (``path`` names the
 dataset class by its last component; ``SynMixDataset`` is ported), and
-``[train_dataset.curriculum]``; ``[optimizer]``; ``[trainer.train]``,
-``[trainer.validation]``, ``[trainer.profiling]``; ``[loss.weights]``.
+``[train_dataset.curriculum]``; ``[optimizer]`` (lr, betas, ``weight_decay``
+for AdamW, ``freeze`` patterns, ``ema_decay``, the schedule);
+``[trainer.train]`` (``grad_accum_steps`` among its fields),
+``[trainer.validation]``, ``[trainer.profiling]``,
+``[trainer.distillation]``; ``[loss.weights]``.
 
 The model's weights are made from ``[meta] seed``. Training batches are
 assembled on the host and mixed on the device, two batches ahead of the
 step (``PrefetchingLoader(size=2)``); validation reads two batches, made
 once. ``-R`` resumes from ``latest``; ``-P`` warm-starts the parameters from
 a snapshot (a checkpoint file or a flax-layout ``.npz``); ``-V`` only
-validates. The run trains on the card (``--device cuda``, the default)
-unless ``--device cpu`` asks for the CPU; a CUDA device that is not there
-is an error. ``-N`` / ``-M`` above 1 (a device mesh), ``[trainer.adversarial]``,
-``[trainer.distillation]`` and the step options the port refuses
-(``weight_decay``, ``freeze``, ``ema_decay``, ``grad_accum_steps``, bf16 via
-``use_amp``) stop the run with their names.
+validates. ``[trainer.distillation]`` loads a frozen teacher for the
+``distill`` loss: ``config`` names the teacher's TOML (its ``[model]``),
+``checkpoint`` its weights -- a port checkpoint or a flax-layout ``.npz``,
+the EMA weights where it holds them -- with its BatchNorm statistics. The
+run trains on the card (``--device cuda``, the default) unless ``--device
+cpu`` asks for the CPU; a CUDA device that is not there is an error. ``-N``
+/ ``-M`` above 1 (a device mesh), ``[trainer.adversarial]`` and the step
+options the port refuses (bf16 via ``use_amp``, ``flatten_optimizer``)
+stop the run with their names.
 """
 from __future__ import annotations
 
@@ -88,6 +94,27 @@ def dataset_from(section: dict, device, **overrides):
     return SynMixDataset(SynMixConfig(**{**args, **overrides}), device=device)
 
 
+def load_teacher(section: dict | None):
+    """``[trainer.distillation]`` -> the teacher model with its weights and
+    BatchNorm statistics (None without the table), as ``tools/train.py``
+    loads it: ``config`` names the teacher's TOML, ``checkpoint`` its
+    weights. Parameters the checkpoint lacks keep their seed-0 values."""
+    if not section:
+        return None
+    import torch
+
+    from cruse_tpu_torch.models import build_from_config
+    from cruse_tpu_torch.train.checkpoint import preload_params
+    from cruse_tpu_torch.utils.config import load_config
+    from cruse_tpu_torch.utils.logger import log
+
+    t_config = load_config(section["config"])
+    teacher = build_from_config(t_config["model"], generator=torch.Generator().manual_seed(0))
+    preload_params(section["checkpoint"], teacher, statistics=True)
+    log(f"distillation teacher: {t_config['model']['path']} from {section['checkpoint']}")
+    return teacher
+
+
 def build_trainer(args: argparse.Namespace):
     """The trainer that ``main`` runs, built from the parsed arguments."""
     import numpy as np
@@ -110,9 +137,8 @@ def build_trainer(args: argparse.Namespace):
     exp_name = config["meta"].get("experiment_name",
                                   os.path.splitext(os.path.basename(args.configuration))[0])
     trainer_section = config.get("trainer", {})
-    for name, what in (("adversarial", "MetricGAN+"), ("distillation", "distillation (a teacher)")):
-        if trainer_section.get(name):
-            raise NotImplementedError(f"[trainer.{name}]: {what} is not ported")
+    if trainer_section.get("adversarial"):
+        raise NotImplementedError("[trainer.adversarial]: MetricGAN+ is not ported")
     seed = int(config["meta"].get("seed", 0))
     random.seed(seed)
     np.random.seed(seed)
@@ -164,7 +190,7 @@ def build_trainer(args: argparse.Namespace):
             return train_ds.batches(num_batches=tcfg.steps_per_epoch)
 
     return Trainer(
-        model, step_cfg, tcfg,
+        model, step_cfg, tcfg, teacher=load_teacher(trainer_section.get("distillation")),
         train_batches=PrefetchingLoader(make_train_batches, size=2, device=device),
         validation_batches=list(valid_ds.batches(num_batches=2)),
         resume=args.resume,

@@ -6,24 +6,29 @@ Under a run's ``checkpoints/`` directory:
 
 - ``latest``: the whole train state -- the model's ``state_dict`` (weights
   and BatchNorm statistics), Adam's ``count``, ``mu`` and ``nu``, the
-  balancer's state, ``step`` -- with ``epoch`` and ``best_score``;
-  overwritten at every save;
-- ``model_NNNN``: that epoch's ``state_dict`` alone, and beside it
+  gradient accumulator and its mini-step count, the balancer's state,
+  ``step``, the EMA of the parameters (None without one) -- with ``epoch``
+  and ``best_score``; overwritten at every save;
+- ``model_NNNN``: that epoch's ``state_dict`` alone, or with an EMA
+  ``{"model": state_dict, "ema": {name: tensor}}``, and beside it
   ``model_NNNN.npz``, the same weights in the flax layout
-  (``utils/weights.py::flax_from_state_dict``, ``save_flax_npz``), which
-  ``python -m cruse_tpu_torch.infer --weights`` serves;
+  (``utils/weights.py::flax_from_state_dict``, ``save_flax_npz``) with the
+  EMA as an ``ema_params`` subtree, as the JAX package's snapshot holds it;
+  ``python -m cruse_tpu_torch.infer --weights`` serves it, the EMA weights
+  where they are;
 - ``best``: the whole state, overwritten on a new best composite score.
 
 A file is written to a temporary name and renamed, so that a run stopped in
 the middle of a save leaves the previous file whole. ``restore_checkpoint``
 loads ``latest`` into a train state in place; ``preload_params`` warm-starts
-a model's parameters from a snapshot, tolerating missing entries.
+a model's parameters from a snapshot, tolerating missing entries and
+preferring the EMA weights where the snapshot has them.
 """
 from __future__ import annotations
 
 import os
 from pathlib import Path
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 
@@ -40,15 +45,23 @@ def _host(t: torch.Tensor) -> torch.Tensor:
 def state_to_host(state: TrainState) -> Dict[str, Any]:
     """A CPU copy of the train state (the parameters are updated in place
     on the device, so a snapshot must be a copy)."""
+    opt = state.opt_state
     return {
         "model": {k: _host(v) for k, v in state.model.state_dict().items()},
-        "opt_count": int(state.opt_state.count),
-        "opt_mu": [_host(m) for m in state.opt_state.mu],
-        "opt_nu": [_host(v) for v in state.opt_state.nu],
+        "opt_count": int(opt.count),
+        "opt_mu": [_host(m) for m in opt.mu],
+        "opt_nu": [_host(v) for v in opt.nu],
+        "opt_mini_step": int(opt.mini_step),
+        "opt_acc": None if opt.acc is None else [_host(a) for a in opt.acc],
         "balancer_total": {k: _host(v) for k, v in state.balancer_state.total.items()},
         "balancer_fix": {k: _host(v) for k, v in state.balancer_state.fix.items()},
         "step": int(state.step),
+        "ema": None if state.ema is None else [_host(e) for e in state.ema],
     }
+
+
+def _trainable_names(model) -> List[str]:
+    return [name for name, p in model.named_parameters() if p.requires_grad]
 
 
 def _write(obj, path: Path) -> None:
@@ -69,10 +82,15 @@ def save_checkpoint(ckpt_dir: str | Path, state: TrainState | Dict[str, Any], ep
         state = state_to_host(state)
     tree = {**state, "epoch": int(epoch), "best_score": float(best_score)}
     _write(tree, ckpt_dir / "latest")
-    _write(tree["model"], ckpt_dir / f"model_{epoch:04d}")
+    # with an EMA, validation scored the EMA weights: the deployable snapshot carries them
+    ema = None if tree.get("ema") is None else dict(zip(_trainable_names(model), tree["ema"]))
+    _write(tree["model"] if ema is None else {"model": tree["model"], "ema": ema}, ckpt_dir / f"model_{epoch:04d}")
     npz = ckpt_dir / f"model_{epoch:04d}.npz"
     partial = ckpt_dir / f".{npz.stem}.tmp{os.getpid()}.npz"
-    save_flax_npz(flax_from_state_dict(model, tree["model"]), str(partial))
+    variables = flax_from_state_dict(model, tree["model"])
+    if ema is not None:  # the BatchNorm statistics as they are, the EMA in place of the parameters
+        variables["ema_params"] = flax_from_state_dict(model, {**tree["model"], **ema})["params"]
+    save_flax_npz(variables, str(partial))
     os.replace(partial, npz)
     if is_best_epoch:
         _write(tree, ckpt_dir / "best")
@@ -89,20 +107,45 @@ def load_checkpoint(path: str | Path) -> Dict[str, Any]:
 def restore_checkpoint(ckpt_dir: str | Path, state: TrainState,
                        which: str = "latest") -> Tuple[TrainState, int, float]:
     """Load ``which`` into ``state`` in place (model, Adam's moments and
-    count, balancer, step). Returns (state, saved epoch + 1, best_score)."""
+    count, the accumulator, balancer, step, EMA). Returns (state, saved
+    epoch + 1, best_score).
+
+    A checkpoint written without an EMA (it holds ``"ema": None``, or no
+    such entry) restored into a state that keeps one starts the EMA from
+    the restored parameters; that case alone -- an EMA entry that does not
+    fit the model raises, as any other mismatch does. A checkpoint without
+    an accumulator restored into a state that accumulates starts it at zero."""
     tree = load_checkpoint(Path(ckpt_dir).expanduser() / which)
     state.model.load_state_dict(tree["model"], strict=True)
     opt = state.opt_state
-    if len(tree["opt_mu"]) != len(opt.mu):
-        raise ValueError(f"checkpoint {which}: {len(tree['opt_mu'])} Adam moments for a model "
-                         f"with {len(opt.mu)} trainable parameters")
-    with torch.no_grad():
-        for mine, saved in zip(opt.mu + opt.nu, tree["opt_mu"] + tree["opt_nu"]):
-            if mine.shape != saved.shape:
-                raise ValueError(f"checkpoint {which}: an Adam moment of shape {tuple(saved.shape)} "
-                                 f"for a parameter of shape {tuple(mine.shape)}")
-            mine.copy_(saved)
+
+    def copy_into(mine, saved, what):
+        if len(saved) != len(mine):
+            raise ValueError(f"checkpoint {which}: {len(saved)} {what} for a model "
+                             f"with {len(mine)} trainable parameters")
+        with torch.no_grad():
+            for m, v in zip(mine, saved):
+                if m.shape != v.shape:
+                    raise ValueError(f"checkpoint {which}: {what} of shape {tuple(v.shape)} "
+                                     f"for a parameter of shape {tuple(m.shape)}")
+                m.copy_(v)
+
+    copy_into(opt.mu + opt.nu, tree["opt_mu"] + tree["opt_nu"], "Adam moments")
     opt.count = int(tree["opt_count"])
+    if opt.acc is not None:
+        if tree.get("opt_acc") is not None:
+            copy_into(opt.acc, tree["opt_acc"], "accumulated gradients")
+            opt.mini_step = int(tree["opt_mini_step"])
+        else:
+            torch._foreach_zero_(opt.acc)
+            opt.mini_step = 0
+    if state.ema is not None:
+        if tree.get("ema") is not None:
+            copy_into(state.ema, tree["ema"], "EMA tensors")
+        else:
+            with torch.no_grad():
+                torch._foreach_copy_(state.ema, [p.detach() for p in state.model.parameters() if p.requires_grad])
+            log(f"checkpoint {which} predates EMA; initialized the EMA from the parameters")
     device = opt.mu[0].device if opt.mu else None
     balancer = state.balancer_state
     balancer.total = {k: v.to(device) for k, v in tree["balancer_total"].items()}
@@ -113,19 +156,29 @@ def restore_checkpoint(ckpt_dir: str | Path, state: TrainState,
 
 def _read_weights(path: Path, model) -> Dict[str, torch.Tensor]:
     """A snapshot's tensors by the port's names: a checkpoint file (the
-    whole state, or ``model_NNNN``'s state_dict) or a flax-layout ``.npz``."""
+    whole state, or ``model_NNNN``'s) or a flax-layout ``.npz``; where the
+    snapshot holds an EMA of the parameters, the EMA in their place (the
+    weights that validation scored), as the JAX package's loader prefers it."""
     if path.suffix == ".npz":
         return state_dict_from_flax(load_flax_npz(str(path)), model)
     tree = load_checkpoint(path)
-    return tree["model"] if "model" in tree else tree
+    if "model" not in tree:
+        return tree
+    ema = tree.get("ema")
+    if ema is None:
+        return tree["model"]
+    log(f"loading EMA weights from {path.name} (an EMA present)")
+    return {**tree["model"], **(ema if isinstance(ema, dict) else dict(zip(_trainable_names(model), ema)))}
 
 
-def preload_params(ckpt_path: str | Path, model) -> Dict[str, int]:
-    """Warm-start: copy a snapshot's parameters into ``model`` (its BatchNorm
-    statistics stay as they are, as the JAX package's preload keeps its
-    batch_stats). A parameter the snapshot lacks keeps its value; a
-    parameter of another shape, or a snapshot that matches none of the
-    model's parameters (a stale layout), raises. Returns the counts of
+def preload_params(ckpt_path: str | Path, model, statistics: bool = False) -> Dict[str, int]:
+    """Warm-start: copy a snapshot's parameters into ``model``, the EMA
+    weights where the snapshot has them. The BatchNorm statistics stay as
+    they are, as the JAX package's preload keeps its batch_stats, unless
+    ``statistics`` (its ``preload_variables``, which loads a distillation
+    teacher) asks for them too. A parameter the snapshot lacks keeps its
+    value; a parameter of another shape, or a snapshot that matches none of
+    the model's parameters (a stale layout), raises. Returns the counts of
     parameters merged and kept."""
     ckpt_path = Path(ckpt_path).expanduser().absolute()
     if not ckpt_path.is_file():
@@ -133,6 +186,10 @@ def preload_params(ckpt_path: str | Path, model) -> Dict[str, int]:
     restored = _read_weights(ckpt_path, model)
     merged, kept = 0, 0
     with torch.no_grad():
+        if statistics:
+            for name, buffer in model.named_buffers():
+                if name in restored and tuple(restored[name].shape) == tuple(buffer.shape):
+                    buffer.copy_(restored[name])
         for name, param in model.named_parameters():
             value = restored.get(name)
             if value is None:

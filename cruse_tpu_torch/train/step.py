@@ -12,45 +12,61 @@ and the result carries the gradient: for CRUSE and CRUSE+DF through the GRU
 recurrence's backward kernel, for CRUSE+DF and MTFAA through the deep
 filter's.
 
-**The train step** (``make_train_step``): STFT of noisy and clean -> the
+**The train step** (``make_train_step``): STFT of noisy and clean -> (with
+a teacher) the teacher's eval forward under ``torch.no_grad`` -> the
 model's training forward -> the losses on the enhanced spectrum (``si_snr``
-through the differentiable iSTFT, ``spec``) -> the balancer's combined
-cotangent -> one backward through the model -> clip by global norm -> Adam
--> BatchNorm running statistics, with the non-finite guard.
+and ``multi_res`` through the differentiable iSTFT, ``spec``, ``wo_male``,
+``sdnr``, ``cirm``, ``pmsqe``, and ``distill`` against the teacher's
+spectrum) -> the balancer's combined cotangent -> one backward through the
+model -> the optimiser -> the EMA of the parameters, with the non-finite
+guard.
 
 Where it differs from the JAX step, which is a pure function of an immutable
-state: the model's parameters, its BatchNorm statistics and the optimiser's
-moments are updated in place, and the returned ``TrainState`` holds the same
-objects. The step reads the gradient norm and the losses on the host once
-(one wait for the device a step) to decide the clip and the non-finite
-guard; a non-finite step restores the BatchNorm statistics it snapshotted
-and leaves parameters, moments, the optimiser's count and the balancer state
-as they were. The optimiser is optax's ``chain(clip_by_global_norm, adam)``
-written out: the clip scales by ``max_norm / norm`` only when ``norm >=
-max_norm``; Adam's update is ``-lr(count) * m_hat / (sqrt(v_hat) + 1e-8)`` with
-the schedule's count starting at 0 and advancing only with an applied
-update. Everything is float32.
+state: the model's parameters, its BatchNorm statistics, the optimiser's
+moments and accumulator and the EMA are updated in place, and the returned
+``TrainState`` holds the same objects. The step reads the gradient norms and
+the losses on the host once (one wait for the device a step) to decide the
+clip and the non-finite guard; a non-finite step restores the BatchNorm
+statistics it snapshotted and leaves parameters, moments, accumulator, EMA,
+the optimiser's count and the balancer state as they were.
 
-Accepted for config compatibility and refused by name when set:
-``weight_decay``, ``freeze``, ``remat``, ``compute_dtype``, ``ema_decay``,
-``grad_accum_steps``, ``flatten_optimizer``, a teacher, multi-channel
-batches, and losses other than ``si_snr`` and ``spec``.
+The optimiser is optax's chain as the JAX package's ``make_optimizer``
+composes it, written out: zero the ``freeze`` leaves' gradients -> clip by
+global norm (scale by ``max_norm / norm`` only when ``norm >= max_norm``) ->
+Adam, ``-lr(count) * m_hat / (sqrt(v_hat) + 1e-8)``, or AdamW when
+``weight_decay > 0``, which adds ``weight_decay * p`` to the direction of
+every leaf whose flax counterpart has two dimensions or more -> no update
+for the ``freeze`` leaves. With ``grad_accum_steps = k > 1`` (optax's
+``MultiSteps``) a step adds its gradients to a running mean and the chain
+runs on that mean once every k steps; the optimiser's count, and so the
+schedule, advances once an update. ``freeze`` patterns and the decay mask
+are read on the JAX package's parameter tree (``utils/weights.py::
+flax_param_paths``), so that a pattern freezes the same tensors in both.
+``grad_norm`` is the step's own gradients' norm before any of this. With
+``ema_decay = d`` the EMA moves every step, ``e = d e + (1 - d) p``, the
+parameters moved or not. Everything is float32.
+
+Accepted for config compatibility and refused by name when set: ``remat``,
+``compute_dtype`` and ``flatten_optimizer``; multi-channel batches are
+refused too.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 from cruse_tpu_torch.dsp.stft import StftConfig, istft, stft
 from cruse_tpu_torch.losses.balancer import Balancer, BalancerState
+from cruse_tpu_torch.losses.pmsqe import pmsqe_loss
 from cruse_tpu_torch.losses.sisnr import si_snr_loss
-from cruse_tpu_torch.losses.spectral import compressed_spectral_loss
+from cruse_tpu_torch.losses.spectral import (cirm_mse_loss, compressed_spectral_loss, multi_res_spectral_loss,
+                                             sdnr_loss, weighted_male_loss)
 
 ADAM_EPS = 1e-8
-PORTED_LOSSES = ("si_snr", "spec")
+STEP_LOSSES = ("si_snr", "spec", "wo_male", "multi_res", "sdnr", "cirm", "pmsqe", "distill")
 
 
 def _magnitude_features(model, noisy_ri: torch.Tensor) -> torch.Tensor:
@@ -126,46 +142,48 @@ def forward_for_model(model) -> Callable:
 
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
-    """The JAX package's step configuration. The fields after ``final_lr_scale``
-    exist so that one config builds both packages; setting one raises."""
+    """The JAX package's step configuration. ``remat``, ``compute_dtype`` and
+    ``flatten_optimizer`` exist so that one config builds both packages;
+    setting one raises."""
 
     stft: StftConfig = StftConfig(n_fft=320, hop_length=160)
     learning_rate: float = 5e-4
     beta1: float = 0.9
     beta2: float = 0.999
+    weight_decay: float = 0.0  # > 0: AdamW, decaying the leaves of two dimensions or more
+    freeze: tuple = ()  # substrings of parameter paths whose gradients and updates are zeroed
     clip_grad_norm: float = 10.0
     loss_weights: tuple = (("si_snr", 1.0), ("spec", 1.0))
     balancer_ema: float = 0.999
     rescale_grads: bool = True
     skip_nonfinite_updates: bool = True  # drop the update of a step with a NaN/Inf
+    remat: Optional[str] = None
+    compute_dtype: Optional[str] = None
     lr_schedule: Optional[str] = None  # None / "constant" | "cosine" (warmup, then cosine decay)
     warmup_steps: int = 0
     decay_steps: Optional[int] = None  # the whole horizon, warmup included; needed for "cosine"
     final_lr_scale: float = 0.0
-    weight_decay: float = 0.0
-    freeze: tuple = ()
-    remat: Optional[str] = None
-    compute_dtype: Optional[str] = None
-    ema_decay: Optional[float] = None
-    grad_accum_steps: int = 1
+    ema_decay: Optional[float] = None  # keep an EMA of the parameters; validation scores it
+    grad_accum_steps: int = 1  # > 1: one update from the mean of k steps' gradients
     flatten_optimizer: bool = False
-    sr: int = 16000
+    sr: int = 16000  # sizes the Bark tables of the pmsqe loss
 
     def __post_init__(self):
-        unported = {"weight_decay": self.weight_decay > 0, "freeze": bool(self.freeze),
-                    "remat": self.remat is not None,
-                    "compute_dtype": self.compute_dtype is not None,
-                    "ema_decay": self.ema_decay is not None,
-                    "grad_accum_steps": self.grad_accum_steps != 1,
+        unported = {"remat": self.remat is not None, "compute_dtype": self.compute_dtype is not None,
                     "flatten_optimizer": self.flatten_optimizer}
         for name, is_set in unported.items():
             if is_set:
                 raise NotImplementedError(
                     f"StepConfig.{name}={getattr(self, name)!r} is not ported: the train step "
-                    "is float32 Adam with a global-norm clip, one update a step")
+                    "runs float32, saves every residual and updates leaf by leaf")
+        if isinstance(self.freeze, str):
+            raise ValueError("freeze must be a list or tuple of path substrings, not a string "
+                             "(a bare string would match per character and pin everything)")
+        if self.grad_accum_steps < 1:
+            raise ValueError(f"grad_accum_steps={self.grad_accum_steps} must be at least 1")
         for name, _ in self.loss_weights:
-            if name not in PORTED_LOSSES:
-                raise NotImplementedError(f"loss {name!r} is not ported (ported: {PORTED_LOSSES})")
+            if name not in STEP_LOSSES:
+                raise ValueError(f"unknown loss {name!r} (the step's losses: {STEP_LOSSES})")
         make_lr(self)  # an unknown schedule raises here
 
 
@@ -199,22 +217,30 @@ def make_lr(cfg: StepConfig) -> Callable[[int], float]:
 @dataclasses.dataclass
 class AdamState:
     """Adam's moments, one tensor per trainable parameter in
-    ``model.parameters()`` order, and the count of applied updates."""
+    ``model.parameters()`` order, and the count of applied updates; with
+    gradient accumulation also the running mean ``acc`` of the gradients of
+    the ``mini_step`` steps taken since the last update (optax's
+    ``MultiStepsState``)."""
 
     count: int
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
+    mini_step: int = 0
+    acc: Optional[List[torch.Tensor]] = None
 
 
 @dataclasses.dataclass
 class TrainState:
     """What a step carries. ``model`` holds the parameters and the BatchNorm
-    statistics; ``step`` counts the steps taken, applied or skipped."""
+    statistics; ``step`` counts the steps taken, applied or skipped; ``ema``
+    is the EMA of the trainable parameters (``StepConfig.ema_decay``), in
+    the order of ``opt_state.mu``, or None."""
 
     model: torch.nn.Module
     opt_state: AdamState
     balancer_state: BalancerState
     step: int = 0
+    ema: Optional[List[torch.Tensor]] = None
 
 
 def _trainable(model) -> List[torch.nn.Parameter]:
@@ -229,21 +255,43 @@ def _balancer(cfg: StepConfig) -> Balancer:
 def init_train_state(model, cfg: StepConfig, device: torch.device | str = "cuda") -> TrainState:
     """Move ``model`` to ``device`` (the card unless the caller asks for the
     CPU; a CUDA device that is not there is an error), put it in training
-    mode and start the optimiser and the balancer at zero."""
+    mode and start the optimiser and the balancer at zero, the accumulator
+    at zero and the EMA at the parameters when the config asks for them."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device}: no CUDA device is available "
                            "(pass device='cpu' to train on the CPU)")
     model = model.to(device).train()
     params = _trainable(model)
+    zeros = lambda: [torch.zeros_like(p) for p in params]  # noqa: E731
     return TrainState(model=model,
-                      opt_state=AdamState(0, [torch.zeros_like(p) for p in params],
-                                          [torch.zeros_like(p) for p in params]),
-                      balancer_state=_balancer(cfg).init_state(device))
+                      opt_state=AdamState(0, zeros(), zeros(),
+                                          acc=zeros() if cfg.grad_accum_steps > 1 else None),
+                      balancer_state=_balancer(cfg).init_state(device),
+                      ema=[p.detach().clone() for p in params] if cfg.ema_decay is not None else None)
 
 
-def _adam_update(params, grads, opt: AdamState, cfg: StepConfig, lr: float) -> None:
-    """One in-place Adam update (optax's ``scale_by_adam`` and ``-lr``)."""
+def param_masks(model, cfg: StepConfig):
+    """(frozen, decayed): a flag per trainable parameter, in the optimiser's
+    order. ``frozen``: a ``freeze`` pattern is a substring of the
+    parameter's path in the JAX package's tree (``jax.tree_util.keystr``
+    form, ``['enc_0']['conv']['kernel']``); ``decayed``: AdamW decays it,
+    its flax leaf having two dimensions or more."""
+    from cruse_tpu_torch.utils.weights import flax_param_paths, jax_keystr
+
+    paths = flax_param_paths(model)
+    names = [name for name, p in model.named_parameters() if p.requires_grad]
+    frozen = [any(pat in jax_keystr(paths[n][0]) for pat in cfg.freeze) for n in names]
+    decayed = [cfg.weight_decay > 0 and paths[n][1] >= 2 for n in names]
+    return frozen, decayed
+
+
+def _adam_update(params, grads, opt: AdamState, cfg: StepConfig, lr: float,
+                 frozen: Optional[List[bool]] = None, decayed: Optional[List[bool]] = None) -> None:
+    """One in-place update: optax's ``scale_by_adam``, AdamW's
+    ``add_decayed_weights`` on the ``decayed`` leaves, ``-lr``. Every leaf's
+    moments move (a frozen leaf's with the zero gradient it was given); the
+    ``frozen`` leaves themselves do not."""
     count = opt.count + 1
     torch._foreach_mul_(opt.mu, cfg.beta1)
     torch._foreach_add_(opt.mu, grads, alpha=1 - cfg.beta1)
@@ -251,7 +299,12 @@ def _adam_update(params, grads, opt: AdamState, cfg: StepConfig, lr: float) -> N
     torch._foreach_addcmul_(opt.nu, grads, grads, value=1 - cfg.beta2)
     denom = torch._foreach_sqrt(torch._foreach_div(opt.nu, 1 - cfg.beta2 ** count))
     torch._foreach_add_(denom, ADAM_EPS)
-    torch._foreach_addcdiv_(params, opt.mu, denom, value=-lr / (1 - cfg.beta1 ** count))
+    live = [i for i in range(len(params)) if not (frozen and frozen[i])]
+    decay = [params[i] for i in live if decayed and decayed[i]]
+    if decay:  # p - lr (dir + wd p): the decay reads p before the step, as optax's does
+        torch._foreach_mul_(decay, 1 - lr * cfg.weight_decay)
+    torch._foreach_addcdiv_([params[i] for i in live], [opt.mu[i] for i in live], [denom[i] for i in live],
+                            value=-lr / (1 - cfg.beta1 ** count))
     opt.count = count
 
 
@@ -259,14 +312,59 @@ def _ri(spec: torch.Tensor) -> torch.Tensor:
     return torch.stack([spec.real, spec.imag], dim=-1)
 
 
-def make_loss_gradients(model, cfg: StepConfig, forward: Callable | None = None) -> Callable:
+def step_losses(cfg: StepConfig, noisy: torch.Tensor, clean: torch.Tensor, noisy_spec: torch.Tensor,
+                clean_spec: torch.Tensor, teacher_ri: torch.Tensor | None = None) -> Dict[str, Callable]:
+    """The step's losses as functions of the enhanced RI spectrum ``[B, T, F,
+    2]`` alone (the balancer's form), given the batch's waveforms ``[B, L]``
+    and their complex spectra ``[B, T, F]``: every loss of ``STEP_LOSSES``,
+    ``distill`` only with the teacher's enhanced spectrum."""
+    scfg, length = cfg.stft, noisy.shape[-1]
+    noisy_ri, clean_ri = _ri(noisy_spec), _ri(clean_spec)
+    norm = clean_ri.shape[0] * clean_ri.shape[1] * clean_ri.shape[2]
+
+    def wave(out):
+        return istft((out[..., 0], out[..., 1]), scfg, length=length)
+
+    def sdnr(out):
+        # VAD-gated and SNR-weighted: the gain from the enhanced magnitude,
+        # noise = noisy - clean, each utterance's SNR from the waveforms
+        noisy_mag = torch.sqrt(noisy_ri[..., 0] ** 2 + noisy_ri[..., 1] ** 2 + 1e-12)
+        enh_mag = torch.sqrt(out[..., 0] ** 2 + out[..., 1] ** 2 + 1e-12)
+        gain = torch.clamp(enh_mag / (noisy_mag + 1e-8), 0.0, 1.0)
+        snr_db = 10.0 * torch.log10((clean ** 2).sum(-1) / (((noisy - clean) ** 2).sum(-1) + 1e-10) + 1e-10)
+        return sdnr_loss(clean_spec, gain, noisy_spec - clean_spec, snr_db) / norm
+
+    losses = {
+        "si_snr": lambda out: si_snr_loss(wave(out), clean),
+        "spec": lambda out: compressed_spectral_loss(out, clean_ri) / norm,
+        "wo_male": lambda out: weighted_male_loss(out, clean_ri, noisy_ri),
+        "multi_res": lambda out: multi_res_spectral_loss(wave(out), clean),
+        "sdnr": sdnr,
+        "cirm": lambda out: cirm_mse_loss(out, noisy_ri, clean_ri),
+        "pmsqe": lambda out: pmsqe_loss(out, clean_ri, sr=cfg.sr),
+    }
+    if teacher_ri is not None:
+        losses["distill"] = lambda out: compressed_spectral_loss(out, teacher_ri) / norm
+    return losses
+
+
+def make_loss_gradients(model, cfg: StepConfig, forward: Callable | None = None,
+                        teacher: tuple | None = None) -> Callable:
     """The step's forward and backward without the update:
     ``loss_gradients(balancer_state, batch)`` -> ``(grads, losses,
     new_balancer_state)``, ``grads`` being one tensor per trainable parameter
     in ``model.parameters()`` order (the balancer-weighted sum of the losses'
     gradients, before the clip). It runs the model's training forward, so the
-    BatchNorm running statistics move."""
+    BatchNorm running statistics move. ``teacher``: ``(teacher_forward,
+    teacher_model)``, run in eval mode without a gradient on the same noisy
+    spectrum; the ``distill`` loss needs it."""
     forward = forward if forward is not None else forward_for_model(model)
+    if any(name == "distill" for name, _ in cfg.loss_weights) and teacher is None:
+        raise ValueError(
+            "loss_weights includes 'distill' but no teacher was given: pass "
+            "teacher=(forward_for_model(teacher_model), teacher_model) to make_train_step / "
+            "Trainer(teacher=teacher_model), or configure [trainer.distillation] with config= "
+            "and checkpoint= in the TOML")
     balancer = _balancer(cfg)
     scfg = cfg.stft
 
@@ -276,18 +374,20 @@ def make_loss_gradients(model, cfg: StepConfig, forward: Callable | None = None)
             raise NotImplementedError(
                 f"the train step takes single-channel [B, L] noisy and clean of one shape, got "
                 f"{tuple(noisy.shape)} and {tuple(clean.shape)} (multi-channel is not ported)")
-        length = noisy.shape[-1]
         model.train()
         params = _trainable(model)
         with torch.no_grad():
-            noisy_ri, clean_ri = _ri(stft(noisy, scfg)), _ri(stft(clean, scfg))
-        norm = clean_ri.shape[0] * clean_ri.shape[1] * clean_ri.shape[2]
+            noisy_spec, clean_spec = stft(noisy, scfg), stft(clean, scfg)
+            noisy_ri = _ri(noisy_spec)
+        teacher_ri = None
+        if teacher is not None:
+            # the frozen teacher on the same input, once a step: a constant of the student's graph
+            teacher_forward, teacher_model = teacher
+            teacher_model.eval()
+            with torch.no_grad():
+                teacher_ri = teacher_forward(noisy_ri, train=False)
         enhanced_ri = forward(noisy_ri, train=True)
-        available = {
-            "si_snr": lambda out: si_snr_loss(
-                istft((out[..., 0], out[..., 1]), scfg, length=length), clean),
-            "spec": lambda out: compressed_spectral_loss(out, clean_ri) / norm,
-        }
+        available = step_losses(cfg, noisy, clean, noisy_spec, clean_spec, teacher_ri)
         loss_fns = {name: available[name] for name, _ in cfg.loss_weights}
         out_grad, losses, new_balancer_state, _ = balancer.output_cotangent(
             loss_fns, enhanced_ri, balancer_state)
@@ -298,49 +398,80 @@ def make_loss_gradients(model, cfg: StepConfig, forward: Callable | None = None)
     return loss_gradients
 
 
+def _global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
 def make_train_step(model, cfg: StepConfig, forward: Callable | None = None,
-                    teacher: Any = None) -> Callable:
+                    teacher: tuple | None = None) -> Callable:
     """Build the train step for ``model``.
 
     ``train_step(state, batch)`` takes ``batch = {"noisy": [B, L], "clean":
     [B, L]}`` waveforms on the model's device and returns ``(state, metrics)``
-    with ``loss_<name>`` per loss, ``grad_norm`` (before the clip) and, with
-    the guard on, ``nonfinite_skipped`` (0-d tensors). ``forward`` adapts the
-    model (default: ``forward_for_model(model)``)."""
-    if teacher is not None:
-        raise NotImplementedError("distillation (a teacher) is not ported")
-    loss_gradients = make_loss_gradients(model, cfg, forward)
+    with ``loss_<name>`` per loss, ``grad_norm`` (the step's own gradients,
+    before the freeze, the accumulation and the clip) and, with the guard on,
+    ``nonfinite_skipped`` (0-d tensors). ``forward`` adapts the model
+    (default: ``forward_for_model(model)``). ``teacher``: ``(teacher_forward,
+    teacher_model)`` for the ``distill`` loss (knowledge distillation: the
+    compressed spectral distance to the frozen teacher's enhanced spectrum,
+    e.g. a large offline model teaching a small streaming one)."""
+    loss_gradients = make_loss_gradients(model, cfg, forward, teacher)
     lr_at = make_lr(cfg)
+    frozen, decayed = param_masks(model, cfg)
+    k = cfg.grad_accum_steps
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         if state.model is not model:
             raise ValueError("the state belongs to another model than this step was made for")
+        opt = state.opt_state
+        if (state.ema is None) != (cfg.ema_decay is None) or (opt.acc is None) != (k == 1):
+            raise ValueError("the state's EMA or accumulator does not match the step config "
+                             "(make the state with init_train_state from the same config)")
         # the forward moves the BatchNorm statistics in place: keep what a skipped step restores
         buffers = list(model.buffers())
         kept = [b.clone() for b in buffers] if cfg.skip_nonfinite_updates else None
         grads, losses, new_balancer_state = loss_gradients(state.balancer_state, batch)
-        grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        grad_norm = _global_norm(grads)
         metrics = {f"loss_{name}": value for name, value in losses.items()}
         metrics["grad_norm"] = grad_norm
 
-        # the one wait for the device: the norm decides the clip, and with the
+        emit = opt.mini_step == k - 1
+        with torch.no_grad():
+            if k > 1:  # optax's MultiSteps: a running mean, acc + (g - acc) / (n + 1)
+                mean = torch._foreach_add(opt.acc, torch._foreach_div(torch._foreach_sub(grads, opt.acc),
+                                                                      float(opt.mini_step + 1)))
+            else:
+                mean = grads
+            if emit and any(frozen):  # the frozen leaves' gradients are zero before the clip
+                mean = [torch.zeros_like(g) if f else g for g, f in zip(mean, frozen)]
+            clip_norm = _global_norm(mean) if emit and (k > 1 or any(frozen)) else grad_norm
+
+        # the one wait for the device: the norms decide the clip, and with the
         # losses whether anything of this step may be kept
-        norm_value, *loss_values = torch.stack([grad_norm, *losses.values()]).tolist()
+        norm_value, clip_value, *loss_values = torch.stack([grad_norm, clip_norm, *losses.values()]).tolist()
         finite = all(math.isfinite(v) for v in (norm_value, *loss_values))
         if cfg.skip_nonfinite_updates:
-            metrics["nonfinite_skipped"] = torch.tensor(0.0 if finite else 1.0,
-                                                        device=grad_norm.device)
+            metrics["nonfinite_skipped"] = torch.tensor(0.0 if finite else 1.0, device=grad_norm.device)
             if not finite:
                 with torch.no_grad():
                     for buffer, old in zip(buffers, kept):
                         buffer.copy_(old)
                 return dataclasses.replace(state, step=state.step + 1), metrics
+        params = _trainable(model)
         with torch.no_grad():
-            if norm_value >= cfg.clip_grad_norm:
-                torch._foreach_mul_(grads, cfg.clip_grad_norm / norm_value)
-            _adam_update(_trainable(model), grads, state.opt_state, cfg,
-                         lr_at(state.opt_state.count))
-        return TrainState(model=model, opt_state=state.opt_state,
-                          balancer_state=new_balancer_state, step=state.step + 1), metrics
+            if emit:
+                if clip_value >= cfg.clip_grad_norm:
+                    torch._foreach_mul_(mean, cfg.clip_grad_norm / clip_value)
+                _adam_update(params, mean, opt, cfg, lr_at(opt.count), frozen, decayed)
+                if k > 1:
+                    torch._foreach_zero_(opt.acc)
+            else:
+                torch._foreach_copy_(opt.acc, mean)
+            opt.mini_step = 0 if emit else opt.mini_step + 1
+            if state.ema is not None:
+                torch._foreach_mul_(state.ema, cfg.ema_decay)
+                torch._foreach_add_(state.ema, params, alpha=1.0 - cfg.ema_decay)
+        return TrainState(model=model, opt_state=opt, balancer_state=new_balancer_state,
+                          step=state.step + 1, ema=state.ema), metrics
 
     return train_step

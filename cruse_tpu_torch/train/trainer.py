@@ -11,8 +11,13 @@ of worker processes, where the JAX package uses threads) from a background
 thread while the next epoch trains. The scores, and ``best`` when the epoch
 is a new best, are harvested one boundary later from a CPU copy of the
 weights that were scored (the port updates its parameters in place, so the
-snapshot must be a copy). SIGTERM or SIGINT during training ends the epoch
-early and saves ``latest`` (resume with ``-R``).
+snapshot must be a copy). With an EMA of the parameters
+(``StepConfig.ema_decay``) validation, best-model selection and ``enhance``
+run the EMA weights, with the current BatchNorm statistics, on a second
+copy of the model, so that the trained weights are never swapped in place.
+``teacher=``: a frozen model whose eval forward the step runs for the
+``distill`` loss (knowledge distillation). SIGTERM or SIGINT during
+training ends the epoch early and saves ``latest`` (resume with ``-R``).
 
 ``timings`` keeps, for the run, the wall seconds of each step (the batch's
 wait in ``data_wait``), of each validation's enhancement on the card and host
@@ -25,6 +30,7 @@ spectrogram figure of the TensorBoard samples (which needs the JAX package's
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import multiprocessing
 import os
@@ -102,12 +108,14 @@ class Trainer:
     {"noisy", "clean"} [B, L] (numpy or tensors; "name" optional). The model
     trains on ``device``, the card unless the caller asks for the CPU.
     ``writer``: None makes a TensorBoard writer when the package is there,
-    False none, anything else is used."""
+    False none, anything else is used. ``teacher``: a model with its
+    trained weights and BatchNorm statistics, for the ``distill`` loss; it is
+    moved to ``device`` and frozen."""
 
     def __init__(self, model, step_config: StepConfig, trainer_config: TrainerConfig,
                  train_batches: Optional[Iterable] = None, validation_batches: Optional[Iterable] = None,
                  resume: bool = False, preload_path: str | None = None,
-                 device: torch.device | str = "cuda", writer=None, mesh=None):
+                 device: torch.device | str = "cuda", writer=None, mesh=None, teacher=None):
         if mesh is not None:
             raise NotImplementedError("training on a device mesh is not ported (one device; "
                                       "torch.distributed is ROADMAP.md queue 1 item 9)")
@@ -136,8 +144,17 @@ class Trainer:
         elif preload_path:
             preload_params(preload_path, model)
             log(f"Model preloaded from {preload_path}.")
-        self._train_step = make_train_step(model, step_config)
-        self._forward = forward_for_model(model)
+        self.teacher = teacher
+        if teacher is not None:
+            teacher.to(self.device).eval().requires_grad_(False)
+            n_teacher = sum(p.numel() for p in teacher.parameters())
+            log(f"distillation: teacher {type(teacher).__name__} ({n_teacher / 1e6:.3f} M params, frozen)")
+        self._train_step = make_train_step(
+            model, step_config, teacher=None if teacher is None else (forward_for_model(teacher), teacher))
+        # the model that validation runs: with an EMA, a second copy that takes
+        # the EMA weights and the current statistics before each use
+        self._eval_model = copy.deepcopy(model) if self.state.ema is not None else model
+        self._forward = forward_for_model(self._eval_model)
 
         if writer is None:
             try:
@@ -239,11 +256,23 @@ class Trainer:
             self.spec_audio_visualization(noisy_list[j], enhanced_list[j], clean_list[j], names[j], epoch)
         return score
 
+    def _sync_eval_model(self) -> None:
+        """Give the validation copy the EMA weights and the model's current
+        BatchNorm statistics (with no EMA it is the model itself)."""
+        if self._eval_model is self.state.model:
+            return
+        with torch.no_grad():
+            mine = [p for p in self._eval_model.parameters() if p.requires_grad]
+            torch._foreach_copy_(mine, self.state.ema)
+            torch._foreach_copy_(list(self._eval_model.buffers()), list(self.state.model.buffers()))
+
     def enhance(self, noisy: torch.Tensor) -> torch.Tensor:
-        """[B, L] -> [B, L] on the device with the current weights: STFT, the
-        model's forward adapter in eval mode (BatchNorm on its running
-        statistics), iSTFT; the model is back in training mode after."""
-        model = self.state.model
+        """[B, L] -> [B, L] on the device with the current weights (the EMA
+        weights when there is an EMA): STFT, the model's forward adapter in
+        eval mode (BatchNorm on its running statistics), iSTFT; the trained
+        model is in training mode after."""
+        self._sync_eval_model()
+        model = self._eval_model
         model.eval()
         try:
             with torch.inference_mode():

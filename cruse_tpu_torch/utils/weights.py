@@ -87,9 +87,19 @@ def save_flax_npz(variables: Mapping[str, Any], path: str) -> None:
 
 
 def load_flax_npz(path: str) -> Dict[str, Any]:
-    """Read a tree written by ``save_flax_npz`` as nested numpy dicts."""
+    """Read a tree written by ``save_flax_npz`` as nested numpy dicts. A
+    trainer's snapshot with an EMA of its weights (an ``ema_params``
+    subtree) gives the EMA weights as ``params``: validation scored them,
+    and the JAX package's loader prefers them in the same way."""
     with np.load(path) as data:
-        return unflatten_tree({k: data[k] for k in data.files})
+        tree = unflatten_tree({k: data[k] for k in data.files})
+    ema = tree.pop("ema_params", None)
+    if ema:
+        from cruse_tpu_torch.utils.logger import log
+
+        log(f"loading EMA weights from {path} (ema_params present)")
+        tree["params"] = ema
+    return tree
 
 
 def _convert(flax_path: str, value: np.ndarray, cfg) -> np.ndarray:
@@ -212,34 +222,68 @@ def _unconvert(flax_path: str, value: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.transpose(value, (2, 3, 1, 0)))  # Conv [out, in, kh, kw] -> [kh, kw, in, out]
 
 
+def _flax_leaf(family: str, key: str, value: np.ndarray):
+    """One port tensor -> (collection, flax path, array in the flax layout),
+    or None for a tensor flax does not hold; ``family`` is "mtfaa", "dfsmn"
+    or "cruse" (CRUSE and CRUSE+DF)."""
+    if family == "mtfaa":
+        collection = "batch_stats" if key.rsplit(".", 1)[-1] in ("mean", "var") else "params"
+        return collection, key.replace(".", "/"), value
+    if family == "dfsmn":
+        if key.endswith(".weight"):  # Linear [out, in] -> Dense [in, out]
+            key, value = key[: -len("weight")] + "kernel", np.ascontiguousarray(value.T)
+        return "params", key.replace(".", "/"), value
+    *modules, leaf = key.split(".")
+    if leaf == "num_batches_tracked":
+        return None
+    if leaf == "weight":  # a kernel, or a norm's 1-D scale
+        leaf = "kernel" if value.ndim >= 2 else "scale"
+    collection, leaf = {"running_mean": ("batch_stats", "mean"),
+                        "running_var": ("batch_stats", "var")}.get(leaf, ("params", leaf))
+    path = "/".join(modules + [leaf])
+    return collection, path, _unconvert(path, value)
+
+
+def _family(model) -> str:
+    from cruse_tpu_torch.models.dfsmn import DfsmnNet
+    from cruse_tpu_torch.models.mtfaa import MtfaaNet
+
+    return "mtfaa" if isinstance(model, MtfaaNet) else "dfsmn" if isinstance(model, DfsmnNet) else "cruse"
+
+
 def flax_from_state_dict(model, state_dict: Mapping[str, torch.Tensor] | None = None) -> Dict[str, Any]:
     """The inverse of ``state_dict_from_flax``: the port ``model``'s weights
     (or ``state_dict``, one of that model's, such as a trainer's snapshot)
     -> the cruse_tpu variables tree (``{"params", "batch_stats"}`` of numpy
     arrays) that the bridge maps onto them, so that a rule stated on the flax
     tree (int8 quantization) runs on seeded weights too."""
-    from cruse_tpu_torch.models.dfsmn import DfsmnNet
-    from cruse_tpu_torch.models.mtfaa import MtfaaNet
-
     state_dict = model.state_dict() if state_dict is None else state_dict
-    if isinstance(model, MtfaaNet):
-        return mtfaa_flax_from_named(state_dict)
-    named = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
+    family = _family(model)
     flat: Dict[str, Dict[str, np.ndarray]] = {"params": {}, "batch_stats": {}}
-    if isinstance(model, DfsmnNet):
-        for key, value in named.items():
-            if key.endswith(".weight"):  # Linear [out, in] -> Dense [in, out]
-                key, value = key[: -len("weight")] + "kernel", np.ascontiguousarray(value.T)
-            flat["params"][key.replace(".", "/")] = value
-        return {collection: unflatten_tree(leaves) for collection, leaves in flat.items()}
-    inverse = {"running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
-    for key, value in named.items():
-        *modules, leaf = key.split(".")
-        if leaf == "num_batches_tracked":
-            continue
-        if leaf == "weight":  # a kernel, or a norm's 1-D scale
-            leaf = "kernel" if value.ndim >= 2 else "scale"
-        collection, leaf = inverse.get(leaf, ("params", leaf))
-        path = "/".join(modules + [leaf])
-        flat[collection][path] = _unconvert(path, value)
+    for key, value in state_dict.items():
+        leaf = _flax_leaf(family, key, value.detach().cpu().numpy())
+        if leaf is not None:
+            collection, path, array = leaf
+            flat[collection][path] = array
     return {collection: unflatten_tree(leaves) for collection, leaves in flat.items()}
+
+
+def flax_param_paths(model) -> Dict[str, tuple]:
+    """Each parameter of the port ``model``, by name -> (its flax leaf's
+    path in the ``params`` tree, "/"-joined; that leaf's ``ndim``), by the
+    mapping of ``flax_from_state_dict``. The train step decides ``freeze``
+    and AdamW's decay mask on these, as the JAX package decides them on its
+    tree: a pattern matches ``jax_keystr(path)``, and a leaf of two
+    dimensions or more is decayed."""
+    family = _family(model)
+    out = {}
+    for name, param in model.named_parameters():
+        _, path, array = _flax_leaf(family, name, np.zeros(tuple(param.shape), np.float32))
+        out[name] = (path, array.ndim)
+    return out
+
+
+def jax_keystr(path: str) -> str:
+    """``jax.tree_util.keystr`` of a "/"-joined path of dict keys:
+    ``"a/b"`` -> ``"['a']['b']"``."""
+    return "".join(f"['{key}']" for key in path.split("/"))
