@@ -105,30 +105,30 @@ needed). In order, and any failure exits non-zero:
     of 1 + 2d frames) at config 5b's four stage shapes, B=64, d = 1, 2, 4, 8,
     into outputs filled with NaN first (1e-5), and drives config 5b's
     streaming path: the same MTFAA through ``StreamingEnhancer.run`` on B=8
-    synthetic 4 s utterances (n_fft 512, hop 256, center=False); checks 24
+    synthetic 2 s utterances (n_fft 512, hop 256, center=False); checks 24
     stencil and 1 deep-filter launches a hop and no other kernel (no TFCM
     stack, no attention), the stream against the same stream through the
     plain stencil and deep filter and against the offline windowed forward
     (the stack and attention kernels) + iSTFT past n_fft samples, each within
     1e-4, ``step_multi`` against steps, and two chunks carried through the
-    state of a state=None call against one call (2e-4); times B=64 x 10 s
+    state of a state=None call against one call (2e-4); times B=64 x 4 s
     streams and one hop at B=1, profiles 20 hops at B=64 and B=1, and times
     the stencil at the hop's four stage shapes at B=1 (``ops/dw_timing.py``);
 15. serves config 3 and config 5b at once: one ``MultiModelServer`` with a
     pool of full-width CRUSE+DF (16 slots) and one of config 5b (8 slots), the
-    same models as above; 17 and 9 synthetic sessions of 0.5 to 3 s and 0.5 to
-    1 s, of priorities 0 to 2, opened in stages (more sessions than slots, so
+    same models as above; 17 and 9 synthetic sessions of 0.5 to 1.5 s and 0.5
+    to 0.75 s, of priorities 0 to 2, opened in stages (more sessions than slots, so
     slots are reused), fed a hop an iteration, stepped with every third
     iteration rationed to one dispatch, drained at the end of their input and
     closed; checks that every server call launched exactly 2 GRU and 1
     deep-filter kernels a config-3 step and 24 stencil and 1 deep-filter
     kernels a config-5b step, and each session against the same session
     streamed alone (B=1) with the kernels and, in one batch, through the plain
-    versions, within 1e-4; times config 3's pool at 256 slots x 10 s
+    versions, within 1e-4; times config 3's pool at 256 slots x 4 s
     (aggregate x-realtime, ms a step), ``StreamingEnhancer.run`` on the same
     audio, and profiles 20 server steps; then runs the serve CLI
     (``python -m cruse_tpu_torch.infer.serve``) as a subprocess with config 1
-    (``configs/cruse_base.toml``, priority 1) and config 5b, 10 sessions of 2
+    (``configs/cruse_base.toml``, priority 1) and config 5b, 10 sessions of 1
     s, ``--realtime --max_dispatches 1``: it must exit 0 and write every
     session at its input's length; prints its p50, p99 and missed deadlines;
 16. holds the training kernels against their plain versions on the card at
@@ -258,7 +258,35 @@ needed). In order, and any failure exits non-zero:
     kernel launched); and prints the featured step's median ms against the
     trainer phase's plain one, the teacher's ms a step, and the update's ms
     with AdamW + freeze + EMA (and k = 2) against plain Adam;
-22. drives the deployment path: config 1 (``configs/cruse_base.toml``, seeded
+22. drives FullSubNet at its published widths (``FullSubNetConfig()``: 257
+    bins, 15 neighbours, full band 512 x 2, sub band 384 x 2; n_fft 512, hop
+    256; seeded weights): (a) the streamed GRU forward at (16, 626, 1, 512)
+    and (4112, 626, 1, 384) and the streamed backward at (8, 188, 1, 512)
+    and (2056, 188, 1, 384) against their plain versions (f32 1e-4; the
+    backward 1e-4 of each output's largest, dh_last None and nonzero, into
+    NaN-filled outputs), ``gru_sequence`` and ``gru_sequence_bwd`` one launch
+    each and none resident (no cluster holds either weight; the resident
+    backward's launcher refuses them); (b) the offline model on B=16 x 10 s
+    through ``complex_mask`` and ``auto``: 4 GRU launches a call, the
+    waveform against the plain recurrence within 1e-4, ms a call,
+    x-realtime, peak memory, and a profile's GRU device time; (c) the
+    cumulative-norm model streamed on B=8 x 4 s (4 GRU launches a hop,
+    against the offline center=False call, row 0 alone, ``step_multi``), the
+    B=1 hop's median latency against the 16 ms budget, B=64 x 10 s
+    x-realtime, a profile of B=1 hops; (d) a pool of 8 slots (the sub-band
+    state at 8 x 257 rows) serving 9 sessions, every third step rationed to
+    half the ready sessions, the others' slots bit for bit unchanged, 4 GRU
+    launches a step, each session against itself streamed alone; (e) 3
+    ``make_train_step`` steps at B=8 x 3 s with si_snr and cirm, each
+    step's losses (1e-5 relative) and gradients (tests/test_torch_train_step.py's
+    bounds) against the plain recurrence, 4 + 4 GRU launches a step, ms a
+    step and peak memory; (f) ``python -m cruse_tpu_torch.infer``'s main in
+    this process on two 4 s wavs, offline (``complex_mask``) and
+    ``--streaming``, each wav within 1e-4 of the same model here; (g) each
+    GRU kernel's time at those shapes by CUDA events, its plain version, its
+    bound and cuDNN's ``nn.GRU`` (forward, or ``autograd.grad``) at the same
+    shape;
+23. drives the deployment path: config 1 (``configs/cruse_base.toml``, seeded
     weights and BatchNorm statistics) exported offline at B=16 x 10 s on the
     card in float32 and int8 (``infer/export.py``, ``nn/quantize.py``),
     saved and loaded (``infer/artifact.py``): 2 resident GRU launches a call
@@ -292,13 +320,13 @@ needed). In order, and any failure exits non-zero:
     --streaming`` and ``run_exported`` on config 5b against the eager
     ``infer --streaming`` CLI on the same seeded weights, within one int16
     step;
-23. prints a JSON line of the kernels (each with its launches on the main
+24. prints a JSON line of the kernels (each with its launches on the main
     paths, its error, its time, the plain version's, the least time the card
     could take for its bytes or its multiply-adds, and the library call's time
     where there is one), then ``{"ok": true, "device": ...}``.
 
 TF32 is off for matmuls and convolutions throughout, so every comparison is
-in full float32.
+in full float32. Each phase's seconds print as it ends (``phase ...``).
 """
 from __future__ import annotations
 
@@ -336,7 +364,8 @@ from cruse_tpu_torch.infer.serve import build_model as serve_build_model
 from cruse_tpu_torch.infer.server import MultiModelServer, StreamingServer, tree_leaves
 from cruse_tpu_torch.infer.streaming import StreamingEnhancer
 from cruse_tpu_torch.models import (
-    CruseDfConfig, CruseDfNet, CruseNet, DfsmnConfig, DfsmnNet, MtfaaConfig, MtfaaNet, build_from_config)
+    CruseDfConfig, CruseDfNet, CruseNet, DfsmnConfig, DfsmnNet, FullSubNet, FullSubNetConfig, MtfaaConfig, MtfaaNet,
+    build_from_config)
 from cruse_tpu_torch.models.cruse_df import apply_cruse_df
 from cruse_tpu_torch.models.mtfaa import (
     AxialSelfAttention, BatchNormC, PReLUc, TFCM, TFCMBlock)
@@ -361,6 +390,7 @@ from cruse_tpu_torch.ops.gru_kernel import (
     CLUSTER_SIZES, MAX_HIDDEN, bwd_fit_at, cluster_fit, gru_backward_walk_reference, gru_sequence,
     gru_sequence_backward_reference, gru_sequence_bwd, gru_sequence_reference, launch_gru_bwd_resident,
     launch_gru_bwd_streamed, launch_resident, launch_streamed, resident_bwd_plan, resident_plan)
+from cruse_tpu_torch.ops.gru_bwd_timing import bwd_bound, bwd_inputs
 from cruse_tpu_torch.ops.gru_bwd_timing import describe as describe_gru_bwd
 from cruse_tpu_torch.ops.gru_bwd_timing import time_kernels as time_gru_bwd_kernels
 from cruse_tpu_torch.ops.tfcm_kernel import (
@@ -371,7 +401,8 @@ from cruse_tpu_torch.ops.tfcm_bwd_kernels import (
     mid_sums, tail_bwd, tail_bwd_reference)
 from cruse_tpu_torch.ops.tattn_timing import attn_inputs, time_tattn_bwd, time_tattn_fwd
 from cruse_tpu_torch.ops.tattn_timing import describe as describe_tattn
-from cruse_tpu_torch.ops.tfcm_bwd_timing import bound, describe, time_tfcm_bwd
+from cruse_tpu_torch.ops.tfcm_bwd_timing import (
+    MARKER_CYCLES, MARKERS, TRIES, bound, describe, kernel_events, time_tfcm_bwd)
 from cruse_tpu_torch.ops.tfcm_train import PARAM_NAMES, tfcm_block_reference, tfcm_block_train
 from cruse_tpu_torch.train import checkpoint as checkpoint_lib
 from cruse_tpu_torch.train import step as step_lib
@@ -496,27 +527,29 @@ DF_STAGE_KEYS = ("shape", "b", "t", "f", "t_dim", "f_dim", "kernel_ms", "wrapper
 # config 4, the JAX package's bench shape (bench.py:205), and its streams: B=8 x 4 s checked, B=256 x 10 s timed
 DFSMN_CONFIG = DfsmnConfig(in_freq=161, hidden_dim=256, num_blocks=6, left_frames=2, right_frames=0)
 DFSMN_RTF_BATCH = 256
-# config 5b streamed: B=8 x 4 s checked, B=64 x 10 s timed; the stencil's T = 1 cases at every batch that streams
+# config 5b streamed: B=8 x 4 s checked (249 hops, past the 126-frame attention window, so the caches fill and
+# old frames fall out), B=64 x 4 s timed; the stencil's T = 1 cases at every batch that streams
 MTFAA_STREAM_BATCH, MTFAA_STREAM_SECONDS, MTFAA_RTF_BATCH = 8, 4, 64
+MTFAA_RTF_SECONDS = 4
 HOP_DW_BATCHES = (1, MTFAA_STREAM_BATCH, MTFAA_RTF_BATCH)
 CHUNK_TOL = 2e-4  # two chunks carried through the state against one call: the JAX package's own bound
 # the server: one MultiModelServer with a config-3 pool and a config-5b pool, each session checked against
 # the same session streamed alone; sessions (count, shortest and longest seconds) of each pool
 SERVER_POOLS = {"cruse_df": 16, "mtfaa_5b": 8}  # slots
-SERVER_SESSIONS = {"cruse_df": (17, 0.5, 3.0), "mtfaa_5b": (9, 0.5, 1.0)}
+SERVER_SESSIONS = {"cruse_df": (17, 0.5, 1.5), "mtfaa_5b": (9, 0.5, 0.75)}
 SERVER_LAUNCHES = {"cruse_df": {"gru_sequence": 2, "deep_filter": 1},  # a step of each pool
                    "mtfaa_5b": {"dw_stencil_fwd": 24, "deep_filter": 1}}
-SERVER_RTF_SLOTS, SERVER_RTF_SECONDS = 256, 10  # config 3's pool timed
-SERVE_CLI_SESSIONS, SERVE_CLI_SECONDS = 10, 2  # the serve CLI's run, half on each model
+SERVER_RTF_SLOTS, SERVER_RTF_SECONDS = 256, 4  # config 3's pool timed
+SERVE_CLI_SESSIONS, SERVE_CLI_SECONDS = 10, 1  # the serve CLI's run, half on each model
 # the deployment path: config 1's offline artifact (float32 and int8) at B=16 x 10 s; config 3's streaming
-# artifact at B=1 and B=16 over 100 hops (and int8 at B=1); the CLIs' runs on utterances of 2 s
+# artifact at B=1 and B=16 over 100 hops (and int8 at B=1); the CLIs' runs on utterances of 1 s
 DEPLOY_BATCH, DEPLOY_SECONDS = 16, 10
 DEPLOY_STREAM_BATCHES, DEPLOY_HOPS = (1, 16), 100
 DEPLOY_TOL = 1e-5  # an artifact against the eager path on the same weights
 INT8_SNR_DB = 25.0  # int8 against float32 waveforms (the JAX package's tests/test_quantize.py bound)
 CLI_TOL = 1e-6  # --quantize int8 against the same run on the dequantized weights, in floats
 WAV_STEP = 1.0 / 32768  # the CLIs' int16 wavs of one run in two processes: cuDNN's algorithms vary by a rounding
-CLI_FILES, CLI_SECONDS = 4, 2
+CLI_FILES, CLI_SECONDS = 4, 1
 # config 5b's artifacts: a call offline (6 stacks of 4 layers, 3 attentions, the deep filter) and a hop
 # streamed (24 blocks' stencils, the deep filter); the streams' batches
 MTFAA_CALL_LAUNCHES = {"tfcm_stack": 6, "tattn": 3, "deep_filter": 1}
@@ -544,6 +577,23 @@ DFSMN_TRAIN_BATCH, DFSMN_TRAIN_SECONDS, DFSMN_TRAIN_STEPS = 32, 3, 3
 STEP_KERNELS_BEFORE = 6270  # device launches of a config-5b train step when a mid_bwd call made 8
 MID_LAUNCHES_PER_CALL = 2  # mid_tile_kernel and mid_finish_kernel
 DW_LAUNCHES_PER_CALL = {"forward": 1, "backward": 2}  # dw_fwd_kernel; dw_bwd_kernel and dw_finish_kernel
+# FullSubNet at its published widths (FullSubNetConfig(): 257 bins, 15 neighbours, full band 512 x 2, sub band
+# 384 x 2), n_fft 512, hop 256: offline at B=16 x 10 s (626 frames) through complex_mask and auto; streamed at B=8 x
+# 4 s (checked), B=64 x 10 s and B=1 (timed) with the cumulative norm; a pool of 8 slots serving 9 sessions of 0.5 to
+# 1.5 s; 3 train steps at B=8 x 3 s (188 frames; a size chosen for the phase's time) with the recipe's losses
+FSN_STFT = dict(n_fft=512, hop_length=256)
+FSN_BATCH, FSN_SECONDS = 16, 10
+FSN_RTF_BATCH = 64
+FSN_SLOTS, FSN_SESSIONS, FSN_SESSION_SECONDS = 8, 9, (0.5, 1.5)
+FSN_TRAIN_BATCH, FSN_TRAIN_SECONDS = 8, 3
+FSN_LOSSES = (("si_snr", 1.0), ("cirm", 1.0))
+FSN_HOP_BUDGET_MS = 16.0  # a 256-sample hop at 16 kHz
+# B, T, G, H of its GRUs: the full band's B rows and the sub band's B x 257 units folded into the batch, offline at
+# B=16 x 10 s (forward) and in the train step at B=8 x 3 s (backward); no cluster holds either weight in f32
+FSN_GRU = ((16, 626, 1, 512), (16 * 257, 626, 1, 384))
+FSN_GRU_BWD = ((8, 188, 1, 512), (8 * 257, 188, 1, 384))
+FSN_CALL_LAUNCHES = {"gru_sequence": 4}  # a forward, a hop or a server step: one a GRU layer
+FSN_STEP_LAUNCHES = {"gru_sequence": 4, "gru_sequence_bwd": 4}
 
 
 def require(ok: bool, what: str) -> None:
@@ -553,13 +603,16 @@ def require(ok: bool, what: str) -> None:
 
 
 def gru_inputs(b, t, g, h, device, seed):
-    rng = np.random.default_rng(seed)
-    bound = h ** -0.5  # the layers' own init range
-    arrays = (rng.standard_normal((b, t, g, 3 * h)),
-              rng.standard_normal((b, g, h)) * 0.5,
-              rng.uniform(-bound, bound, (g, 3 * h, h)),
-              rng.uniform(-bound, bound, (g, 3 * h)))
-    return [torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays]
+    """Seeded (x_proj, h0, w_hh, b_hh), the weights in the layers' own init
+    range, drawn on the device: config 1's x_proj alone is 541 M values,
+    whose draw on the host took ~10 s a call (the sub band's at FullSubNet's
+    B=16 x 10 s is 2.97 G)."""
+    gen = torch.Generator(device).manual_seed(seed)
+    bound = h ** -0.5
+    return [torch.randn((b, t, g, 3 * h), generator=gen, device=device),
+            torch.randn((b, g, h), generator=gen, device=device) * 0.5,
+            (torch.rand((g, 3 * h, h), generator=gen, device=device) * 2 - 1) * bound,
+            (torch.rand((g, 3 * h), generator=gen, device=device) * 2 - 1) * bound]
 
 
 def max_err(a, b) -> float:
@@ -579,14 +632,18 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_gru_kernel(device) -> float:
+GRU_DTYPES = ((None, F32_TOL, "f32"), (torch.bfloat16, BF16_TOL, "bf16 weights"))
+
+
+def check_gru_kernel(device, shapes=(CONFIG1_GRU, *STREAM_GRU, *RAGGED_GRU, *CLUSTER_GRU),
+                     dtypes=GRU_DTYPES) -> float:
     """Both kernels (each where it takes the shape) vs the plain version on
-    the card, and gru_sequence's choice between them; returns the largest f32
-    error."""
+    the card at ``shapes`` with each of ``dtypes``' weights, and
+    gru_sequence's choice between them; returns the largest f32 error."""
     worst = 0.0
-    for shape in (CONFIG1_GRU, *STREAM_GRU, *RAGGED_GRU, *CLUSTER_GRU):
+    for shape in shapes:
         args = gru_inputs(*shape, device, SEED)
-        for dtype, tol, what in ((None, F32_TOL, "f32"), (torch.bfloat16, BF16_TOL, "bf16 weights")):
+        for dtype, tol, what in dtypes:
             fit, plan = cluster_fit(shape[3], dtype), resident_plan(*shape, dtype)
             kernels = [("streamed", launch_streamed)] if shape[3] <= MAX_HIDDEN else []
             if fit is not None:
@@ -1381,10 +1438,9 @@ def check_mtfaa_stream(model, device, smi) -> tuple[int, int]:
     require(chunk_err <= CHUNK_TOL, f"MTFAA config 5b, {split} + {cspec.shape[1] - split} frames carried "
             f"through the first call's state vs one call: max-abs {chunk_err:.3g} <= {CHUNK_TOL}")
 
-    seconds = 10
-    wav = torch.from_numpy(np.random.default_rng(SEED).standard_normal((MTFAA_RTF_BATCH, seconds * SR))
+    wav = torch.from_numpy(np.random.default_rng(SEED).standard_normal((MTFAA_RTF_BATCH, MTFAA_RTF_SECONDS * SR))
                            .astype(np.float32) * 0.1).to(device)
-    time_stream(enh, wav, seconds, "MTFAA config 5b", smi)
+    time_stream(enh, wav, MTFAA_RTF_SECONDS, "MTFAA config 5b", smi)
     launched = done["launches"]
     return launched["dw_stencil_fwd"], launched["deep_filter"]
 
@@ -2742,6 +2798,390 @@ def check_step_features(device, smi, plain_step_ms: float) -> dict:
     return launched
 
 
+def build_fullsubnet(norm: str, device, seed: int):
+    """``FullSubNetConfig()`` at its published widths with ``norm``, weights seeded."""
+    model = FullSubNet(FullSubNetConfig(norm=norm), generator=torch.Generator().manual_seed(seed))
+    return model.to(device)
+
+
+def library_gru_ms(shape, device, backward: bool) -> float:
+    """cuDNN's ``nn.GRU(H, H)`` at [B, T, H], one call (G = 1): the forward,
+    or ``autograd.grad`` of its output, which also takes the input
+    projection and its gradients. Timed here, used nowhere in the port."""
+    b, t, _, h = shape
+    gru = torch.nn.GRU(h, h, batch_first=True).to(device)
+    x = torch.randn(b, t, h, device=device, requires_grad=backward)
+    if not backward:
+        with torch.inference_mode():
+            return cuda_ms(lambda: gru(x), reps=3)
+    out, _ = gru(x)
+    gy = torch.randn_like(out)
+    leaves = (x, *gru.parameters())
+    return cuda_ms(lambda: torch.autograd.grad(out, leaves, gy, retain_graph=True), reps=3)
+
+
+def check_fullsubnet_gru(device, smi) -> tuple[float, list]:
+    """Parts (a) and (g): the GRU kernels at FullSubNet's offline (forward)
+    and training (backward) shapes, where no cluster holds the f32 weight,
+    against their plain versions, and ``gru_sequence`` / ``gru_sequence_bwd``
+    one launch each of the streamed kernel (``check_gru_kernel``,
+    ``check_gru_bwd``); then each streamed kernel alone by CUDA events, its
+    plain version, its bound and cuDNN's ``nn.GRU`` at the same shape.
+    Returns (the largest f32 error of the routed kernels, the rows)."""
+    for shape in FSN_GRU + FSN_GRU_BWD:
+        require(resident_plan(*shape) is None and resident_bwd_plan(*shape) is None and shape[3] <= MAX_HIDDEN,
+                f"FullSubNet GRU {shape}: no cluster holds the f32 weight either way, the streamed kernels take it")
+    worst = max(check_gru_kernel(device, FSN_GRU, GRU_DTYPES[:1]), check_gru_bwd(device, FSN_GRU_BWD))
+    rows = []
+    for shape in FSN_GRU:
+        b, t, g, h = shape
+        x, h0, w, bias = gru_inputs(*shape, device, SEED + 40)
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: launch_streamed(x, h0, w, bias), reps=3)
+            plain_ms = cuda_ms(lambda: gru_sequence_reference(x, h0, w, bias), reps=1)
+        del x, h0, w, bias
+        torch.cuda.empty_cache()
+        rows.append({"shape": list(shape), "direction": "forward", "ms": ms, "plain_ms": plain_ms,
+                     **bound(4 * (b * t * g * 4 * h + 2 * b * g * h + g * 3 * h * h + g * 3 * h), b * t * g * 3 * h * h),
+                     "library_ms": library_gru_ms(shape, device, backward=False)})
+        torch.cuda.empty_cache()
+    for shape in FSN_GRU_BWD:
+        x, h0, w, bias, y, dy, hp = bwd_inputs(*shape, device, SEED + 41)
+        outs = [torch.empty_like(x), torch.empty_like(x), torch.empty_like(h0)]
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: launch_gru_bwd_streamed(x, hp, y, h0, dy, None, w, *outs), reps=3)
+            plain_ms = cuda_ms(lambda: gru_backward_walk_reference(dy, None, x, h0, w, bias, y), reps=1)
+        del x, h0, w, bias, y, dy, hp, outs
+        torch.cuda.empty_cache()
+        rows.append({"shape": list(shape), "direction": "backward", "ms": ms, "plain_ms": plain_ms,
+                     **bwd_bound(*shape), "library_ms": library_gru_ms(shape, device, backward=True)})
+        torch.cuda.empty_cache()
+    for row in rows:
+        b, t, g, h = row["shape"]
+        kernel, library = (("gru_sequence_kernel", "cuDNN nn.GRU, one call (it also does the input projection)")
+                           if row["direction"] == "forward" else
+                           ("gru_bwd_kernel", "autograd.grad through cuDNN nn.GRU, one call (it also takes the input "
+                                              "projection's gradients)"))
+        print(f"{kernel} (streamed) B={b} T={t} G={g} H={h} f32 on {smi}: {row['ms']:.3f} ms "
+              f"({row['ms'] / t * 1e3:.2f} us a step), bound {row['bound_ms']:.3f} ms ({row['bound_by']}) = "
+              f"{row['bound_ms'] / row['ms']:.1%}; plain {row['plain_ms']:.1f} ms; {library} "
+              f"{row['library_ms']:.3f} ms", flush=True)
+    return worst, rows
+
+
+def check_fullsubnet_offline(device, smi) -> int:
+    """Part (b): ``FullSubNetConfig()`` (offline Laplace norm) on B=16 x 10 s
+    through ``complex_mask`` and ``auto``: 4 GRU launches a call (the
+    streamed kernel's), the waveform against the plain recurrence within
+    WAV_TOL; ms a call, x-realtime and peak memory; the GRU launches' device
+    time from a profile. Returns the launches of the checked calls."""
+    model = build_fullsubnet("offline_laplace_norm", device, SEED + 30).eval()
+    x = torch.from_numpy(np.stack(noisy_utterances(SEED + 31, (FSN_SECONDS * SR,) * FSN_BATCH))).to(device)
+    launched = 0
+    for strategy in ("complex_mask", "auto"):
+        inferencer = BatchInferencer(model, InferencerConfig(type=strategy, sr=SR, stft=StftConfig(**FSN_STFT)),
+                                     device)
+        fn = getattr(inferencer, strategy)
+        what = f"FullSubNet {strategy} B={FSN_BATCH} x {FSN_SECONDS} s"
+        reset_counts()
+        out = fn(x)
+        torch.cuda.synchronize()
+        got = counts()
+        require(got == {**{k: 0 for k in got}, **FSN_CALL_LAUNCHES} and gru_sequence.resident_launches == 0,
+                f"{what}: launches {({k: v for k, v in got.items() if v})} = {FSN_CALL_LAUNCHES}, none resident")
+        launched += got["gru_sequence"]
+        set_recurrence(model, gru_sequence_reference)
+        plain = fn(x)
+        set_recurrence(model, gru_sequence)
+        err = float((out - plain).abs().max())
+        require(tuple(out.shape) == tuple(x.shape) and bool(torch.isfinite(out).all()) and err <= WAV_TOL,
+                f"{what}: enhanced wav, kernels vs plain recurrence: max-abs {err:.3g} <= {WAV_TOL}")
+        del out, plain
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        seconds = enhancement_seconds(fn, x, reps=2)
+        print(f"{what} on {smi}: {seconds * 1e3:.1f} ms a call = {FSN_BATCH * FSN_SECONDS / seconds:.1f}x realtime; "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+        if strategy == "complex_mask":
+            profile_calls(lambda: fn(x), 1, what)
+            # the GRU launches' device time from a trace between markers, taken again where it missed one.
+            # A trace inside this script may lose its first events, opening markers and all, so a first
+            # call leads in and a run of markers sets off the second, whose kernels are read
+            def two_calls():
+                fn(x)
+                for _ in range(MARKERS):
+                    torch.cuda._sleep(MARKER_CYCLES)
+                fn(x)
+
+            for attempt in range(TRIES):
+                events = kernel_events(two_calls, 1)
+                gru = [e["dur"] / 1e3 for e in events if "gru_sequence_kernel" in e["name"]]
+                if len(gru) == FSN_CALL_LAUNCHES["gru_sequence"]:
+                    break
+                print(f"trace {attempt + 1} of a call saw {len(gru)} gru_sequence_kernel launches", flush=True)
+            require(len(gru) == FSN_CALL_LAUNCHES["gru_sequence"]
+                    and not any("gru_resident_kernel" in e["name"] for e in events),
+                    f"{what}: a trace shows {len(gru)} gru_sequence_kernel launches a call = 4, none resident")
+            busy = sum(e["dur"] for e in events) / 1e3
+            print(f"{what} on {smi}: the 4 GRU launches {sum(gru):.3f} ms (" + ", ".join(f"{ms:.3f}" for ms in gru)
+                  + f") of {busy:.3f} ms of device time in {len(events)} launches a call", flush=True)
+    del x, model
+    torch.cuda.empty_cache()
+    return launched
+
+
+def check_fullsubnet_stream(model, device, smi) -> int:
+    """Part (c): the cumulative-norm model streamed hop by hop (primed) on
+    B=8 x 4 s (``check_stream``: 4 GRU launches a hop, against the offline
+    center=False call through the ``auto`` adapter's math, row 0 alone,
+    ``step_multi``), and against the same stream through the plain
+    recurrence (the kernel at T = 1, at (8, 1, 1, 512) and (2056, 1, 1, 384),
+    which the offline checks do not reach); the B=1 hop's median latency and launches against the
+    16 ms budget; B=64 x 10 s x-realtime; a profile of 20 B=1 hops. Returns
+    the checked stream's GRU launches."""
+    cfg = StftConfig(**FSN_STFT, center=False)
+    enh = StreamingEnhancer(model, cfg)
+    adapter = forward_for_model(model)
+
+    def offline(x):
+        spec = stft(x, cfg)
+        out = adapter(torch.stack([spec.real, spec.imag], dim=-1))
+        return istft((out[..., 0], out[..., 1]), cfg)
+
+    wav = torch.from_numpy(np.stack(noisy_utterances(SEED + 33, (STREAM_SECONDS * SR,) * STREAM_BATCH))).to(device)
+    what = f"FullSubNet stream B={STREAM_BATCH} x {STREAM_SECONDS} s"
+    done = check_stream(enh, wav, offline, what, FSN_CALL_LAUNCHES)
+    require(gru_sequence.resident_launches == 0, f"{what}: every GRU launch the streamed kernel's")
+    set_recurrence(model, gru_sequence_reference)
+    plain = enh.run(wav)
+    set_recurrence(model, gru_sequence)
+    err = float((done["stream"] - plain).abs().max())
+    require(err <= WAV_TOL, f"{what}, the streamed GRU kernel at T = 1 vs the plain recurrence: "
+            f"max-abs {err:.3g} <= {WAV_TOL}")
+    hop = cfg.hop_length
+    one = torch.from_numpy(noisy_utterances(SEED + 34, (2 * SR,))[0][None]).to(device)
+    hops = [one[:, i * hop : (i + 1) * hop] for i in range(100)]
+    reset_counts()
+    times = hop_latencies_ms(enh.step, enh.init_state(1), hops)
+    per_hop = counts()["gru_sequence"] / (len(hops) + 1)
+    median = sorted(times)[len(times) // 2]
+    print(f"FullSubNet stream B=1 on {smi}: {median_range(times)} a {hop}-sample hop (each synchronised), "
+          f"{per_hop:.1f} GRU launches a hop; the budget {FSN_HOP_BUDGET_MS} ms: "
+          f"{'met' if median < FSN_HOP_BUDGET_MS else 'MISSED'}", flush=True)
+    wav = torch.from_numpy(np.random.default_rng(SEED).standard_normal((FSN_RTF_BATCH, FSN_SECONDS * SR))
+                           .astype(np.float32) * 0.1).to(device)
+    audio = FSN_RTF_BATCH * ((wav.shape[-1] - (cfg.n_fft - hop)) // hop) * hop / SR
+    run_s = stream_seconds(enh, wav)
+    print(f"FullSubNet stream B={FSN_RTF_BATCH} x {FSN_SECONDS} s on {smi}: {run_s * 1e3:.1f} ms = "
+          f"{audio / run_s:.1f}x realtime", flush=True)
+    profile_stream(enh, wav[:1])
+    return done["launches"]["gru_sequence"]
+
+
+def slot_rows(server, sid: int) -> list:
+    """Each state leaf's rows of slot ``sid`` (a leaf leads with slots x rep rows)."""
+    rows = []
+    for leaf in tree_leaves(server._state):
+        rep = leaf.shape[0] // server.max_streams
+        rows.append(leaf[sid * rep : (sid + 1) * rep].clone())
+    return rows
+
+
+def check_fullsubnet_server(model, device, smi) -> int:
+    """Part (d): one pool of FSN_SLOTS slots (the sub-band state at slots x
+    257 rows) serving FSN_SESSIONS sessions opened as slots free (a slot is
+    reused, so its reset shows), fed a hop an iteration, every third
+    iteration rationed to half the ready sessions (the others' slots must
+    keep their state bit for bit), drained and closed; 4 GRU launches a
+    step; each session against itself streamed alone at B=1 within WAV_TOL.
+    Returns the launches."""
+    t0 = time.perf_counter()
+    cfg = StftConfig(**FSN_STFT, center=False)
+    server = StreamingServer(model, cfg, FSN_SLOTS, device=device)
+    hop = cfg.hop_length
+    rng = np.random.default_rng(SEED + 35)
+    waiting = noisy_utterances(SEED + 36, (rng.uniform(*FSN_SESSION_SECONDS, FSN_SESSIONS) * SR).astype(int))
+    sessions, live, held_steps, moved = [], {}, 0, []
+
+    def admit():
+        while waiting and len(live) < FSN_SLOTS:
+            sid = server.open()
+            live[sid] = {"wav": waiting.pop(0), "pos": 0, "outs": []}
+            sessions.append(live[sid])
+
+    reset_counts()
+    admit()
+    try:
+        server.open()
+        full = False
+    except RuntimeError:
+        full = True
+    require(full, f"FullSubNet server: a ninth open with {FSN_SLOTS} slots busy is refused")
+    iteration = 0
+    while live:
+        for sid, s in live.items():
+            server.feed(sid, s["wav"][s["pos"] : s["pos"] + hop])
+            s["pos"] = min(s["pos"] + hop, len(s["wav"]))
+        if iteration % 3 == 1:
+            only = [sid for sid in live if server.ready(sid)][::2]
+            held = [sid for sid in range(FSN_SLOTS) if sid not in only]
+            before = {sid: slot_rows(server, sid) for sid in held}
+            res = server.step(only=only)
+            held_steps += 1
+            moved += [sid for sid in held
+                      if not all(torch.equal(a, b) for a, b in zip(slot_rows(server, sid), before[sid]))]
+        else:
+            res = server.step()
+        for sid, out in res.items():
+            live[sid]["outs"].append(out)
+        for sid, s in list(live.items()):
+            if s["pos"] == len(s["wav"]) and not server.ready(sid):
+                s["outs"].append(server.drain(sid))
+                server.close(sid)
+                del live[sid]
+        admit()
+        iteration += 1
+    torch.cuda.synchronize()
+    launched = counts()
+    require(not moved, f"FullSubNet server: in {held_steps} rationed steps every slot left out kept its state bit for "
+                       f"bit (moved: {moved[:5]})")
+    want = {**{k: 0 for k in launched}, "gru_sequence": FSN_CALL_LAUNCHES["gru_sequence"] * server.steps}
+    require(launched == want and gru_sequence.resident_launches == 0,
+            f"FullSubNet server: {server.steps} steps launched {({k: v for k, v in launched.items() if v})} = "
+            f"{FSN_CALL_LAUNCHES['gru_sequence']} streamed GRU launches a step")
+    enh = StreamingEnhancer(model, cfg)
+    worst, whole = 0.0, True
+    for s in sessions:
+        got = np.concatenate(s["outs"])
+        whole &= got.shape == s["wav"].shape and bool(np.isfinite(got).all())
+        worst = max(worst, float(np.abs(got - single_stream(enh, s["wav"])).max()))
+    require(whole and worst <= WAV_TOL, f"FullSubNet server: {len(sessions)} sessions in {FSN_SLOTS} slots, each its "
+            f"input's length and within WAV_TOL of itself streamed alone at B=1: max-abs {worst:.3g}")
+    print(f"FullSubNet server on {smi}: {len(sessions)} sessions, {server.steps} steps in {iteration} iterations, "
+          f"{len(tree_leaves(server._state))} masked state leaves; {time.perf_counter() - t0:.2f} s", flush=True)
+    return launched["gru_sequence"]
+
+
+def check_fullsubnet_training(device, smi) -> dict:
+    """Part (e): TRAIN_STEPS steps of ``make_train_step`` on the
+    cumulative-norm model at B=8 x 3 s with the losses si_snr and cirm;
+    before each, its forward and backward with the kernels against the same
+    with the plain recurrence (``check_trainer_step``'s tolerances: losses
+    1e-5 relative, each gradient leaf relative 2e-3 or 3e-3 of the largest +
+    1e-3); each step 4 GRU forward and 4 backward launches, none resident;
+    ms a step and peak memory. Returns the steps' launches."""
+    model = build_fullsubnet("cumulative_laplace_norm", device, SEED + 37)
+    cfg = StepConfig(stft=StftConfig(**FSN_STFT), loss_weights=FSN_LOSSES)
+    state = init_train_state(model, cfg, device)
+    step = make_train_step(model, cfg)
+    launched = {name: 0 for name in COUNTERS}
+    times, peaks = [], []
+    for i in range(TRAIN_STEPS):
+        data = noisy_clean_pairs(SEED + 38 + i, FSN_TRAIN_BATCH, FSN_TRAIN_SECONDS, device)
+        what = f"FullSubNet train step {i + 1} B={FSN_TRAIN_BATCH} x {FSN_TRAIN_SECONDS} s"
+        runs = {}
+        for name, fn in (("kernels", gru_sequence), ("plain", gru_sequence_reference)):
+            set_recurrence(model, fn)
+            grads, losses, _ = make_loss_gradients(model, cfg)(state.balancer_state, data)
+            runs[name] = ([g.detach().clone() for g in grads], {k: float(v) for k, v in losses.items()})
+        set_recurrence(model, gru_sequence)
+        (grads, losses), (plain_grads, plain_losses) = runs["kernels"], runs["plain"]
+        for name, value in plain_losses.items():
+            require(abs(losses[name] - value) <= 1e-5 * abs(value),
+                    f"{what}: loss {name} {losses[name]:.7g}, kernels vs plain recurrence within 1e-5 relative")
+        gscale = max(float(g.abs().max()) for g in plain_grads)
+        bad = [(name, float((got - want).abs().max()))
+               for (name, _), got, want in zip(model.named_parameters(), grads, plain_grads)
+               if not (float((got - want).abs().max()) <= 2e-3 * float(want.abs().max())
+                       or float((got - want).abs().max()) <= 3e-3 * gscale + 1e-3)]
+        require(not bad, f"{what}: {len(grads)} gradient leaves, kernels vs plain recurrence (relative 2e-3, or "
+                f"3e-3 x {gscale:.3g} + 1e-3); failing {bad[:5]}")
+        del runs, grads, plain_grads
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, data)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        got = counts()
+        require(got == {**{k: 0 for k in got}, **FSN_STEP_LAUNCHES} and gru_sequence.resident_launches == 0
+                and gru_sequence_bwd.resident_launches == 0,
+                f"{what}: launches {({k: v for k, v in got.items() if v})} = {FSN_STEP_LAUNCHES}, none resident")
+        require(all(math.isfinite(float(v)) for v in metrics.values()) and float(metrics["nonfinite_skipped"]) == 0,
+                f"{what}: finite losses and gradient norm")
+        for name, v in got.items():
+            launched[name] += v
+    print(f"FullSubNet train step B={FSN_TRAIN_BATCH} x {FSN_TRAIN_SECONDS} s (si_snr + cirm, f32) on {smi}: "
+          + ", ".join(f"{ms:.1f}" for ms in times) + f" ms ({FSN_TRAIN_BATCH * FSN_TRAIN_SECONDS / times[-1] * 1e3:.1f}"
+          f" s of audio a second at the last); peak memory {max(peaks):.2f} GiB", flush=True)
+    return launched
+
+
+def check_fullsubnet_cli(device, smi, tmp: Path) -> None:
+    """Part (f): ``python -m cruse_tpu_torch.infer``'s main in this process on
+    two 4 s wavs with a FullSubNet TOML (the published widths, the cumulative
+    norm, ``[inferencer] type = "complex_mask"``, seeded weights), offline
+    and ``--streaming``; each wav within WAV_TOL of the same model's
+    ``complex_mask`` call and ``StreamingEnhancer.run`` here, as the CLI
+    scales it to int16."""
+    from cruse_tpu_torch.infer.__main__ import main as infer_main
+
+    toml = tmp / "fullsubnet.toml"
+    toml.write_text(f'[meta]\nseed = 0\n[acoustics]\nn_fft = {FSN_STFT["n_fft"]}\nhop_length = '
+                    f'{FSN_STFT["hop_length"]}\nsr = {SR}\n[model]\npath = "cruse_tpu.models.fullsubnet.'
+                    'FullSubNetConfig"\n[model.args]\nnorm = "cumulative_laplace_norm"\n'
+                    '[inferencer]\ntype = "complex_mask"\n')
+    (tmp / "in").mkdir()
+    names = ["fa", "fb"]
+    for name, wav in zip(names, noisy_utterances(SEED + 39, (STREAM_SECONDS * SR,) * 2)):
+        write_wav(str(tmp / "in" / f"{name}.wav"), wav, SR)
+    for mode, extra in (("offline", []), ("streaming", ["--streaming"])):
+        infer_main(["-C", str(toml), "-I", str(tmp / "in"), "-O", str(tmp / mode), "--seed", "5",
+                    "--device", str(device), *extra])
+    model = build_from_config(load_config(str(toml))["model"], generator=torch.Generator().manual_seed(5))
+    model = model.to(device).eval()
+    inferencer = BatchInferencer(model, InferencerConfig(type="complex_mask", sr=SR, stft=StftConfig(**FSN_STFT)),
+                                 device)
+    enh = StreamingEnhancer(model, StftConfig(**FSN_STFT, center=False))
+    worst = {}
+    for mode, fn in (("offline", inferencer.complex_mask), ("streaming", enh.run)):
+        for name in names:
+            x = torch.from_numpy(read_wav(str(tmp / "in" / f"{name}.wav"))[0][None]).to(device)
+            own = to_int16_scaled(fn(x)[0].cpu().numpy()) / 32768.0
+            served = read_wav(str(tmp / mode / f"{name}.wav"))[0]
+            require(served.shape == own.shape, f"infer CLI {mode}: {name}.wav has the stream's length")
+            worst[mode] = max(worst.get(mode, 0.0), float(np.abs(served - own).max()))
+    require(max(worst.values()) <= WAV_TOL, f"infer CLI on FullSubNet, offline (complex_mask) and --streaming, each "
+            f"wav against the same model in this process: max-abs {worst} <= {WAV_TOL}")
+
+
+def check_fullsubnet(device, smi) -> dict:
+    """FullSubNet at its published widths (parts a to g, see the module doc).
+    Returns its launches and the GRU kernels' rows at its shapes."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    gru_err, rows = check_fullsubnet_gru(device, smi)
+    offline = check_fullsubnet_offline(device, smi)
+    model = build_fullsubnet("cumulative_laplace_norm", device, SEED + 32).eval()
+    stream = check_fullsubnet_stream(model, device, smi)
+    server = check_fullsubnet_server(model, device, smi)
+    del model
+    torch.cuda.empty_cache()
+    train = check_fullsubnet_training(device, smi)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        check_fullsubnet_cli(device, smi, Path(tmp))
+    torch.cuda.empty_cache()
+    print(f"FullSubNet phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"gru_sequence": offline + stream + server + train["gru_sequence"],
+            "gru_sequence_bwd": train["gru_sequence_bwd"], "gru_err": gru_err,
+            "forward_rows": [r for r in rows if r["direction"] == "forward"],
+            "backward_rows": [r for r in rows if r["direction"] == "backward"]}
+
+
 def check_deployment(device, smi) -> dict:
     """The deployment path (``check_offline_artifacts``,
     ``check_streaming_artifacts``, ``check_deploy_clis``, then MTFAA's
@@ -3257,9 +3697,9 @@ def gru_bwd_case(shape, device, seed: int, with_dh_last: bool):
     return x, h0, w, b, y, dy, dh_last, hp
 
 
-def check_gru_bwd(device) -> float:
+def check_gru_bwd(device, shapes=GRU_BWD_SHAPES) -> float:
     """Both GRU backward kernels against their plain version on the card at
-    GRU_BWD_SHAPES, with dh_last None and nonzero: the streamed kernel, and the
+    ``shapes``, with dh_last None and nonzero: the streamed kernel, and the
     resident one at each cluster size that ``bwd_fit_at`` gives a fit (its
     launcher must raise at the others), each launched into
     dx_proj, dhp and dh0 filled with NaN first (so a value it never writes
@@ -3268,9 +3708,10 @@ def check_gru_bwd(device) -> float:
     from the counters). Each output within GRU_BWD_TOL of its largest value.
     Also that a forward kernel's launcher refuses tensors that want a
     gradient, and bf16 weights under a gradient. Returns the routed kernel's
-    largest max-abs error (dx_proj, dhp, dh0) at config 2's shape."""
+    largest max-abs error (dx_proj, dhp, dh0) at the first shape (config 2's
+    by default)."""
     worst = 0.0
-    for shape in GRU_BWD_SHAPES:
+    for shape in shapes:
         for with_dh_last in (False, True):
             x, h0, w, b, y, dy, dh_last, hp = gru_bwd_case(shape, device, SEED + 11, with_dh_last)
             what = f"gru_sequence_bwd B, T, G, H = {shape}, dh_last {'nonzero' if with_dh_last else 'None'}"
@@ -3300,7 +3741,7 @@ def check_gru_bwd(device) -> float:
                                 f"{what}, {label} kernel into NaN-filled outputs: {name} max-abs "
                                 f"{err:.3g} <= {GRU_BWD_TOL} x {scale:.3g}")
                         routed = label == ("streamed" if plan is None else f"resident CS={plan[0]}")
-                        if shape == CONFIG2_GRU and routed:
+                        if shape == shapes[0] and routed:
                             worst = max(worst, err)
                 before = gru_sequence_bwd.launches, gru_sequence_bwd.resident_launches
                 wrapped = gru_sequence_bwd(dy, dh_last, x, h0, w, b, y)
@@ -3710,9 +4151,17 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"device: {kind} (count {count}); torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(f"nvidia-smi name, power.limit: {smi}", flush=True)
+    clock = {"start": time.perf_counter(), "last": time.perf_counter()}
+
+    def lap(name: str) -> None:
+        """Print the seconds since the last lap: where the script's time goes."""
+        now = time.perf_counter()
+        print(f"phase {name}: {now - clock['last']:.1f} s ({now - clock['start']:.1f} s in all)", flush=True)
+        clock["last"] = now
 
     with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source, all at once
         list(pool.map(_build.load_library, KERNELS))
+    lap("builds")
     gru_err = check_gru_kernel(device)
 
     inferencer = build_inferencer(device)
@@ -3733,6 +4182,7 @@ def main() -> int:
           f"{plain_s * 1e3:.1f} ms = {256 * seconds / plain_s:.1f}x realtime")
     profile_calls(lambda: inferencer.mag_to_mag(x), 2, f"B=256 x {seconds} s config-1 mag_to_mag")
     del inferencer
+    lap("config 1")
 
     df_err, df_bwd_err = check_df_kernel(device)
     model = build_cruse_df(device)
@@ -3759,8 +4209,10 @@ def main() -> int:
     profile_stream(enh, wav)
     del enh, wav, model
     torch.cuda.empty_cache()
+    lap("config 3")
     check_dfsmn_stream(device, smi)
     torch.cuda.empty_cache()
+    lap("config 4")
 
     tfcm_err, block_err = check_tfcm_kernel(device)
     attn_err = check_attn_kernel(device)
@@ -3806,6 +4258,7 @@ def main() -> int:
           f"device launches a call ({costs[0]:.1f} -> {costs[1]:.1f})")
     del x, spec, cspec
     torch.cuda.empty_cache()
+    lap("MTFAA offline")
 
     hop_dw_err = check_dw_hop(device)
     stream_dw, stream_df_5b = check_mtfaa_stream(mtfaa, device, smi)
@@ -3813,6 +4266,7 @@ def main() -> int:
     for row in hop_rows:
         print(f"at the config-5b hop (B=1, T=1) on {smi}: {describe_dw(row)}")
 
+    lap("MTFAA streaming")
     cruse_df = build_cruse_df(device)
     server_launches = check_server(cruse_df, mtfaa, device, smi)
     time_server(cruse_df, device, smi)
@@ -3822,6 +4276,7 @@ def main() -> int:
 
     del inferencer, mtfaa
     torch.cuda.empty_cache()
+    lap("serving")
 
     train_errs = check_train_kernels(device)
     dq_err, dkv_err = check_attn_bwd(device)
@@ -3841,6 +4296,7 @@ def main() -> int:
                       f"config-5 train step (full-causal attention) B={CAUSAL_BATCH} x {CAUSAL_SECONDS} s",
                       STEP_LAUNCHES)
     torch.cuda.empty_cache()
+    lap("MTFAA training")
 
     gru_bwd_err = check_gru_bwd(device)
     cruse_cfg = train_config("cruse_base.toml")
@@ -3854,6 +4310,7 @@ def main() -> int:
         f"CRUSE+DF train step (check at B={CRUSE_CHECK_BATCH}, steps at B={CRUSE_DF_BATCH}, {CRUSE_SECONDS} s)",
         CRUSE_DF_STEP_LAUNCHES, CRUSE_DF_BATCH)
     torch.cuda.empty_cache()
+    lap("CRUSE training")
 
     lib = library_ms(device)
     print(f"library calls on {smi}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in lib.items()))
@@ -3863,10 +4320,16 @@ def main() -> int:
     gru_bwd_times = time_gru_bwd(device, smi, lib)
     time_cruse_steps(device, smi)
     torch.cuda.empty_cache()
+    lap("training timings")
     trainer_launches, plain_step_ms = check_trainer(device, smi)
     torch.cuda.empty_cache()
     feature_launches = check_step_features(device, smi, plain_step_ms)
+    lap("the trainer and the step's features")
+    torch.cuda.empty_cache()
+    fsn = check_fullsubnet(device, smi)
+    lap("FullSubNet")
     deploy_launches = check_deployment(device, smi)  # last: torch.export's tracing machinery after every profile
+    lap("deployment")
 
     # least bytes (each input read once, each output written once) and
     # multiply-adds of the kernels of the earlier slices, at the timed shapes
@@ -3896,17 +4359,19 @@ def main() -> int:
         {**entry("gru_sequence", "gru_sequence", "gru_kernel.py:82",
                  launches + stream_gru + auto_gru + cruse_launches["gru_sequence"] + cruse_df_launches["gru_sequence"]
                  + server_launches["gru_sequence"] + deploy_launches["gru_sequence"]
-                 + trainer_launches["gru_sequence"] + feature_launches["gru_sequence"],
-                 gru_err, (kernel_ms, plain_ms), gru_bound, lib["gru"]),
+                 + trainer_launches["gru_sequence"] + feature_launches["gru_sequence"] + fsn["gru_sequence"],
+                 max(gru_err, fsn["gru_err"]), (kernel_ms, plain_ms), gru_bound, lib["gru"]),
          "resident_ms": gru_times["f32"][0], "streamed_ms": gru_times["f32"][1],
          "server_launches": server_launches["gru_sequence"], "artifact_launches": deploy_launches["gru_sequence"],
-         "trainer_launches": trainer_launches["gru_sequence"], "features_launches": feature_launches["gru_sequence"]},
+         "trainer_launches": trainer_launches["gru_sequence"], "features_launches": feature_launches["gru_sequence"],
+         "fullsubnet_launches": fsn["gru_sequence"], "fullsubnet_stages": fsn["forward_rows"]},
         {"name": "gru_sequence_bwd", "route": "cuda", "source": "cruse_tpu_torch/ops/csrc/gru_bwd.cu",
          "replaces": "cruse_tpu/nn/gru.py:30 (no TPU kernel: the JAX step differentiates gru_scan)",
          "launches": cruse_launches["gru_sequence_bwd"] + cruse_df_launches["gru_sequence_bwd"]
-         + trainer_launches["gru_sequence_bwd"] + feature_launches["gru_sequence_bwd"],
+         + trainer_launches["gru_sequence_bwd"] + feature_launches["gru_sequence_bwd"] + fsn["gru_sequence_bwd"],
          "max_abs_err": gru_bwd_err, **gru_bwd_times, "trainer_launches": trainer_launches["gru_sequence_bwd"],
-         "features_launches": feature_launches["gru_sequence_bwd"]},
+         "features_launches": feature_launches["gru_sequence_bwd"], "fullsubnet_launches": fsn["gru_sequence_bwd"],
+         "fullsubnet_stages": fsn["backward_rows"]},
         {**entry("deep_filter", "deep_filter", "deep_filter_kernel.py:91",
                  stream_df + auto_df + mtfaa_df + train_launches["deep_filter"] + cruse_df_launches["deep_filter"]
                  + stream_df_5b + server_launches["deep_filter"] + deploy_launches["deep_filter"]

@@ -1,7 +1,7 @@
 """Feature helpers of the port (counterpart of parts of
 ``cruse_tpu/dsp/features.py``): ``overlap_cat``, the stitch of
-``BatchInferencer.enhance_long``, and ``frame_vad``, the SDNR loss's voice
-activity."""
+``BatchInferencer.enhance_long``, ``frame_vad``, the SDNR loss's voice
+activity, and ``drop_band``, FullSubNet's frequency subsampling."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -32,3 +32,17 @@ def frame_vad(mag: torch.Tensor, threshold_db: float = -60.0) -> torch.Tensor:
     peak = frame_energy.amax(dim=-1, keepdim=True)
     db = 10.0 * torch.log10(frame_energy / (peak + 1e-12) + 1e-12)
     return (db > threshold_db).to(mag.dtype)[..., None]
+
+
+def drop_band(x: torch.Tensor, num_groups: int = 2) -> torch.Tensor:
+    """FullSubNet's frequency subsampling: ``[B, C, F, T] -> [B, C, F //
+    num_groups, T]``, batch rows g, g + n, ... keeping bins g, g + n, ...
+    (n = ``num_groups``), the groups stacked in order; F is first cut to a
+    multiple of n. Needs B > n."""
+    batch_size, _, num_freqs, _ = x.shape
+    if batch_size <= num_groups:
+        raise ValueError(f"batch {batch_size} must exceed num_groups={num_groups}")
+    if num_groups <= 1:
+        return x
+    x = x[:, :, : num_freqs - num_freqs % num_groups]
+    return torch.cat([x[g::num_groups, :, g::num_groups] for g in range(num_groups)], dim=0)

@@ -1,7 +1,9 @@
 """Masks (counterpart of parts of ``cruse_tpu/dsp/mask.py``): the post-filters
 ``postfilter_sin`` and ``envelope_postfilter``, plain functions on tensors
 applied to a [0, 1] magnitude mask before it multiplies the noisy spectrum,
-and the compressed complex ideal ratio mask of the ``cirm`` loss."""
+the compressed complex ideal ratio mask of the ``cirm`` loss, and
+``decompress_cirm`` and ``complex_mul``, which apply a model's compressed
+cIRM (FullSubNet) to the noisy spectrum."""
 from __future__ import annotations
 
 import math
@@ -41,3 +43,14 @@ def compress_cirm(mask: torch.Tensor, k: float = 10.0, c: float = 0.1) -> torch.
     -100 are taken as -100."""
     mask = torch.where(mask <= -100.0, -100.0, mask)
     return k * (1.0 - torch.exp(-c * mask)) / (1.0 + torch.exp(-c * mask))
+
+
+def decompress_cirm(mask: torch.Tensor, k: float = 10.0, limit: float = 9.9) -> torch.Tensor:
+    """The inverse of ``compress_cirm``, the input clamped to [-limit, limit]."""
+    mask = torch.clamp(mask, -limit, limit)
+    return -k * torch.log((k - mask) / (k + mask))
+
+
+def complex_mul(noisy_r, noisy_i, mask_r, mask_i):
+    """(a + bi)(c + di), split into its real and imaginary parts."""
+    return noisy_r * mask_r - noisy_i * mask_i, noisy_r * mask_i + noisy_i * mask_r

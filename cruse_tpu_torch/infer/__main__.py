@@ -9,8 +9,9 @@
 Weights come from a bridge ``.npz`` written by
 ``cruse_tpu_torch.utils.weights.save_flax_npz`` from cruse_tpu variables, or,
 without ``--weights``, are made from ``--seed``. The offline mode uses the
-config's ``[inferencer] type`` (``mag_to_mag``, or ``auto``, the default as in
-``tools/infer.py``); ``--batch N``
+config's ``[inferencer] type`` (``mag_to_mag``, ``complex_mask`` for
+FullSubNet's cIRM, or ``auto``, the default as in ``tools/infer.py``);
+``--batch N``
 (N > 1) enhances N utterances per forward, otherwise one per forward.
 ``--postfilter sin|envelope`` overrides the config's ``[inferencer]
 postfilter`` (``mag_to_mag`` applies it to the mask; ``auto`` ignores it).
@@ -23,9 +24,11 @@ runs the int8 weights' values in float32, so the device holds float32.
 ``--streaming`` runs each file as one stream (B=1) frame by frame through
 ``StreamingEnhancer`` with a ``center=False`` STFT, logging the per-hop
 real-time factor; ``--hops_per_step k`` feeds k hops per call. It streams
-CRUSE, CRUSE+DF, DFSMN (``configs/tiny_dfsmn.toml``) and a windowed MTFAA
-(``configs/demo_mtfaa_windowed.toml``); a full-causal MTFAA
-(``configs/tiny_mtfaa.toml``) is refused, for it carries no attention state. The model runs
+CRUSE, CRUSE+DF, DFSMN (``configs/tiny_dfsmn.toml``), a windowed MTFAA
+(``configs/demo_mtfaa_windowed.toml``) and FullSubNet with
+``norm = "cumulative_laplace_norm"``; a full-causal MTFAA
+(``configs/tiny_mtfaa.toml``) is refused, for it carries no attention state,
+and so is a FullSubNet with an offline norm or a look-ahead. The model runs
 on the card (``--device cuda``, the default) unless ``--device cpu`` asks for
 the CPU; a CUDA device that is not there is an error, never a quiet fall back
 to the CPU.

@@ -1,14 +1,17 @@
 """Batch inferencer (counterpart of ``cruse_tpu/infer/batch.py``), single device.
 
-Enhances (noisy, name) pairs with one of two strategies:
+Enhances (noisy, name) pairs with one of three strategies:
 
 - ``mag_to_mag``: STFT -> compressed magnitude -> model mask -> masked
   magnitude with the noisy phase -> iSTFT (mask models: CRUSE, DFSMN);
+- ``complex_mask``: STFT -> ``compress(|X|)`` -> the model's compressed
+  cIRM, decompressed -> the noisy spectrum times the complex mask -> iSTFT
+  (FullSubNet);
 - ``auto``: STFT -> the model family's forward adapter
   (``train.step.forward_for_model``) on the RI spectrum -> iSTFT (CRUSE and
   DFSMN, whose mask multiplies the noisy spectrum;
   CRUSE+DF, whose deep filter runs on the low bins; MTFAA, which emits the
-  enhanced complex spectrum).
+  enhanced complex spectrum; FullSubNet, whose cIRM multiplies it).
 
 ``mag_to_mag`` applies the optional mask post-filter (``sin`` or
 ``envelope``, ``dsp/mask.py``); ``auto`` ignores it, as the JAX package
@@ -19,7 +22,7 @@ real-time factor and optionally written as wavs.
 
 Int8 weights are loaded dequantized (``nn.quantize.load_dequantized``):
 the inferencer runs float32 weights. Not ported yet, and refused rather
-than ignored: the complex and multi-channel strategies and the device mesh.
+than ignored: the multi-channel strategies and the device mesh.
 """
 from __future__ import annotations
 
@@ -33,9 +36,10 @@ import torch
 
 from cruse_tpu_torch.data.wavio import to_int16_scaled, write_wav
 from cruse_tpu_torch.dsp.features import overlap_cat
-from cruse_tpu_torch.dsp.mask import envelope_postfilter, postfilter_sin
+from cruse_tpu_torch.dsp.mask import complex_mul, decompress_cirm, envelope_postfilter, postfilter_sin
 from cruse_tpu_torch.dsp.stft import StftConfig, istft, istft_mag_phase, stft
 from cruse_tpu_torch.models.cruse_df import CruseDfNet
+from cruse_tpu_torch.models.fullsubnet import FullSubNet
 from cruse_tpu_torch.models.mtfaa import MtfaaNet
 from cruse_tpu_torch.train.step import forward_for_model
 from cruse_tpu_torch.utils.config import log
@@ -43,7 +47,7 @@ from cruse_tpu_torch.utils.config import log
 
 @dataclasses.dataclass
 class InferencerConfig:
-    type: str = "mag_to_mag"  # strategy method name: "mag_to_mag" or "auto"
+    type: str = "mag_to_mag"  # strategy method name: "mag_to_mag", "complex_mask" or "auto"
     sr: int = 16000
     stft: StftConfig = StftConfig(n_fft=320, hop_length=160)
     output_dir: str = "enhanced"
@@ -61,16 +65,23 @@ class BatchInferencer:
 
     def __init__(self, model: torch.nn.Module, config: InferencerConfig,
                  device: torch.device | str = "cuda"):
-        if config.type not in ("mag_to_mag", "auto"):
-            raise NotImplementedError(f"inferencer strategy {config.type!r} is not ported "
-                                      "(ported: mag_to_mag, auto)")
+        if config.type in ("multi_channel_directional", "multi_channel_mag_to_mag"):
+            raise NotImplementedError(f"inferencer strategy {config.type!r} is not ported: the "
+                                      "multi-channel strategies come with McCruse")
+        if config.type not in ("mag_to_mag", "complex_mask", "auto"):
+            raise ValueError(f"unknown inferencer strategy {config.type!r} "
+                             "(mag_to_mag, complex_mask, auto)")
         if config.postfilter is not None and config.postfilter not in POSTFILTERS:
             raise ValueError(f"unknown postfilter {config.postfilter!r} (known: {', '.join(POSTFILTERS)})")
-        if config.postfilter is not None and config.type == "auto":
-            log(f"postfilter {config.postfilter!r} is ignored by the auto strategy (mag_to_mag applies it)")
-        if config.type == "mag_to_mag" and isinstance(model, (CruseDfNet, MtfaaNet)):
+        if config.postfilter is not None and config.type != "mag_to_mag":
+            log(f"postfilter {config.postfilter!r} is ignored by the {config.type} strategy "
+                "(mag_to_mag applies it)")
+        if config.type == "mag_to_mag" and isinstance(model, (CruseDfNet, MtfaaNet, FullSubNet)):
             raise ValueError(f"mag_to_mag takes a mask model; {type(model).__name__} runs "
-                             "with type='auto'")
+                             f"with type='{'complex_mask' if isinstance(model, FullSubNet) else 'auto'}'")
+        if config.type == "complex_mask" and not isinstance(model, FullSubNet):
+            raise ValueError(f"complex_mask takes a cIRM model (FullSubNet); {type(model).__name__} "
+                             "runs with type='auto'")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {self.device}: no CUDA device is available "
@@ -88,6 +99,12 @@ class BatchInferencer:
         return self._mag_to_mag_impl(noisy)
 
     @torch.inference_mode()
+    def complex_mask(self, noisy: torch.Tensor) -> torch.Tensor:
+        """[B, L] noisy -> [B, L] enhanced: the model's compressed cIRM,
+        decompressed, times the noisy spectrum."""
+        return self._complex_mask_impl(noisy)
+
+    @torch.inference_mode()
     def auto(self, noisy: torch.Tensor) -> torch.Tensor:
         """[B, L] noisy -> [B, L] enhanced through the model family's
         forward adapter (mask models, CRUSE+DF and MTFAA)."""
@@ -103,6 +120,13 @@ class BatchInferencer:
             mask = POSTFILTERS[self.cfg.postfilter](mask)
         return istft_mag_phase(spec.abs() * mask, spec.angle(), self.cfg.stft,
                                length=noisy.shape[-1])
+
+    def _complex_mask_impl(self, noisy: torch.Tensor) -> torch.Tensor:
+        spec = stft(noisy, self.cfg.stft)
+        crm, _ = self.model(self.model.compress(spec.abs()))
+        crm = decompress_cirm(crm)
+        r, i = complex_mul(spec.real, spec.imag, crm[..., 0], crm[..., 1])
+        return istft((r, i), self.cfg.stft, length=noisy.shape[-1])
 
     def _auto_impl(self, noisy: torch.Tensor) -> torch.Tensor:
         spec = stft(noisy, self.cfg.stft)

@@ -29,7 +29,8 @@ artifact through ``artifact.load`` and runs it once before it exits 0.
 
 Exported: CRUSE, CRUSE+DF, DFSMN and MTFAA (configs 5 and 5b offline, a
 windowed MTFAA also streamed; a full-causal one streamed raises
-``StreamingEnhancer``'s ``ValueError``). The MTFAA offline program runs the
+``StreamingEnhancer``'s ``ValueError``). FullSubNet is not exported yet:
+both exports refuse it by name before they trace. The MTFAA offline program runs the
 model without its streaming state (``with_state=False``, as the ``auto``
 adapter does). Its TFCM parameters are folded once, before tracing
 (``models/mtfaa.py::frozen_folds``), and held as constants of a float32
@@ -77,10 +78,19 @@ class _FlatStep(nn.Module):
         return out, new._replace(model_state=tuple(pytree.tree_leaves(new.model_state)))
 
 
+def _refuse_unexported(model: nn.Module) -> None:
+    from cruse_tpu_torch.models.fullsubnet import FullSubNet
+
+    if isinstance(model, FullSubNet):
+        raise NotImplementedError("exporting FullSubNet is not ported yet (offline complex_mask and the "
+                                  "streamed step); serve it eagerly with python -m cruse_tpu_torch.infer")
+
+
 def export_offline(model: nn.Module, icfg, batch: int, length: int, device):
     """The ``torch.export`` program of enhanced [B, L] = graph(noisy [B, L])."""
     from cruse_tpu_torch.infer.batch import BatchInferencer
 
+    _refuse_unexported(model)
     inferencer = BatchInferencer(model, icfg, device)
     body = inferencer._mag_to_mag_impl if icfg.type == "mag_to_mag" else inferencer._auto_impl
     example = torch.zeros(batch, length, device=inferencer.device)
@@ -96,6 +106,7 @@ def export_streaming(model: nn.Module, cfg, batch: int, device):
     from cruse_tpu_torch.infer.artifact import StreamState
     from cruse_tpu_torch.infer.streaming import StreamingEnhancer
 
+    _refuse_unexported(model)
     enhancer = StreamingEnhancer(model.to(device), cfg)
     state = enhancer.init_state(batch)
     leaves, spec = pytree.tree_flatten(state.model_state)

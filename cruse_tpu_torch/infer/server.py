@@ -17,7 +17,11 @@ into one pinned array on the card's host) and one device-to-host copy (the
 outputs), which is its only wait on the device. The state is masked out of
 place: every leaf of the new state is ``torch.where(active, new, old)``, so
 idle slots keep theirs bit for bit and no inference tensor is written in
-place. A slot is reset the same way, against a fresh one-slot state.
+place. A leaf leads with ``slots · rep`` rows, a slot owning ``rep``
+consecutive ones (FullSubNet folds its F sub-band units into the batch:
+``[slots·F, H]``), so the mask repeats each slot's flag ``rep`` times. A slot
+is reset out of place too: a fresh one-slot state's ``rep`` rows are copied
+into rows ``[sid·rep, (sid+1)·rep)`` of a new leaf (``index_copy``).
 
 ``MultiModelServer`` keeps one such pool a model. When dispatches are
 rationed it serves the pool with the most urgent ready session first and
@@ -26,12 +30,13 @@ breaks ties by the pool served least recently.
 On the card a CRUSE step launches the grouped-GRU kernel twice (one a bank),
 a CRUSE+DF step (config 3) also the deep-filter kernel once, and a windowed
 MTFAA step (config 5b) the stencil kernel once a TFCM block (24) and the
-deep filter once, all at the batch of the slots; DFSMN has no kernel.
+deep filter once, a FullSubNet step the grouped-GRU kernel once a GRU layer
+(4 at its published depth), all at the batch of the slots (the sub-band
+layers at slots · F rows); DFSMN has no kernel.
 
 Not ported: a device mesh (``mesh=`` raises; slots over several cards wait
-for torch.distributed), multi-mic sessions (``StreamingEnhancer`` refuses
-McCruse, and the JAX package's ``[M, samples]`` buffers come with it), and
-FullSubNet, whose state folds its sub-band units into the slot axis.
+for torch.distributed) and multi-mic sessions (``StreamingEnhancer`` refuses
+McCruse, and the JAX package's ``[M, samples]`` buffers come with it).
 """
 from __future__ import annotations
 
@@ -66,8 +71,10 @@ def tree_leaves(tree) -> List[torch.Tensor]:
 
 
 def _rows(mask: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
-    """A [slots] mask shaped to select a slot-major leaf's rows."""
-    return mask.view(-1, *(1,) * (leaf.dim() - 1))
+    """A [slots] mask shaped to select a slot-major leaf's rows, each slot's
+    flag repeated for the ``rep = rows / slots`` rows the slot owns."""
+    rep = leaf.shape[0] // mask.shape[0]
+    return (mask.repeat_interleave(rep) if rep > 1 else mask).view(-1, *(1,) * (leaf.dim() - 1))
 
 
 class StreamingServer:
@@ -90,9 +97,10 @@ class StreamingServer:
         with torch.inference_mode():
             self._state = self.enhancer.init_state(max_streams)
             self._fresh = self.enhancer.init_state(1)  # the template of a slot reset
-        for leaf in tree_leaves(self._state):
-            assert leaf.shape[0] == max_streams, (
-                f"a state leaf of shape {tuple(leaf.shape)} does not lead with the {max_streams} slots")
+        for leaf, fresh in zip(tree_leaves(self._state), tree_leaves(self._fresh)):
+            assert leaf.shape[0] % max_streams == 0 and leaf.shape[0] == max_streams * fresh.shape[0], (
+                f"a state leaf of shape {tuple(leaf.shape)} does not lead with {fresh.shape[0]} rows "
+                f"each of the {max_streams} slots")
         self._active = np.zeros(max_streams, bool)
         self._buffers: Dict[int, np.ndarray] = {}
         # the step's hops, and the active mask in the last column: one copy to the card
@@ -114,11 +122,11 @@ class StreamingServer:
 
     @torch.inference_mode()
     def _reset(self, sid: int) -> None:
-        slot = torch.zeros(self.max_streams, dtype=torch.bool)
-        slot[sid] = True
-        slot = slot.to(self.device)
-        self._state = tree_map(lambda full, fresh: torch.where(_rows(slot, full), fresh, full),
-                               self._state, self._fresh)
+        def reset(full, fresh):
+            rep = fresh.shape[0]
+            return full.index_copy(0, torch.arange(sid * rep, (sid + 1) * rep, device=full.device), fresh)
+
+        self._state = tree_map(reset, self._state, self._fresh)
 
     def close(self, sid: int) -> None:
         self._active[sid] = False

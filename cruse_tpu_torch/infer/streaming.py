@@ -7,13 +7,15 @@ Each hop carries:
 - the model's state (CRUSE: conv histories and GRU states, and for CRUSE+DF
   the deep filter's last ``2*t_dim`` masked low-bin frames; DFSMN: each
   block's left context; windowed MTFAA: its conv and TFCM histories, rolling
-  attention caches and deep-filter frames);
+  attention caches and deep-filter frames; FullSubNet: its GRU states, the
+  sub-band ones ``[B·F, H]``, and the cumulative norms' running sums);
 - the overlap-add tail of the synthesis frames.
 
 A step assembles the frame, takes its windowed DFT (one small matrix
 product), runs the model at T = 1, applies the mask (and, for CRUSE+DF, the
 deep filter over the carried frames; MTFAA takes the RI frame and returns
-the enhanced one itself), takes the windowed inverse DFT, overlap-adds, and
+the enhanced one itself; FullSubNet's decompressed cIRM multiplies the
+frame's spectrum), takes the windowed inverse DFT, overlap-adds, and
 emits ``hop`` samples divided by the steady-state window envelope. Primed
 with the first ``n_fft - hop`` samples, the stream equals the offline
 ``center=False`` path after the overlap-add warm-up.
@@ -21,13 +23,14 @@ with the first ``n_fft - hop`` samples, the stream equals the offline
 On the card a hop launches, for CRUSE, the grouped-GRU kernel twice (one per
 bank) and, for CRUSE+DF, the deep-filter kernel once; for a windowed MTFAA
 the stencil kernel once a TFCM block (24 at config 5b) and the deep-filter
-kernel once; DFSMN has no kernel of its own. The rest is PyTorch's own
+kernel once; for FullSubNet the grouped-GRU kernel four times at its
+published depth (one a GRU layer); DFSMN has no kernel of its own. The rest is PyTorch's own
 kernels. ``run`` is a host loop over hops (the JAX package runs it as one
 ``lax.scan`` dispatch, which eager PyTorch has no counterpart of).
 
-Ported for CruseNet, CruseDfNet, DfsmnNet and a windowed MtfaaNet; the other
-families' streaming (multi-mic McCruse, FullSubNet, BSRNN) comes with their
-models.
+Ported for CruseNet, CruseDfNet, DfsmnNet, a windowed MtfaaNet and
+FullSubNet with the cumulative norm; the other families' streaming
+(multi-mic McCruse, BSRNN) comes with their models.
 """
 from __future__ import annotations
 
@@ -41,10 +44,12 @@ from cruse_tpu_torch.dsp.stft import StftConfig, _analysis_kernel, _padded_windo
 from cruse_tpu_torch.infer.artifact import StreamState
 from cruse_tpu_torch.models.cruse import CruseNet, cruse_init_state
 from cruse_tpu_torch.models.cruse_df import CruseDfNet, apply_cruse_df_streaming, df_stream_init
+from cruse_tpu_torch.dsp.mask import complex_mul, decompress_cirm
 from cruse_tpu_torch.models.dfsmn import DfsmnNet
+from cruse_tpu_torch.models.fullsubnet import FullSubNet
 from cruse_tpu_torch.models.mtfaa import MtfaaNet
 
-STREAMING_MODELS = (CruseNet, CruseDfNet, DfsmnNet, MtfaaNet)
+STREAMING_MODELS = (CruseNet, CruseDfNet, DfsmnNet, MtfaaNet, FullSubNet)
 
 
 def _steady_envelope(cfg: StftConfig) -> np.ndarray:
@@ -60,7 +65,8 @@ class StreamingEnhancer:
     benchmark config 4); CruseDfNet also runs its complex deep filter over the
     rolling masked-spectrum history (config 3's streaming path); a windowed
     MtfaaNet (config 5b) enhances the RI spectrum through its own carried
-    state."""
+    state; FullSubNet (cumulative norm, no look-ahead) applies its complex
+    mask per frame."""
 
     def __init__(self, model: torch.nn.Module, cfg: StftConfig):
         if cfg.center:
@@ -70,11 +76,17 @@ class StreamingEnhancer:
         if not isinstance(model, STREAMING_MODELS):
             raise NotImplementedError(
                 f"streaming {type(model).__name__} is not ported (ported: "
-                f"{', '.join(m.__name__ for m in STREAMING_MODELS)}); multi-mic McCruse, FullSubNet "
+                f"{', '.join(m.__name__ for m in STREAMING_MODELS)}); multi-mic McCruse "
                 "and BSRNN streaming come with their models")
         if isinstance(model, MtfaaNet) and model.config.attention_window is None:
             raise ValueError("MTFAA streaming needs a finite attention_window (the full-causal "
                              "configuration cannot carry ASA state)")
+        if isinstance(model, FullSubNet) and model.config.norm != "cumulative_laplace_norm":
+            raise ValueError("FullSubNet streaming needs norm='cumulative_laplace_norm' "
+                             "(the offline norms read the whole utterance by construction)")
+        if isinstance(model, FullSubNet) and model.config.look_ahead != 0:
+            raise ValueError("FullSubNet streaming needs look_ahead=0 (the look-ahead "
+                             "variant delays the output by future frames)")
         if isinstance(model, DfsmnNet) and model.config.right_frames > 0:
             raise ValueError("DFSMN streaming needs right_frames=0 (a look-ahead DfsmnNet reads "
                              "future frames)")
@@ -83,6 +95,7 @@ class StreamingEnhancer:
         self.device = next(model.parameters()).device
         self._is_df = isinstance(model, CruseDfNet)
         self._is_complex = isinstance(model, MtfaaNet)
+        self._is_cirm = isinstance(model, FullSubNet)
         self._num_bins = cfg.num_bins
         self._ana = torch.from_numpy(_analysis_kernel(cfg).T.copy()).to(self.device)  # [N, 2F]
         self._syn = torch.from_numpy(_synthesis_kernel(cfg)).to(self.device)  # [2F, N]
@@ -130,6 +143,11 @@ class StreamingEnhancer:
             return self._finish(state, frame, enh_ri, model_state)
         mag = torch.sqrt(real ** 2 + imag ** 2 + 1e-12)
         feat = self.model.compress(mag)[:, None, :]  # [B, 1, F]
+        if self._is_cirm:
+            crm, model_state = self.model(feat, state.model_state)
+            crm = decompress_cirm(crm)[:, 0]  # [B, F, 2]
+            r, i = complex_mul(real, imag, crm[..., 0], crm[..., 1])
+            return self._finish(state, frame, torch.cat([r, i], dim=-1), model_state)
         if self._is_df:
             net_state, df_state = state.model_state
             (mask, coefs), net_state = self.model(feat, net_state)

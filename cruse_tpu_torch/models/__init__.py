@@ -1,14 +1,15 @@
-"""Model zoo of the port. CRUSE, CRUSE+DF, DFSMN and MTFAA are ported; the
-other families are not yet."""
+"""Model zoo of the port. CRUSE, CRUSE+DF, DFSMN, MTFAA and FullSubNet are
+ported; the other families are not yet."""
 
 from cruse_tpu_torch.models.cruse import CruseConfig, CruseNet  # noqa: F401
 from cruse_tpu_torch.models.cruse_df import CruseDfConfig, CruseDfNet  # noqa: F401
 from cruse_tpu_torch.models.dfsmn import DfsmnBlock, DfsmnConfig, DfsmnNet  # noqa: F401
 from cruse_tpu_torch.models.deep_filter import DeepFilterHead, deep_filter_apply  # noqa: F401
+from cruse_tpu_torch.models.fullsubnet import FullSubNet, FullSubNetConfig  # noqa: F401
 from cruse_tpu_torch.models.mtfaa import MtfaaConfig, MtfaaNet  # noqa: F401
 
 _NETWORKS = {"CruseConfig": (CruseConfig, CruseNet), "CruseDfConfig": (CruseDfConfig, CruseDfNet),
-             "MtfaaConfig": (MtfaaConfig, MtfaaNet),
+             "MtfaaConfig": (MtfaaConfig, MtfaaNet), "FullSubNetConfig": (FullSubNetConfig, FullSubNet),
              # the JAX DFSMN has no config dataclass: [model] names the network with its fields
              "DfsmnNet": (DfsmnConfig, DfsmnNet)}
 

@@ -16,7 +16,7 @@ The parameters keep the flax shapes where the math reads them: the memory
 kernels ``left_kernel [left_frames + 1, 1, D]`` and ``right_kernel
 [right_frames, 1, D]`` (tap 0 first) and the 0-d ``skip_weight``; the 1x1
 projections are ``Linear`` layers. The weight bridge maps the flax tree onto
-them (``utils/weights.py::dfsmn_state_dict_from_flax``).
+them (``utils/weights.py::dense_state_dict_from_flax``).
 
 Streaming: with ``right_frames == 0`` the net is causal and carries, per
 block, the last ``left_frames * left_dilation`` frames of the memory conv's

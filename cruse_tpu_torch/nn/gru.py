@@ -1,4 +1,4 @@
-"""Grouped GRU layers (counterpart of ``cruse_tpu/nn/gru.py``).
+"""Grouped GRU layers and the plain GRU (counterpart of ``cruse_tpu/nn/gru.py``).
 
 The input projection for all timesteps and all groups is one einsum; the
 recurrence over time runs in ``ops.gru_kernel.gru_sequence``, which is the
@@ -58,6 +58,24 @@ class GroupedGRULayer(nn.Module):
         x_proj = (torch.einsum("btgi,gki->btgk", xg, self.w_ih) + self.b_ih).contiguous()
         y, h_last = self.recurrence(x_proj, h0.contiguous(), self.w_hh, self.b_hh)
         return y.reshape(b, t, self.groups * self.hidden_size), h_last
+
+
+class GRU(nn.Module):
+    """The plain single-layer GRU (``torch.nn.GRU``'s equations): a
+    ``GroupedGRULayer`` of one group under ``layer``, as the JAX package's
+    ``GRU`` holds its weights under ``layer``. Input ``[B, T, I]``, state
+    ``h0 [B, H]`` -> ``(y [B, T, H], h_last [B, H])``."""
+
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__()
+        self.layer = GroupedGRULayer(input_size, hidden_size, 1)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.layer.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor, h0: torch.Tensor | None = None):
+        y, h_last = self.layer(x, None if h0 is None else h0[:, None, :])
+        return y, h_last[:, 0, :]
 
 
 def channel_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:

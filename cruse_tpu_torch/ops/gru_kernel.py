@@ -55,6 +55,8 @@ import torch
 from cruse_tpu_torch.ops import _build
 
 MAX_HIDDEN = 512  # streamed kernel: one thread per hidden unit (kMaxThreads in the source)
+STREAM_ROWS = 8  # streamed kernels, forward and backward: batch rows per block (kRows in both sources)
+GRID_Y_LIMIT = 65535  # blocks a grid may have along y, where every launcher puts the batch's row tiles
 TILE_ROWS = 16  # resident kernel: batch rows per cluster (kTile)
 SHARED_LIMIT = 232448  # bytes of dynamic shared memory a block may have on sm_90 (kSharedLimit)
 CLUSTER_SIZES = (1, 2, 4, 8)  # 8 is the portable limit of a cluster
@@ -305,8 +307,23 @@ def packed_weight_bwd(w_hh: torch.Tensor, cs: int) -> torch.Tensor:
     return _cached_layout(w_hh, "_gru_packed_bwd", (cs,), make)
 
 
-def _check_launch(x_proj, h0, w_hh, b_hh, weight_dtype):
-    """What both kernels ask of their tensors; returns (B, T, G, H)."""
+def grid_rows(b: int, rows: int) -> int:
+    """The blocks a launch puts along the grid's y axis for B batch rows,
+    ``rows`` to a block (``STREAM_ROWS`` for the streamed kernels,
+    ``TILE_ROWS`` for the resident forward, R of ``bwd_fit_at`` for the
+    resident backward): ``ceil(B / rows)``. Raises ``ValueError`` past
+    ``GRID_Y_LIMIT``: FullSubNet folds its sub-band units into the batch,
+    so a pool of 2,048 slots at 257 bins would ask for 65,792."""
+    blocks = -(-b // rows)
+    if blocks > GRID_Y_LIMIT:
+        raise ValueError(f"B={b} needs {blocks} blocks of {rows} rows along the grid's y axis, "
+                         f"> {GRID_Y_LIMIT}, the launch's limit")
+    return blocks
+
+
+def _check_launch(x_proj, h0, w_hh, b_hh, weight_dtype, rows):
+    """What both kernels ask of their tensors, and the grid of ``rows`` batch
+    rows a block (``grid_rows``); returns (B, T, G, H)."""
     tensors = {"x_proj": x_proj, "h0": h0, "w_hh": w_hh, "b_hh": b_hh}
     device = x_proj.device
     if device.type != "cuda":
@@ -322,6 +339,7 @@ def _check_launch(x_proj, h0, w_hh, b_hh, weight_dtype):
         raise RuntimeError("the forward kernels' launchers record no gradient: call gru_sequence, "
                            "whose backward is a kernel too, or launch under torch.no_grad()")
     b, t, g, h3 = x_proj.shape
+    grid_rows(b, rows)
     return b, t, g, h3 // 3
 
 
@@ -359,7 +377,7 @@ def _run(entry: str, x_proj, h0, weight, b_hh, ints: tuple):
 def launch_streamed(x_proj, h0, w_hh, b_hh, weight_dtype=None):
     """The streamed kernel on CUDA tensors, whatever the shape's plan says."""
     _check_shapes(x_proj, h0, w_hh, b_hh, weight_dtype)
-    b, t, g, h = _check_launch(x_proj, h0, w_hh, b_hh, weight_dtype)
+    b, t, g, h = _check_launch(x_proj, h0, w_hh, b_hh, weight_dtype, STREAM_ROWS)
     if h > MAX_HIDDEN:
         raise ValueError(f"hidden size per group {h} > {MAX_HIDDEN}, the streamed kernel's "
                          f"limit, and no cluster of up to {CLUSTER_SIZES[-1]} blocks holds its weight")
@@ -371,11 +389,11 @@ def launch_resident(x_proj, h0, w_hh, b_hh, weight_dtype=None):
     """The resident kernel on CUDA tensors, whatever T; raises where no cluster
     holds the weight."""
     _check_shapes(x_proj, h0, w_hh, b_hh, weight_dtype)
-    b, t, g, h = _check_launch(x_proj, h0, w_hh, b_hh, weight_dtype)
-    fit = cluster_fit(h, weight_dtype)
+    fit = cluster_fit(x_proj.shape[-1] // 3, weight_dtype)
     if fit is None:
         raise ValueError(f"no cluster of up to {CLUSTER_SIZES[-1]} blocks holds the recurrent "
-                         f"weight of hidden size per group {h} in shared memory")
+                         f"weight of hidden size per group {x_proj.shape[-1] // 3} in shared memory")
+    b, t, g, h = _check_launch(x_proj, h0, w_hh, b_hh, weight_dtype, TILE_ROWS)
     w_packed = packed_weight(w_hh, weight_dtype or torch.float32, fit[0])
     out = _run(f"gru_resident_{_WEIGHT_DTYPES[weight_dtype]}", x_proj, h0, w_packed, b_hh,
                (b, t, g, h, fit[0]))
@@ -383,8 +401,9 @@ def launch_resident(x_proj, h0, w_hh, b_hh, weight_dtype=None):
     return out
 
 
-def _check_bwd_launch(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0):
-    """What both backward kernels ask of their tensors; returns (B, T, G, H)."""
+def _check_bwd_launch(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0, rows):
+    """What both backward kernels ask of their tensors, and the grid of
+    ``rows`` batch rows a block (``grid_rows``); returns (B, T, G, H)."""
     b, t, g, h3 = x_proj.shape
     h = h3 // 3
     shapes = {"x_proj": (b, t, g, h3), "hp": (b, t, g, h3), "y": (b, t, g, h), "h0": (b, g, h),
@@ -401,6 +420,7 @@ def _check_bwd_launch(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0):
             raise ValueError(f"{name} must be float32 {shapes[name]}, got {tensor.dtype} {tuple(tensor.shape)}")
         if not tensor.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    grid_rows(b, rows)
     return b, t, g, h
 
 
@@ -421,7 +441,7 @@ def launch_gru_bwd_streamed(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, 
     says, into ``dx_proj``, ``dhp`` ([B, T, G, 3H]) and ``dh0`` ([B, G, H]);
     ``hp`` is ``h_prev . w_hh^T + b_hh`` for all t and ``dh_last`` None means
     zeros. Counted in ``gru_sequence_bwd.launches``."""
-    b, t, g, h = _check_bwd_launch(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0)
+    b, t, g, h = _check_bwd_launch(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0, STREAM_ROWS)
     if h > MAX_HIDDEN:
         raise ValueError(f"hidden size per group {h} > {MAX_HIDDEN}, the streamed backward kernel's limit")
     _run_bwd("gru_bwd_f32", x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0, (b, t, g, h))
@@ -439,7 +459,7 @@ def launch_gru_bwd_resident(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, 
     if fit is None:
         raise ValueError(f"no cluster of {CLUSTER_SIZES if cs is None else cs} blocks holds the recurrent weight "
                          f"of hidden size per group {h} and a dhp tile in shared memory with a unit in every block")
-    b, t, g, h = _check_bwd_launch(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0)
+    b, t, g, h = _check_bwd_launch(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0, fit[2])
     _run_bwd("gru_bwd_resident_f32", x_proj, hp, y, h0, dy, dh_last, packed_weight_bwd(w_hh, fit[0]),
              dx_proj, dhp, dh0, (b, t, g, h, fit[0]))
     gru_sequence_bwd.resident_launches += 1

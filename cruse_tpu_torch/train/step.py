@@ -2,15 +2,15 @@
 ``cruse_tpu/train/step.py``).
 
 **Forward adapters**: noisy RI spectrum ``[B, T, F, 2]`` -> enhanced RI
-spectrum, one per model family, shared by the ``auto`` inference strategy and
-the train step. The JAX adapters take and return ``(params, batch_stats)``;
+spectrum, one per model family (CRUSE and DFSMN, CRUSE+DF, MTFAA, FullSubNet),
+shared by the ``auto`` inference strategy and the train step. The JAX adapters take and return ``(params, batch_stats)``;
 here the weights and statistics live in the module, so an adapter takes the
 spectrum alone and returns the enhanced one. ``train`` must agree with the
 module's mode. With ``train=True`` every adapter runs the model's training
 forward (BatchNorm on the batch's statistics, which it records in place),
-and the result carries the gradient: for CRUSE and CRUSE+DF through the GRU
-recurrence's backward kernel, for CRUSE+DF and MTFAA through the deep
-filter's.
+and the result carries the gradient: for CRUSE, CRUSE+DF and FullSubNet
+through the GRU recurrence's backward kernel, for CRUSE+DF and MTFAA through
+the deep filter's.
 
 **The train step** (``make_train_step``): STFT of noisy and clean -> (with
 a teacher) the teacher's eval forward under ``torch.no_grad`` -> the
@@ -120,21 +120,41 @@ def complex_model_forward(model) -> Callable:
     return forward
 
 
+def fullsubnet_model_forward(model) -> Callable:
+    """FullSubNet: the magnitude ``sqrt(re^2 + im^2 + 1e-12)`` in, the
+    compressed cIRM out; each component decompressed and the noisy spectrum
+    multiplied by the mask -> enhanced RI."""
+    from cruse_tpu_torch.dsp.mask import complex_mul, decompress_cirm
+
+    def forward(noisy_ri: torch.Tensor, train: bool = False) -> torch.Tensor:
+        _check_eval(model, train)
+        mag = torch.sqrt(noisy_ri[..., 0] ** 2 + noisy_ri[..., 1] ** 2 + 1e-12)
+        cirm, _ = model(mag, None, train)
+        er, ei = complex_mul(noisy_ri[..., 0], noisy_ri[..., 1], decompress_cirm(cirm[..., 0]),
+                             decompress_cirm(cirm[..., 1]))
+        return torch.stack([er, ei], dim=-1)
+
+    return forward
+
+
 def forward_for_model(model) -> Callable:
     """The forward adapter for a ported model."""
     from cruse_tpu_torch.models.cruse import CruseNet
     from cruse_tpu_torch.models.cruse_df import CruseDfNet
     from cruse_tpu_torch.models.dfsmn import DfsmnNet
+    from cruse_tpu_torch.models.fullsubnet import FullSubNet
     from cruse_tpu_torch.models.mtfaa import MtfaaNet
 
     if isinstance(model, MtfaaNet):
         return complex_model_forward(model)
     if isinstance(model, CruseDfNet):
         return cruse_df_model_forward(model)
+    if isinstance(model, FullSubNet):
+        return fullsubnet_model_forward(model)
     if isinstance(model, DfsmnNet) or (isinstance(model, CruseNet) and not model.config.emit_features):
         return mask_model_forward(model)
     raise NotImplementedError(f"no forward adapter for {type(model).__name__} is ported "
-                              "(ported: CruseNet, CruseDfNet, DfsmnNet, MtfaaNet)")
+                              "(ported: CruseNet, CruseDfNet, DfsmnNet, MtfaaNet, FullSubNet)")
 
 
 # ---------------- the train step ----------------

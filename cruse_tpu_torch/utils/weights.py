@@ -1,5 +1,5 @@
 """Weight bridge: cruse_tpu flax variables -> the port's ``CruseNet``,
-``CruseDfNet``, ``DfsmnNet`` and ``MtfaaNet`` state_dicts.
+``CruseDfNet``, ``DfsmnNet``, ``MtfaaNet`` and ``FullSubNet`` state_dicts.
 
 The JAX side's ``{"params", "batch_stats"}`` tree, as numpy arrays, maps onto
 the port by path, because the port names its submodules after the flax ones
@@ -20,9 +20,10 @@ MTFAA keeps the flax shapes and names (its kernels read them as they are),
 so its mapping is the path alone: ``/`` becomes ``.``, for the parameters
 and the BatchNorm ``mean``/``var`` alike.
 
-DFSMN (``dfsmn_state_dict_from_flax``) keeps its memory kernels and skip
-weights in their flax shapes too; only its Dense kernels ``[in, out]`` become
-``Linear`` weights ``[out, in]``.
+DFSMN and FullSubNet (``dense_state_dict_from_flax``) keep every leaf in
+its flax shape too (DFSMN's memory kernels and skip weights, FullSubNet's
+GRU leaves ``…/layer/{w_ih, w_hh, b_ih, b_hh}``, ``[1, 3H, ·]``); only their
+Dense kernels ``[in, out]`` become ``Linear`` weights ``[out, in]``.
 
 ``mtfaa_flax_from_named`` is MTFAA's mapping's inverse, for the parameters, their
 gradients or the statistics of a trained port model, so that tests compare
@@ -163,11 +164,13 @@ def mtfaa_state_dict_from_flax(variables_np: Mapping[str, Any]) -> Dict[str, Any
             for path, value in flatten_tree(variables_np.get(collection, {}), keep_quantized=True).items()}
 
 
-def dfsmn_state_dict_from_flax(variables_np: Mapping[str, Any]) -> Dict[str, Any]:
-    """cruse_tpu ``DfsmnNet`` variables -> state_dict of the port's ``DfsmnNet``:
-    ``proj_in``, ``block_i/{in_conv, out_conv}`` and ``mask_head`` Dense
-    kernels transposed to ``Linear`` weights, their biases as they are, and
-    ``block_i/{left_kernel, right_kernel, skip_weight}`` in their flax shapes."""
+def dense_state_dict_from_flax(variables_np: Mapping[str, Any]) -> Dict[str, Any]:
+    """cruse_tpu ``DfsmnNet`` or ``FullSubNet`` variables -> state_dict of the
+    port's model: every Dense kernel (DFSMN's ``proj_in``, ``block_i/{in_conv,
+    out_conv}``, ``mask_head``; FullSubNet's ``fb_out``, ``sb_out``) transposed
+    to a ``Linear`` weight, every other leaf (the biases, DFSMN's
+    ``block_i/{left_kernel, right_kernel, skip_weight}``, FullSubNet's GRU
+    leaves) in its flax shape under its path with ``/`` -> ``.``."""
     state = {}
     for path, value in flatten_tree(variables_np.get("params", {}), keep_quantized=True).items():
         if path.endswith("/kernel"):  # Dense [in, out] -> Linear [out, in]
@@ -193,16 +196,15 @@ def mtfaa_flax_from_named(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
 
 def state_dict_from_flax(variables_np: Mapping[str, Any], model) -> Dict[str, torch.Tensor]:
     """cruse_tpu variables -> state_dict of the port's ``model``: an
-    MtfaaNet, a DfsmnNet, a CruseNet, or a CruseDfNet, whose trunk is under
-    ``cruse.`` and head is ``df_head``. The CRUSE trunk's config
-    (``config.cruse`` of a CruseDfNet) fixes the encoder kernels' layout."""
-    from cruse_tpu_torch.models.dfsmn import DfsmnNet
-    from cruse_tpu_torch.models.mtfaa import MtfaaNet
-
-    if isinstance(model, MtfaaNet):
+    MtfaaNet, a DfsmnNet, a FullSubNet, a CruseNet, or a CruseDfNet, whose
+    trunk is under ``cruse.`` and head is ``df_head``. The CRUSE trunk's
+    config (``config.cruse`` of a CruseDfNet) fixes the encoder kernels'
+    layout."""
+    family = _family(model)
+    if family == "mtfaa":
         return mtfaa_state_dict_from_flax(variables_np)
-    if isinstance(model, DfsmnNet):
-        return dfsmn_state_dict_from_flax(variables_np)
+    if family in ("dfsmn", "fullsubnet"):
+        return dense_state_dict_from_flax(variables_np)
     return cruse_state_dict_from_flax(variables_np, getattr(model.config, "cruse", model.config))
 
 
@@ -224,12 +226,12 @@ def _unconvert(flax_path: str, value: np.ndarray) -> np.ndarray:
 
 def _flax_leaf(family: str, key: str, value: np.ndarray):
     """One port tensor -> (collection, flax path, array in the flax layout),
-    or None for a tensor flax does not hold; ``family`` is "mtfaa", "dfsmn"
-    or "cruse" (CRUSE and CRUSE+DF)."""
+    or None for a tensor flax does not hold; ``family`` is "mtfaa", "dfsmn",
+    "fullsubnet" or "cruse" (CRUSE and CRUSE+DF)."""
     if family == "mtfaa":
         collection = "batch_stats" if key.rsplit(".", 1)[-1] in ("mean", "var") else "params"
         return collection, key.replace(".", "/"), value
-    if family == "dfsmn":
+    if family in ("dfsmn", "fullsubnet"):
         if key.endswith(".weight"):  # Linear [out, in] -> Dense [in, out]
             key, value = key[: -len("weight")] + "kernel", np.ascontiguousarray(value.T)
         return "params", key.replace(".", "/"), value
@@ -246,9 +248,11 @@ def _flax_leaf(family: str, key: str, value: np.ndarray):
 
 def _family(model) -> str:
     from cruse_tpu_torch.models.dfsmn import DfsmnNet
+    from cruse_tpu_torch.models.fullsubnet import FullSubNet
     from cruse_tpu_torch.models.mtfaa import MtfaaNet
 
-    return "mtfaa" if isinstance(model, MtfaaNet) else "dfsmn" if isinstance(model, DfsmnNet) else "cruse"
+    families = ((MtfaaNet, "mtfaa"), (DfsmnNet, "dfsmn"), (FullSubNet, "fullsubnet"))
+    return next((name for cls, name in families if isinstance(model, cls)), "cruse")
 
 
 def flax_from_state_dict(model, state_dict: Mapping[str, torch.Tensor] | None = None) -> Dict[str, Any]:

@@ -31,7 +31,7 @@ from cruse_tpu_torch.infer.batch import BatchInferencer, InferencerConfig
 from cruse_tpu_torch.infer.streaming import StreamingEnhancer
 from cruse_tpu_torch.models import DfsmnBlock, DfsmnConfig, DfsmnNet, build_from_config
 from cruse_tpu_torch.utils.config import load_config
-from cruse_tpu_torch.utils.weights import dfsmn_state_dict_from_flax, save_flax_npz, state_dict_from_flax
+from cruse_tpu_torch.utils.weights import dense_state_dict_from_flax, save_flax_npz, state_dict_from_flax
 from tests.test_torch_cruse import noisy_batch
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -75,7 +75,7 @@ def test_block_matches_jax(rng, hidden, left_dilation, right_frames):
     variables = with_skips(jax_block.init(jax.random.PRNGKey(0), *args), rng)
     block = DfsmnBlock(i, h, o, left_frames=2, left_dilation=left_dilation, right_frames=right_frames,
                        right_dilation=2, skip=hidden).eval()
-    block.load_state_dict(dfsmn_state_dict_from_flax(variables), strict=True)
+    block.load_state_dict(dense_state_dict_from_flax(variables), strict=True)
     ref_y, ref_p, ref_ctx = jax_block.apply(variables, *args)
     with torch.no_grad():
         y, out_p, ctx = block(torch.from_numpy(x), None if hid is None else torch.from_numpy(hid))

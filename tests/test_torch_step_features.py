@@ -51,6 +51,7 @@ import jax.numpy as jnp
 import torch
 
 from cruse_tpu.losses.balancer import Balancer as JaxBalancer
+from cruse_tpu.losses.pmsqe import pmsqe_tables as jax_pmsqe_tables
 from cruse_tpu.dsp.stft import StftConfig as JaxStftConfig
 from cruse_tpu.models import CruseConfig as JaxCruseConfig
 from cruse_tpu.models import CruseNet as JaxCruseNet
@@ -77,6 +78,11 @@ from tests.test_torch_trainer import speech, write_corpus
 SMALL = dict(in_freq=33, channels=(2, 4), rnn_groups=2)
 HEAD = dict(df_bins=8, df_taps_t=1, df_taps_f=1)
 STFT = dict(n_fft=64, hop_length=32)
+# The JAX package caches its PMSQE tables per (n_fft, sr, nb) process-wide; the
+# first call made inside a jit would cache tracers that a later jit in the same
+# process (tests/test_losses.py's pmsqe step, at this n_fft) then reads. Fill
+# the cache eagerly, with concrete arrays, before this file jits its steps.
+jax_pmsqe_tables(STFT["n_fft"], 16000, None)
 LR, WD, EMA, K = 1e-3, 0.05, 0.9, 2
 FREEZE = ("enc_0",)
 LOSSES = tuple(zip(STEP_LOSSES, (1.0, 1.0, 0.5, 0.5, 0.5, 0.5, 1.0, 1.0)))
