@@ -9,14 +9,17 @@ needed). In order, and any failure exits non-zero:
 1. prints the device and ``nvidia-smi`` name and power limit;
 2. builds the CUDA kernels from ``cruse_tpu_torch/ops/csrc``, one nvcc per
    source, all started together (ptxas report);
-3. holds both grouped-GRU kernels (the resident one, whose weights stay in a
-   thread-block cluster's shared memory, and the streamed one) against the
-   plain PyTorch version on the card at config-1 shapes (B=256, T=1001, G=4,
+3. holds both grouped-GRU forward kernels (route A, the resident one, whose
+   weights stay in a thread-block cluster's shared memory, and route B, the
+   row-tiled one, at each row tile R = 8, 16, 32 that fits) against the plain
+   PyTorch version on the card at config-1 shapes (B=256, T=1001, G=4,
    H=176), at the streaming step's (T=1) and on ragged shapes (B=17: a row
    tile with one live row; H=177: an odd split of the units; H=200 and H=384:
-   clusters of 4 and, with bf16 weights, 8; H=500: the streamed kernel alone):
-   f32 within 1e-4, bf16 weights within 1e-3 (same bf16-rounded weights); and
-   that ``gru_sequence`` takes the kernel ``resident_plan`` names;
+   clusters of 4 and, with bf16 weights, 8, and in f32 16 blocks at 16 rows;
+   H=500: 16 blocks at 8 rows in f32, at 16 with bf16 weights, B=13 off the
+   tile; route B at B=37, 45, 70, G = 1 to 3, H off the unit groups): f32
+   within 1e-4, bf16 weights within 1e-3 (same bf16-rounded weights); and
+   that ``gru_sequence`` takes the kernel ``forward_plan`` names;
 4. drives config 1's path: full-width CRUSE from ``configs/cruse_base.toml``
    with seeded weights and seeded non-default BatchNorm statistics,
    ``BatchInferencer.run_batched`` on six synthetic noisy utterances of 2 to
@@ -260,32 +263,37 @@ needed). In order, and any failure exits non-zero:
     with AdamW + freeze + EMA (and k = 2) against plain Adam;
 22. drives FullSubNet at its published widths (``FullSubNetConfig()``: 257
     bins, 15 neighbours, full band 512 x 2, sub band 384 x 2; n_fft 512, hop
-    256; seeded weights): (a) the streamed GRU forward at (16, 626, 1, 512)
-    and (4112, 626, 1, 384) and the streamed backward at (8, 188, 1, 512)
-    and (2056, 188, 1, 384) against their plain versions (f32 1e-4; the
-    backward 1e-4 of each output's largest, dh_last None and nonzero, into
-    NaN-filled outputs), ``gru_sequence`` and ``gru_sequence_bwd`` one launch
-    each and none resident (no cluster holds either weight; the resident
-    backward's launcher refuses them); (b) the offline model on B=16 x 10 s
-    through ``complex_mask`` and ``auto``: 4 GRU launches a call, the
-    waveform against the plain recurrence within 1e-4, ms a call,
-    x-realtime, peak memory, and a profile's GRU device time; (c) the
-    cumulative-norm model streamed on B=8 x 4 s (4 GRU launches a hop,
+    256; seeded weights): (a) the GRU forward at (16, 626, 1, 512), which
+    ``forward_plan`` gives route A (16 blocks x 8 rows), and (4112, 626, 1,
+    384), route B (R = 32), and at the B=1 hop's (1, 1, 1, 512) and (257, 1,
+    1, 384), both routes at every shape, and the streamed backward at (8,
+    188, 1, 512) and (2056, 188, 1, 384) against their plain versions (f32
+    1e-4; the backward 1e-4 of each output's largest, dh_last None and
+    nonzero, into NaN-filled outputs), ``gru_sequence`` and
+    ``gru_sequence_bwd`` one launch each of the planned kernel (no cluster
+    holds either backward's weight; its resident launcher refuses them); (b)
+    the offline model on B=16 x 10 s through ``complex_mask`` and ``auto``: 4
+    GRU launches a call, 2 of them resident (the full band), the waveform
+    against the plain recurrence within 1e-4, ms a call, x-realtime, peak
+    memory, and a trace's 2 ``gru_resident_kernel`` and 2
+    ``gru_rows_kernel`` launches and their device time; (c) the
+    cumulative-norm model streamed on B=8 x 4 s (4 GRU launches a hop, 2 resident,
     against the offline center=False call, row 0 alone, ``step_multi``), the
     B=1 hop's median latency against the 16 ms budget, B=64 x 10 s
     x-realtime, a profile of B=1 hops; (d) a pool of 8 slots (the sub-band
     state at 8 x 257 rows) serving 9 sessions, every third step rationed to
     half the ready sessions, the others' slots bit for bit unchanged, 4 GRU
-    launches a step, each session against itself streamed alone; (e) 3
+    launches a step (2 resident), each session against itself streamed alone; (e) 3
     ``make_train_step`` steps at B=8 x 3 s with si_snr and cirm, each
     step's losses (1e-5 relative) and gradients (tests/test_torch_train_step.py's
-    bounds) against the plain recurrence, 4 + 4 GRU launches a step, ms a
-    step and peak memory; (f) ``python -m cruse_tpu_torch.infer``'s main in
-    this process on two 4 s wavs, offline (``complex_mask``) and
-    ``--streaming``, each wav within 1e-4 of the same model here; (g) each
-    GRU kernel's time at those shapes by CUDA events, its plain version, its
-    bound and cuDNN's ``nn.GRU`` (forward, or ``autograd.grad``) at the same
-    shape;
+    bounds) against the plain recurrence, 4 + 4 GRU launches a step (2
+    forward ones resident), ms a step and peak memory; (f) ``python -m
+    cruse_tpu_torch.infer``'s main in this process on two 4 s wavs, offline
+    (``complex_mask``) and ``--streaming``, each wav within 1e-4 of the same
+    model here; (g) each forward route's time alone at its offline shape by
+    CUDA events and at its hop shape from a profile, and the backward's at
+    its shapes, with its plain version, its bound and cuDNN's ``nn.GRU``
+    (forward, or ``autograd.grad``) at the same shape;
 23. drives the deployment path: config 1 (``configs/cruse_base.toml``, seeded
     weights and BatchNorm statistics) exported offline at B=16 x 10 s on the
     card in float32 and int8 (``infer/export.py``, ``nn/quantize.py``),
@@ -387,9 +395,10 @@ from cruse_tpu_torch.ops.dw_kernel import (
 from cruse_tpu_torch.ops.dw_timing import describe as describe_dw
 from cruse_tpu_torch.ops.dw_timing import describe_step, dw_bound, time_dw
 from cruse_tpu_torch.ops.gru_kernel import (
-    CLUSTER_SIZES, MAX_HIDDEN, bwd_fit_at, cluster_fit, gru_backward_walk_reference, gru_sequence,
-    gru_sequence_backward_reference, gru_sequence_bwd, gru_sequence_reference, launch_gru_bwd_resident,
-    launch_gru_bwd_streamed, launch_resident, launch_streamed, resident_bwd_plan, resident_plan)
+    CLUSTER_SIZES, MAX_HIDDEN, ROW_TILES, bwd_fit_at, cluster_fit, co_resident_clusters, forward_plan,
+    gru_backward_walk_reference, gru_sequence, gru_sequence_backward_reference, gru_sequence_bwd,
+    gru_sequence_reference, launch_gru_bwd_resident, launch_gru_bwd_streamed, launch_resident, launch_streamed,
+    resident_bwd_plan, resident_plan, row_tile, rows_fit)
 from cruse_tpu_torch.ops.gru_bwd_timing import bwd_bound, bwd_inputs
 from cruse_tpu_torch.ops.gru_bwd_timing import describe as describe_gru_bwd
 from cruse_tpu_torch.ops.gru_bwd_timing import time_kernels as time_gru_bwd_kernels
@@ -420,9 +429,12 @@ KERNELS = ("gru_sequence", "gru_bwd", "deep_filter", "tfcm_eval", "tattn", "dw_s
 CONFIG1_GRU = (256, 1001, 4, 176)  # B, T, G, H of config 1's bottleneck banks
 STREAM_GRU = ((256, 1, 4, 176), (8, 1, 4, 176), (16, 1, 4, 176))  # config 3's streaming hop; the server's pool
 RAGGED_GRU = ((3, 7, 4, 176), (3, 7, 3, 50))
-# a row tile with one live row; an odd split of the units; clusters of 4 (f32) and of 8 (bf16
-# weights; f32 takes the streamed kernel); a size only the streamed kernel takes
-CLUSTER_GRU = ((17, 7, 4, 176), (3, 7, 2, 177), (5, 6, 2, 200), (3, 5, 2, 384), (3, 5, 2, 500))
+# a row tile with one live row; an odd split of the units; clusters of 4 (f32) and of 8 (bf16 weights; f32: 16
+# blocks at 16 rows); 16 blocks at 8 rows (f32) and at 16 (bf16), B=13 off the 8-row tile, G = 2
+CLUSTER_GRU = ((17, 7, 4, 176), (3, 7, 2, 177), (5, 6, 2, 200), (3, 5, 2, 384), (13, 5, 2, 500))
+# the row-tiled kernel (check_gru_kernel runs it at every R that fits): ragged B at R = 8, 16, 32, G > 1, H off the
+# 4-unit groups (50, 177) and, with bf16 weights, off the 8-unit groups
+ROWS_GRU = ((37, 9, 2, 384), (70, 5, 3, 50), (45, 6, 1, 177))
 STEP_GRU = ((256, 1, 4, 176), (8, 1, 4, 176), (1, 1, 4, 176))  # the T=1 shapes that are timed
 # B, T, G, H of the GRU backward kernels' cases: config 2's banks at its published batch (B=128 x 10 s);
 # B off the 8-row tile; an odd H; T = 1; the largest H the streamed kernel takes (no cluster holds it);
@@ -506,7 +518,7 @@ GRAD_REL_TOL, GRAD_ABS_TOL = 2e-3, 1e-3  # a gradient leaf: relative, or of the 
 GRAD_NOISE_FACTOR = 3.0  # or this many times the same leaf's own float32 rounding error (whole net only)
 TRAIN_STEPS = 3
 HAND_WRITTEN = frozenset((  # the __global__ functions of ops/csrc/*.cu, as a profile names them
-    "gru_sequence_kernel", "gru_resident_kernel", "deep_filter_kernel", "deep_filter_bwd_kernel", "tfcm_layer_kernel",
+    "gru_rows_kernel", "gru_resident_kernel", "deep_filter_kernel", "deep_filter_bwd_kernel", "tfcm_layer_kernel",
     "tattn_fwd_kernel",
     "tattn_dq_kernel", "tattn_dkv_kernel", "dw_fwd_kernel", "dw_bwd_kernel", "dw_finish_kernel",
     "tail_bwd_kernel", "mid_tile_kernel", "mid_finish_kernel", "gru_bwd_kernel", "gru_bwd_resident_kernel"))
@@ -589,10 +601,15 @@ FSN_TRAIN_BATCH, FSN_TRAIN_SECONDS = 8, 3
 FSN_LOSSES = (("si_snr", 1.0), ("cirm", 1.0))
 FSN_HOP_BUDGET_MS = 16.0  # a 256-sample hop at 16 kHz
 # B, T, G, H of its GRUs: the full band's B rows and the sub band's B x 257 units folded into the batch, offline at
-# B=16 x 10 s (forward) and in the train step at B=8 x 3 s (backward); no cluster holds either weight in f32
+# B=16 x 10 s (forward: route A, 16 blocks x 8 rows, then route B at R = 32), at the B=1 hop (forward) and in the
+# train step at B=8 x 3 s (backward: no cluster holds either weight with a dhp tile in f32)
 FSN_GRU = ((16, 626, 1, 512), (16 * 257, 626, 1, 384))
+FSN_HOP_GRU = ((1, 1, 1, 512), (257, 1, 1, 384))
 FSN_GRU_BWD = ((8, 188, 1, 512), (8 * 257, 188, 1, 384))
+FSN_FULL_BAND_PLAN = (16, 32, 229376, 8)  # route A's cluster_fit at H = 512: CS, units, bytes a block, rows
 FSN_CALL_LAUNCHES = {"gru_sequence": 4}  # a forward, a hop or a server step: one a GRU layer
+FSN_RESIDENT = 2  # of them on route A: the full band's two
+ROUTE_KERNELS = {"resident": "gru_resident_kernel", "row-tiled": "gru_rows_kernel"}  # the forward's two routes
 FSN_STEP_LAUNCHES = {"gru_sequence": 4, "gru_sequence_bwd": 4}
 
 
@@ -635,19 +652,22 @@ def cuda_ms(fn, reps: int) -> float:
 GRU_DTYPES = ((None, F32_TOL, "f32"), (torch.bfloat16, BF16_TOL, "bf16 weights"))
 
 
-def check_gru_kernel(device, shapes=(CONFIG1_GRU, *STREAM_GRU, *RAGGED_GRU, *CLUSTER_GRU),
+def check_gru_kernel(device, shapes=(CONFIG1_GRU, *STREAM_GRU, *RAGGED_GRU, *CLUSTER_GRU, *ROWS_GRU),
                      dtypes=GRU_DTYPES) -> float:
-    """Both kernels (each where it takes the shape) vs the plain version on
+    """Both forward kernels (the row-tiled one at every R that fits, the
+    resident one where a cluster holds the weight) vs the plain version on
     the card at ``shapes`` with each of ``dtypes``' weights, and
     gru_sequence's choice between them; returns the largest f32 error."""
     worst = 0.0
     for shape in shapes:
         args = gru_inputs(*shape, device, SEED)
         for dtype, tol, what in dtypes:
-            fit, plan = cluster_fit(shape[3], dtype), resident_plan(*shape, dtype)
-            kernels = [("streamed", launch_streamed)] if shape[3] <= MAX_HIDDEN else []
+            fit, plan = cluster_fit(shape[3], dtype), forward_plan(*shape, dtype, device)
+            kernels = [(f"row-tiled (R={r})", lambda *a, r=r, **k: launch_streamed(*a, rows=r, **k))
+                       for r in ROW_TILES if rows_fit(shape[3], r, dtype)]
             if fit is not None:
-                kernels.append((f"resident (cluster of {fit[0]}, {fit[1]} units a block)", launch_resident))
+                kernels.append((f"resident (cluster of {fit.cs} x {fit.rows} rows, {fit.units} units a block)",
+                                launch_resident))
             with torch.inference_mode():
                 want = gru_sequence_reference(*args, weight_dtype=dtype)
                 for name, kernel in kernels:
@@ -664,14 +684,15 @@ def check_gru_kernel(device, shapes=(CONFIG1_GRU, *STREAM_GRU, *RAGGED_GRU, *CLU
                 took = gru_sequence.launches - before[0], gru_sequence.resident_launches - before[1]
                 require(took == (1, int(plan is not None)) and max_err(got, want) <= tol,
                         f"gru_sequence {what} {shape}: one launch, of the "
-                        f"{'streamed' if plan is None else 'resident'} kernel as planned")
+                        f"{'row-tiled' if plan is None else 'resident'} kernel as planned")
     return worst
 
 
 def time_gru_kernels(device, smi) -> dict:
     """Both kernels and the plain version at config 1's shape (ms; f32 and
     bf16 weights), and both kernels at the T=1 shapes; prints them. The two
-    kernels take turns (resident, streamed, streamed, resident) on one card."""
+    kernels take turns (resident, row-tiled, row-tiled, resident) on one
+    card; the row-tiled one at its planned R."""
     times = {}
     args = gru_inputs(*CONFIG1_GRU, device, SEED + 1)
     b, t, g, h = CONFIG1_GRU
@@ -683,7 +704,7 @@ def time_gru_kernels(device, smi) -> dict:
             fit = cluster_fit(h, dtype)
             print(f"gru_sequence B={b} T={t} G={g} H={h} {what} on {smi}: resident kernel (cluster of "
                   f"{fit[0]}, {fit[2]} B of shared memory a block) {turns[0]:.3f}, {turns[3]:.3f} ms; "
-                  f"streamed kernel {turns[1]:.3f}, {turns[2]:.3f} ms")
+                  f"row-tiled kernel (R={row_tile(b, g, h, dtype)}) {turns[1]:.3f}, {turns[2]:.3f} ms")
         times["plain"] = cuda_ms(lambda: gru_sequence_reference(*args), reps=2)
         times["routed"] = cuda_ms(lambda: gru_sequence(*args), reps=5)
         print(f"gru_sequence B={b} T={t} G={g} H={h} f32 on {smi}: as routed {times['routed']:.3f} ms, "
@@ -700,7 +721,7 @@ def time_gru_kernels(device, smi) -> dict:
             times[shape] = (turns[0][0] + turns[3][0]) / 2e3, (turns[1][0] + turns[2][0]) / 2e3
             print(f"gru_sequence B={shape[0]} T=1 G={shape[2]} H={shape[3]} f32 on {smi}, kernel's device "
                   f"time (host time a call): resident kernel {turns[0][0]:.2f} ({turns[0][1]:.1f}), "
-                  f"{turns[3][0]:.2f} ({turns[3][1]:.1f}) us; streamed kernel {turns[1][0]:.2f} "
+                  f"{turns[3][0]:.2f} ({turns[3][1]:.1f}) us; row-tiled kernel {turns[1][0]:.2f} "
                   f"({turns[1][1]:.1f}), {turns[2][0]:.2f} ({turns[2][1]:.1f}) us")
     return times
 
@@ -2820,31 +2841,67 @@ def library_gru_ms(shape, device, backward: bool) -> float:
     return cuda_ms(lambda: torch.autograd.grad(out, leaves, gy, retain_graph=True), reps=3)
 
 
+def fsn_forward_row(shape, route: str, device, smi) -> dict:
+    """One forward route alone at ``shape``: by CUDA events over whole
+    launches where T is long, and at a hop (T = 1, where the wrapper's host
+    time exceeds the kernel's) the kernels' device time from a profile; with
+    its plain version, its bound and cuDNN's ``nn.GRU`` at the same shape."""
+    b, t, g, h = shape
+    launch = launch_resident if route == "resident" else launch_streamed
+    x, h0, w, bias = gru_inputs(*shape, device, SEED + 40)
+    with torch.inference_mode():
+        if t > 1:
+            ms, host_us = cuda_ms(lambda: launch(x, h0, w, bias), reps=3), None
+        else:
+            device_us, host_us = launch_us(lambda: launch(x, h0, w, bias), reps=100)
+            ms = device_us / 1e3
+        plain_ms = cuda_ms(lambda: gru_sequence_reference(x, h0, w, bias), reps=1 if t > 1 else 20)
+    del x, h0, w, bias
+    torch.cuda.empty_cache()
+    row = {"shape": list(shape), "direction": "forward", "route": route, "ms": ms, "plain_ms": plain_ms,
+           **bound(4 * (b * t * g * 4 * h + 2 * b * g * h + g * 3 * h * h + g * 3 * h), b * t * g * 3 * h * h),
+           "library_ms": library_gru_ms(shape, device, backward=False)}
+    torch.cuda.empty_cache()
+    kernel = ROUTE_KERNELS[route]
+    detail = (f"cluster of 16 x {cluster_fit(h).rows} rows" if route == "resident"
+              else f"R={row_tile(b, g, h)}, {g * -(-b // row_tile(b, g, h))} blocks")
+    timing = (f"{ms:.3f} ms ({ms / t * 1e3:.2f} us a step)" if t > 1
+              else f"{ms * 1e3:.2f} us of device time (host {host_us:.1f} us a call)")
+    print(f"{kernel} ({route}, {detail}) B={b} T={t} G={g} H={h} f32 on {smi}: {timing}, bound "
+          f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}) = {row['bound_ms'] / ms:.1%}; plain "
+          f"{plain_ms:.3f} ms; cuDNN nn.GRU, one call (it also does the input projection; by CUDA events) "
+          f"{row['library_ms']:.3f} ms", flush=True)
+    return row
+
+
 def check_fullsubnet_gru(device, smi) -> tuple[float, list]:
-    """Parts (a) and (g): the GRU kernels at FullSubNet's offline (forward)
-    and training (backward) shapes, where no cluster holds the f32 weight,
-    against their plain versions, and ``gru_sequence`` / ``gru_sequence_bwd``
-    one launch each of the streamed kernel (``check_gru_kernel``,
-    ``check_gru_bwd``); then each streamed kernel alone by CUDA events, its
-    plain version, its bound and cuDNN's ``nn.GRU`` at the same shape.
-    Returns (the largest f32 error of the routed kernels, the rows)."""
-    for shape in FSN_GRU + FSN_GRU_BWD:
-        require(resident_plan(*shape) is None and resident_bwd_plan(*shape) is None and shape[3] <= MAX_HIDDEN,
-                f"FullSubNet GRU {shape}: no cluster holds the f32 weight either way, the streamed kernels take it")
-    worst = max(check_gru_kernel(device, FSN_GRU, GRU_DTYPES[:1]), check_gru_bwd(device, FSN_GRU_BWD))
-    rows = []
-    for shape in FSN_GRU:
-        b, t, g, h = shape
-        x, h0, w, bias = gru_inputs(*shape, device, SEED + 40)
-        with torch.inference_mode():
-            ms = cuda_ms(lambda: launch_streamed(x, h0, w, bias), reps=3)
-            plain_ms = cuda_ms(lambda: gru_sequence_reference(x, h0, w, bias), reps=1)
-        del x, h0, w, bias
-        torch.cuda.empty_cache()
-        rows.append({"shape": list(shape), "direction": "forward", "ms": ms, "plain_ms": plain_ms,
-                     **bound(4 * (b * t * g * 4 * h + 2 * b * g * h + g * 3 * h * h + g * 3 * h), b * t * g * 3 * h * h),
-                     "library_ms": library_gru_ms(shape, device, backward=False)})
-        torch.cuda.empty_cache()
+    """Parts (a) and (g): the GRU forward's routes as ``forward_plan`` names
+    them at FullSubNet's offline and hop shapes (route A, the resident kernel
+    at 16 blocks x 8 rows, for the full band; route B, the row-tiled kernel,
+    for the sub band), both routes at each of those shapes and the streamed
+    backward at its training shapes against their plain versions, and
+    ``gru_sequence`` / ``gru_sequence_bwd`` one launch each of the planned
+    kernel (``check_gru_kernel``, ``check_gru_bwd``); then each route alone
+    at its shapes (``fsn_forward_row``) and each backward by CUDA events,
+    with plain versions, bounds and cuDNN's ``nn.GRU``. Returns (the largest
+    f32 error of the kernels, the rows)."""
+    clusters = co_resident_clusters(device, FSN_GRU[0][3])
+    print(f"co-resident 16-block clusters of the resident kernel on {smi}: {clusters} at H = 512 (f32, 8 rows), "
+          f"{co_resident_clusters(device, FSN_GRU[1][3])} at H = 384 (16 rows); the plan's default "
+          f"{gru_kernel.H100_CLUSTERS}", flush=True)
+    for shape in (FSN_GRU[0], FSN_HOP_GRU[0]):
+        require(forward_plan(*shape, None, device) == FSN_FULL_BAND_PLAN,
+                f"FullSubNet full band {shape}: route A, 16 blocks x 8 rows, 32 units and 229,376 B a block")
+    for shape, rows in ((FSN_GRU[1], 32), (FSN_HOP_GRU[1], 8)):
+        require(forward_plan(*shape, None, device) is None and row_tile(shape[0], shape[2], shape[3]) == rows,
+                f"FullSubNet sub band {shape}: route B at R = {rows}")
+    for shape in FSN_GRU_BWD:
+        require(resident_bwd_plan(*shape) is None and shape[3] <= MAX_HIDDEN,
+                f"FullSubNet GRU backward {shape}: no cluster holds the f32 weight, the streamed kernel takes it")
+    worst = max(check_gru_kernel(device, FSN_GRU + FSN_HOP_GRU, GRU_DTYPES[:1]), check_gru_bwd(device, FSN_GRU_BWD))
+    rows = [fsn_forward_row(shape, route, device, smi) for shape, route in
+            ((FSN_GRU[0], "resident"), (FSN_GRU[1], "row-tiled"), (FSN_HOP_GRU[0], "resident"),
+             (FSN_HOP_GRU[1], "row-tiled"))]
     for shape in FSN_GRU_BWD:
         x, h0, w, bias, y, dy, hp = bwd_inputs(*shape, device, SEED + 41)
         outs = [torch.empty_like(x), torch.empty_like(x), torch.empty_like(h0)]
@@ -2853,31 +2910,30 @@ def check_fullsubnet_gru(device, smi) -> tuple[float, list]:
             plain_ms = cuda_ms(lambda: gru_backward_walk_reference(dy, None, x, h0, w, bias, y), reps=1)
         del x, h0, w, bias, y, dy, hp, outs
         torch.cuda.empty_cache()
-        rows.append({"shape": list(shape), "direction": "backward", "ms": ms, "plain_ms": plain_ms,
-                     **bwd_bound(*shape), "library_ms": library_gru_ms(shape, device, backward=True)})
+        row = {"shape": list(shape), "direction": "backward", "ms": ms, "plain_ms": plain_ms,
+               **bwd_bound(*shape), "library_ms": library_gru_ms(shape, device, backward=True)}
         torch.cuda.empty_cache()
-    for row in rows:
-        b, t, g, h = row["shape"]
-        kernel, library = (("gru_sequence_kernel", "cuDNN nn.GRU, one call (it also does the input projection)")
-                           if row["direction"] == "forward" else
-                           ("gru_bwd_kernel", "autograd.grad through cuDNN nn.GRU, one call (it also takes the input "
-                                              "projection's gradients)"))
-        print(f"{kernel} (streamed) B={b} T={t} G={g} H={h} f32 on {smi}: {row['ms']:.3f} ms "
+        b, t, g, h = shape
+        print(f"gru_bwd_kernel (streamed) B={b} T={t} G={g} H={h} f32 on {smi}: {row['ms']:.3f} ms "
               f"({row['ms'] / t * 1e3:.2f} us a step), bound {row['bound_ms']:.3f} ms ({row['bound_by']}) = "
-              f"{row['bound_ms'] / row['ms']:.1%}; plain {row['plain_ms']:.1f} ms; {library} "
-              f"{row['library_ms']:.3f} ms", flush=True)
+              f"{row['bound_ms'] / row['ms']:.1%}; plain {row['plain_ms']:.1f} ms; autograd.grad through cuDNN "
+              f"nn.GRU, one call (it also takes the input projection's gradients) {row['library_ms']:.3f} ms",
+              flush=True)
+        rows.append(row)
     return worst, rows
 
 
 def check_fullsubnet_offline(device, smi) -> int:
     """Part (b): ``FullSubNetConfig()`` (offline Laplace norm) on B=16 x 10 s
-    through ``complex_mask`` and ``auto``: 4 GRU launches a call (the
-    streamed kernel's), the waveform against the plain recurrence within
-    WAV_TOL; ms a call, x-realtime and peak memory; the GRU launches' device
-    time from a profile. Returns the launches of the checked calls."""
+    through ``complex_mask`` and ``auto``: 4 GRU launches a call, the full
+    band's 2 on route A (resident) and the sub band's 2 on route B
+    (row-tiled), the waveform against the plain recurrence within WAV_TOL;
+    ms a call, x-realtime and peak memory; the GRU launches' device time from
+    a trace that names both kernels. Returns the launches of the checked
+    calls: (all, resident)."""
     model = build_fullsubnet("offline_laplace_norm", device, SEED + 30).eval()
     x = torch.from_numpy(np.stack(noisy_utterances(SEED + 31, (FSN_SECONDS * SR,) * FSN_BATCH))).to(device)
-    launched = 0
+    launched = resident = 0
     for strategy in ("complex_mask", "auto"):
         inferencer = BatchInferencer(model, InferencerConfig(type=strategy, sr=SR, stft=StftConfig(**FSN_STFT)),
                                      device)
@@ -2887,9 +2943,12 @@ def check_fullsubnet_offline(device, smi) -> int:
         out = fn(x)
         torch.cuda.synchronize()
         got = counts()
-        require(got == {**{k: 0 for k in got}, **FSN_CALL_LAUNCHES} and gru_sequence.resident_launches == 0,
-                f"{what}: launches {({k: v for k, v in got.items() if v})} = {FSN_CALL_LAUNCHES}, none resident")
+        require(got == {**{k: 0 for k in got}, **FSN_CALL_LAUNCHES}
+                and gru_sequence.resident_launches == FSN_RESIDENT,
+                f"{what}: launches {({k: v for k, v in got.items() if v})} = {FSN_CALL_LAUNCHES}, "
+                f"{gru_sequence.resident_launches} of them resident = {FSN_RESIDENT}")
         launched += got["gru_sequence"]
+        resident += gru_sequence.resident_launches
         set_recurrence(model, gru_sequence_reference)
         plain = fn(x)
         set_recurrence(model, gru_sequence)
@@ -2915,19 +2974,23 @@ def check_fullsubnet_offline(device, smi) -> int:
 
             for attempt in range(TRIES):
                 events = kernel_events(two_calls, 1)
-                gru = [e["dur"] / 1e3 for e in events if "gru_sequence_kernel" in e["name"]]
-                if len(gru) == FSN_CALL_LAUNCHES["gru_sequence"]:
+                gru = {name: [e["dur"] / 1e3 for e in events if name in e["name"]]
+                       for name in ("gru_resident_kernel", "gru_rows_kernel")}
+                if [len(v) for v in gru.values()] == [FSN_RESIDENT, 4 - FSN_RESIDENT]:
                     break
-                print(f"trace {attempt + 1} of a call saw {len(gru)} gru_sequence_kernel launches", flush=True)
-            require(len(gru) == FSN_CALL_LAUNCHES["gru_sequence"]
-                    and not any("gru_resident_kernel" in e["name"] for e in events),
-                    f"{what}: a trace shows {len(gru)} gru_sequence_kernel launches a call = 4, none resident")
+                print(f"trace {attempt + 1} of a call saw {({k: len(v) for k, v in gru.items()})} GRU launches",
+                      flush=True)
+            require([len(v) for v in gru.values()] == [FSN_RESIDENT, 4 - FSN_RESIDENT],
+                    f"{what}: a trace shows {({k: len(v) for k, v in gru.items()})} GRU launches a call = "
+                    f"2 gru_resident_kernel (full band) + 2 gru_rows_kernel (sub band)")
             busy = sum(e["dur"] for e in events) / 1e3
-            print(f"{what} on {smi}: the 4 GRU launches {sum(gru):.3f} ms (" + ", ".join(f"{ms:.3f}" for ms in gru)
+            print(f"{what} on {smi}: the 4 GRU launches {sum(map(sum, gru.values())):.3f} ms (resident "
+                  + ", ".join(f"{ms:.3f}" for ms in gru["gru_resident_kernel"]) + "; row-tiled "
+                  + ", ".join(f"{ms:.3f}" for ms in gru["gru_rows_kernel"])
                   + f") of {busy:.3f} ms of device time in {len(events)} launches a call", flush=True)
     del x, model
     torch.cuda.empty_cache()
-    return launched
+    return launched, resident
 
 
 def check_fullsubnet_stream(model, device, smi) -> int:
@@ -2938,7 +3001,7 @@ def check_fullsubnet_stream(model, device, smi) -> int:
     recurrence (the kernel at T = 1, at (8, 1, 1, 512) and (2056, 1, 1, 384),
     which the offline checks do not reach); the B=1 hop's median latency and launches against the
     16 ms budget; B=64 x 10 s x-realtime; a profile of 20 B=1 hops. Returns
-    the checked stream's GRU launches."""
+    the checked stream's GRU launches (all, resident)."""
     cfg = StftConfig(**FSN_STFT, center=False)
     enh = StreamingEnhancer(model, cfg)
     adapter = forward_for_model(model)
@@ -2951,12 +3014,14 @@ def check_fullsubnet_stream(model, device, smi) -> int:
     wav = torch.from_numpy(np.stack(noisy_utterances(SEED + 33, (STREAM_SECONDS * SR,) * STREAM_BATCH))).to(device)
     what = f"FullSubNet stream B={STREAM_BATCH} x {STREAM_SECONDS} s"
     done = check_stream(enh, wav, offline, what, FSN_CALL_LAUNCHES)
-    require(gru_sequence.resident_launches == 0, f"{what}: every GRU launch the streamed kernel's")
+    require(gru_sequence.resident_launches * 4 == gru_sequence.launches * FSN_RESIDENT,
+            f"{what}: {gru_sequence.resident_launches} of the {gru_sequence.launches} GRU launches since the "
+            f"stream began resident, {FSN_RESIDENT} of 4 a hop (the full band)")
     set_recurrence(model, gru_sequence_reference)
     plain = enh.run(wav)
     set_recurrence(model, gru_sequence)
     err = float((done["stream"] - plain).abs().max())
-    require(err <= WAV_TOL, f"{what}, the streamed GRU kernel at T = 1 vs the plain recurrence: "
+    require(err <= WAV_TOL, f"{what}, both GRU routes at T = 1 vs the plain recurrence: "
             f"max-abs {err:.3g} <= {WAV_TOL}")
     hop = cfg.hop_length
     one = torch.from_numpy(noisy_utterances(SEED + 34, (2 * SR,))[0][None]).to(device)
@@ -2975,7 +3040,8 @@ def check_fullsubnet_stream(model, device, smi) -> int:
     print(f"FullSubNet stream B={FSN_RTF_BATCH} x {FSN_SECONDS} s on {smi}: {run_s * 1e3:.1f} ms = "
           f"{audio / run_s:.1f}x realtime", flush=True)
     profile_stream(enh, wav[:1])
-    return done["launches"]["gru_sequence"]
+    launched = done["launches"]["gru_sequence"]
+    return launched, launched * FSN_RESIDENT // 4
 
 
 def slot_rows(server, sid: int) -> list:
@@ -2993,8 +3059,8 @@ def check_fullsubnet_server(model, device, smi) -> int:
     reused, so its reset shows), fed a hop an iteration, every third
     iteration rationed to half the ready sessions (the others' slots must
     keep their state bit for bit), drained and closed; 4 GRU launches a
-    step; each session against itself streamed alone at B=1 within WAV_TOL.
-    Returns the launches."""
+    step, 2 of them resident; each session against itself streamed alone at
+    B=1 within WAV_TOL. Returns the GRU launches (all, resident)."""
     t0 = time.perf_counter()
     cfg = StftConfig(**FSN_STFT, center=False)
     server = StreamingServer(model, cfg, FSN_SLOTS, device=device)
@@ -3046,9 +3112,10 @@ def check_fullsubnet_server(model, device, smi) -> int:
     require(not moved, f"FullSubNet server: in {held_steps} rationed steps every slot left out kept its state bit for "
                        f"bit (moved: {moved[:5]})")
     want = {**{k: 0 for k in launched}, "gru_sequence": FSN_CALL_LAUNCHES["gru_sequence"] * server.steps}
-    require(launched == want and gru_sequence.resident_launches == 0,
+    resident = gru_sequence.resident_launches
+    require(launched == want and resident == FSN_RESIDENT * server.steps,
             f"FullSubNet server: {server.steps} steps launched {({k: v for k, v in launched.items() if v})} = "
-            f"{FSN_CALL_LAUNCHES['gru_sequence']} streamed GRU launches a step")
+            f"{FSN_CALL_LAUNCHES['gru_sequence']} GRU launches a step, {resident} resident = {FSN_RESIDENT} a step")
     enh = StreamingEnhancer(model, cfg)
     worst, whole = 0.0, True
     for s in sessions:
@@ -3059,7 +3126,7 @@ def check_fullsubnet_server(model, device, smi) -> int:
             f"input's length and within WAV_TOL of itself streamed alone at B=1: max-abs {worst:.3g}")
     print(f"FullSubNet server on {smi}: {len(sessions)} sessions, {server.steps} steps in {iteration} iterations, "
           f"{len(tree_leaves(server._state))} masked state leaves; {time.perf_counter() - t0:.2f} s", flush=True)
-    return launched["gru_sequence"]
+    return launched["gru_sequence"], resident
 
 
 def check_fullsubnet_training(device, smi) -> dict:
@@ -3068,13 +3135,14 @@ def check_fullsubnet_training(device, smi) -> dict:
     before each, its forward and backward with the kernels against the same
     with the plain recurrence (``check_trainer_step``'s tolerances: losses
     1e-5 relative, each gradient leaf relative 2e-3 or 3e-3 of the largest +
-    1e-3); each step 4 GRU forward and 4 backward launches, none resident;
-    ms a step and peak memory. Returns the steps' launches."""
+    1e-3); each step 4 GRU forward launches (2 resident, the full band) and
+    4 backward ones (none resident); ms a step and peak memory. Returns the
+    steps' launches, the resident forward's under "gru_resident"."""
     model = build_fullsubnet("cumulative_laplace_norm", device, SEED + 37)
     cfg = StepConfig(stft=StftConfig(**FSN_STFT), loss_weights=FSN_LOSSES)
     state = init_train_state(model, cfg, device)
     step = make_train_step(model, cfg)
-    launched = {name: 0 for name in COUNTERS}
+    launched = {name: 0 for name in COUNTERS} | {"gru_resident": 0}
     times, peaks = [], []
     for i in range(TRAIN_STEPS):
         data = noisy_clean_pairs(SEED + 38 + i, FSN_TRAIN_BATCH, FSN_TRAIN_SECONDS, device)
@@ -3106,9 +3174,11 @@ def check_fullsubnet_training(device, smi) -> dict:
         times.append((time.perf_counter() - t0) * 1e3)
         peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
         got = counts()
-        require(got == {**{k: 0 for k in got}, **FSN_STEP_LAUNCHES} and gru_sequence.resident_launches == 0
-                and gru_sequence_bwd.resident_launches == 0,
-                f"{what}: launches {({k: v for k, v in got.items() if v})} = {FSN_STEP_LAUNCHES}, none resident")
+        require(got == {**{k: 0 for k in got}, **FSN_STEP_LAUNCHES}
+                and gru_sequence.resident_launches == FSN_RESIDENT and gru_sequence_bwd.resident_launches == 0,
+                f"{what}: launches {({k: v for k, v in got.items() if v})} = {FSN_STEP_LAUNCHES}, "
+                f"{FSN_RESIDENT} forward ones resident, no backward one")
+        launched["gru_resident"] += gru_sequence.resident_launches
         require(all(math.isfinite(float(v)) for v in metrics.values()) and float(metrics["nonfinite_skipped"]) == 0,
                 f"{what}: finite losses and gradient norm")
         for name, v in got.items():
@@ -3159,15 +3229,16 @@ def check_fullsubnet_cli(device, smi, tmp: Path) -> None:
 
 def check_fullsubnet(device, smi) -> dict:
     """FullSubNet at its published widths (parts a to g, see the module doc).
-    Returns its launches and the GRU kernels' rows at its shapes."""
+    Returns its launches (the GRU forward's, and of them route A's under
+    "gru_resident") and the GRU kernels' rows at its shapes."""
     import tempfile
 
     t0 = time.perf_counter()
     gru_err, rows = check_fullsubnet_gru(device, smi)
-    offline = check_fullsubnet_offline(device, smi)
+    offline, offline_resident = check_fullsubnet_offline(device, smi)
     model = build_fullsubnet("cumulative_laplace_norm", device, SEED + 32).eval()
-    stream = check_fullsubnet_stream(model, device, smi)
-    server = check_fullsubnet_server(model, device, smi)
+    stream, stream_resident = check_fullsubnet_stream(model, device, smi)
+    server, server_resident = check_fullsubnet_server(model, device, smi)
     del model
     torch.cuda.empty_cache()
     train = check_fullsubnet_training(device, smi)
@@ -3177,6 +3248,7 @@ def check_fullsubnet(device, smi) -> dict:
     torch.cuda.empty_cache()
     print(f"FullSubNet phase: {time.perf_counter() - t0:.1f} s", flush=True)
     return {"gru_sequence": offline + stream + server + train["gru_sequence"],
+            "gru_resident": offline_resident + stream_resident + server_resident + train["gru_resident"],
             "gru_sequence_bwd": train["gru_sequence_bwd"], "gru_err": gru_err,
             "forward_rows": [r for r in rows if r["direction"] == "forward"],
             "backward_rows": [r for r in rows if r["direction"] == "backward"]}
@@ -4364,7 +4436,13 @@ def main() -> int:
          "resident_ms": gru_times["f32"][0], "streamed_ms": gru_times["f32"][1],
          "server_launches": server_launches["gru_sequence"], "artifact_launches": deploy_launches["gru_sequence"],
          "trainer_launches": trainer_launches["gru_sequence"], "features_launches": feature_launches["gru_sequence"],
-         "fullsubnet_launches": fsn["gru_sequence"], "fullsubnet_stages": fsn["forward_rows"]},
+         "fullsubnet_launches": fsn["gru_sequence"], "fullsubnet_stages": fsn["forward_rows"],
+         # the forward's two routes at FullSubNet's offline shapes, launches in its phase
+         "routes": [{"route": row["route"], "kernel": ROUTE_KERNELS[row["route"]],
+                     "launches": fsn["gru_resident"] if row["route"] == "resident"
+                     else fsn["gru_sequence"] - fsn["gru_resident"],
+                     **{key: row[key] for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+                    for row in fsn["forward_rows"] if row["shape"][1] > 1]},
         {"name": "gru_sequence_bwd", "route": "cuda", "source": "cruse_tpu_torch/ops/csrc/gru_bwd.cu",
          "replaces": "cruse_tpu/nn/gru.py:30 (no TPU kernel: the JAX step differentiates gru_scan)",
          "launches": cruse_launches["gru_sequence_bwd"] + cruse_df_launches["gru_sequence_bwd"]

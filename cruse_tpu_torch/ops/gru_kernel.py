@@ -8,15 +8,25 @@ applied), ``h0 [B, G, H]``, ``w_hh [G, 3H, H]``, ``b_hh [G, 3H]``; returns
 ``gru_sequence`` runs the plain version for tensors on the CPU and launches
 a hand-written kernel (``csrc/gru_sequence.cu``, one launch for all T steps)
 for tensors on a CUDA device; on a CUDA device it launches or raises. The
-source holds two kernels, and the shape alone decides which one runs
-(``resident_plan``):
+source holds two kernels, and the shape decides which one runs
+(``resident_plan``), with the card's count of co-resident 16-block clusters
+(``co_resident_clusters``, asked once a device and width) where a cluster of
+16 is the only fit:
 
-- the resident kernel keeps the recurrent weight in the shared memory of a
-  cluster of 1, 2, 4 or 8 thread blocks for all T steps. It takes every shape
-  whose slice of the weight fits a block's shared memory, from
-  ``RESIDENT_MIN_T`` steps on;
-- the streamed kernel reads the weight from L2 every step. It takes the rest
-  (hidden size per group up to ``MAX_HIDDEN``).
+- route A, the resident kernel, keeps the recurrent weight in the shared
+  memory of a cluster of 1, 2, 4 or 8 thread blocks at 16 batch rows a
+  cluster (CRUSE's H = 176: 2 blocks) or, where none of those holds it, of a
+  non-portable cluster of 16 blocks at 16 rows or else 8 (FullSubNet's full
+  band, H = 512 in f32: 16 blocks x 8 rows), for all T steps. It takes every
+  shape whose slice fits a block's shared memory, from ``RESIDENT_MIN_T``
+  steps on, and a cluster of 16 only where the launch's clusters run in few
+  waves (``HOP_CLUSTER_WAVES`` at T = 1, ``MAX_CLUSTER_WAVES`` over more steps);
+- route B, the row-tiled kernel, gives a block R = 8, 16 or 32 rows
+  (``row_tile``) and all H units of one group and streams the weight from L2
+  through a ring in shared memory every step (``rows_stages`` stages of
+  ``ROWS_CHUNK`` k rows). It takes the rest (hidden size
+  per group up to ``MAX_HIDDEN``; FullSubNet's sub band, its 257 bins folded
+  into the batch, at R = 32).
 
 ``gru_sequence.launches`` counts every kernel launch,
 ``gru_sequence.resident_launches`` those of the resident kernel.
@@ -48,20 +58,38 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from cruse_tpu_torch.ops import _build
 
-MAX_HIDDEN = 512  # streamed kernel: one thread per hidden unit (kMaxThreads in the source)
-STREAM_ROWS = 8  # streamed kernels, forward and backward: batch rows per block (kRows in both sources)
+MAX_HIDDEN = 512  # row-tiled kernel: the largest hidden size per group (kMaxHidden in the source)
+STREAM_ROWS = 8  # streamed backward kernel: batch rows per block (kRows in gru_bwd.cu)
 GRID_Y_LIMIT = 65535  # blocks a grid may have along y, where every launcher puts the batch's row tiles
-TILE_ROWS = 16  # resident kernel: batch rows per cluster (kTile)
 SHARED_LIMIT = 232448  # bytes of dynamic shared memory a block may have on sm_90 (kSharedLimit)
 CLUSTER_SIZES = (1, 2, 4, 8)  # 8 is the portable limit of a cluster
-UNIT_GROUP = 4  # resident kernel: units a thread multiplies, one 16-byte load of a gate's weights (kUnits)
+# resident forward: its (CS, rows a cluster) instances in the order the plan tries them, the portable
+# clusters at 16 rows, then 16 blocks (non-portable) at 16 rows and at 8
+RESIDENT_TILES = ((1, 16), (2, 16), (4, 16), (8, 16), (16, 16), (16, 8))
+# 16-block clusters of the resident kernel that an H100 runs at once, from cudaOccupancyMaxActiveClusters
+# at H = 512 and 384 in f32 (chip_smoke.py prints it); the plan's default where it is not asked the card
+H100_CLUSTERS = 7
+# waves of co-resident 16-block clusters the plan lets one launch take, at T = 1 and over more steps
+# (ops/gru_timing.py --sweep on an H100): a wave costs the resident kernel ~30 us to load the slices and 4.4-7.0 us
+# a step, the row-tiled kernel's ~12 us and 54-102 us a step. At T = 1 a third wave lost to the row-tiled kernel at
+# both of FullSubNet's widths (B = 128 at H = 512, B = 257 at 384); at T = 188, H = 384 the resident kernel won at
+# 5 waves and lost at 10, and at T = 626, H = 512 it still won at 10
+HOP_CLUSTER_WAVES, MAX_CLUSTER_WAVES = 2, 8
+UNIT_GROUP = 4  # both forward kernels: units a thread multiplies, one 16-byte load of a gate's weights (kUnits)
 MAX_UNITS = 96  # resident kernel: units a block owns, 4 threads a unit (kResidentThreads)
+MAX_UNITS_8 = 64  # and at 8 rows a cluster, where a block keeps 255 registers a thread (kResident8Threads)
+# the row-tiled kernel (the k-prefixed constants of csrc/gru_sequence.cu)
+ROW_TILES = (32, 16, 8)  # R, the batch rows a block, largest first
+ROWS_MAX_THREADS = 384  # threads, (R / 8) row groups x (Hp / 4) unit groups (kRowsMaxThreads)
+ROWS_CHUNK = 16  # k rows of the weight a stage of the ring holds (kChunk)
+ROWS_STAGES = (2, 8)  # stages of the ring: as many as shared memory holds beside the tile (kMinStages, kMaxStages)
+NUM_SMS = 132  # an H100's SMs: the wave row_tile fills
 # The least T that takes the resident kernel. Its start-up (a block loads its
 # slice of the weight, up to 186 KB, into shared memory) is paid once a launch,
 # and still it wins at one step: on an H100 at T = 1, G = 4, H = 176 and B = 256,
@@ -162,29 +190,95 @@ def _check_shapes(x_proj, h0, w_hh, b_hh, weight_dtype):
         raise ValueError(f"gru_sequence runs on cpu or cuda tensors, got {x_proj.device}")
 
 
+class ResidentFit(NamedTuple):
+    """A resident-forward instance at one hidden size: ``cs`` blocks a
+    cluster of ``units`` hidden units each, ``nbytes`` of shared memory a
+    block, ``rows`` batch rows a cluster."""
+    cs: int
+    units: int
+    nbytes: int
+    rows: int
+
+
 def cluster_fit(h, weight_dtype=None):
-    """``(CS, U, shared-memory bytes)``: the smallest cluster size whose block
-    holds its slice of the weight, ``[H][3][U]`` with ``U = ceil(H / CS)``
-    units rounded up to a multiple of ``UNIT_GROUP``, plus the double-buffered
-    state tile ``[2][H][TILE_ROWS]`` in float32, within ``SHARED_LIMIT``, with
-    at most ``MAX_UNITS`` units a block; None where no cluster does."""
+    """The first of ``RESIDENT_TILES`` whose block holds its slice of the
+    weight, ``[H][3][U]`` with ``U = ceil(H / CS)`` units rounded up to a
+    multiple of ``UNIT_GROUP``, plus the double-buffered state tile
+    ``[2][H][rows]`` in float32, within ``SHARED_LIMIT``, with at most
+    ``MAX_UNITS`` units a block (``MAX_UNITS_8`` at 8 rows) (a
+    ``ResidentFit``); None where none does."""
     itemsize = 2 if weight_dtype == torch.bfloat16 else 4
-    for cs in CLUSTER_SIZES:
+    for cs, rows in RESIDENT_TILES:
         u = -(-h // (cs * UNIT_GROUP)) * UNIT_GROUP
-        nbytes = -(-h * 3 * u * itemsize // 16) * 16 + 2 * h * TILE_ROWS * 4
-        if nbytes <= SHARED_LIMIT and u <= MAX_UNITS:
-            return cs, u, nbytes
+        nbytes = -(-h * 3 * u * itemsize // 16) * 16 + 2 * h * rows * 4
+        if nbytes <= SHARED_LIMIT and u <= (MAX_UNITS if rows == 16 else MAX_UNITS_8):
+            return ResidentFit(cs, u, nbytes, rows)
     return None
 
 
-def resident_plan(b, t, g, h, weight_dtype=None):
+def resident_plan(b, t, g, h, weight_dtype=None, clusters=H100_CLUSTERS):
     """``cluster_fit`` of the resident kernel where this shape takes it, None
-    where the streamed kernel runs (too few steps, or no cluster holds the
-    weight). b and g only size the grid: ``CS * g`` by ``ceil(b / TILE_ROWS)``
+    where the row-tiled kernel runs: too few steps, no cluster holds the
+    weight, or a cluster of 16 whose launch, ``g * ceil(b / rows)`` clusters,
+    would take more waves of the ``clusters`` the card runs at once
+    (``co_resident_clusters``; 0 where it schedules none: then never) than
+    ``HOP_CLUSTER_WAVES`` at T = 1 or ``MAX_CLUSTER_WAVES`` over more steps.
+    b and g otherwise only size the grid: ``CS * g`` by ``ceil(b / rows)``
     blocks."""
     if t < RESIDENT_MIN_T or min(b, g, h) < 1:
         return None
-    return cluster_fit(h, weight_dtype)
+    fit = cluster_fit(h, weight_dtype)
+    waves = HOP_CLUSTER_WAVES if t == 1 else MAX_CLUSTER_WAVES
+    if fit is not None and fit.cs > CLUSTER_SIZES[-1] and g * -(-b // fit.rows) > waves * clusters:
+        return None
+    return fit
+
+
+def padded_units(h: int, weight_dtype=None) -> int:
+    """The row-tiled kernel's units of a weight row, H rounded up to a
+    multiple of 4 (f32) or 8 (bf16), so that a k row of the three gates is a
+    whole number of 16-byte chunks."""
+    m = 8 if weight_dtype == torch.bfloat16 else 4
+    return -(-h // m) * m
+
+
+def rows_threads(h: int, rows: int, weight_dtype=None) -> int:
+    """Threads of a row-tiled block: (R / 8) row groups x (Hp / 4) unit
+    groups, rounded up to warps."""
+    return -(-(rows // 8) * (padded_units(h, weight_dtype) // UNIT_GROUP) // 32) * 32
+
+
+def _rows_stage_bytes(h: int, weight_dtype=None) -> int:
+    """A stage of the row-tiled kernel's ring, ``[ROWS_CHUNK][3][Hp]``
+    weights, with its two mbarriers."""
+    itemsize = 2 if weight_dtype == torch.bfloat16 else 4
+    return ROWS_CHUNK * 3 * padded_units(h, weight_dtype) * itemsize + 16
+
+
+def rows_stages(h: int, rows: int, weight_dtype=None) -> int:
+    """The row-tiled kernel's ring depth: as many stages as ``SHARED_LIMIT``
+    holds beside the state tile ``[H][R]`` f32, at most ``ROWS_STAGES[1]``."""
+    return min(ROWS_STAGES[1], max(0, SHARED_LIMIT - h * rows * 4) // _rows_stage_bytes(h, weight_dtype))
+
+
+def rows_fit(h: int, rows: int, weight_dtype=None) -> bool:
+    """Whether a row-tiled block of ``rows`` rows fits at hidden size h: at
+    most ``ROWS_MAX_THREADS`` threads and a ring of ``ROWS_STAGES[0]`` or more."""
+    return (rows in ROW_TILES and 1 <= h <= MAX_HIDDEN and rows_threads(h, rows, weight_dtype) <= ROWS_MAX_THREADS
+            and rows_stages(h, rows, weight_dtype) >= ROWS_STAGES[0])
+
+
+def row_tile(b: int, g: int, h: int, weight_dtype=None, sms: int = NUM_SMS) -> int:
+    """R of the row-tiled kernel for this shape: of the tiles that fit, the
+    one with the fewest rows times waves of ``sms`` blocks (a block an SM,
+    its step counted in proportion to its rows), the largest of those that
+    tie, since each block reads the whole weight every step. At
+    FullSubNet's sub band, B = 4112: R = 32, 129 blocks; B = 2056: 16, 129;
+    B = 257: 8, 33."""
+    fits = [r for r in ROW_TILES if rows_fit(h, r, weight_dtype)]
+    if not fits:
+        raise ValueError(f"no row tile of {ROW_TILES} fits hidden size per group {h} (at most {MAX_HIDDEN})")
+    return min(fits, key=lambda r: (-(-g * -(-b // r) // sms) * r, -r))
 
 
 def slice_stride(u: int) -> int:
@@ -245,12 +339,42 @@ def _kernels() -> dict:
     lib = _build.load_library("gru_sequence")
     kernels = {}
     for suffix in set(_WEIGHT_DTYPES.values()):
-        for name, ints in ((f"gru_sequence_{suffix}", 4), (f"gru_resident_{suffix}", 5)):
+        for name, ints in ((f"gru_sequence_{suffix}", 5), (f"gru_resident_{suffix}", 6)):
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * ints + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             kernels[name] = fn
+    fn = lib.gru_resident_clusters
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    kernels["gru_resident_clusters"] = fn
     return kernels
+
+
+@functools.lru_cache(maxsize=None)
+def co_resident_clusters(device: torch.device, h: int, weight_dtype=None) -> int:
+    """How many clusters of the resident kernel's instance at hidden size h
+    (``cluster_fit``: 16 blocks) the card runs at once, from
+    ``cudaOccupancyMaxActiveClusters`` at its block size and shared memory;
+    asked once a device and width. 0 where the card schedules none."""
+    fit = cluster_fit(h, weight_dtype)
+    count = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = _kernels()["gru_resident_clusters"](int(weight_dtype == torch.bfloat16), h, fit.cs, fit.rows,
+                                                  ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with CUDA error {err} "
+                           f"(H={h}, CS={fit.cs}, rows={fit.rows})")
+    return count.value
+
+
+def forward_plan(b, t, g, h, weight_dtype, device: torch.device):
+    """``resident_plan`` on a CUDA device: the card's own count of
+    co-resident clusters where the fit is a cluster of 16."""
+    fit = cluster_fit(h, weight_dtype)
+    if fit is None or fit.cs <= CLUSTER_SIZES[-1]:
+        return resident_plan(b, t, g, h, weight_dtype)
+    return resident_plan(b, t, g, h, weight_dtype, co_resident_clusters(device, h, weight_dtype))
 
 
 def _cached_layout(w_hh: torch.Tensor, slot: str, key: tuple, make) -> torch.Tensor:
@@ -272,10 +396,17 @@ def _cached_layout(w_hh: torch.Tensor, slot: str, key: tuple, make) -> torch.Ten
 
 
 def transposed_weight(w_hh: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``w_hh [G, 3H, H]`` as the streamed kernel reads it, ``[G, H, 3H]`` in
-    ``dtype`` (cached on the weight, see ``_cached_layout``)."""
-    return _cached_layout(w_hh, "_gru_transposed", (dtype,),
-                          lambda: w_hh.transpose(1, 2).contiguous().to(dtype))
+    """``w_hh [G, 3H, H]`` as the row-tiled kernel reads it, ``[G, H, 3 * Hp]``
+    in ``dtype``: ``[g, k, gate * Hp + j]`` is ``w_hh[g, gate * H + j, k]``,
+    zero for ``j >= H`` (``Hp = padded_units(H, dtype)``; where ``Hp = H`` it
+    is ``w_hh`` transposed) (cached on the weight, see ``_cached_layout``)."""
+    def make():
+        g, h3, h = w_hh.shape
+        w = w_hh.reshape(g, 3, h, h)  # [g, gate, unit, k]
+        w = torch.nn.functional.pad(w, (0, 0, 0, padded_units(h, dtype) - h))
+        return w.permute(0, 3, 1, 2).reshape(g, h, -1).contiguous().to(dtype)
+
+    return _cached_layout(w_hh, "_gru_transposed", (dtype,), make)
 
 
 def packed_weight(w_hh: torch.Tensor, dtype: torch.dtype, cs: int) -> torch.Tensor:
@@ -309,11 +440,12 @@ def packed_weight_bwd(w_hh: torch.Tensor, cs: int) -> torch.Tensor:
 
 def grid_rows(b: int, rows: int) -> int:
     """The blocks a launch puts along the grid's y axis for B batch rows,
-    ``rows`` to a block (``STREAM_ROWS`` for the streamed kernels,
-    ``TILE_ROWS`` for the resident forward, R of ``bwd_fit_at`` for the
-    resident backward): ``ceil(B / rows)``. Raises ``ValueError`` past
-    ``GRID_Y_LIMIT``: FullSubNet folds its sub-band units into the batch,
-    so a pool of 2,048 slots at 257 bins would ask for 65,792."""
+    ``rows`` to a block (``row_tile`` for the row-tiled forward, the fit's
+    rows for the resident forward, ``STREAM_ROWS`` for the streamed backward,
+    R of ``bwd_fit_at`` for the resident backward): ``ceil(B / rows)``. Raises
+    ``ValueError`` past ``GRID_Y_LIMIT``: FullSubNet folds its sub-band units
+    into the batch, so a pool of 2,048 slots at 257 bins would ask for 65,792
+    blocks of 8 rows."""
     blocks = -(-b // rows)
     if blocks > GRID_Y_LIMIT:
         raise ValueError(f"B={b} needs {blocks} blocks of {rows} rows along the grid's y axis, "
@@ -374,29 +506,34 @@ def _run(entry: str, x_proj, h0, weight, b_hh, ints: tuple):
     return y, h_last
 
 
-def launch_streamed(x_proj, h0, w_hh, b_hh, weight_dtype=None):
-    """The streamed kernel on CUDA tensors, whatever the shape's plan says."""
+def launch_streamed(x_proj, h0, w_hh, b_hh, weight_dtype=None, rows=None):
+    """The row-tiled kernel on CUDA tensors, whatever the shape's plan says,
+    at ``rows`` batch rows a block (default ``row_tile``'s); raises where that
+    tile does not fit the hidden size."""
     _check_shapes(x_proj, h0, w_hh, b_hh, weight_dtype)
-    b, t, g, h = _check_launch(x_proj, h0, w_hh, b_hh, weight_dtype, STREAM_ROWS)
-    if h > MAX_HIDDEN:
-        raise ValueError(f"hidden size per group {h} > {MAX_HIDDEN}, the streamed kernel's "
-                         f"limit, and no cluster of up to {CLUSTER_SIZES[-1]} blocks holds its weight")
+    b, t, g, h3 = x_proj.shape
+    h = h3 // 3
+    rows = row_tile(b, g, h, weight_dtype) if rows is None else rows
+    if not rows_fit(h, rows, weight_dtype):
+        raise ValueError(f"the row-tiled kernel takes no tile of {rows} rows at hidden size per group {h} "
+                         f"(R in {ROW_TILES}, H <= {MAX_HIDDEN}, {ROWS_MAX_THREADS} threads, {SHARED_LIMIT} B)")
+    b, t, g, h = _check_launch(x_proj, h0, w_hh, b_hh, weight_dtype, rows)
     w_t = transposed_weight(w_hh, weight_dtype or torch.float32)
-    return _run(f"gru_sequence_{_WEIGHT_DTYPES[weight_dtype]}", x_proj, h0, w_t, b_hh, (b, t, g, h))
+    return _run(f"gru_sequence_{_WEIGHT_DTYPES[weight_dtype]}", x_proj, h0, w_t, b_hh, (b, t, g, h, rows))
 
 
 def launch_resident(x_proj, h0, w_hh, b_hh, weight_dtype=None):
-    """The resident kernel on CUDA tensors, whatever T; raises where no cluster
-    holds the weight."""
+    """The resident kernel on CUDA tensors, whatever T and however many
+    clusters; raises where no cluster holds the weight."""
     _check_shapes(x_proj, h0, w_hh, b_hh, weight_dtype)
     fit = cluster_fit(x_proj.shape[-1] // 3, weight_dtype)
     if fit is None:
-        raise ValueError(f"no cluster of up to {CLUSTER_SIZES[-1]} blocks holds the recurrent "
+        raise ValueError(f"no cluster of up to {RESIDENT_TILES[-1][0]} blocks holds the recurrent "
                          f"weight of hidden size per group {x_proj.shape[-1] // 3} in shared memory")
-    b, t, g, h = _check_launch(x_proj, h0, w_hh, b_hh, weight_dtype, TILE_ROWS)
-    w_packed = packed_weight(w_hh, weight_dtype or torch.float32, fit[0])
+    b, t, g, h = _check_launch(x_proj, h0, w_hh, b_hh, weight_dtype, fit.rows)
+    w_packed = packed_weight(w_hh, weight_dtype or torch.float32, fit.cs)
     out = _run(f"gru_resident_{_WEIGHT_DTYPES[weight_dtype]}", x_proj, h0, w_packed, b_hh,
-               (b, t, g, h, fit[0]))
+               (b, t, g, h, fit.cs, fit.rows))
     gru_sequence.resident_launches += 1
     return out
 
@@ -510,13 +647,14 @@ def _runs_plain(x_proj) -> bool:
 def _forward_impl(x_proj: torch.Tensor, h0: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
                   weight_dtype: Optional[torch.dtype] = None) -> tuple[torch.Tensor, torch.Tensor]:
     """The forward on tensors with storage: the plain version on CPU tensors,
-    on CUDA tensors the kernel that ``resident_plan`` picks (it launches or
+    on CUDA tensors the kernel that ``forward_plan`` picks (it launches or
     raises)."""
     if _runs_plain(x_proj):
         y, h_last = gru_sequence_reference(x_proj, h0, w_hh, b_hh, weight_dtype)
         return y.contiguous(), h_last.contiguous()
     b, t, g, h3 = x_proj.shape
-    launch = launch_streamed if resident_plan(b, t, g, h3 // 3, weight_dtype) is None else launch_resident
+    resident = forward_plan(b, t, g, h3 // 3, weight_dtype, x_proj.device) is not None
+    launch = launch_resident if resident else launch_streamed
     return launch(x_proj, h0, w_hh, b_hh, weight_dtype)
 
 

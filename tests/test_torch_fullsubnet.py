@@ -298,28 +298,96 @@ def test_weights_round_trip_and_flax_paths(rng):
 
 @pytest.mark.parametrize("h", [512, 384], ids=["full_band", "sub_band"])
 def test_published_widths_take_the_streamed_kernels(h):
-    """No cluster holds an f32 weight of H = 512 or 384 in shared memory, in
-    either direction, so the streamed kernels run FullSubNet's GRUs."""
+    """The backward: no cluster of up to 8 holds an f32 weight of H = 512 or
+    384 with a dhp tile, so the streamed backward runs both widths. The
+    forward: the full band's rows (B = 16, 8 or 1) take the resident kernel
+    at 16 blocks x 8 rows; the sub band's (its 257 bins folded into the batch)
+    would need more waves of the 7 16-block clusters an H100 runs at once
+    than the plan allows (2 at T = 1, 8 over more steps), so the row-tiled
+    kernel takes them."""
     for b, t in ((16, 626), (16 * 257, 626), (8 * 257, 188), (1, 1)):
-        assert gru_kernel.resident_plan(b, t, 1, h) is None
         assert gru_kernel.resident_bwd_plan(b, t, 1, h) is None
-    assert gru_kernel.cluster_fit(h) is None and gru_kernel.bwd_cluster_fit(h) is None
-    assert h <= gru_kernel.MAX_HIDDEN
+    assert gru_kernel.bwd_cluster_fit(h) is None and h <= gru_kernel.MAX_HIDDEN
+    for b, t in ((16, 626), (8, 188), (8, 1), (1, 1)):
+        plan = gru_kernel.resident_plan(b, t, 1, h)
+        if h == 512:
+            assert plan == (16, 32, 229376, 8)
+        else:  # a lone 16-row tile of 16 blocks would take it, but FullSubNet's sub band is never that few rows
+            assert plan == (16, 24, 159744, 16)
+    for b, t in ((16 * 257, 626), (8 * 257, 188), (257, 1)):
+        assert gru_kernel.resident_plan(b, t, 1, h) is None
+
+
+@pytest.mark.parametrize("shape, route, rows, blocks", [
+    ((16, 626, 1, 512), "resident", 8, 2 * 16),  # full band offline: 2 clusters of 16 blocks
+    ((8, 188, 1, 512), "resident", 8, 16),  # in the train step, and the 8-slot server's hop
+    ((8, 1, 1, 512), "resident", 8, 16),
+    ((1, 1, 1, 512), "resident", 8, 16),  # the B=1 hop
+    ((16 * 257, 626, 1, 384), "rows", 32, 129),  # sub band offline
+    ((8 * 257, 188, 1, 384), "rows", 16, 129),  # in the train step
+    ((257, 1, 1, 384), "rows", 8, 33),  # the B=1 hop
+])
+def test_fullsubnet_forward_routes(shape, route, rows, blocks):
+    """The plan at FullSubNet's shapes with the H100's co-resident count as
+    the default: route A (16 blocks x 8 rows, 229,376 B) for the full band,
+    route B with its R and grid for the sub band; config 1 keeps its plan."""
+    b, t, g, h = shape
+    plan = gru_kernel.resident_plan(*shape)
+    if route == "resident":
+        assert plan == (16, 32, 229376, 8) and plan.rows == rows
+        assert plan.cs * g * gru_kernel.grid_rows(b, plan.rows) == blocks
+    else:
+        assert plan is None and gru_kernel.row_tile(b, g, h) == rows
+        assert g * gru_kernel.grid_rows(b, rows) == blocks
+    assert gru_kernel.resident_plan(256, 1001, 4, 176) == (2, 88, 208384, 16)
+
+
+@pytest.mark.parametrize("clusters, hop, sequence", [(0, 0, 0), (1, 16, 64), (2, 32, 128), (7, 112, 448)])
+def test_co_resident_count_decides_route_a(clusters, hop, sequence):
+    """The plan takes a cluster of 16 only where the launch's clusters run in
+    at most HOP_CLUSTER_WAVES = 2 waves of the count it is given at T = 1,
+    MAX_CLUSTER_WAVES = 8 over more steps (8 rows a cluster at H = 512):
+    never where the card schedules no 16-block cluster; the plans of
+    portable clusters ignore the count."""
+    assert (gru_kernel.HOP_CLUSTER_WAVES, gru_kernel.MAX_CLUSTER_WAVES) == (2, 8)
+    for b in (1, 8, 16, 24, 32, 64, 112, 120, 128, 448, 456):
+        for t, limit in ((1, hop), (188, sequence)):
+            want = (16, 32, 229376, 8) if b <= limit else None
+            assert gru_kernel.resident_plan(b, t, 1, 512, clusters=clusters) == want, (b, t)
+    assert gru_kernel.resident_plan(256, 1001, 4, 176, clusters=clusters) == (2, 88, 208384, 16)
+
+
+def test_forward_takes_the_planned_route(rng, monkeypatch):
+    """_forward_impl on (stand-in) CUDA tensors: the launcher that
+    forward_plan names, with the card's count (stood in) where the fit is a
+    cluster of 16, and no other."""
+    seen = []
+    monkeypatch.setattr(gru_kernel, "_runs_plain", lambda x: False)
+    monkeypatch.setattr(gru_kernel, "co_resident_clusters", lambda device, h, dtype: seen.append(h) or 1)
+    monkeypatch.setattr(gru_kernel, "launch_resident", lambda *a, **k: ("resident",))
+    monkeypatch.setattr(gru_kernel, "launch_streamed", lambda *a, **k: ("rows",))
+    for (b, h), want in (((16, 512), "resident"), ((17, 512), "rows"), ((3, 384), "resident"),
+                         ((33, 384), "rows"), ((5, 176), "resident")):
+        x = torch.zeros(b, 1, 1, 3 * h)  # a hop: 2 waves of the one cluster stood in
+        args = (x, torch.zeros(b, 1, h), torch.zeros(1, 3 * h, h), torch.zeros(1, 3 * h))
+        assert gru_kernel._forward_impl(*args) == (want,)
+    assert seen == [512, 512, 384, 384]  # portable clusters ask nothing
 
 
 def test_grid_limit_of_the_gru_launches():
-    """grid_rows: ceil(B / rows a block) along y, rows 8 for the streamed
-    kernels, 16 for the resident forward, R for the resident backward; past
-    65,535 blocks a ValueError, as the attention and TFCM launchers do."""
-    streamed, resident = gru_kernel.STREAM_ROWS, gru_kernel.TILE_ROWS
-    bwd = gru_kernel.bwd_cluster_fit(176)[2]
-    assert (streamed, resident) == (8, 16)
+    """grid_rows: ceil(B / rows a block) along y, rows R for the row-tiled
+    forward, the fit's rows for the resident forward, 8 for the streamed
+    backward, R for the resident backward; past 65,535 blocks a ValueError,
+    as the attention and TFCM launchers do."""
+    streamed, bwd = gru_kernel.STREAM_ROWS, gru_kernel.bwd_cluster_fit(176)[2]
+    assert streamed == 8 and gru_kernel.cluster_fit(176).rows == 16 and gru_kernel.cluster_fit(512).rows == 8
+    assert gru_kernel.grid_rows(16 * 257, 32) == 129
     assert gru_kernel.grid_rows(16 * 257, streamed) == 514
     assert gru_kernel.grid_rows(8 * 65535, streamed) == 65535
-    assert gru_kernel.grid_rows(16 * 65535, resident) == 65535
+    assert gru_kernel.grid_rows(32 * 65535, 32) == 65535
     assert gru_kernel.grid_rows(bwd * 65535, bwd) == 65535
-    for b, rows in ((8 * 65535 + 1, streamed), (16 * 65535 + 1, resident), (bwd * 65535 + 1, bwd),
-                    (2048 * 257, streamed)):
+    for b, rows in ((8 * 65535 + 1, streamed), (16 * 65535 + 1, 16), (bwd * 65535 + 1, bwd),
+                    (2048 * 257, streamed), (32 * 65535 + 1, 32)):
         with pytest.raises(ValueError, match="65535"):
             gru_kernel.grid_rows(b, rows)
 
@@ -328,7 +396,7 @@ def test_launchers_check_the_grid_before_they_launch(monkeypatch):
     """Both forward launchers and both backward launchers refuse a batch past
     the grid limit: their tensor checks run on meta tensors (no storage, so
     no kernel could be reached), with the device check patched to pass."""
-    b, h = 8 * 65535 + 1, 384
+    b, h = 32 * 65535 + 1, 384  # the row-tiled forward's largest tile, R = 32, at this B
     x = torch.empty(b, 1, 1, 3 * h, device="meta")
     monkeypatch.setattr(torch.Tensor, "device", property(lambda self: torch.device("cuda", 0)))
     h0, w, bias = torch.empty(b, 1, h, device="meta"), torch.empty(1, 3 * h, h, device="meta"), \

@@ -22,7 +22,8 @@ from cruse_tpu_torch.nn.gru import GGRUBottleneck, GroupedGRULayer, channel_shuf
 from cruse_tpu_torch.ops import _build
 from cruse_tpu_torch.ops import gru_kernel
 from cruse_tpu_torch.ops.gru_kernel import (
-    RESIDENT_MIN_T, SHARED_LIMIT, gru_sequence, gru_sequence_reference, packed_weight, resident_plan)
+    RESIDENT_MIN_T, SHARED_LIMIT, gru_sequence, gru_sequence_reference, packed_weight, resident_plan,
+    transposed_weight)
 
 
 def _gru_inputs(rng, b, t, g, h):
@@ -134,10 +135,12 @@ def test_transposed_weight_cache_invalidates():
     ((5, 6, 2, 256), None, 4, 64),
     ((3, 5, 2, 350), None, 8, 44),
     ((3, 5, 2, 384), torch.bfloat16, 8, 48),
+    ((3, 5, 2, 384), None, 16, 24),  # f32: no cluster of 8 holds [384][3][48]; 16 blocks at 16 rows do
+    ((13, 5, 2, 500), torch.bfloat16, 16, 32),
 ])
 def test_resident_plan(shape, dtype, cs, units):
     plan = resident_plan(*shape, dtype)
-    assert plan[:2] == (cs, units)
+    assert plan[:2] == (cs, units) and plan.rows == 16
     h, itemsize = shape[3], 2 if dtype == torch.bfloat16 else 4
     assert plan[2] == -(-h * 3 * units * itemsize // 16) * 16 + 2 * h * 16 * 4 <= SHARED_LIMIT == 232448
     assert cs * units >= h > (cs - 1) * units  # every block of the cluster owns a unit
@@ -149,22 +152,27 @@ def test_resident_plan(shape, dtype, cs, units):
 
 
 @pytest.mark.parametrize("shape, dtype", [
-    ((3, 5, 2, 384), None),  # float32: 8 blocks cannot hold [384][3][48]
-    ((3, 5, 2, 500), None), ((3, 5, 2, 500), torch.bfloat16),
+    ((16 * 64, 5, 1, 384), None),  # float32 fits 16 blocks at 16 rows, but 64 clusters take 10 waves of 7
+    ((3, 5, 2, 600), None), ((16 * 64, 5, 1, 500), torch.bfloat16),  # no cluster holds it; 64 clusters of 16
     ((256, RESIDENT_MIN_T - 1, 4, 176), None),  # fewer steps than the resident kernel's least
 ])
 def test_resident_plan_none_takes_streamed_kernel(shape, dtype):
+    """The row-tiled kernel takes these; with 12 co-resident clusters (8
+    waves of them) the launches that fit 16 blocks take the resident kernel."""
     assert resident_plan(*shape, dtype) is None
+    if shape[3] != 600 and shape[1] >= RESIDENT_MIN_T:
+        assert resident_plan(*shape, dtype, clusters=12).cs == 16
 
 
 def test_resident_min_t_routes(monkeypatch):
     """Below the least T the plan is None whatever fits; from it on, the fit."""
     monkeypatch.setattr(gru_kernel, "RESIDENT_MIN_T", 3)
     assert resident_plan(256, 2, 4, 176) is None
-    assert resident_plan(256, 3, 4, 176) == gru_kernel.cluster_fit(176) == (2, 88, 208384)
+    assert resident_plan(256, 3, 4, 176) == gru_kernel.cluster_fit(176) == (2, 88, 208384, 16)
 
 
-@pytest.mark.parametrize("g, h, cs", [(2, 8, 1), (3, 10, 4), (2, 5, 4), (1, 13, 2), (2, 7, 8)])
+@pytest.mark.parametrize("g, h, cs", [(2, 8, 1), (3, 10, 4), (2, 5, 4), (1, 13, 2), (2, 7, 8), (1, 70, 16),
+                                      (2, 33, 16)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_packed_weight_matches_indexing(rng, g, h, cs, dtype):
     """[g, c, k, gate, u] is w_hh[g, gate * H + c * U + u, k]; the padding is zero."""
@@ -237,16 +245,129 @@ def _recurrence_by_slices(x_proj, h0, w_hh, b_hh, cs, parts=8):
 
 
 @pytest.mark.parametrize("shape, cs", [((3, 9, 2, 8), 1), ((3, 9, 2, 8), 2), ((2, 6, 3, 10), 4),
-                                       ((17, 4, 1, 13), 2), ((2, 5, 2, 5), 4), ((2, 5, 1, 37), 8)])
+                                       ((17, 4, 1, 13), 2), ((2, 5, 2, 5), 4), ((2, 5, 1, 37), 8),
+                                       # 16 blocks at 16 rows (8 k parts), and at 8 rows (16 k parts)
+                                       ((5, 6, 1, 70), (16, 16)), ((11, 5, 2, 40), (16, 8))])
 def test_recurrence_by_unit_slices_matches_reference_and_jax(rng, shape, cs):
+    cs, rows = cs if isinstance(cs, tuple) else (cs, 16)
     args = _gru_inputs(rng, *shape)
-    y, h = _recurrence_by_slices(*_torch(args), cs)
+    y, h = _recurrence_by_slices(*_torch(args), cs, parts=8 if rows == 16 else 16)
     y_ref, h_ref = gru_sequence_reference(*_torch(args))
     y_jax, h_jax = jax_gru_scan(*_jax(args))
     np.testing.assert_allclose(y.numpy(), y_ref.numpy(), atol=1e-5)
     np.testing.assert_allclose(h.numpy(), h_ref.numpy(), atol=1e-5)
     np.testing.assert_allclose(y.numpy(), np.asarray(y_jax), atol=1e-5)
     np.testing.assert_allclose(h.numpy(), np.asarray(h_jax), atol=1e-5)
+
+
+def _recurrence_by_row_tiles(x_proj, h0, w_hh, b_hh, rows, weight_dtype=None, chunk=gru_kernel.ROWS_CHUNK):
+    """The row-tiled kernel's walk in plain PyTorch: the batch in tiles of
+    `rows` rows (the last padded with zero rows), each tile on its own for
+    all T steps; a step's sums over k taken in order, k after k, chunk after
+    chunk of the padded transposed weight [G, H, 3 Hp], the state read at
+    the weight's precision and kept exact."""
+    b, t, g, h3 = x_proj.shape
+    h = h3 // 3
+    w_t = transposed_weight(w_hh, weight_dtype or torch.float32).float()  # [G, H, 3 Hp]
+    padded = w_t.shape[-1] // 3
+    tiles = -(-b // rows)
+    xs = torch.nn.functional.pad(x_proj, (0, 0, 0, 0, 0, 0, 0, tiles * rows - b))
+    states = torch.nn.functional.pad(h0, (0, 0, 0, 0, 0, tiles * rows - b))
+    bias = b_hh.reshape(g, 3, h)
+    ys = torch.empty(tiles * rows, t, g, h)
+    for tile in range(tiles):
+        span = slice(tile * rows, (tile + 1) * rows)
+        state = states[span]
+        for step in range(t):
+            q = state if weight_dtype is None else state.to(weight_dtype).float()
+            acc = torch.zeros(rows, g, 3 * padded)
+            for c in range(0, h, chunk):
+                for k in range(c, min(c + chunk, h)):
+                    acc = acc + q[:, :, k, None] * w_t[None, :, k]
+            hp = acc.reshape(rows, g, 3, padded)[..., :h]
+            xg = xs[span, step].reshape(rows, g, 3, h)
+            r = torch.sigmoid(xg[:, :, 0] + (hp[:, :, 0] + bias[:, 0]))
+            z = torch.sigmoid(xg[:, :, 1] + (hp[:, :, 1] + bias[:, 1]))
+            n = torch.tanh(xg[:, :, 2] + r * (hp[:, :, 2] + bias[:, 2]))
+            state = (1.0 - z) * n + z * state
+            ys[span, step] = state
+    return ys[:b], ys[:b, -1]
+
+
+@pytest.mark.parametrize("shape, rows", [((13, 7, 1, 12), 8), ((21, 5, 1, 20), 16), ((33, 4, 1, 9), 32),
+                                         ((5, 6, 1, 17), 8), ((19, 3, 2, 12), 16)])
+def test_row_tiled_walk_matches_reference_and_pallas(rng, shape, rows):
+    """Ragged B (a last tile with few live rows), H off a chunk of k rows
+    and off the 4-unit groups (H = 17, 9: padded units), G = 1 and 2."""
+    args = _gru_inputs(rng, *shape)
+    y, h = _recurrence_by_row_tiles(*_torch(args), rows, chunk=8)
+    y_ref, h_ref = gru_sequence_reference(*_torch(args))
+    np.testing.assert_allclose(y.numpy(), y_ref.numpy(), atol=1e-5)
+    np.testing.assert_allclose(h.numpy(), h_ref.numpy(), atol=1e-5)
+    y_pal, h_pal = gru_sequence_pallas(*_jax(args), interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_pal), atol=1e-5)
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_pal), atol=1e-5)
+
+
+def test_row_tiled_walk_bf16_weights_matches_reference(rng):
+    """bf16 weights: the walk rounds the state at the product only (the tile
+    keeps it exact) and matches the plain version's bf16 math."""
+    args = _torch(_gru_inputs(rng, 11, 6, 1, 13))
+    y, h = _recurrence_by_row_tiles(*args, 8, weight_dtype=torch.bfloat16)
+    y_ref, h_ref = gru_sequence_reference(*args, weight_dtype=torch.bfloat16)
+    np.testing.assert_allclose(y.numpy(), y_ref.numpy(), atol=1e-5)
+    np.testing.assert_allclose(h.numpy(), h_ref.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("h, dtype, padded", [(12, torch.float32, 12), (13, torch.float32, 16),
+                                              (12, torch.bfloat16, 16), (384, torch.bfloat16, 384)])
+def test_transposed_weight_pads_units(rng, h, dtype, padded):
+    """[g, k, gate * Hp + j] is w_hh[g, gate * H + j, k]; units H .. Hp - 1 are
+    zero, so that a k row is whole 16-byte chunks."""
+    w = torch.from_numpy(rng.standard_normal((2, 3 * h, h)).astype(np.float32))
+    got = transposed_weight(w, dtype)
+    assert got.shape == (2, h, 3 * padded) and got.dtype == dtype and got.is_contiguous()
+    assert gru_kernel.padded_units(h, dtype) == padded
+    want = torch.zeros(2, h, 3, padded)
+    want[..., :h] = w.reshape(2, 3, h, h).permute(0, 3, 1, 2)
+    torch.testing.assert_close(got.float(), want.reshape(2, h, -1).to(dtype).float(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b, g, h, rows", [
+    (16 * 257, 1, 384, 32),  # FullSubNet's sub band offline: 129 blocks
+    (8 * 257, 1, 384, 16),  # in its train step (and the 8-slot server): 129 blocks
+    (257, 1, 384, 8),  # its hop at B=1
+    (16 * 257, 1, 512, 16),  # H = 512: 32 rows would need 512 consumer threads
+    (3, 2, 176, 8), (256, 4, 176, 8),  # few blocks: the smallest tile
+])
+def test_row_tile(b, g, h, rows):
+    """The tile with the fewest rows x waves of 132 blocks, the largest of
+    those that tie; every tile of ROW_TILES that fits H is a candidate."""
+    assert gru_kernel.row_tile(b, g, h) == rows
+    assert gru_kernel.rows_fit(h, rows)
+    waves = -(-g * -(-b // rows) // gru_kernel.NUM_SMS)
+    for other in gru_kernel.ROW_TILES:
+        if gru_kernel.rows_fit(h, other):
+            assert -(-g * -(-b // other) // gru_kernel.NUM_SMS) * other >= waves * rows
+
+
+@pytest.mark.parametrize("h, rows, dtype, threads, stages, fits", [
+    (384, 32, None, 384, 2, True),  # the sub band: 2 stages of 73,744 B beside a 49,152 B tile
+    (384, 8, None, 96, 2, True),  # its hop
+    (512, 16, None, 256, 2, True),  # 2 x 98,320 + 32,768 = 229,408 B
+    (512, 32, None, 512, 1, False),  # too many threads, and 1 stage beside a 64 KB tile
+    (177, 8, torch.bfloat16, 64, 8, True),  # bf16 pads 177 to 184 units; at most 8 stages
+])
+def test_rows_fit(h, rows, dtype, threads, stages, fits):
+    """Threads, ring depth and shared memory of the row-tiled kernel, as
+    csrc/gru_sequence.cu's launch_rows computes them."""
+    assert gru_kernel.rows_threads(h, rows, dtype) == threads
+    assert gru_kernel.rows_stages(h, rows, dtype) == stages
+    stage = 16 * 3 * gru_kernel.padded_units(h, dtype) * (2 if dtype == torch.bfloat16 else 4) + 16
+    assert stages == min(8, (SHARED_LIMIT - h * rows * 4) // stage)  # the ring, then the [H][R] f32 tile
+    assert gru_kernel.rows_fit(h, rows, dtype) is fits
+    assert fits is (stages >= 2 and threads <= 384)
+    assert not gru_kernel.rows_fit(513, 8) and not gru_kernel.rows_fit(h, 4, dtype)
 
 
 def test_launchers_refuse_cpu_tensors(rng):
@@ -257,6 +378,8 @@ def test_launchers_refuse_cpu_tensors(rng):
         with pytest.raises(ValueError, match="CUDA tensors only"):
             launch(*args)
         assert (gru_sequence.launches, gru_sequence.resident_launches) == before
+    with pytest.raises(ValueError, match="no tile of 4 rows"):  # R outside ROW_TILES
+        gru_kernel.launch_streamed(*args, rows=4)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
