@@ -168,16 +168,18 @@ needed). In order, and any failure exits non-zero:
     ``"pallas"`` route (24 stencil forwards and backwards a step) and config 5
     (full-causal attention) the same way at B=4 x 4 s, and that a step on a
     batch with a NaN leaves everything unchanged;
-18. holds both GRU backward kernels (the resident one, whose weight stays in
-    a cluster's shared memory, at every cluster size that holds the weight
-    with a unit in every block, and the streamed one) against their plain
+18. holds the GRU backward's kernels (route A, whose weight stays in a
+    cluster's shared memory, at every cluster size that holds the weight with
+    a unit in every block: ``gru_bwd_resident_kernel`` at 1 to 8 blocks,
+    ``gru_bwd_scatter_kernel`` at 16; route B, the row-tiled
+    ``gru_bwd_rows_kernel``, at every R that fits) against their plain
     version on the card at config 2's shape (B=128, T=1001, G=4, H=176), B=13
-    and 17 (off the 8-row tile), H=33, T=1, H=512 (only the streamed kernel;
-    the resident launcher must refuse it, as it must every other cluster
-    size), H=200, 256 and 177 (planned clusters of 4 and 8), with dh_last
+    and 17 (off the 8-row tile), H=33, T=1, H=512, 500 and 384 (16 blocks
+    only; the resident launcher must refuse every other cluster size),
+    H=200, 256 and 177 (planned clusters of 4 and 8), with dh_last
     None and nonzero: into dx_proj, dhp and dh0 filled with NaN first, and
     through ``gru_sequence_bwd`` (dx_proj, dh0, dw_hh, db_hh; one launch, of
-    the kernel ``resident_bwd_plan`` names, by the counters), each within
+    the kernel ``backward_plan`` names, by the counters), each within
     1e-4 of its largest value (f32 sums over 1,001 steps); checks that a
     forward kernel's launcher refuses tensors that want a gradient; then drives
     config 2's CRUSE train step (``configs/cruse_base.toml``) and config 3's
@@ -213,14 +215,14 @@ needed). In order, and any failure exits non-zero:
     kernels and one with the plain deep filter (``mid_bwd``'s and the deep
     filter's device time a step, and a check that the step makes at least
     96 device launches fewer than the 6,270 it made with eight launches a
-    ``mid_bwd`` call); both GRU backward kernels alone at config 2's shape
-    and at B=32 (``ops/gru_bwd_timing.py``: CUDA events in turns, resident,
-    streamed, streamed, resident), the bound and ``autograd.grad`` through
+    ``mid_bwd`` call); the GRU backward's planned kernel and route B alone at
+    config 2's shape and at B=32 (``ops/gru_bwd_timing.py``: CUDA events in
+    turns, resident, row-tiled, row-tiled, resident), the bound and ``autograd.grad`` through
     cuDNN's ``nn.GRU``, one call a group, at both; the wrapper and the plain
     walk at config 2; one config-2 step at B=128 x 10 s and one CRUSE+DF step
     at B=32 x 10 s (wall ms, peak memory) and a profile of the config-2 step
     (2 launches each of the resident GRU forward and backward kernels, none
-    of the streamed backward, busy time, idle share);
+    of the 16-block or row-tiled backward, busy time, idle share);
 20. drives the trainer slice: writes a synthetic corpus (24 clean clips of
     4 s of tones under a syllable envelope, 24 noise clips) and a copy of
     ``configs/cruse_base.toml`` pointed at it, 2 epochs of 4 steps, every
@@ -266,12 +268,14 @@ needed). In order, and any failure exits non-zero:
     256; seeded weights): (a) the GRU forward at (16, 626, 1, 512), which
     ``forward_plan`` gives route A (16 blocks x 8 rows), and (4112, 626, 1,
     384), route B (R = 32), and at the B=1 hop's (1, 1, 1, 512) and (257, 1,
-    1, 384), both routes at every shape, and the streamed backward at (8,
-    188, 1, 512) and (2056, 188, 1, 384) against their plain versions (f32
+    1, 384), both routes at every shape, and the backward at (8, 188, 1, 512),
+    which ``backward_plan`` gives route A (``gru_bwd_scatter_kernel``, 16
+    blocks x 8 rows), and (2056, 188, 1, 384), route B (R = 16), both routes
+    at both shapes (route B at every R) against their plain versions (f32
     1e-4; the backward 1e-4 of each output's largest, dh_last None and
     nonzero, into NaN-filled outputs), ``gru_sequence`` and
-    ``gru_sequence_bwd`` one launch each of the planned kernel (no cluster
-    holds either backward's weight; its resident launcher refuses them); (b)
+    ``gru_sequence_bwd`` one launch each of the planned kernel; each route
+    timed alone at its shape beside its plain version, bound and cuDNN; (b)
     the offline model on B=16 x 10 s through ``complex_mask`` and ``auto``: 4
     GRU launches a call, 2 of them resident (the full band), the waveform
     against the plain recurrence within 1e-4, ms a call, x-realtime, peak
@@ -287,7 +291,7 @@ needed). In order, and any failure exits non-zero:
     ``make_train_step`` steps at B=8 x 3 s with si_snr and cirm, each
     step's losses (1e-5 relative) and gradients (tests/test_torch_train_step.py's
     bounds) against the plain recurrence, 4 + 4 GRU launches a step (2
-    forward ones resident), ms a step and peak memory; (f) ``python -m
+    forward and 2 backward ones resident), ms a step and peak memory; (f) ``python -m
     cruse_tpu_torch.infer``'s main in this process on two 4 s wavs, offline
     (``complex_mask``) and ``--streaming``, each wav within 1e-4 of the same
     model here; (g) each forward route's time alone at its offline shape by
@@ -395,10 +399,10 @@ from cruse_tpu_torch.ops.dw_kernel import (
 from cruse_tpu_torch.ops.dw_timing import describe as describe_dw
 from cruse_tpu_torch.ops.dw_timing import describe_step, dw_bound, time_dw
 from cruse_tpu_torch.ops.gru_kernel import (
-    CLUSTER_SIZES, MAX_HIDDEN, ROW_TILES, bwd_fit_at, cluster_fit, co_resident_clusters, forward_plan,
-    gru_backward_walk_reference, gru_sequence, gru_sequence_backward_reference, gru_sequence_bwd,
-    gru_sequence_reference, launch_gru_bwd_resident, launch_gru_bwd_streamed, launch_resident, launch_streamed,
-    resident_bwd_plan, resident_plan, row_tile, rows_fit)
+    BWD_SCATTER_CS, CLUSTER_SIZES, ROW_TILES, backward_plan, bwd_fit_at, bwd_row_tile, bwd_rows_fit, cluster_fit,
+    co_resident_bwd_clusters, co_resident_clusters, forward_plan, gru_backward_walk_reference, gru_sequence,
+    gru_sequence_backward_reference, gru_sequence_bwd, gru_sequence_reference, launch_gru_bwd_resident,
+    launch_gru_bwd_streamed, launch_resident, launch_streamed, resident_plan, row_tile, rows_fit)
 from cruse_tpu_torch.ops.gru_bwd_timing import bwd_bound, bwd_inputs
 from cruse_tpu_torch.ops.gru_bwd_timing import describe as describe_gru_bwd
 from cruse_tpu_torch.ops.gru_bwd_timing import time_kernels as time_gru_bwd_kernels
@@ -437,11 +441,11 @@ CLUSTER_GRU = ((17, 7, 4, 176), (3, 7, 2, 177), (5, 6, 2, 200), (3, 5, 2, 384), 
 ROWS_GRU = ((37, 9, 2, 384), (70, 5, 3, 50), (45, 6, 1, 177))
 STEP_GRU = ((256, 1, 4, 176), (8, 1, 4, 176), (1, 1, 4, 176))  # the T=1 shapes that are timed
 # B, T, G, H of the GRU backward kernels' cases: config 2's banks at its published batch (B=128 x 10 s);
-# B off the 8-row tile; an odd H; T = 1; the largest H the streamed kernel takes (no cluster holds it);
-# planned clusters of 4 and 8, H off the unit groups
+# B off the 8-row tile; an odd H; T = 1; the largest H (16 blocks only; route B at R = 8 and 16); planned clusters
+# of 4 and 8, H off the unit groups; 16 blocks at H = 500 (B off the tile) and 384 (G = 2, U = 24)
 CONFIG2_GRU = (128, 1001, 4, 176)
 GRU_BWD_SHAPES = (CONFIG2_GRU, (13, 37, 4, 176), (3, 5, 2, 33), (9, 1, 3, 50), (2, 4, 1, 512), (5, 6, 2, 200),
-                  (3, 5, 2, 256), (17, 4, 1, 177))
+                  (3, 5, 2, 256), (17, 4, 1, 177), (13, 5, 1, 500), (5, 6, 2, 384))
 GRU_BWD_TOL = 1e-4  # x max|ref| of each output: f32 sums over up to 1,001 steps, and over B x T terms
 # config 2's train step at its published batch, CRUSE+DF's at B=32, and both at B=8 for the float64 check
 CONFIG2_BATCH, CRUSE_DF_BATCH, CRUSE_CHECK_BATCH, CRUSE_SECONDS = 128, 32, 8, 10
@@ -521,7 +525,8 @@ HAND_WRITTEN = frozenset((  # the __global__ functions of ops/csrc/*.cu, as a pr
     "gru_rows_kernel", "gru_resident_kernel", "deep_filter_kernel", "deep_filter_bwd_kernel", "tfcm_layer_kernel",
     "tattn_fwd_kernel",
     "tattn_dq_kernel", "tattn_dkv_kernel", "dw_fwd_kernel", "dw_bwd_kernel", "dw_finish_kernel",
-    "tail_bwd_kernel", "mid_tile_kernel", "mid_finish_kernel", "gru_bwd_kernel", "gru_bwd_resident_kernel"))
+    "tail_bwd_kernel", "mid_tile_kernel", "mid_finish_kernel", "gru_bwd_resident_kernel", "gru_bwd_scatter_kernel",
+    "gru_bwd_rows_kernel"))
 # launches one config-5b train step makes: 6 stacks x 4 blocks, 3 attentions, 1 deep filter
 STEP_LAUNCHES = {"dw_stencil_fwd": 24, "dw_stencil_bwd": 0, "tail_bwd": 24, "mid_bwd": 24,
                  "tattn": 3, "tattn_dq": 3, "tattn_dkv": 3, "tfcm_stack": 0, "tfcm_block": 0,
@@ -602,7 +607,7 @@ FSN_LOSSES = (("si_snr", 1.0), ("cirm", 1.0))
 FSN_HOP_BUDGET_MS = 16.0  # a 256-sample hop at 16 kHz
 # B, T, G, H of its GRUs: the full band's B rows and the sub band's B x 257 units folded into the batch, offline at
 # B=16 x 10 s (forward: route A, 16 blocks x 8 rows, then route B at R = 32), at the B=1 hop (forward) and in the
-# train step at B=8 x 3 s (backward: no cluster holds either weight with a dhp tile in f32)
+# train step at B=8 x 3 s (backward: route A's 16 blocks x 8 rows, the carry reduce-scattered, then route B, R = 16)
 FSN_GRU = ((16, 626, 1, 512), (16 * 257, 626, 1, 384))
 FSN_HOP_GRU = ((1, 1, 1, 512), (257, 1, 1, 384))
 FSN_GRU_BWD = ((8, 188, 1, 512), (8 * 257, 188, 1, 384))
@@ -611,6 +616,11 @@ FSN_CALL_LAUNCHES = {"gru_sequence": 4}  # a forward, a hop or a server step: on
 FSN_RESIDENT = 2  # of them on route A: the full band's two
 ROUTE_KERNELS = {"resident": "gru_resident_kernel", "row-tiled": "gru_rows_kernel"}  # the forward's two routes
 FSN_STEP_LAUNCHES = {"gru_sequence": 4, "gru_sequence_bwd": 4}
+FSN_FULL_BAND_BWD_PLAN = (16, 32, 8, 229392)  # route A's backward at H = 512: CS, units, rows, bytes a block
+FSN_SUB_BAND_BWD_ROWS = 16  # route B's R at the step's sub band: 129 blocks
+FSN_BWD_RESIDENT = 2  # a step's backward launches on route A: the full band's two
+# the backward's routes at FullSubNet's shapes: its kernels by route, the 16-block one for route A there
+BWD_ROUTE_KERNELS = {"resident": "gru_bwd_scatter_kernel", "row-tiled": "gru_bwd_rows_kernel"}
 
 
 def require(ok: bool, what: str) -> None:
@@ -2874,17 +2884,44 @@ def fsn_forward_row(shape, route: str, device, smi) -> dict:
     return row
 
 
+def fsn_backward_row(shape, route: str, device, smi) -> dict:
+    """One backward route alone at ``shape`` by CUDA events over whole
+    launches (dh_last None, as in the step), with its plain version (the
+    walk), its bound and ``autograd.grad`` through cuDNN's ``nn.GRU``."""
+    b, t, g, h = shape
+    x, h0, w, bias, y, dy, hp = bwd_inputs(*shape, device, SEED + 41)
+    outs = [torch.empty_like(x), torch.empty_like(x), torch.empty_like(h0)]
+    launch = launch_gru_bwd_resident if route == "resident" else launch_gru_bwd_streamed
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: launch(x, hp, y, h0, dy, None, w, *outs), reps=3)
+        plain_ms = cuda_ms(lambda: gru_backward_walk_reference(dy, None, x, h0, w, bias, y), reps=1)
+    del x, h0, w, bias, y, dy, hp, outs
+    torch.cuda.empty_cache()
+    row = {"shape": list(shape), "direction": "backward", "route": route, "ms": ms, "plain_ms": plain_ms,
+           **bwd_bound(*shape), "library_ms": library_gru_ms(shape, device, backward=True)}
+    torch.cuda.empty_cache()
+    detail = (f"cluster of 16 x {FSN_FULL_BAND_BWD_PLAN[2]} rows, {FSN_FULL_BAND_BWD_PLAN[1]} units a block"
+              if route == "resident" else f"R={bwd_row_tile(b, g, h)}, {g * -(-b // bwd_row_tile(b, g, h))} blocks")
+    print(f"{BWD_ROUTE_KERNELS[route]} ({route}, {detail}) B={b} T={t} G={g} H={h} f32 on {smi}: {ms:.3f} ms "
+          f"({ms / t * 1e3:.2f} us a step), bound {row['bound_ms']:.4f} ms ({row['bound_by']}) = "
+          f"{row['bound_ms'] / ms:.1%}; plain walk {plain_ms:.1f} ms; autograd.grad through cuDNN nn.GRU, one call "
+          f"(it also takes the input projection's gradients; by CUDA events) {row['library_ms']:.3f} ms, "
+          f"{'above' if row['library_ms'] > ms else 'below'} the kernel", flush=True)
+    return row
+
+
 def check_fullsubnet_gru(device, smi) -> tuple[float, list]:
-    """Parts (a) and (g): the GRU forward's routes as ``forward_plan`` names
-    them at FullSubNet's offline and hop shapes (route A, the resident kernel
-    at 16 blocks x 8 rows, for the full band; route B, the row-tiled kernel,
-    for the sub band), both routes at each of those shapes and the streamed
-    backward at its training shapes against their plain versions, and
-    ``gru_sequence`` / ``gru_sequence_bwd`` one launch each of the planned
-    kernel (``check_gru_kernel``, ``check_gru_bwd``); then each route alone
-    at its shapes (``fsn_forward_row``) and each backward by CUDA events,
-    with plain versions, bounds and cuDNN's ``nn.GRU``. Returns (the largest
-    f32 error of the kernels, the rows)."""
+    """Parts (a) and (g): the GRU's routes as ``forward_plan`` and
+    ``backward_plan`` name them at FullSubNet's offline, hop and training
+    shapes (route A for the full band: the resident forward at 16 blocks x 8
+    rows, the 16-block backward that reduce-scatters the carry; route B for
+    the sub band: the row-tiled kernels), both routes at each of those
+    shapes against their plain versions, and ``gru_sequence`` /
+    ``gru_sequence_bwd`` one launch each of the planned kernel
+    (``check_gru_kernel``, ``check_gru_bwd``); then each route alone at its
+    shapes (``fsn_forward_row``, ``fsn_backward_row``) by CUDA events, with
+    plain versions, bounds and cuDNN's ``nn.GRU``. Returns (the largest f32
+    error of the kernels, the rows)."""
     clusters = co_resident_clusters(device, FSN_GRU[0][3])
     print(f"co-resident 16-block clusters of the resident kernel on {smi}: {clusters} at H = 512 (f32, 8 rows), "
           f"{co_resident_clusters(device, FSN_GRU[1][3])} at H = 384 (16 rows); the plan's default "
@@ -2895,31 +2932,22 @@ def check_fullsubnet_gru(device, smi) -> tuple[float, list]:
     for shape, rows in ((FSN_GRU[1], 32), (FSN_HOP_GRU[1], 8)):
         require(forward_plan(*shape, None, device) is None and row_tile(shape[0], shape[2], shape[3]) == rows,
                 f"FullSubNet sub band {shape}: route B at R = {rows}")
-    for shape in FSN_GRU_BWD:
-        require(resident_bwd_plan(*shape) is None and shape[3] <= MAX_HIDDEN,
-                f"FullSubNet GRU backward {shape}: no cluster holds the f32 weight, the streamed kernel takes it")
+    full, sub = FSN_GRU_BWD
+    print(f"co-resident 16-block clusters of the backward's route A on {smi}: "
+          f"{co_resident_bwd_clusters(device, full[3])} at H = 512, {co_resident_bwd_clusters(device, sub[3])} at "
+          f"H = 384; the plan's default {gru_kernel.H100_CLUSTERS}", flush=True)
+    require(backward_plan(*full, device) == FSN_FULL_BAND_BWD_PLAN,
+            f"FullSubNet GRU backward {full}: route A, 16 blocks x 8 rows, 32 units and 229,392 B a block")
+    require(backward_plan(*sub, device) is None and bwd_row_tile(sub[0], sub[2], sub[3]) == FSN_SUB_BAND_BWD_ROWS,
+            f"FullSubNet GRU backward {sub}: route B at R = {FSN_SUB_BAND_BWD_ROWS}")
     worst = max(check_gru_kernel(device, FSN_GRU + FSN_HOP_GRU, GRU_DTYPES[:1]), check_gru_bwd(device, FSN_GRU_BWD))
     rows = [fsn_forward_row(shape, route, device, smi) for shape, route in
             ((FSN_GRU[0], "resident"), (FSN_GRU[1], "row-tiled"), (FSN_HOP_GRU[0], "resident"),
              (FSN_HOP_GRU[1], "row-tiled"))]
-    for shape in FSN_GRU_BWD:
-        x, h0, w, bias, y, dy, hp = bwd_inputs(*shape, device, SEED + 41)
-        outs = [torch.empty_like(x), torch.empty_like(x), torch.empty_like(h0)]
-        with torch.inference_mode():
-            ms = cuda_ms(lambda: launch_gru_bwd_streamed(x, hp, y, h0, dy, None, w, *outs), reps=3)
-            plain_ms = cuda_ms(lambda: gru_backward_walk_reference(dy, None, x, h0, w, bias, y), reps=1)
-        del x, h0, w, bias, y, dy, hp, outs
-        torch.cuda.empty_cache()
-        row = {"shape": list(shape), "direction": "backward", "ms": ms, "plain_ms": plain_ms,
-               **bwd_bound(*shape), "library_ms": library_gru_ms(shape, device, backward=True)}
-        torch.cuda.empty_cache()
-        b, t, g, h = shape
-        print(f"gru_bwd_kernel (streamed) B={b} T={t} G={g} H={h} f32 on {smi}: {row['ms']:.3f} ms "
-              f"({row['ms'] / t * 1e3:.2f} us a step), bound {row['bound_ms']:.3f} ms ({row['bound_by']}) = "
-              f"{row['bound_ms'] / row['ms']:.1%}; plain {row['plain_ms']:.1f} ms; autograd.grad through cuDNN "
-              f"nn.GRU, one call (it also takes the input projection's gradients) {row['library_ms']:.3f} ms",
-              flush=True)
-        rows.append(row)
+    rows += [fsn_backward_row(full, "resident", device, smi), fsn_backward_row(sub, "row-tiled", device, smi)]
+    require(rows[-2]["ms"] < rows[-2]["library_ms"],
+            f"FullSubNet GRU backward {full}: route A ({rows[-2]['ms']:.3f} ms) below cuDNN's autograd.grad "
+            f"({rows[-2]['library_ms']:.3f} ms) in this run")
     return worst, rows
 
 
@@ -3136,13 +3164,15 @@ def check_fullsubnet_training(device, smi) -> dict:
     with the plain recurrence (``check_trainer_step``'s tolerances: losses
     1e-5 relative, each gradient leaf relative 2e-3 or 3e-3 of the largest +
     1e-3); each step 4 GRU forward launches (2 resident, the full band) and
-    4 backward ones (none resident); ms a step and peak memory. Returns the
-    steps' launches, the resident forward's under "gru_resident"."""
+    4 backward ones (2 resident: the full band's, on the 16-block kernel);
+    ms a step and peak memory. Returns the steps' launches, the resident
+    forward's under "gru_resident" and the resident backward's under
+    "gru_bwd_resident"."""
     model = build_fullsubnet("cumulative_laplace_norm", device, SEED + 37)
     cfg = StepConfig(stft=StftConfig(**FSN_STFT), loss_weights=FSN_LOSSES)
     state = init_train_state(model, cfg, device)
     step = make_train_step(model, cfg)
-    launched = {name: 0 for name in COUNTERS} | {"gru_resident": 0}
+    launched = {name: 0 for name in COUNTERS} | {"gru_resident": 0, "gru_bwd_resident": 0}
     times, peaks = [], []
     for i in range(TRAIN_STEPS):
         data = noisy_clean_pairs(SEED + 38 + i, FSN_TRAIN_BATCH, FSN_TRAIN_SECONDS, device)
@@ -3175,10 +3205,12 @@ def check_fullsubnet_training(device, smi) -> dict:
         peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
         got = counts()
         require(got == {**{k: 0 for k in got}, **FSN_STEP_LAUNCHES}
-                and gru_sequence.resident_launches == FSN_RESIDENT and gru_sequence_bwd.resident_launches == 0,
+                and gru_sequence.resident_launches == FSN_RESIDENT
+                and gru_sequence_bwd.resident_launches == FSN_BWD_RESIDENT,
                 f"{what}: launches {({k: v for k, v in got.items() if v})} = {FSN_STEP_LAUNCHES}, "
-                f"{FSN_RESIDENT} forward ones resident, no backward one")
+                f"{FSN_RESIDENT} forward and {FSN_BWD_RESIDENT} backward ones on route A, the rest on route B")
         launched["gru_resident"] += gru_sequence.resident_launches
+        launched["gru_bwd_resident"] += gru_sequence_bwd.resident_launches
         require(all(math.isfinite(float(v)) for v in metrics.values()) and float(metrics["nonfinite_skipped"]) == 0,
                 f"{what}: finite losses and gradient norm")
         for name, v in got.items():
@@ -3249,7 +3281,8 @@ def check_fullsubnet(device, smi) -> dict:
     print(f"FullSubNet phase: {time.perf_counter() - t0:.1f} s", flush=True)
     return {"gru_sequence": offline + stream + server + train["gru_sequence"],
             "gru_resident": offline_resident + stream_resident + server_resident + train["gru_resident"],
-            "gru_sequence_bwd": train["gru_sequence_bwd"], "gru_err": gru_err,
+            "gru_sequence_bwd": train["gru_sequence_bwd"], "gru_bwd_resident": train["gru_bwd_resident"],
+            "gru_err": gru_err,
             "forward_rows": [r for r in rows if r["direction"] == "forward"],
             "backward_rows": [r for r in rows if r["direction"] == "backward"]}
 
@@ -3770,13 +3803,14 @@ def gru_bwd_case(shape, device, seed: int, with_dh_last: bool):
 
 
 def check_gru_bwd(device, shapes=GRU_BWD_SHAPES) -> float:
-    """Both GRU backward kernels against their plain version on the card at
-    ``shapes``, with dh_last None and nonzero: the streamed kernel, and the
-    resident one at each cluster size that ``bwd_fit_at`` gives a fit (its
-    launcher must raise at the others), each launched into
-    dx_proj, dhp and dh0 filled with NaN first (so a value it never writes
-    shows) against the plain walk; and ``gru_sequence_bwd`` (all four
-    gradients, one launch, of the kernel ``resident_bwd_plan`` picks, read
+    """The GRU backward's kernels against their plain version on the card at
+    ``shapes``, with dh_last None and nonzero: route B, the row-tiled kernel,
+    at every R that fits, and route A at each cluster size that
+    ``bwd_fit_at`` gives a fit (1 to 8 blocks, and 16: the kernel that
+    reduce-scatters the carry; its launcher must raise at the others), each
+    launched into dx_proj, dhp and dh0 filled with NaN first (so a value it
+    never writes shows) against the plain walk; and ``gru_sequence_bwd`` (all
+    four gradients, one launch, of the kernel ``backward_plan`` picks, read
     from the counters). Each output within GRU_BWD_TOL of its largest value.
     Also that a forward kernel's launcher refuses tensors that want a
     gradient, and bf16 weights under a gradient. Returns the routed kernel's
@@ -3787,11 +3821,12 @@ def check_gru_bwd(device, shapes=GRU_BWD_SHAPES) -> float:
         for with_dh_last in (False, True):
             x, h0, w, b, y, dy, dh_last, hp = gru_bwd_case(shape, device, SEED + 11, with_dh_last)
             what = f"gru_sequence_bwd B, T, G, H = {shape}, dh_last {'nonzero' if with_dh_last else 'None'}"
-            plan = resident_bwd_plan(*shape)
+            plan = backward_plan(*shape, device)
             with torch.inference_mode():
                 walk = gru_backward_walk_reference(dy, dh_last, x, h0, w, b, y)
-                launchers = {"streamed": launch_gru_bwd_streamed}
-                for cs in CLUSTER_SIZES:
+                launchers = {f"row-tiled R={r}": lambda *args, r=r: launch_gru_bwd_streamed(*args, rows=r)
+                             for r in ROW_TILES if bwd_rows_fit(shape[3], r)}
+                for cs in (*CLUSTER_SIZES, BWD_SCATTER_CS):
                     launch = lambda *args, cs=cs: launch_gru_bwd_resident(*args, cs=cs)  # noqa: E731
                     if bwd_fit_at(shape[3], cs) is not None:
                         launchers[f"resident CS={cs}"] = launch
@@ -3812,7 +3847,8 @@ def check_gru_bwd(device, shapes=GRU_BWD_SHAPES) -> float:
                         require(bool(torch.isfinite(got).all()) and err <= GRU_BWD_TOL * scale,
                                 f"{what}, {label} kernel into NaN-filled outputs: {name} max-abs "
                                 f"{err:.3g} <= {GRU_BWD_TOL} x {scale:.3g}")
-                        routed = label == ("streamed" if plan is None else f"resident CS={plan[0]}")
+                        routed = label == (f"row-tiled R={bwd_row_tile(shape[0], shape[2], shape[3])}" if plan is None
+                                           else f"resident CS={plan[0]}")
                         if shape == shapes[0] and routed:
                             worst = max(worst, err)
                 before = gru_sequence_bwd.launches, gru_sequence_bwd.resident_launches
@@ -3825,8 +3861,8 @@ def check_gru_bwd(device, shapes=GRU_BWD_SHAPES) -> float:
                             f"{what}, wrapper: {name} max-abs {err:.3g} <= {GRU_BWD_TOL} x {scale:.3g}")
                 launched = (gru_sequence_bwd.launches - before[0], gru_sequence_bwd.resident_launches - before[1])
                 require(launched == (1, int(plan is not None)),
-                        f"{what}: the wrapper makes one launch, of the {'streamed' if plan is None else 'resident'} "
-                        f"kernel as resident_bwd_plan says ({plan}); counted {launched}")
+                        f"{what}: the wrapper makes one launch, of the {'row-tiled' if plan is None else 'resident'} "
+                        f"kernel as backward_plan says ({plan}); counted {launched}")
             del x, h0, w, b, y, dy, dh_last, hp, walk, outs, wrapped
     x, h0, w, b = gru_inputs(3, 5, 2, 16, device, SEED)
     try:
@@ -3846,13 +3882,14 @@ def check_gru_bwd(device, shapes=GRU_BWD_SHAPES) -> float:
 
 
 def time_gru_bwd(device, smi, lib: dict) -> dict:
-    """Both GRU backward kernels at config 2's shape and at CRUSE+DF's B=32
-    (``ops/gru_bwd_timing.py``: CUDA events in turns, resident, streamed,
-    streamed, resident; dh_last None as in the step; the bound from the least
-    bytes and the multiply-adds of w_hh^T . dhp); at config 2 also the wrapper
-    with its two products and its plain version (the walk); the library call
-    at both. Returns the kernels line's numbers (config 2, the resident
-    kernel, which the plan routes there, as ``ms``)."""
+    """The GRU backward's planned kernel (route A's resident one) and route B
+    at config 2's shape and at CRUSE+DF's B=32 (``ops/gru_bwd_timing.py``:
+    CUDA events in turns, resident, row-tiled, row-tiled, resident; dh_last
+    None as in the step; the bound from the least bytes and the multiply-adds
+    of w_hh^T . dhp); at config 2 also the wrapper with its two products and
+    its plain version (the walk); the library call at both. Returns the
+    kernels line's numbers (config 2, the resident kernel, which the plan
+    routes there, as ``ms``)."""
     rows = {}
     for b_, key, name in ((CONFIG2_BATCH, "gru_bwd", "config 2"), (CRUSE_DF_BATCH, "gru_bwd_b32", "CRUSE+DF")):
         rows[b_] = row = time_gru_bwd_kernels((b_, *CONFIG2_GRU[1:]), device, SEED + 13)
@@ -3869,8 +3906,8 @@ def time_gru_bwd(device, smi, lib: dict) -> dict:
           f"kernel) {wrapper_ms:.3f} ms; plain walk {plain_ms:.1f} ms", flush=True)
     return {"ms": sum(row["resident_ms"]) / 2, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": lib["gru_bwd"],
-            "resident_ms": sum(row["resident_ms"]) / 2, "streamed_ms": sum(row["streamed_ms"]) / 2,
-            "b32": {key: rows[CRUSE_DF_BATCH][key] for key in ("resident_ms", "streamed_ms", "bound_ms")}
+            "resident_ms": sum(row["resident_ms"]) / 2, "row_tiled_ms": sum(row["rows_ms"]) / 2,
+            "b32": {key: rows[CRUSE_DF_BATCH][key] for key in ("resident_ms", "rows_ms", "bound_ms")}
             | {"library_ms": lib["gru_bwd_b32"]}}
 
 
@@ -3903,13 +3940,13 @@ def time_cruse_steps(device, smi) -> None:
                 box["state"], _ = step(box["state"], data)
 
             prof = profile_calls(one_step, 2, what)
-            gru = ("gru_bwd_resident_kernel", "gru_resident_kernel", "gru_bwd_kernel")
+            gru = ("gru_bwd_resident_kernel", "gru_resident_kernel", "gru_bwd_scatter_kernel", "gru_bwd_rows_kernel")
             print(f"{what}, on {smi}: " + ", ".join(
                 f"{name} {prof.device_ms.get(name, 0.0):.3f} ms in {prof.launches.get(name, 0.0):.1f} launches"
                 for name in gru) + f"; {prof.kernels:.1f} device launches a step", flush=True)
-            require([prof.launches.get(name, 0) for name in gru] == [2, 2, 0],
+            require([prof.launches.get(name, 0) for name in gru] == [2, 2, 0, 0],
                     f"{what}: the profile shows 2 gru_bwd_resident_kernel and 2 gru_resident_kernel launches a "
-                    f"step, and no gru_bwd_kernel")
+                    f"step, and no gru_bwd_scatter_kernel or gru_bwd_rows_kernel")
             del box
         del model, state, step, data
         torch.cuda.empty_cache()
@@ -4159,25 +4196,35 @@ def profile_calls(fn, calls: int, label: str) -> Profile:
     together), the device's busy time per call (union of kernel intervals)
     and its idle share against the call's wall time measured without the
     profiler. Returns the launches and device time a call of every
-    ``*_kernel`` function, and the device launches a call."""
-    import tempfile
-    from torch.profiler import ProfilerActivity, profile
+    ``*_kernel`` function, and the device launches a call.
 
-    fn()  # warm-up, then the calls timed without the profiler
-    torch.cuda.synchronize()
+    The first call is the warm-up, traced and dropped (the warm-up step of
+    ``torch.profiler.schedule``): a trace loses a varying number of the
+    launches made while the tracer starts (0 to 48 of one MTFAA hop's 699
+    on an H100), so an untraced warm-up left the launches a call fractional
+    and different between two runs of the same calls. The device finishes
+    the warm-up before the traced calls start: an unfinished one adds its
+    kernels to theirs. The calls timed without the profiler come after the
+    traced ones: fn is called 2 * calls + 1 times in all."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=calls, repeat=1),
+                     on_trace_ready=lambda p: p.export_chrome_trace(f"{tmp}/trace.json")) as prof:
+            for i in range(calls + 1):
+                fn()
+                if i in (0, calls):  # none of the warm-up's kernels runs in the traced window
+                    torch.cuda.synchronize()
+                prof.step()
+        with open(f"{tmp}/trace.json") as fh:
+            events = json.load(fh)["traceEvents"]
     t0 = time.perf_counter()
     for _ in range(calls):
         fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / calls * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        prof.export_chrome_trace(f"{tmp}/trace.json")
-        with open(f"{tmp}/trace.json") as fh:
-            events = json.load(fh)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
     by_name: dict = {}
     for e in kernels:
@@ -4449,7 +4496,13 @@ def main() -> int:
          + trainer_launches["gru_sequence_bwd"] + feature_launches["gru_sequence_bwd"] + fsn["gru_sequence_bwd"],
          "max_abs_err": gru_bwd_err, **gru_bwd_times, "trainer_launches": trainer_launches["gru_sequence_bwd"],
          "features_launches": feature_launches["gru_sequence_bwd"], "fullsubnet_launches": fsn["gru_sequence_bwd"],
-         "fullsubnet_stages": fsn["backward_rows"]},
+         "fullsubnet_stages": fsn["backward_rows"],
+         # the backward's two routes at FullSubNet's training shapes, launches in its train steps
+         "routes": [{"route": row["route"], "kernel": BWD_ROUTE_KERNELS[row["route"]],
+                     "launches": fsn["gru_bwd_resident"] if row["route"] == "resident"
+                     else fsn["gru_sequence_bwd"] - fsn["gru_bwd_resident"],
+                     **{key: row[key] for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+                    for row in fsn["backward_rows"]]},
         {**entry("deep_filter", "deep_filter", "deep_filter_kernel.py:91",
                  stream_df + auto_df + mtfaa_df + train_launches["deep_filter"] + cruse_df_launches["deep_filter"]
                  + stream_df_5b + server_launches["deep_filter"] + deploy_launches["deep_filter"]

@@ -44,12 +44,24 @@ is the same routed kernel, and its backward takes ``hp = h_prev . w_hh^T +
 b_hh`` for all t as one batched product, launches a backward kernel
 (``csrc/gru_bwd.cu``, one launch for all T steps) for ``dx_proj``, ``dhp`` and
 ``dh0``, and takes ``dw_hh`` and ``db_hh`` from ``dhp`` as two more products.
-That source also holds two kernels, and the shape alone decides which one
-runs (``resident_bwd_plan``): the resident backward keeps w_hh in the shared
-memory of a cluster for all T steps wherever its slice and the dhp tile fit;
-the streamed backward reads it from L2 every step and takes the rest.
+That source holds three kernels, and ``resident_bwd_plan`` (``backward_plan``
+on a card) decides which one runs:
+
+- route A, the resident backward, keeps w_hh in the shared memory of a
+  cluster for all T steps: a cluster of 1, 2, 4 or 8 blocks, each holding its
+  units' columns of w_hh and the whole dhp tile, wherever one fits (config 2's
+  H = 176: 2 blocks); else a non-portable cluster of 16 blocks, each holding
+  its units' rows of w_hh and reduce-scattering the carry's partial sums
+  (FullSubNet's full band, H = 512 f32: 16 blocks x 8 rows, the forward's
+  ``packed_weight``), where the launch's clusters run in few waves of the
+  card's co-resident ones (``co_resident_bwd_clusters``), as in the forward;
+- route B, the row-tiled backward, gives a block R = 8, 16 or 32 rows
+  (``bwd_row_tile``) and all H units of a group and streams w_hh from L2
+  through a ring in shared memory every step. It takes the rest (FullSubNet's
+  sub band at R = 16).
+
 ``gru_sequence_bwd.launches`` counts every backward launch,
-``gru_sequence_bwd.resident_launches`` those of the resident backward. The
+``gru_sequence_bwd.resident_launches`` those of route A. The
 JAX step has no kernel here: XLA differentiates ``gru_scan``. On the CPU both
 directions run the plain versions (``gru_sequence_reference``,
 ``gru_sequence_backward_reference``).
@@ -65,7 +77,6 @@ import torch
 from cruse_tpu_torch.ops import _build
 
 MAX_HIDDEN = 512  # row-tiled kernel: the largest hidden size per group (kMaxHidden in the source)
-STREAM_ROWS = 8  # streamed backward kernel: batch rows per block (kRows in gru_bwd.cu)
 GRID_Y_LIMIT = 65535  # blocks a grid may have along y, where every launcher puts the batch's row tiles
 SHARED_LIMIT = 232448  # bytes of dynamic shared memory a block may have on sm_90 (kSharedLimit)
 CLUSTER_SIZES = (1, 2, 4, 8)  # 8 is the portable limit of a cluster
@@ -73,7 +84,8 @@ CLUSTER_SIZES = (1, 2, 4, 8)  # 8 is the portable limit of a cluster
 # clusters at 16 rows, then 16 blocks (non-portable) at 16 rows and at 8
 RESIDENT_TILES = ((1, 16), (2, 16), (4, 16), (8, 16), (16, 16), (16, 8))
 # 16-block clusters of the resident kernel that an H100 runs at once, from cudaOccupancyMaxActiveClusters
-# at H = 512 and 384 in f32 (chip_smoke.py prints it); the plan's default where it is not asked the card
+# at H = 512 and 384 in f32, forward and backward alike (chip_smoke.py prints both); the plans' default where
+# it is not asked the card
 H100_CLUSTERS = 7
 # waves of co-resident 16-block clusters the plan lets one launch take, at T = 1 and over more steps
 # (ops/gru_timing.py --sweep on an H100): a wave costs the resident kernel ~30 us to load the slices and 4.4-7.0 us
@@ -103,6 +115,12 @@ BWD_PLANE_ROWS = 8  # batch rows a thread multiplies; the dhp tile holds R / 8 p
 BWD_PARTS = 16  # parts of the j range a unit group's lanes split (kParts)
 BWD_MAX_THREADS = 512  # (U / 4) (R / 8) unit groups x 16 lanes (kBwdMaxThreads)
 BWD_PLANE_PAD = 4  # floats after each plane of the tile (kPlanePad)
+# the 16-block resident backward (gru_bwd_scatter_kernel, the kScatter constants): 16 blocks (non-portable) of
+# 128 threads at 8 rows a cluster, up to 32 units a block and H <= 512
+BWD_SCATTER_CS, BWD_SCATTER_ROWS, BWD_SCATTER_THREADS, BWD_SCATTER_MAX_UNITS = 16, 8, 128, 32
+# the row-tiled backward: j rows of w_hh a stage of its ring holds (kRowsChunk), the units a lane pair
+# multiplies, to which it pads H (kRowsUnits), and the parts of j, a lane each, of a pair (kRowsParts)
+BWD_ROWS_CHUNK, BWD_ROWS_UNITS, BWD_ROWS_PARTS = 32, 8, 2
 _WEIGHT_DTYPES = {None: "f32", torch.float32: "f32", torch.bfloat16: "bf16w"}
 
 
@@ -268,17 +286,63 @@ def rows_fit(h: int, rows: int, weight_dtype=None) -> bool:
             and rows_stages(h, rows, weight_dtype) >= ROWS_STAGES[0])
 
 
+def _fewest_waves(b: int, g: int, fits: list, sms: int) -> int:
+    """Of the row tiles that fit (and keep the grid within ``GRID_Y_LIMIT``
+    blocks, where one does), the one with the fewest rows times waves of
+    ``sms`` blocks (a block an SM, its step counted in proportion to its
+    rows), the largest of those that tie, since each block reads the whole
+    weight every step."""
+    fits = [r for r in fits if -(-b // r) <= GRID_Y_LIMIT] or fits
+    return min(fits, key=lambda r: (-(-g * -(-b // r) // sms) * r, -r))
+
+
 def row_tile(b: int, g: int, h: int, weight_dtype=None, sms: int = NUM_SMS) -> int:
-    """R of the row-tiled kernel for this shape: of the tiles that fit, the
-    one with the fewest rows times waves of ``sms`` blocks (a block an SM,
-    its step counted in proportion to its rows), the largest of those that
-    tie, since each block reads the whole weight every step. At
-    FullSubNet's sub band, B = 4112: R = 32, 129 blocks; B = 2056: 16, 129;
-    B = 257: 8, 33."""
+    """R of the row-tiled kernel for this shape (``_fewest_waves`` of the
+    tiles that fit). At FullSubNet's sub band, B = 4112: R = 32, 129 blocks;
+    B = 2056: 16, 129; B = 257: 8, 33."""
     fits = [r for r in ROW_TILES if rows_fit(h, r, weight_dtype)]
     if not fits:
         raise ValueError(f"no row tile of {ROW_TILES} fits hidden size per group {h} (at most {MAX_HIDDEN})")
-    return min(fits, key=lambda r: (-(-g * -(-b // r) // sms) * r, -r))
+    return _fewest_waves(b, g, fits, sms)
+
+
+def bwd_padded_units(h: int) -> int:
+    """The row-tiled backward's units of a weight row: H rounded up to a
+    multiple of ``BWD_ROWS_UNITS``, a lane pair's units."""
+    return -(-h // BWD_ROWS_UNITS) * BWD_ROWS_UNITS
+
+
+def bwd_rows_threads(h: int, rows: int) -> int:
+    """Threads of a row-tiled backward block: 2 halves of j x (R / 8) row
+    groups x (Hp / 8) unit groups, rounded up to warps."""
+    return -(-BWD_ROWS_PARTS * (rows // 8) * (bwd_padded_units(h) // BWD_ROWS_UNITS) // 32) * 32
+
+
+def bwd_rows_stages(h: int, rows: int) -> int:
+    """The row-tiled backward's ring depth: as many stages of
+    ``[BWD_ROWS_CHUNK][Hp]`` f32 (with their two mbarriers) as
+    ``SHARED_LIMIT`` holds beside the dhp tile ``[3H][R]`` f32, at most
+    ``ROWS_STAGES[1]``."""
+    stage = BWD_ROWS_CHUNK * bwd_padded_units(h) * 4 + 16
+    return min(ROWS_STAGES[1], max(0, SHARED_LIMIT - 3 * h * rows * 4) // stage)
+
+
+def bwd_rows_fit(h: int, rows: int) -> bool:
+    """Whether a row-tiled backward block of ``rows`` rows fits at hidden size
+    h: at most ``ROWS_MAX_THREADS`` threads and a ring of ``ROWS_STAGES[0]``
+    or more stages."""
+    return (rows in ROW_TILES and 1 <= h <= MAX_HIDDEN and bwd_rows_threads(h, rows) <= ROWS_MAX_THREADS
+            and bwd_rows_stages(h, rows) >= ROWS_STAGES[0])
+
+
+def bwd_row_tile(b: int, g: int, h: int, sms: int = NUM_SMS) -> int:
+    """R of the row-tiled backward for this shape (``_fewest_waves`` of the
+    tiles that fit; R = 8 fits every H up to ``MAX_HIDDEN``). At
+    FullSubNet's sub band in the step, B = 2056: R = 16, 129 blocks."""
+    fits = [r for r in ROW_TILES if bwd_rows_fit(h, r)]
+    if not fits:
+        raise ValueError(f"no row tile of {ROW_TILES} fits hidden size per group {h} (at most {MAX_HIDDEN})")
+    return _fewest_waves(b, g, fits, sms)
 
 
 def slice_stride(u: int) -> int:
@@ -310,7 +374,10 @@ def bwd_fit_at(h: int, cs: int, rows: int = BWD_TILE_ROWS):
     ``SHARED_LIMIT`` or ``BWD_MAX_THREADS``, or where a block would own no
     hidden unit (``(CS - 1) U >= H``: it would leave while its peers still
     send into its tile). ``rows`` other than ``BWD_TILE_ROWS`` is for a copy
-    of the source built with that R (the sweep)."""
+    of the source built with that R (the sweep). At ``cs`` = 16 it is
+    ``scatter_fit``, the 16-block kernel's other layout, at its 8 rows."""
+    if cs == BWD_SCATTER_CS:
+        return scatter_fit(h) if rows == BWD_SCATTER_ROWS else None
     u = -(-h // (cs * UNIT_GROUP)) * UNIT_GROUP
     nbytes = resident_bwd_bytes(h, u, rows)
     if nbytes > SHARED_LIMIT or bwd_threads(u, rows) > BWD_MAX_THREADS or (cs - 1) * u >= h:
@@ -324,13 +391,49 @@ def bwd_cluster_fit(h: int):
     return next(filter(None, (bwd_fit_at(h, cs) for cs in CLUSTER_SIZES)), None)
 
 
-def resident_bwd_plan(b, t, g, h):
-    """``bwd_cluster_fit`` where this shape takes the resident backward, None
-    where the streamed backward runs (no cluster holds the weight). b and g
-    only size the grid: ``CS * g`` by ``ceil(b / R)`` blocks."""
+def scatter_stride(u: int) -> int:
+    """The 16-block backward's k row of the slice in shared memory, in
+    16-byte chunks: ``3U / 4`` rounded up to a multiple of 8, so that the XOR
+    swizzle by ``k & 7`` stays inside the row."""
+    return -(-(3 * u // 4) // 8) * 8
+
+
+def scatter_fit(h: int):
+    """``(16, U, R, shared-memory bytes)`` of the 16-block resident backward
+    at hidden size h: block c holds the rows of its ``U = ceil(H / 16)`` units
+    (rounded up to a multiple of ``UNIT_GROUP``, at most
+    ``BWD_SCATTER_MAX_UNITS``), ``H`` rows of ``scatter_stride(U)`` chunks,
+    plus the double-buffered partial carries ``[2][16][U][R]`` f32 and two
+    8-byte mbarriers. None where that exceeds ``SHARED_LIMIT`` or a block
+    would own no unit (``15 U >= H``: its peers would send it nothing and it
+    would wait). H = 512: ``(16, 32, 8, 229392)``."""
+    u = -(-h // (BWD_SCATTER_CS * UNIT_GROUP)) * UNIT_GROUP
+    rows = BWD_SCATTER_ROWS
+    nbytes = h * scatter_stride(u) * 16 + 2 * BWD_SCATTER_CS * u * rows * 4 + 16
+    if u > BWD_SCATTER_MAX_UNITS or (BWD_SCATTER_CS - 1) * u >= h or nbytes > SHARED_LIMIT:
+        return None
+    return BWD_SCATTER_CS, u, rows, nbytes
+
+
+def resident_bwd_plan(b, t, g, h, clusters=H100_CLUSTERS):
+    """Route A's fit where this shape takes the resident backward, None where
+    the row-tiled backward runs: ``bwd_cluster_fit`` (a cluster of up to 8
+    blocks) wherever one holds the weight, which b, t and g do not change
+    (they only size the grid: ``CS * g`` by ``ceil(b / R)`` blocks); else
+    ``scatter_fit`` (16 blocks) where the launch's ``g * ceil(b / R)``
+    clusters take at most ``HOP_CLUSTER_WAVES`` at T = 1, ``MAX_CLUSTER_WAVES``
+    over more steps, waves of the ``clusters`` the card runs at once
+    (``co_resident_bwd_clusters``; 0: never), the forward's rule."""
     if min(b, t, g, h) < 1:
         return None
-    return bwd_cluster_fit(h)
+    fit = bwd_cluster_fit(h)
+    if fit is not None:
+        return fit
+    fit = scatter_fit(h)
+    waves = HOP_CLUSTER_WAVES if t == 1 else MAX_CLUSTER_WAVES
+    if fit is None or g * -(-b // fit[2]) > waves * clusters:
+        return None
+    return fit
 
 
 @functools.lru_cache(maxsize=None)
@@ -375,6 +478,28 @@ def forward_plan(b, t, g, h, weight_dtype, device: torch.device):
     if fit is None or fit.cs <= CLUSTER_SIZES[-1]:
         return resident_plan(b, t, g, h, weight_dtype)
     return resident_plan(b, t, g, h, weight_dtype, co_resident_clusters(device, h, weight_dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def co_resident_bwd_clusters(device: torch.device, h: int) -> int:
+    """How many clusters of the 16-block resident backward at hidden size h
+    (``scatter_fit``) the card runs at once, from
+    ``cudaOccupancyMaxActiveClusters``; asked once a device and width. 0
+    where the card schedules none."""
+    count = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = _bwd_kernels()["gru_bwd_scatter_clusters"](h, ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with CUDA error {err} (backward, H={h}, CS=16)")
+    return count.value
+
+
+def backward_plan(b, t, g, h, device: torch.device):
+    """``resident_bwd_plan`` on a CUDA device: the card's own count of
+    co-resident clusters where the only fit is the 16-block one."""
+    if bwd_cluster_fit(h) is not None or scatter_fit(h) is None:
+        return resident_bwd_plan(b, t, g, h)
+    return resident_bwd_plan(b, t, g, h, co_resident_bwd_clusters(device, h))
 
 
 def _cached_layout(w_hh: torch.Tensor, slot: str, key: tuple, make) -> torch.Tensor:
@@ -438,11 +563,27 @@ def packed_weight_bwd(w_hh: torch.Tensor, cs: int) -> torch.Tensor:
     return _cached_layout(w_hh, "_gru_packed_bwd", (cs,), make)
 
 
+def padded_weight_bwd(w_hh: torch.Tensor) -> torch.Tensor:
+    """``w_hh [G, 3H, H]`` as the row-tiled backward streams it: ``[G, 3H,
+    Hp]`` float32, each row padded with zeros to ``Hp = bwd_padded_units(H)``
+    units, a lane pair's 8 a whole number of 16-byte chunks; ``w_hh`` itself
+    where it already is (H a multiple of 8, 16-byte aligned), else a copy
+    cached on the weight (see ``_cached_layout``)."""
+    g, h3, h = w_hh.shape
+    if bwd_padded_units(h) == h and w_hh.data_ptr() % 16 == 0:
+        return w_hh
+
+    def make():
+        return torch.nn.functional.pad(w_hh, (0, bwd_padded_units(h) - h)).float().contiguous()
+
+    return _cached_layout(w_hh, "_gru_padded_bwd", (), make)
+
+
 def grid_rows(b: int, rows: int) -> int:
     """The blocks a launch puts along the grid's y axis for B batch rows,
     ``rows`` to a block (``row_tile`` for the row-tiled forward, the fit's
-    rows for the resident forward, ``STREAM_ROWS`` for the streamed backward,
-    R of ``bwd_fit_at`` for the resident backward): ``ceil(B / rows)``. Raises
+    rows for the resident forward, ``bwd_row_tile`` for the row-tiled
+    backward, R of the fit for the resident backward): ``ceil(B / rows)``. Raises
     ``ValueError`` past ``GRID_Y_LIMIT``: FullSubNet folds its sub-band units
     into the batch, so a pool of 2,048 slots at 257 bins would ask for 65,792
     blocks of 8 rows."""
@@ -479,11 +620,15 @@ def _check_launch(x_proj, h0, w_hh, b_hh, weight_dtype, rows):
 def _bwd_kernels() -> dict:
     lib = _build.load_library("gru_bwd")
     kernels = {}
-    for name, ints in (("gru_bwd_f32", 4), ("gru_bwd_resident_f32", 5)):
+    for name, ints in (("gru_bwd_rows_f32", 5), ("gru_bwd_resident_f32", 5), ("gru_bwd_scatter_f32", 4)):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         kernels[name] = fn
+    fn = lib.gru_bwd_scatter_clusters
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    kernels["gru_bwd_scatter_clusters"] = fn
     return kernels
 
 
@@ -573,41 +718,56 @@ def _run_bwd(entry: str, x_proj, hp, y, h0, dy, dh_last, weight, dx_proj, dhp, d
     gru_sequence_bwd.launches += 1
 
 
-def launch_gru_bwd_streamed(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0) -> None:
-    """The streamed backward kernel on CUDA tensors, whatever the shape's plan
-    says, into ``dx_proj``, ``dhp`` ([B, T, G, 3H]) and ``dh0`` ([B, G, H]);
-    ``hp`` is ``h_prev . w_hh^T + b_hh`` for all t and ``dh_last`` None means
-    zeros. Counted in ``gru_sequence_bwd.launches``."""
-    b, t, g, h = _check_bwd_launch(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0, STREAM_ROWS)
-    if h > MAX_HIDDEN:
-        raise ValueError(f"hidden size per group {h} > {MAX_HIDDEN}, the streamed backward kernel's limit")
-    _run_bwd("gru_bwd_f32", x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0, (b, t, g, h))
+def launch_gru_bwd_streamed(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0, rows=None) -> None:
+    """Route B, the row-tiled backward kernel, on CUDA tensors, whatever the
+    shape's plan says, at ``rows`` batch rows a block (default
+    ``bwd_row_tile``'s), into ``dx_proj``, ``dhp`` ([B, T, G, 3H]) and
+    ``dh0`` ([B, G, H]); ``hp`` is ``h_prev . w_hh^T + b_hh`` for all t and
+    ``dh_last`` None means zeros. Raises where that tile does not fit the
+    hidden size. Counted in ``gru_sequence_bwd.launches``."""
+    b, t, g, h3 = x_proj.shape
+    h = h3 // 3
+    rows = bwd_row_tile(b, g, h) if rows is None else rows
+    if not bwd_rows_fit(h, rows):
+        raise ValueError(f"the row-tiled backward takes no tile of {rows} rows at hidden size per group {h} "
+                         f"(R in {ROW_TILES}, H <= {MAX_HIDDEN}, {ROWS_MAX_THREADS} threads, {SHARED_LIMIT} B)")
+    b, t, g, h = _check_bwd_launch(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0, rows)
+    _run_bwd("gru_bwd_rows_f32", x_proj, hp, y, h0, dy, dh_last, padded_weight_bwd(w_hh), dx_proj, dhp, dh0,
+             (b, t, g, h, rows))
 
 
 def launch_gru_bwd_resident(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0, cs=None) -> None:
-    """The resident backward kernel on CUDA tensors, whatever the shape's plan
-    says, with the arguments of ``launch_gru_bwd_streamed``; raises where no
-    cluster holds the weight. ``cs`` (default: the smallest cluster that
-    fits) forces a cluster size, so that every instance can be checked and
-    timed; it raises where ``bwd_fit_at`` has no fit. Counted in
+    """Route A, the resident backward kernel, on CUDA tensors, whatever the
+    shape's plan says, with the arguments of ``launch_gru_bwd_streamed``;
+    raises where no cluster holds the weight. ``cs`` (default: the smallest
+    cluster of up to 8 that fits, else 16) forces a cluster size, so that
+    every instance can be checked and timed; it raises where ``bwd_fit_at``
+    has no fit. Counted in
     ``gru_sequence_bwd.launches`` and ``.resident_launches``."""
     h = x_proj.shape[-1] // 3
-    fit = bwd_cluster_fit(h) if cs is None else bwd_fit_at(h, cs) if cs in CLUSTER_SIZES else None
+    if cs is None:
+        fit = bwd_cluster_fit(h) or scatter_fit(h)
+    else:
+        fit = bwd_fit_at(h, cs) if cs in (*CLUSTER_SIZES, BWD_SCATTER_CS) else None
     if fit is None:
-        raise ValueError(f"no cluster of {CLUSTER_SIZES if cs is None else cs} blocks holds the recurrent weight "
-                         f"of hidden size per group {h} and a dhp tile in shared memory with a unit in every block")
+        raise ValueError(f"no cluster of {(*CLUSTER_SIZES, BWD_SCATTER_CS) if cs is None else cs} blocks holds the "
+                         f"recurrent weight of hidden size per group {h} in shared memory with a unit in every block")
     b, t, g, h = _check_bwd_launch(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0, fit[2])
-    _run_bwd("gru_bwd_resident_f32", x_proj, hp, y, h0, dy, dh_last, packed_weight_bwd(w_hh, fit[0]),
-             dx_proj, dhp, dh0, (b, t, g, h, fit[0]))
+    if fit[0] == BWD_SCATTER_CS:
+        _run_bwd("gru_bwd_scatter_f32", x_proj, hp, y, h0, dy, dh_last, packed_weight(w_hh, torch.float32, fit[0]),
+                 dx_proj, dhp, dh0, (b, t, g, h))
+    else:
+        _run_bwd("gru_bwd_resident_f32", x_proj, hp, y, h0, dy, dh_last, packed_weight_bwd(w_hh, fit[0]),
+                 dx_proj, dhp, dh0, (b, t, g, h, fit[0]))
     gru_sequence_bwd.resident_launches += 1
 
 
 def launch_gru_bwd(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0) -> None:
-    """The routed backward launcher: the resident kernel where
-    ``resident_bwd_plan`` fits, the streamed one elsewhere (both launch or
-    raise), with the arguments of ``launch_gru_bwd_streamed``."""
+    """The routed backward launcher: route A where ``backward_plan`` fits,
+    route B elsewhere (both launch or raise), with the arguments of
+    ``launch_gru_bwd_streamed``."""
     b, t, g, h3 = x_proj.shape
-    resident = resident_bwd_plan(b, t, g, h3 // 3) is not None
+    resident = backward_plan(b, t, g, h3 // 3, x_proj.device) is not None
     launch = launch_gru_bwd_resident if resident else launch_gru_bwd_streamed
     launch(x_proj, hp, y, h0, dy, dh_last, w_hh, dx_proj, dhp, dh0)
 
@@ -616,8 +776,8 @@ def gru_sequence_bwd(dy, dh_last, x_proj, h0, w_hh, b_hh, y):
     """The recurrence's backward (f32 weights): ``(dx_proj, dh0, dw_hh,
     db_hh)``, with the signature of ``gru_sequence_backward_reference``, which
     it runs for CPU tensors. On CUDA tensors: ``hp`` for all t as one batched
-    product, one launch of the backward kernel that ``resident_bwd_plan``
-    picks (``launch_gru_bwd``), then ``dw_hh`` and ``db_hh`` from its ``dhp``."""
+    product, one launch of the backward kernel that ``backward_plan`` picks
+    (``launch_gru_bwd``), then ``dw_hh`` and ``db_hh`` from its ``dhp``."""
     _check_shapes(x_proj, h0, w_hh, b_hh, None)
     if dy.shape != y.shape or y.shape != (*x_proj.shape[:3], h0.shape[-1]):
         raise ValueError(f"dy and y must be {(*x_proj.shape[:3], h0.shape[-1])}, "

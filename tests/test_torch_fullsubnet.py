@@ -299,15 +299,21 @@ def test_weights_round_trip_and_flax_paths(rng):
 @pytest.mark.parametrize("h", [512, 384], ids=["full_band", "sub_band"])
 def test_published_widths_take_the_streamed_kernels(h):
     """The backward: no cluster of up to 8 holds an f32 weight of H = 512 or
-    384 with a dhp tile, so the streamed backward runs both widths. The
-    forward: the full band's rows (B = 16, 8 or 1) take the resident kernel
-    at 16 blocks x 8 rows; the sub band's (its 257 bins folded into the batch)
-    would need more waves of the 7 16-block clusters an H100 runs at once
-    than the plan allows (2 at T = 1, 8 over more steps), so the row-tiled
-    kernel takes them."""
-    for b, t in ((16, 626), (16 * 257, 626), (8 * 257, 188), (1, 1)):
+    384 with a dhp tile, but 16 blocks hold each (U = 32 and 24, the carry's
+    partial sums reduce-scattered), so the full band's rows take route A's
+    16-block kernel; the sub band's (its 257 bins folded into the batch)
+    would need more waves of the 7 16-block clusters an H100 runs at once than
+    the plan allows (2 at T = 1, 8 over more steps), so the row-tiled
+    backward takes them, at R = 16 in the step (B = 8 x 257). The forward:
+    the full band's rows (B = 16, 8 or 1) take the resident kernel at 16
+    blocks x 8 rows; the sub band's take the row-tiled kernel."""
+    for b, t in ((16, 626), (8, 188), (1, 1)):
+        assert gru_kernel.resident_bwd_plan(b, t, 1, h) == gru_kernel.scatter_fit(h) != None  # noqa: E711
+    for b, t in ((16 * 257, 626), (8 * 257, 188), (257, 1)):
         assert gru_kernel.resident_bwd_plan(b, t, 1, h) is None
     assert gru_kernel.bwd_cluster_fit(h) is None and h <= gru_kernel.MAX_HIDDEN
+    assert gru_kernel.scatter_fit(h) == ((16, 32, 8, 229392) if h == 512 else (16, 24, 8, 172048))
+    assert gru_kernel.bwd_row_tile(8 * 257, 1, h) == 16
     for b, t in ((16, 626), (8, 188), (8, 1), (1, 1)):
         plan = gru_kernel.resident_plan(b, t, 1, h)
         if h == 512:
@@ -376,27 +382,32 @@ def test_forward_takes_the_planned_route(rng, monkeypatch):
 
 def test_grid_limit_of_the_gru_launches():
     """grid_rows: ceil(B / rows a block) along y, rows R for the row-tiled
-    forward, the fit's rows for the resident forward, 8 for the streamed
-    backward, R for the resident backward; past 65,535 blocks a ValueError,
-    as the attention and TFCM launchers do."""
-    streamed, bwd = gru_kernel.STREAM_ROWS, gru_kernel.bwd_cluster_fit(176)[2]
-    assert streamed == 8 and gru_kernel.cluster_fit(176).rows == 16 and gru_kernel.cluster_fit(512).rows == 8
+    forward and backward, the fit's rows for the resident forward and
+    backward; past 65,535 blocks a ValueError, as the attention and TFCM
+    launchers do."""
+    bwd = gru_kernel.bwd_cluster_fit(176)[2]
+    assert gru_kernel.cluster_fit(176).rows == 16 and gru_kernel.cluster_fit(512).rows == 8
+    assert bwd == gru_kernel.scatter_fit(512)[2] == 8
     assert gru_kernel.grid_rows(16 * 257, 32) == 129
-    assert gru_kernel.grid_rows(16 * 257, streamed) == 514
-    assert gru_kernel.grid_rows(8 * 65535, streamed) == 65535
-    assert gru_kernel.grid_rows(32 * 65535, 32) == 65535
+    assert gru_kernel.grid_rows(8 * 257, gru_kernel.bwd_row_tile(8 * 257, 1, 384)) == 129  # route B in the step
+    assert gru_kernel.grid_rows(16 * 257, 8) == 514
+    for rows in gru_kernel.ROW_TILES:  # the row-tiled kernels' R, both directions
+        assert gru_kernel.grid_rows(rows * 65535, rows) == 65535
     assert gru_kernel.grid_rows(bwd * 65535, bwd) == 65535
-    for b, rows in ((8 * 65535 + 1, streamed), (16 * 65535 + 1, 16), (bwd * 65535 + 1, bwd),
-                    (2048 * 257, streamed), (32 * 65535 + 1, 32)):
+    for b, rows in ((8 * 65535 + 1, 8), (16 * 65535 + 1, 16), (bwd * 65535 + 1, bwd),
+                    (2048 * 257, 8), (32 * 65535 + 1, 32)):
         with pytest.raises(ValueError, match="65535"):
             gru_kernel.grid_rows(b, rows)
+    # a pool of 2,048 FullSubNet slots: R = 8 would take as few waves but pass the grid's limit, so R = 16
+    r = gru_kernel.bwd_row_tile(2048 * 257, 1, 384)
+    assert r == 16 and gru_kernel.grid_rows(2048 * 257, r) == 32896
 
 
 def test_launchers_check_the_grid_before_they_launch(monkeypatch):
     """Both forward launchers and both backward launchers refuse a batch past
     the grid limit: their tensor checks run on meta tensors (no storage, so
     no kernel could be reached), with the device check patched to pass."""
-    b, h = 32 * 65535 + 1, 384  # the row-tiled forward's largest tile, R = 32, at this B
+    b, h = 32 * 65535 + 1, 384  # the row-tiled forward's largest tile, R = 32, at this B; the backward's, 16
     x = torch.empty(b, 1, 1, 3 * h, device="meta")
     monkeypatch.setattr(torch.Tensor, "device", property(lambda self: torch.device("cuda", 0)))
     h0, w, bias = torch.empty(b, 1, h, device="meta"), torch.empty(1, 3 * h, h, device="meta"), \

@@ -24,9 +24,11 @@ from cruse_tpu.nn.gru import gru_scan as jax_gru_scan
 from cruse_tpu_torch.nn.gru import GGRUBottleneck, GroupedGRULayer, gru_scan
 from cruse_tpu_torch.ops import gru_kernel
 from cruse_tpu_torch.ops.gru_kernel import (
-    BWD_MAX_THREADS, BWD_PARTS, BWD_TILE_ROWS, CLUSTER_SIZES, SHARED_LIMIT, bwd_cluster_fit, bwd_fit_at,
-    bwd_threads, gru_backward_walk_reference, gru_sequence, gru_sequence_backward_reference, gru_sequence_bwd,
-    gru_sequence_reference, launch_gru_bwd, packed_weight_bwd, resident_bwd_bytes, resident_bwd_plan)
+    BWD_MAX_THREADS, BWD_PARTS, BWD_ROWS_CHUNK, BWD_SCATTER_CS, BWD_TILE_ROWS, CLUSTER_SIZES, H100_CLUSTERS,
+    MAX_CLUSTER_WAVES, HOP_CLUSTER_WAVES, ROW_TILES, SHARED_LIMIT, bwd_cluster_fit, bwd_fit_at, bwd_row_tile,
+    bwd_rows_fit, bwd_rows_stages, bwd_threads, gru_backward_walk_reference, gru_sequence,
+    gru_sequence_backward_reference, gru_sequence_bwd, gru_sequence_reference, launch_gru_bwd, packed_weight,
+    packed_weight_bwd, padded_weight_bwd, resident_bwd_bytes, resident_bwd_plan, scatter_fit, scatter_stride)
 from cruse_tpu_torch.utils.weights import flatten_tree
 
 # B, T, G, H: a ragged batch, one step, an odd H, one group
@@ -239,8 +241,10 @@ def test_cuda_route_with_stand_in_kernels_matches_autograd(rng, monkeypatch):
     the launchers replaced by stand-ins that run the kernels' plain versions
     into the outputs: the gradients match autograd through the plain
     recurrence, each direction is one counted launch, and the backward takes
-    the resident launcher where ``resident_bwd_plan`` fits and the streamed
-    one where it is None."""
+    route A's launcher where ``backward_plan`` fits (a cluster of 1 at H = 6;
+    16 blocks at H = 384, where the card runs 7 such clusters at once) and
+    route B's where it is None (H = 384 where the card would run no 16-block
+    cluster; H = 6 with the plan patched to None)."""
     def stand_in_forward(x, h0, w, b, weight_dtype=None):
         gru_sequence.launches += 1
         return gru_sequence_reference(x, h0, w, b, weight_dtype)
@@ -253,7 +257,9 @@ def test_cuda_route_with_stand_in_kernels_matches_autograd(rng, monkeypatch):
             for out, want in zip((dx_proj, dhp, dh0), gru_backward_walk_reference(
                     dy, dh_last, x_proj, h0, w_hh, b_hh_seen[0], y)):
                 out.copy_(want)
-            routes.append(route)
+            h = h0.shape[-1]
+            routes.append(f"resident CS={(bwd_cluster_fit(h) or scatter_fit(h))[0]}" if route == "resident"
+                          else route)
             gru_sequence_bwd.launches += 1
             gru_sequence_bwd.resident_launches += route == "resident"
         return launch
@@ -262,12 +268,15 @@ def test_cuda_route_with_stand_in_kernels_matches_autograd(rng, monkeypatch):
     monkeypatch.setattr(gru_kernel, "launch_resident", stand_in_forward)
     monkeypatch.setattr(gru_kernel, "launch_streamed", stand_in_forward)
     monkeypatch.setattr(gru_kernel, "launch_gru_bwd_resident", stand_in_backward("resident"))
-    monkeypatch.setattr(gru_kernel, "launch_gru_bwd_streamed", stand_in_backward("streamed"))
-    x, h0, w, b, dy, dh_last = (torch.from_numpy(a) for a in _inputs(rng, 5, 7, 2, 6, np.float64))
-    b_hh_seen = [b]
-    for route in ("resident", "streamed"):
-        if route == "streamed":  # a shape no cluster holds
-            monkeypatch.setattr(gru_kernel, "resident_bwd_plan", lambda *shape: None)
+    monkeypatch.setattr(gru_kernel, "launch_gru_bwd_streamed", stand_in_backward("row-tiled"))
+    for shape, clusters, route in (((5, 7, 2, 6), 7, "resident CS=1"), ((3, 4, 1, 384), 7, "resident CS=16"),
+                                   ((3, 4, 1, 384), 0, "row-tiled"), ((5, 7, 2, 6), 7, "row-tiled")):
+        x, h0, w, b, dy, dh_last = (torch.from_numpy(a) for a in _inputs(rng, *shape, np.float64))
+        b_hh_seen = [b]
+        monkeypatch.setattr(gru_kernel, "co_resident_bwd_clusters", lambda device, h, n=clusters: n)
+        monkeypatch.setattr(gru_kernel, "co_resident_clusters", lambda device, h, dtype=None: 7)  # the forward's
+        if route == "row-tiled" and shape[3] == 6:  # a shape a cluster of up to 8 holds, its plan patched away
+            monkeypatch.setattr(gru_kernel, "resident_bwd_plan", lambda *shape, **kw: None)
         routes = []
         before = gru_sequence.launches, gru_sequence_bwd.launches, gru_sequence_bwd.resident_launches
         results = []
@@ -276,10 +285,15 @@ def test_cuda_route_with_stand_in_kernels_matches_autograd(rng, monkeypatch):
             y, h_last = fn(*leaves)
             results.append(torch.autograd.grad((y * dy).sum() + (h_last * dh_last).sum(), leaves))
         assert routes == [route]
+        resident = route.startswith("resident")
         assert (gru_sequence.launches - before[0], gru_sequence_bwd.launches - before[1],
-                gru_sequence_bwd.resident_launches - before[2]) == (1, 1, int(route == "resident"))
+                gru_sequence_bwd.resident_launches - before[2]) == (1, 1, int(resident))
         for name, got, want in zip(("dx_proj", "dh0", "dw_hh", "db_hh"), *results):
-            torch.testing.assert_close(got, want, rtol=0, atol=1e-10, msg=f"{route}: {name}")
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-10, msg=f"{route} {shape}: {name}")
+
+
+WAVE_ROWS = MAX_CLUSTER_WAVES * H100_CLUSTERS * 8  # the most rows a 16-block launch takes over T > 1 at G = 1
+HOP_ROWS = HOP_CLUSTER_WAVES * H100_CLUSTERS * 8  # and at T = 1
 
 
 @pytest.mark.parametrize("shape, want", [
@@ -288,27 +302,73 @@ def test_cuda_route_with_stand_in_kernels_matches_autograd(rng, monkeypatch):
     ((3, 5, 2, 33), (1, 36, 8, 22224)),
     ((5, 6, 2, 200), (4, 52, 8, 172848)),
     ((3, 5, 2, 256), (8, 32, 8, 172080)),
-    ((3, 5, 2, 350), None),
-    ((2, 4, 1, 512), None),  # the streamed backward's largest H
+    ((3, 5, 2, 350), None),  # no cluster of up to 8 holds it, and 16 blocks of 24 units would leave one without
+    ((2, 4, 1, 512), (16, 32, 8, 229392)),  # the row-tiled backward's largest H: 16 blocks hold it
+    ((8, 188, 1, 512), (16, 32, 8, 229392)),  # FullSubNet's full band in its step: one cluster of 16
+    ((2056, 188, 1, 384), None),  # its sub band: 257 clusters of 16 would take 37 waves of 7
+    ((16, 626, 1, 384), (16, 24, 8, 172048)),
+    ((WAVE_ROWS, 188, 1, 512), (16, 32, 8, 229392)),  # the wave rule's boundary: 56 clusters, 8 waves of 7
+    ((WAVE_ROWS + 1, 188, 1, 512), None),
+    ((WAVE_ROWS // 2, 188, 2, 512), (16, 32, 8, 229392)),
+    ((WAVE_ROWS // 2 + 1, 188, 2, 512), None),
+    ((HOP_ROWS, 1, 1, 512), (16, 32, 8, 229392)),  # at T = 1, 2 waves
+    ((HOP_ROWS + 1, 1, 1, 512), None),
 ], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) and len(v) == 4 else None)
 def test_resident_bwd_plan(shape, want):
-    """The smallest cluster whose block holds its [3H][U] slice (rows padded
-    to 2 mod 4 chunks), the dhp tile and its two mbarriers within
-    SHARED_LIMIT; every block owns a unit; None where no cluster of up to 8
-    does."""
+    """The smallest cluster of up to 8 whose block holds its [3H][U] slice
+    (rows padded to 2 mod 4 chunks), the dhp tile and its two mbarriers
+    within SHARED_LIMIT, every block owning a unit; else the 16-block fit
+    (``scatter_fit``: H rows of its units' three gates, the partial carries
+    [2][16][U][8] and two mbarriers) where the launch's clusters take at most
+    MAX_CLUSTER_WAVES (HOP_CLUSTER_WAVES at T = 1) waves of the 7 an H100
+    runs at once; None where the row-tiled backward runs, at ``bwd_row_tile``'s
+    R."""
     plan = resident_bwd_plan(*shape)
     assert plan == want
-    h = shape[3]
+    b, t, g, h = shape
+    small = [cs for cs in CLUSTER_SIZES if resident_bwd_bytes(h, -(-h // (4 * cs)) * 4, BWD_TILE_ROWS) <= SHARED_LIMIT
+             and bwd_fit_at(h, cs) is not None]
     if plan is None:
-        assert all(resident_bwd_bytes(h, -(-h // (4 * cs)) * 4, BWD_TILE_ROWS) > SHARED_LIMIT for cs in CLUSTER_SIZES)
+        assert not small and bwd_rows_fit(h, bwd_row_tile(b, g, h))
+        waves = HOP_CLUSTER_WAVES if t == 1 else MAX_CLUSTER_WAVES
+        assert scatter_fit(h) is None or g * -(-b // 8) > waves * H100_CLUSTERS
         return
     cs, u, rows, nbytes = plan
     assert rows == BWD_TILE_ROWS and u % 4 == 0 and u * cs >= h > (cs - 1) * u
+    if cs == BWD_SCATTER_CS:
+        assert not small and g * -(-b // rows) <= (HOP_CLUSTER_WAVES if t == 1 else MAX_CLUSTER_WAVES) * H100_CLUSTERS
+        assert u <= 32 and nbytes == h * 16 * -(-(3 * u // 4) // 8) * 8 + 2 * 16 * u * rows * 4 + 16 <= SHARED_LIMIT
+        return
     slice_bytes = 3 * h * 16 * (u // 4 + (6 - u // 4 % 4) % 4)
     assert nbytes == slice_bytes + 2 * (rows // 8) * (24 * h + 4) * 4 + 16 <= SHARED_LIMIT
     assert bwd_threads(u, rows) <= BWD_MAX_THREADS
     for smaller in CLUSTER_SIZES[:CLUSTER_SIZES.index(cs)]:
         assert resident_bwd_bytes(h, -(-h // (4 * smaller)) * 4, rows) > SHARED_LIMIT
+
+
+@pytest.mark.parametrize("b, g, h, want", [
+    (8 * 257, 1, 384, 16),  # FullSubNet's sub band in its step: 129 blocks of 16 rows
+    (16 * 257, 1, 384, 16),  # 32 rows would leave the ring one stage
+    (8, 1, 512, 8), (257, 1, 512, 8),  # 16 rows of H = 512: 2 stages; the tie goes to the larger on one wave
+    (128, 4, 176, 8), (4096, 4, 176, 32), (3, 2, 5, 8), (45, 1, 177, 8),
+    (2048 * 257, 1, 384, 16),  # R = 8 takes as few waves, but 65,792 blocks: past the grid's limit
+])
+def test_bwd_row_tile(b, g, h, want):
+    """Route B's R: of the tiles whose block (2 j halves x R / 8 row groups x
+    Hp / 8 unit groups, at most 384 threads) holds the dhp tile [3H][R] and a
+    ring of 2 or more stages of 32 j rows, the fewest rows times waves of 132
+    blocks (of the tiles whose grid stays within 65,535 blocks); R = 8 fits
+    every H up to 512."""
+    assert bwd_row_tile(b, g, h) == want
+    assert all(bwd_rows_fit(hh, 8) for hh in (1, 5, 176, 177, 384, 500, 512))
+    hp = -(-h // 8) * 8
+    for r in ROW_TILES:
+        stages = min(8, (SHARED_LIMIT - 3 * h * r * 4) // (BWD_ROWS_CHUNK * hp * 4 + 16))
+        threads = -(-2 * (r // 8) * (hp // 8) // 32) * 32
+        assert bwd_rows_stages(h, r) == stages
+        assert bwd_rows_fit(h, r) == (threads <= 384 and stages >= 2)
+    waves = {r: -(-g * -(-b // r) // 132) * r for r in ROW_TILES if bwd_rows_fit(h, r) and -(-b // r) <= 65535}
+    assert waves[want] == min(waves.values())
 
 
 @pytest.mark.parametrize("h, cs, rows, want", [
@@ -318,6 +378,9 @@ def test_resident_bwd_plan(shape, want):
     (5, 2, 8, (2, 4, 8, 1488)), (5, 4, 8, None), (300, 8, 8, (8, 40, 8, 201648)), (350, 8, 8, None),
     (1, 1, 8, (1, 4, 8, 336)),
     (176, 2, 16, None), (176, 4, 16, (4, 44, 16, 185936)),  # the sweep's copy of the source at R = 16
+    (512, 16, 8, (16, 32, 8, 229392)), (500, 16, 8, (16, 32, 8, 224784)),  # 16 blocks: the other layout
+    (384, 16, 8, (16, 24, 8, 172048)), (350, 16, 8, None), (256, 16, 8, (16, 16, 8, 81936)), (176, 16, 8, None),
+    (33, 16, 8, None), (512, 16, 16, None), (520, 16, 8, None),
 ])
 def test_bwd_fit_at(h, cs, rows, want):
     """A cluster size's fit: its bytes and threads within the limits, and a
@@ -326,7 +389,9 @@ def test_bwd_fit_at(h, cs, rows, want):
     assert fit == want
     if fit is not None:
         u = fit[1]
-        assert fit[3] == resident_bwd_bytes(h, u, rows) <= SHARED_LIMIT and (cs - 1) * u < h <= cs * u
+        nbytes = (h * scatter_stride(u) * 16 + 2 * 16 * u * rows * 4 + 16 if cs == BWD_SCATTER_CS
+                  else resident_bwd_bytes(h, u, rows))
+        assert fit[3] == nbytes <= SHARED_LIMIT and (cs - 1) * u < h <= cs * u
     if rows == BWD_TILE_ROWS:
         smallest = next((f for f in (bwd_fit_at(h, c) for c in CLUSTER_SIZES) if f), None)
         assert bwd_cluster_fit(h) == smallest and (smallest is None or smallest[0] <= (cs if fit else 8))
@@ -335,12 +400,14 @@ def test_bwd_fit_at(h, cs, rows, want):
 def test_resident_launcher_refuses_a_cluster_without_a_fit(rng):
     """A forced cluster size raises, before any device check, where the
     weight does not fit, where a block would own no unit (H = 33 in 8 blocks
-    of U = 8: blocks 5 to 7 have none) or where the size is not built; a size
-    that fits goes on to the launch's own checks (here: CPU tensors)."""
+    of U = 8: blocks 5 to 7 have none; in 16 of U = 4) or where the size is not
+    built; a size that fits goes on to the launch's own checks (here: CPU
+    tensors). H = 350 fits no cluster of up to 8, and 16 blocks of 24 units
+    would leave one without."""
     x, h0, w, b, dy, dh_last = (torch.from_numpy(a) for a in _inputs(rng, 2, 3, 1, 33))
     args = (x, x.clone(), dy, h0, dy, dh_last, w, torch.empty_like(x), torch.empty_like(x), torch.empty_like(h0))
     before = gru_sequence_bwd.launches, gru_sequence_bwd.resident_launches
-    for cs in (4, 8, 3):
+    for cs in (4, 8, 3, 16):  # at 16: U = 4, blocks 9 to 15 have none
         with pytest.raises(ValueError, match="unit in every block"):
             gru_kernel.launch_gru_bwd_resident(*args, cs=cs)
     for cs in (1, 2):
@@ -447,3 +514,136 @@ def test_backward_by_unit_slices_matches_walk_and_jax(rng, shape, cs):
     zero = _backward_by_slices(dy, None, x, h0, w, b, y, cs)  # dh_last None: zeros
     for g, ref in zip(zero, gru_backward_walk_reference(dy, None, x, h0, w, b, y)):
         torch.testing.assert_close(g, ref, rtol=0, atol=1e-5)
+
+
+def _gates(dy_t, carry, x_t, h_prev, w_hh, b_hh):
+    """One step's gates as the kernels take them: (dx_proj, dhp, direct) of
+    every (row, unit) from the carry, with hp from the saved state."""
+    hdim = h_prev.shape[-1]
+    hp = torch.einsum("bgh,gkh->bgk", h_prev, w_hh) + b_hh
+    xr, xz, xn = x_t.split(hdim, dim=-1)
+    hr, hz, hn = hp.split(hdim, dim=-1)
+    r, z = torch.sigmoid(xr + hr), torch.sigmoid(xz + hz)
+    n = torch.tanh(xn + r * hn)
+    dh = dy_t + carry
+    dn = dh * (1.0 - z) * (1.0 - n * n)
+    dz = dh * (h_prev - n) * z * (1.0 - z)
+    dr = dn * hn * r * (1.0 - r)
+    return torch.cat([dr, dz, dn], dim=-1), torch.cat([dr, dz, dn * r], dim=-1), dh * z
+
+
+def _backward_by_j_slices(dy, dh_last, x_proj, h0, w_hh, b_hh, y, cs=BWD_SCATTER_CS):
+    """Route A at 16 blocks (``gru_bwd_scatter_kernel``) in plain PyTorch, in
+    its order of sums: block c holds the forward's packed slice of its U
+    units' three gates, ``packed_weight(w_hh, f32, cs)[:, c]`` ([H][3][U]),
+    finishes the gates of its units into its dhp tile [3U] (tile row q U + u),
+    and forms a partial carry of every unit k over its 3U rows j, summed in
+    the order of j; the owner of unit k adds the cs partials in block order
+    after its direct term dh z. Returns (dx_proj, dhp, dh0), as the walk."""
+    hdim = h0.shape[-1]
+    packed = packed_weight(w_hh, torch.float32, cs).to(w_hh.dtype)  # [G, CS, H, 3, U]
+    u = packed.shape[-1]
+    slices = packed.reshape(*packed.shape[:3], 3 * u)  # [G, CS, k, j = gate * U + unit]
+    carry = torch.zeros_like(h0) if dh_last is None else dh_last
+    dx, dp = [None] * x_proj.shape[1], [None] * x_proj.shape[1]
+    for t in range(x_proj.shape[1] - 1, -1, -1):
+        h_prev = h0 if t == 0 else y[:, t - 1]
+        dx[t], dp[t], direct = _gates(dy[:, t], carry, x_proj[:, t], h_prev, w_hh, b_hh)
+        partials = []
+        for c in range(cs):
+            own = [q * hdim + c * u + v for q in range(3) for v in range(u)]  # the block's rows j, in tile order
+            tile = torch.stack([dp[t][..., j] if j % hdim >= c * u and j % hdim < hdim else torch.zeros_like(
+                dp[t][..., 0]) for j in own], dim=-1)  # [B, G, 3U]: padding units' rows are zero
+            part = torch.zeros_like(h0)
+            for j in range(3 * u):  # the kernel's running sum over j
+                part = part + slices[None, :, c, :, j] * tile[..., j, None]
+            partials.append(part)
+        carry = direct
+        for part in partials:  # the owner adds the blocks' partials in block order
+            carry = carry + part
+    return torch.stack(dx, dim=1), torch.stack(dp, dim=1), carry
+
+
+def _backward_by_j_chunks(dy, dh_last, x_proj, h0, w_hh, b_hh, y, rows):
+    """Route B (``gru_bwd_rows_kernel``) in plain PyTorch, in its order of
+    sums: blocks of ``rows`` batch rows (the last padded with zero rows, whose
+    outputs are dropped); each step the gates give the dhp tile [3H] of every
+    row, and a lane pair's two halves of j (even and odd rows j, taken in
+    chunks of ``BWD_ROWS_CHUNK``) are summed apart, the lower lane's own units
+    starting from the direct term dh z and the upper lane's from zero (and
+    the other way round for the upper lane's units), then added. Returns
+    (dx_proj, dhp, dh0), as the walk."""
+    b, t_len, g, h3 = x_proj.shape
+    hdim = h3 // 3
+    pad = -b % rows
+
+    def padded(a):
+        return torch.cat([a, a.new_zeros((pad, *a.shape[1:]))]) if pad else a
+
+    dy_p, x_p, h0_p, y_p = map(padded, (dy, x_proj, h0, y))
+    carry = torch.zeros_like(h0_p) if dh_last is None else padded(dh_last)
+    dx, dp = [None] * t_len, [None] * t_len
+    w = padded_weight_bwd(w_hh)[..., :hdim]  # [G, 3H, H], the rows as the ring streams them
+    lower = (torch.arange(hdim) // 4) % 2 == 0  # units k8 .. k8 + 3 of each 8: the lower lane's
+    for t in range(t_len - 1, -1, -1):
+        h_prev = h0_p if t == 0 else y_p[:, t - 1]
+        dx[t], dp[t], direct = _gates(dy_p[:, t], carry, x_p[:, t], h_prev, w_hh, b_hh)
+        halves = [torch.where(lower, direct, 0.0), torch.where(lower, 0.0, direct)]
+        for c0 in range(0, h3, BWD_ROWS_CHUNK):
+            for j in range(c0, min(h3, c0 + BWD_ROWS_CHUNK)):
+                halves[j % 2] = halves[j % 2] + w[None, :, j, :] * dp[t][..., j, None]
+        carry = torch.where(lower, halves[0] + halves[1], halves[1] + halves[0])
+    return torch.stack(dx, dim=1)[:b], torch.stack(dp, dim=1)[:b], carry[:b]
+
+
+def _check_against_walk_and_jax(rng, shape, emulate):
+    arrays = _inputs(rng, *shape)
+    (_, _), vjp = jax.vjp(jax_gru_scan, *(jnp.asarray(a) for a in arrays[:4]))
+    want_dx, want_dh0 = (np.asarray(v) for v in vjp((jnp.asarray(arrays[4]), jnp.asarray(arrays[5])))[:2])
+    x, h0, w, b, dy, dh_last = (torch.from_numpy(a) for a in arrays)
+    y, _ = gru_sequence_reference(x, h0, w, b)
+    got = emulate(dy, dh_last, x, h0, w, b, y)
+    for name, g, ref in zip(("dx_proj", "dhp", "dh0"), got, gru_backward_walk_reference(dy, dh_last, x, h0, w, b, y)):
+        torch.testing.assert_close(g, ref, rtol=0, atol=1e-5, msg=name)
+    np.testing.assert_allclose(got[0].numpy(), want_dx, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got[2].numpy(), want_dh0, rtol=0, atol=1e-5)
+    zero = emulate(dy, None, x, h0, w, b, y)  # dh_last None: zeros
+    for g, ref in zip(zero, gru_backward_walk_reference(dy, None, x, h0, w, b, y)):
+        torch.testing.assert_close(g, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(3, 6, 2, 64), (2, 5, 1, 64), (9, 4, 1, 61), (4, 3, 3, 62)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_backward_by_j_slices_matches_walk_and_jax(rng, shape):
+    """Route A's reduce-scatter at 16 blocks of U = 4 units, each owning units
+    (H = 61 and 62: the last block 1 and 2 of them, its padding rows zero),
+    against the walk and jax.vjp of gru_scan, with dh_last nonzero and None."""
+    h = shape[3]
+    fit = scatter_fit(h)
+    assert fit is not None and fit[0] == BWD_SCATTER_CS and (BWD_SCATTER_CS - 1) * fit[1] < h
+    _check_against_walk_and_jax(rng, shape, _backward_by_j_slices)
+
+
+@pytest.mark.parametrize("shape, rows", [((3, 7, 2, 5), 8), ((19, 4, 1, 12), 16), ((9, 5, 2, 16), 8),
+                                         ((33, 3, 1, 11), 32), ((2, 1, 3, 4), 8)],
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_backward_by_j_chunks_matches_walk_and_jax(rng, shape, rows):
+    """Route B's order of sums (B off the row tile, H off the 8-unit pairs
+    and the 4-unit halves, 3H off the 32-row chunks, T = 1) against the walk
+    and jax.vjp of gru_scan, with dh_last nonzero and None."""
+    assert bwd_rows_fit(shape[3], rows)
+    _check_against_walk_and_jax(rng, shape, lambda *args: _backward_by_j_chunks(*args, rows=rows))
+
+
+@pytest.mark.parametrize("g, h", [(2, 5), (1, 8), (3, 12), (1, 16), (1, 384)])
+def test_padded_weight_bwd_matches_indexing(rng, g, h):
+    """Route B's weight: [g, j, k] is w_hh[g, j, k], zero for k >= H, rows of
+    a multiple of 8 units; w_hh itself where it already is that, else a copy
+    cached on the weight."""
+    w = torch.from_numpy(rng.standard_normal((g, 3 * h, h)).astype(np.float32))
+    got = padded_weight_bwd(w)
+    hp = -(-h // 8) * 8
+    assert got.shape == (g, 3 * h, hp) and got.dtype == torch.float32 and got.is_contiguous()
+    torch.testing.assert_close(got[..., :h], w, rtol=0, atol=0)
+    assert not got[..., h:].any()
+    assert (got is w) == (hp == h) and padded_weight_bwd(w) is got
