@@ -298,7 +298,22 @@ needed). In order, and any failure exits non-zero:
     CUDA events and at its hop shape from a profile, and the backward's at
     its shapes, with its plain version, its bound and cuDNN's ``nn.GRU``
     (forward, or ``autograd.grad``) at the same shape;
-23. drives the deployment path: config 1 (``configs/cruse_base.toml``, seeded
+23. drives the multi-mic McCruse at ``McCruseConfig()``'s width (4 mics,
+    pairs (0, 1), (0, 2), (0, 3), the CRUSE trunk (8, 16, 32, 64) at 161
+    bins with 4 GRU groups; seeded weights, BatchNorm statistics and PReLU
+    slope; synthetic 4-mic audio: one utterance delayed 3 samples a mic,
+    independent noise on each): offline ``multi_channel_directional`` and
+    ``auto`` at B=4 x 4 s (2 GRU launches a call, both resident; the waveform
+    against the plain recurrence within 1e-4), one timed call at B=64 x 10 s
+    (x-realtime, launches, peak memory, a profile); streamed at B=8 x 4 s
+    (``[B, 4, hop]`` hops, primed; 2 resident GRU launches a hop; against the
+    offline center=False call through the multi-channel adapter within
+    1e-4, row 0 alone, ``step_multi``), the B=1 hop's median latency and a
+    profile; an 8-slot McCruse pool (sessions buffering ``[4, samples]``)
+    beside an 8-slot config-3 pool in one ``MultiModelServer``, 9 sessions
+    each, every step's launches exactly its pool's, each session within 1e-4
+    of itself streamed alone;
+24. drives the deployment path: config 1 (``configs/cruse_base.toml``, seeded
     weights and BatchNorm statistics) exported offline at B=16 x 10 s on the
     card in float32 and int8 (``infer/export.py``, ``nn/quantize.py``),
     saved and loaded (``infer/artifact.py``): 2 resident GRU launches a call
@@ -328,11 +343,23 @@ needed). In order, and any failure exits non-zero:
     with the eager hop with and without the five custom ops' dispatch, the
     host cost of the three MTFAA ops' dispatch, and profiles of the eager,
     float32 and int8 hops (the float32 artifact hop may launch no more device
-    kernels than the eager hop: it folds nothing per call); last ``export
+    kernels than the eager hop: it folds nothing per call); ``export
     --streaming`` and ``run_exported`` on config 5b against the eager
     ``infer --streaming`` CLI on the same seeded weights, within one int16
-    step;
-24. prints a JSON line of the kernels (each with its launches on the main
+    step. Then FullSubNet (``FullSubNetConfig()``): offline (the ``auto``
+    body, as the JAX exporter traces it) at B=16 x 10 s and streamed (the
+    cumulative norm) at B=1 over 100 hops, float32 and int8, each call or hop
+    4 GRU launches, 2 of them on route A, within 1e-5 of eager ``auto`` / the
+    eager hop and, offline, within 1e-4 of eager ``complex_mask``; the
+    streamed state after the hops against eager's leaf for leaf (the norms'
+    counts equal); ms a call and a B=1 hop against eager, file MB, and
+    profiles (the float32 programs' device launches no more than eager's; the
+    int8 hop's extra launches printed). Last McCruse streamed at B=1
+    (``[1, 4, 160]`` hops, ``num_mics`` 4 in the meta), float32 and int8, 100
+    hops within 1e-5 of the eager hop, 2 resident GRU launches a hop, the
+    hop's ms and device launches against eager's, and ``run_exported`` on a
+    4-channel wav as the artifact streams it here;
+25. prints a JSON line of the kernels (each with its launches on the main
     paths, its error, its time, the plain version's, the least time the card
     could take for its bytes or its multiply-adds, and the library call's time
     where there is one), then ``{"ok": true, "device": ...}``.
@@ -357,6 +384,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 import cruse_tpu_torch
 import cruse_tpu_torch.ops.asa_kernel as asa_kernel
@@ -368,16 +396,17 @@ from cruse_tpu_torch.data import native as native_io
 from cruse_tpu_torch.data.manifest import write_manifest
 from cruse_tpu_torch.data.mixer import draw_mix, mix_batch
 from cruse_tpu_torch.data.wavio import read_wav, to_int16_scaled, write_wav
-from cruse_tpu_torch.dsp.stft import StftConfig, istft, stft
+from cruse_tpu_torch.dsp.stft import StftConfig, istft, mc_stft, stft
 from cruse_tpu_torch.infer import artifact as artifact_lib
 from cruse_tpu_torch.infer.batch import BatchInferencer, InferencerConfig
 from cruse_tpu_torch.infer.export import export_offline, export_streaming
+from cruse_tpu_torch.infer.run_exported import main as run_exported_main
 from cruse_tpu_torch.infer.serve import build_model as serve_build_model
 from cruse_tpu_torch.infer.server import MultiModelServer, StreamingServer, tree_leaves
 from cruse_tpu_torch.infer.streaming import StreamingEnhancer
 from cruse_tpu_torch.models import (
-    CruseDfConfig, CruseDfNet, CruseNet, DfsmnConfig, DfsmnNet, FullSubNet, FullSubNetConfig, MtfaaConfig, MtfaaNet,
-    build_from_config)
+    CruseDfConfig, CruseDfNet, CruseNet, DfsmnConfig, DfsmnNet, FullSubNet, FullSubNetConfig, McCruseConfig,
+    McCruseNet, MtfaaConfig, MtfaaNet, build_from_config)
 from cruse_tpu_torch.models.cruse_df import apply_cruse_df
 from cruse_tpu_torch.models.mtfaa import (
     AxialSelfAttention, BatchNormC, PReLUc, TFCM, TFCMBlock)
@@ -621,6 +650,22 @@ FSN_SUB_BAND_BWD_ROWS = 16  # route B's R at the step's sub band: 129 blocks
 FSN_BWD_RESIDENT = 2  # a step's backward launches on route A: the full band's two
 # the backward's routes at FullSubNet's shapes: its kernels by route, the 16-block one for route A there
 BWD_ROUTE_KERNELS = {"resident": "gru_bwd_scatter_kernel", "row-tiled": "gru_bwd_rows_kernel"}
+# FullSubNet's artifacts: offline (the offline norm) at B=16 x 10 s and streamed (the cumulative norm) at B=1 over
+# FSN_DEPLOY_HOPS hops, each in float32 and int8; a call or a hop launches its 4 GRUs, 2 of them on route A
+FSN_DEPLOY_HOPS = 100
+# McCruse at McCruseConfig()'s width: 4 mics, pairs (0, 1), (0, 2), (0, 3), directional features of 644 per
+# frame, the CRUSE trunk (8, 16, 32, 64) at 161 bins with 4 GRU groups; n_fft 320, hop 160. Its inputs: one
+# synthetic utterance on every mic, delayed MC_DELAY samples a mic, with independent noise. Offline at B=4 x 4 s
+# (checked) and B=64 x 10 s (timed); streamed at B=8 x 4 s (checked) and B=1 (timed); an 8-slot pool beside
+# config 3's in one MultiModelServer; the streamed artifact at B=1
+MC_STFT = dict(n_fft=320, hop_length=160)
+MC_MICS, MC_DELAY = 4, 3
+MC_BATCH, MC_SECONDS = 4, 4
+MC_RTF_BATCH, MC_RTF_SECONDS = 64, 10
+MC_CALL_LAUNCHES = {"gru_sequence": 2}  # a forward, a hop, a server step: one a GRU bank, both resident
+MC_SERVER_SLOTS = 8
+MC_SERVER_SESSIONS = {"mc": (9, 0.5, 1.5), "cruse_df": (9, 0.5, 1.5)}  # (count, shortest, longest seconds)
+MC_SERVER_LAUNCHES = {"mc": {"gru_sequence": 2}, "cruse_df": {"gru_sequence": 2, "deep_filter": 1}}  # a step
 
 
 def require(ok: bool, what: str) -> None:
@@ -1101,7 +1146,7 @@ def check_auto_path(model, device) -> tuple[int, int]:
 
 def stream_seconds(enh, wav) -> float:
     """Wall seconds of one synchronised StreamingEnhancer.run, after a warm-up."""
-    enh.run(wav[:, : 4 * enh.cfg.hop_length])
+    enh.run(wav[..., : 4 * enh.cfg.hop_length])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     enh.run(wav)
@@ -1113,12 +1158,12 @@ def profile_stream(enh, wav, hops: int = 20) -> None:
     """torch.profiler over `hops` streaming hops (see ``profile_calls``)."""
     hop = enh.cfg.hop_length
     keep = enh.cfg.n_fft - hop
-    x = wav[:, keep : keep + (2 * hops + 1) * hop]
-    carry = {"state": enh.prime(enh.init_state(wav.shape[0]), wav[:, :keep]), "i": 0}
+    x = wav[..., keep : keep + (2 * hops + 1) * hop]
+    carry = {"state": enh.prime(enh.init_state(wav.shape[0]), wav[..., :keep]), "i": 0}
 
     def one_hop():
         i = carry["i"]
-        _, carry["state"] = enh.step(carry["state"], x[:, i * hop : (i + 1) * hop])
+        _, carry["state"] = enh.step(carry["state"], x[..., i * hop : (i + 1) * hop])
         carry["i"] = i + 1
 
     profile_calls(one_hop, hops, f"B={wav.shape[0]} streaming hop (a call is one hop)")
@@ -1366,7 +1411,8 @@ def check_stream(enh, wav, offline, what: str, kernels: dict) -> dict:
     center=False path) past the first n_fft samples, the first row's first
     second streamed alone (B=1, the batch ``measure_rtf`` times) within
     WAV_TOL of the batch's, and ``step_multi`` (k=4) within 1e-6 of 4 steps.
-    Returns the launches and the output."""
+    wav is [B, L], or [B, M, L] for a multi-mic model. Returns the launches
+    and the output."""
     n, hop = enh.cfg.n_fft, enh.cfg.hop_length
     hops = (wav.shape[-1] - (n - hop)) // hop
     reset_counts()
@@ -1382,18 +1428,18 @@ def check_stream(enh, wav, offline, what: str, kernels: dict) -> dict:
     m = min(streamed.shape[-1], reference.shape[-1])
     err = float((streamed[:, n:m] - reference[:, n:m]).abs().max())
     require(err <= WAV_TOL, f"{what}: stream vs offline center=False past {n} samples: max-abs {err:.3g} <= {WAV_TOL}")
-    alone = enh.run(wav[:1, :SR])
+    alone = enh.run(wav[:1, ..., :SR])
     err = float((alone - streamed[:1, : alone.shape[-1]]).abs().max())
     require(bool(torch.isfinite(alone).all()) and err <= WAV_TOL,
             f"{what}: row 0's first second streamed alone (B=1) vs in the batch: max-abs {err:.3g} <= {WAV_TOL}")
-    state = enh.prime(enh.init_state(wav.shape[0]), wav[:, : n - hop])
-    x = wav[:, n - hop : n - hop + 8 * hop]
+    state = enh.prime(enh.init_state(wav.shape[0]), wav[..., : n - hop])
+    x = wav[..., n - hop : n - hop + 8 * hop]
     singles, single_state = [], state
     for i in range(8):
-        out, single_state = enh.step(single_state, x[:, i * hop : (i + 1) * hop])
+        out, single_state = enh.step(single_state, x[..., i * hop : (i + 1) * hop])
         singles.append(out)
-    first, state = enh.step_multi(state, x[:, : 4 * hop])
-    second, state = enh.step_multi(state, x[:, 4 * hop :])
+    first, state = enh.step_multi(state, x[..., : 4 * hop])
+    second, state = enh.step_multi(state, x[..., 4 * hop :])
     err = float((torch.cat([first, second], -1) - torch.cat(singles, -1)).abs().max())
     require(err <= 1e-6, f"{what}: step_multi(k=4) x 2 vs 8 steps: max-abs {err:.3g} <= 1e-6")
     return {"launches": launched, "stream": streamed}
@@ -1477,11 +1523,13 @@ def check_mtfaa_stream(model, device, smi) -> tuple[int, int]:
 
 
 def single_stream(enh, wav: np.ndarray) -> np.ndarray:
-    """wav streamed alone (B=1, unprimed) zero-padded to whole hops and
-    trimmed to its length: what a server session returns."""
-    padded = np.pad(wav, (0, (-len(wav)) % enh.cfg.hop_length))
+    """wav ([L], or [M, L] multi-mic) streamed alone (B=1, unprimed)
+    zero-padded to whole hops and trimmed to its length: what a server
+    session returns."""
+    length = wav.shape[-1]
+    padded = np.pad(wav, [(0, 0)] * (wav.ndim - 1) + [(0, (-length) % enh.cfg.hop_length)])
     out, _ = enh.step_multi(enh.init_state(1), torch.from_numpy(padded[None]).to(enh.device))
-    return out[0, : len(wav)].cpu().numpy()
+    return out[0, :length].cpu().numpy()
 
 
 def plain_streams(enh, wavs: list, set_plain_fn) -> list:
@@ -3287,11 +3335,429 @@ def check_fullsubnet(device, smi) -> dict:
             "backward_rows": [r for r in rows if r["direction"] == "backward"]}
 
 
+def mc_utterances(seed: int, count: int, samples: int) -> np.ndarray:
+    """[count, MC_MICS, samples]: ``noisy_utterances`` on mic 0, the same
+    utterance delayed MC_DELAY samples a mic on the others, and independent
+    noise on every mic."""
+    rng = np.random.default_rng(seed)
+    clean = np.stack(noisy_utterances(seed, (samples,) * count))
+    return np.stack([np.roll(clean, i * MC_DELAY, axis=-1) + 0.02 * rng.standard_normal(clean.shape)
+                     for i in range(MC_MICS)], axis=1).astype(np.float32)
+
+
+def build_mc_cruse(device, seed: int):
+    """``McCruseConfig()`` with seeded weights, BatchNorm statistics and PReLU slope."""
+    gen = torch.Generator().manual_seed(seed)
+    model = McCruseNet(McCruseConfig(), generator=gen)
+    seed_batch_norm_stats(model, gen)
+    with torch.no_grad():
+        model.PReLU_0.negative_slope.fill_(0.2)
+    return model.to(device).eval()
+
+
+def check_mc_offline(model, device, smi) -> int:
+    """McCruse offline: ``multi_channel_directional`` and ``auto`` on B=4 x
+    4 s of 4-mic audio, 2 GRU launches a call, both of the resident kernel,
+    the waveform against the plain recurrence within WAV_TOL and the two
+    strategies within DEPLOY_TOL of each other; then one timed call at B=64 x
+    10 s (x-realtime, launches, peak memory). Returns the GRU launches, all
+    of them resident."""
+    x = torch.from_numpy(mc_utterances(SEED + 40, MC_BATCH, MC_SECONDS * SR)).to(device)
+    launched, outs = 0, {}
+    for strategy in ("multi_channel_directional", "auto"):
+        inferencer = BatchInferencer(model, InferencerConfig(type=strategy, sr=SR, stft=StftConfig(**MC_STFT)), device)
+        fn = getattr(inferencer, strategy)
+        what = f"McCruse {strategy} B={MC_BATCH} x {MC_SECONDS} s ({MC_MICS} mics)"
+        reset_counts()
+        out = fn(x)
+        require_launches(what, MC_CALL_LAUNCHES)
+        launched += MC_CALL_LAUNCHES["gru_sequence"]
+        set_recurrence(model, gru_sequence_reference)
+        plain = fn(x)
+        set_recurrence(model, gru_sequence)
+        err = float((out - plain).abs().max())
+        require(tuple(out.shape) == (MC_BATCH, x.shape[-1]) and bool(torch.isfinite(out).all()) and err <= WAV_TOL,
+                f"{what}: enhanced wav {tuple(out.shape)}, kernels vs plain recurrence: max-abs {err:.3g} <= {WAV_TOL}")
+        outs[strategy] = out
+    err = float((outs["auto"] - outs["multi_channel_directional"]).abs().max())
+    require(err <= DEPLOY_TOL, f"McCruse auto vs multi_channel_directional: max-abs {err:.3g} <= {DEPLOY_TOL}")
+    x = torch.from_numpy(np.random.default_rng(SEED + 41).standard_normal(
+        (MC_RTF_BATCH, MC_MICS, MC_RTF_SECONDS * SR), dtype=np.float32) * 0.1).to(device)
+    inferencer = BatchInferencer(model, InferencerConfig(type="multi_channel_directional", sr=SR,
+                                                         stft=StftConfig(**MC_STFT)), device)
+    what = f"McCruse multi_channel_directional B={MC_RTF_BATCH} x {MC_RTF_SECONDS} s ({MC_MICS} mics)"
+    reset_counts()
+    inferencer.multi_channel_directional(x)
+    require_launches(what, MC_CALL_LAUNCHES)
+    launched += MC_CALL_LAUNCHES["gru_sequence"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    seconds = enhancement_seconds(inferencer.multi_channel_directional, x, reps=2)
+    print(f"{what} on {smi}: {seconds * 1e3:.1f} ms a call = {MC_RTF_BATCH * MC_RTF_SECONDS / seconds:.1f}x realtime; "
+          f"{MC_CALL_LAUNCHES['gru_sequence']} GRU launches a call, {gru_sequence.resident_launches} of the last "
+          f"{gru_sequence.launches} resident; peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    profile_calls(lambda: inferencer.multi_channel_directional(x), 1, what)
+    del x
+    torch.cuda.empty_cache()
+    return launched
+
+
+def check_mc_stream(model, device, smi) -> int:
+    """McCruse streamed hop by hop ([B, 4, hop] in, primed) on B=8 x 4 s
+    (``check_stream``: 2 GRU launches a hop, all resident, against the offline
+    center=False call through the multi-channel adapter past n_fft samples,
+    row 0 alone, ``step_multi``); the B=1 hop's median latency and launches;
+    a profile of 20 B=1 hops. Returns the checked stream's GRU launches."""
+    cfg = StftConfig(**MC_STFT, center=False)
+    enh = StreamingEnhancer(model, cfg)
+    adapter = forward_for_model(model)
+
+    def offline(x):
+        spec = mc_stft(x, cfg)
+        out = adapter(torch.stack([spec.real, spec.imag], dim=-1))
+        return istft((out[..., 0], out[..., 1]), cfg)
+
+    wav = torch.from_numpy(mc_utterances(SEED + 42, STREAM_BATCH, STREAM_SECONDS * SR)).to(device)
+    what = f"McCruse stream B={STREAM_BATCH} x {STREAM_SECONDS} s ({MC_MICS} mics)"
+    done = check_stream(enh, wav, offline, what, MC_CALL_LAUNCHES)
+    require(gru_sequence.resident_launches == gru_sequence.launches,
+            f"{what}: all {gru_sequence.launches} GRU launches since the stream began on the resident kernel")
+    hop = cfg.hop_length
+    one = torch.from_numpy(mc_utterances(SEED + 43, 1, 2 * SR)).to(device)
+    hops = [one[..., i * hop : (i + 1) * hop] for i in range(100)]
+    reset_counts()
+    times = hop_latencies_ms(enh.step, enh.init_state(1), hops)
+    print(f"McCruse stream B=1 on {smi}: {median_range(times)} a {hop}-sample hop (each synchronised), "
+          f"{counts()['gru_sequence'] / (len(hops) + 1):.1f} GRU launches a hop, "
+          f"{gru_sequence.resident_launches / (len(hops) + 1):.1f} resident", flush=True)
+    profile_stream(enh, one)
+    return done["launches"]["gru_sequence"]
+
+
+def check_mc_server(model, device, smi) -> dict:
+    """One MultiModelServer with a McCruse pool (8 slots, sessions buffering
+    [4, samples]) beside config 3's (CRUSE+DF, 8 slots): 9 sessions each of
+    0.5 to 1.5 s, opened as slots free (so slots are reused), fed a hop an
+    iteration, drained and closed. Each step launches its pool's kernels
+    exactly (2 GRU a McCruse step, all resident; 2 GRU + 1 deep filter a
+    config-3 step); each session within WAV_TOL of itself streamed alone at
+    B=1. Returns the launches by kernel."""
+    t0 = time.perf_counter()
+    configs = {"mc": (model, StftConfig(**MC_STFT, center=False)),
+               "cruse_df": (build_cruse_df(device), StftConfig(n_fft=320, hop_length=160, center=False))}
+    server = MultiModelServer()
+    for name, (m, cfg) in configs.items():
+        server.add_model(name, m, cfg, max_streams=MC_SERVER_SLOTS, device=device)
+    require(server.pool("mc").mics == MC_MICS and server.pool("cruse_df").mics == 0,
+            f"server: a McCruse session buffers {MC_MICS} mics, a config-3 session one channel")
+    rng = np.random.default_rng(SEED + 44)
+    queue = []
+    for p, (name, (count, shortest, longest)) in enumerate(MC_SERVER_SESSIONS.items()):
+        lengths = (rng.uniform(shortest, longest, count) * SR).astype(int)
+        wavs = ([mc_utterances(SEED + 45 + i, 1, n)[0] for i, n in enumerate(lengths)] if name == "mc"
+                else noisy_utterances(SEED + 55, lengths))
+        queue += [(name, i % 2, w) for i, w in enumerate(wavs)]
+    queue.sort(key=lambda q: rng.uniform())
+    sessions, live = [], {}
+
+    def admit():
+        while queue:
+            name, priority, wav = queue[0]
+            try:
+                handle = server.open(name, priority)
+            except RuntimeError:
+                return  # the pool is full
+            queue.pop(0)
+            live[handle] = {"name": name, "wav": wav, "pos": 0, "outs": []}
+            sessions.append(live[handle])
+
+    reset_counts()
+    admit()
+    iteration = 0
+    while live or queue:
+        for handle, s in live.items():
+            hop = configs[s["name"]][1].hop_length
+            server.feed(handle, s["wav"][..., s["pos"] : s["pos"] + hop])
+            s["pos"] = min(s["pos"] + hop, s["wav"].shape[-1])
+        for handle, out in server.step().items():
+            live[handle]["outs"].append(out)
+        for handle, s in list(live.items()):
+            if s["pos"] == s["wav"].shape[-1] and not server.ready(handle):
+                s["outs"].append(server.drain(handle))
+                server.close(handle)
+                del live[handle]
+        iteration += 1
+        admit()
+    torch.cuda.synchronize()
+    launched = counts()
+    steps = {name: server.pool(name).steps for name in configs}
+    want = {k: sum(steps[name] * MC_SERVER_LAUNCHES[name].get(k, 0) for name in configs) for k in launched}
+    require(launched == want and gru_sequence.resident_launches == want["gru_sequence"],
+            f"McCruse server: {steps} steps launched {({k: v for k, v in launched.items() if v})} = "
+            f"{({k: v for k, v in want.items() if v})}, every GRU launch resident")
+    for name, (m, cfg) in configs.items():
+        enh = StreamingEnhancer(m, cfg)
+        worst, whole = 0.0, True
+        for s in (s for s in sessions if s["name"] == name):
+            got = np.concatenate(s["outs"])
+            whole &= got.shape == (s["wav"].shape[-1],) and bool(np.isfinite(got).all())
+            worst = max(worst, float(np.abs(got - single_stream(enh, s["wav"])).max()))
+        require(whole and worst <= WAV_TOL, f"McCruse server, pool {name}: {MC_SERVER_SESSIONS[name][0]} sessions in "
+                f"{MC_SERVER_SLOTS} slots, each its input's length and within WAV_TOL of itself streamed alone at "
+                f"B=1: max-abs {worst:.3g}")
+    print(f"McCruse server on {smi}: {len(sessions)} sessions, {steps} steps in {iteration} iterations, "
+          f"{len(tree_leaves(server.pool('mc')._state))} masked state leaves in the McCruse pool; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return {**launched, "mc_steps": steps["mc"]}
+
+
+def check_mc_cruse(device, smi) -> dict:
+    """McCruse at ``McCruseConfig()``'s width (see the module doc): offline,
+    streamed and served. Returns its GRU launches ("gru_sequence"; those of
+    config 3's pool beside it and its deep filter's apart)."""
+    t0 = time.perf_counter()
+    model = build_mc_cruse(device, SEED + 39)
+    offline = check_mc_offline(model, device, smi)
+    stream = check_mc_stream(model, device, smi)
+    server = check_mc_server(model, device, smi)
+    torch.cuda.empty_cache()
+    print(f"McCruse phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    mc_server = server["mc_steps"] * MC_CALL_LAUNCHES["gru_sequence"]
+    return {"gru_sequence": offline + stream + mc_server, "server_gru_sequence": server["gru_sequence"] - mc_server,
+            "server_deep_filter": server["deep_filter"], "offline": offline, "stream": stream, "server": mc_server}
+
+
+def require_fsn_launches(what: str, calls: int) -> None:
+    """The counters since ``reset_counts``: ``calls`` FullSubNet calls or
+    hops' GRU launches (4 each, 2 of them resident) and nothing else."""
+    torch.cuda.synchronize()
+    got = counts()
+    want = {**{name: 0 for name in got}, "gru_sequence": FSN_CALL_LAUNCHES["gru_sequence"] * calls}
+    require(got == want and gru_sequence.resident_launches == FSN_RESIDENT * calls,
+            f"{what}: launches {({k: v for k, v in got.items() if v})} = {({k: v for k, v in want.items() if v})}, "
+            f"{gru_sequence.resident_launches} resident = {FSN_RESIDENT} x {calls} (route A, the full band; the "
+            "sub band's on route B)")
+
+
+def compare_hops(what: str, runs: dict, hops: list, smi, int8_cost: str) -> None:
+    """A B=1 hop of the eager path and of the float32 and int8 artifacts
+    (``runs``: "fp32" and "int8" -> (artifact, its eager enhancer, the
+    artifact's state, the eager state)): wall ms a hop in turns, then device
+    launches a hop from profiles of 20 hops, the float32 artifact's no more
+    than eager's; prints what the int8 hop's extra launches cost
+    (``int8_cost``)."""
+    art, enh, a_state, e_state = runs["fp32"]
+    int8, _, int8_state, _ = runs["int8"]
+    steps = {"eager": (enh.step, e_state), "fp32": (art.step, a_state), "int8": (int8.step, int8_state)}
+    times = in_turns({key: lambda step=step, st=st: [hop_ms(step, st, hops)] for key, (step, st) in steps.items()})
+    print(f"{what} on {smi}: " + "; ".join(f"{key} " + ", ".join(f"{t:.4f}" for t in ts) + " ms"
+                                         for key, ts in times.items()), flush=True)
+    kernels = {}
+    for key, (step, st) in steps.items():
+        carry = {"state": st, "i": 0}
+
+        def one_hop(step=step, carry=carry):
+            _, carry["state"] = step(carry["state"], hops[carry["i"] % len(hops)])
+            carry["i"] += 1
+
+        kernels[key] = profile_calls(one_hop, 20, f"{what}, {key}").kernels
+    require(kernels["fp32"] <= kernels["eager"], f"{what}: the float32 artifact's {kernels['fp32']:.1f} device "
+            f"launches <= eager's {kernels['eager']:.1f}")
+    print(f"{what} on {smi}: device launches a hop: eager {kernels['eager']:.1f}, float32 artifact "
+          f"{kernels['fp32']:.1f}, int8 artifact {kernels['int8']:.1f}, {kernels['int8'] - kernels['fp32']:.1f} more "
+          f"({int8_cost})", flush=True)
+
+
+def check_fsn_offline_artifacts(device, smi, tmp: Path) -> int:
+    """``FullSubNetConfig()`` (the offline norm) exported offline at B=16 x
+    10 s, float32 and int8, saved and loaded: 4 GRU launches a call, 2 on
+    route A; within DEPLOY_TOL of eager ``auto`` (the traced body) and
+    WAV_TOL of eager ``complex_mask`` on the same (dequantized) weights;
+    int8 against float32 above INT8_SNR_DB; ms a call against eager, file
+    MB; the float32 call's device launches no more than eager ``auto``'s.
+    Returns the GRU launches."""
+    model = build_fullsubnet("offline_laplace_norm", device, SEED + 60).eval()
+    state, report = int8_state_dict(model)
+    print(f"FullSubNet: {report_line(report)}")
+    icfg = InferencerConfig(type="complex_mask", sr=SR, stft=StftConfig(**FSN_STFT))
+    length = FSN_SECONDS * SR
+    x = torch.from_numpy(np.stack(noisy_utterances(SEED + 61, (length,) * FSN_BATCH))).to(device)
+    launched, outs = 0, {}
+    for quant in (None, "int8"):
+        what = f"FullSubNet offline artifact ({quant or 'fp32'}, B={FSN_BATCH} x {FSN_SECONDS} s)"
+        t0 = time.perf_counter()
+        program = export_offline(clone_model(model, device, state if quant else None, keep_int8=True), icfg,
+                                 FSN_BATCH, length, device)
+        path = tmp / f"fullsubnet_{quant or 'fp32'}.zip"
+        artifact_lib.save_offline(str(path), program, {"model": "FullSubNetConfig()", "sr": SR, **FSN_STFT,
+                                                       "batch": FSN_BATCH, "length": length, "quantized": quant,
+                                                       "device": str(device)})
+        export_s = time.perf_counter() - t0
+        art = artifact_lib.load(str(path), device)
+        reset_counts()
+        got = art.enhance(x)
+        require_fsn_launches(what, 1)
+        launched += FSN_CALL_LAUNCHES["gru_sequence"]
+        eager_model = clone_model(model, device, state if quant else None)
+        auto = BatchInferencer(eager_model, dataclasses.replace(icfg, type="auto"), device)
+        cirm = BatchInferencer(eager_model, icfg, device)
+        errs = (float((got - auto.auto(x)).abs().max()), float((got - cirm.complex_mask(x)).abs().max()))
+        require(bool(torch.isfinite(got).all()) and errs[0] <= DEPLOY_TOL and errs[1] <= WAV_TOL,
+                f"{what} vs eager auto (the traced body) and complex_mask on the same weights: max-abs "
+                f"{errs[0]:.3g} <= {DEPLOY_TOL}, {errs[1]:.3g} <= {WAV_TOL}")
+        times = in_turns({"artifact": lambda: [enhancement_seconds(art.enhance, x, reps=2)],
+                          "eager complex_mask": lambda: [enhancement_seconds(cirm.complex_mask, x, reps=2)]}, 1)
+        print(f"{what} on {smi}: " + "; ".join(f"{k} " + ", ".join(f"{t * 1e3:.1f}" for t in v) + " ms a call"
+                                               for k, v in times.items())
+              + f"; file {path.stat().st_size / 1e6:.3f} MB; export and save {export_s:.1f} s", flush=True)
+        if quant is None:
+            kernels = {key: profile_calls(fn, 1, f"{what}: {key}").kernels
+                       for key, fn in (("eager auto", lambda: auto.auto(x)), ("artifact", lambda: art.enhance(x)))}
+            require(kernels["artifact"] <= kernels["eager auto"],
+                    f"{what}: {kernels['artifact']:.1f} device launches a call <= eager auto's "
+                    f"{kernels['eager auto']:.1f}")
+        outs[quant] = got
+    snr = snr_db(outs[None], outs["int8"])
+    require(snr > INT8_SNR_DB, f"FullSubNet int8 offline artifact against float32: {snr:.2f} dB > {INT8_SNR_DB} dB")
+    del x, outs
+    torch.cuda.empty_cache()
+    return launched
+
+
+def check_fsn_streaming_artifacts(device, smi, tmp: Path) -> int:
+    """``FullSubNetConfig(norm="cumulative_laplace_norm")`` exported as the
+    streaming step at B=1, float32 and int8, saved and loaded, primed and run
+    FSN_DEPLOY_HOPS hops against ``StreamingEnhancer`` within DEPLOY_TOL, 4
+    GRU launches a hop (2 on route A), the carried state against eager's
+    leaf for leaf (the norms' counts exactly); the B=1 hop's ms in turns
+    with the eager hop; profiles of the eager, float32 and int8 hops (the
+    float32 hop's device launches no more than eager's; the int8 hop's extra
+    ones dequantize the weights and lay both routes' w_hh out again every
+    hop). Returns the GRU launches."""
+    model = build_fullsubnet("cumulative_laplace_norm", device, SEED + 62).eval()
+    state, _ = int8_state_dict(model)
+    cfg = StftConfig(**FSN_STFT, center=False)
+    keep, hop = cfg.n_fft - cfg.hop_length, cfg.hop_length
+    wav = torch.from_numpy(noisy_utterances(SEED + 63, (keep + FSN_DEPLOY_HOPS * hop,))[0][None]).to(device)
+    hops = [wav[:, keep + i * hop : keep + (i + 1) * hop] for i in range(FSN_DEPLOY_HOPS)]
+    launched, runs = 0, {}
+    for quant in (None, "int8"):
+        what = f"FullSubNet streaming artifact ({quant or 'fp32'}, B=1, {FSN_DEPLOY_HOPS} hops)"
+        t0 = time.perf_counter()
+        program, init = export_streaming(clone_model(model, device, state if quant else None, keep_int8=True), cfg,
+                                         1, device)
+        path = tmp / f"fullsubnet_{quant or 'fp32'}_stream.zip"
+        artifact_lib.save_streaming(str(path), program, init, {"model": "FullSubNetConfig(norm='cumulative_laplace_"
+                                                               "norm')", "sr": SR, **FSN_STFT, "batch": 1,
+                                                               "quantized": quant, "device": str(device)})
+        export_s = time.perf_counter() - t0
+        art = artifact_lib.load(str(path), device)
+        enh = StreamingEnhancer(clone_model(model, device, state if quant else None), cfg)
+        a_state, e_state = art.prime(art.init_state(), wav[:, :keep]), enh.prime(enh.init_state(1), wav[:, :keep])
+        reset_counts()
+        got = []
+        for h in hops:
+            out, a_state = art.step(a_state, h)
+            got.append(out)
+        require_fsn_launches(what, FSN_DEPLOY_HOPS)
+        launched += FSN_CALL_LAUNCHES["gru_sequence"] * FSN_DEPLOY_HOPS
+        want = []
+        for h in hops:
+            out, e_state = enh.step(e_state, h)
+            want.append(out)
+        err = float((torch.cat(got, -1) - torch.cat(want, -1)).abs().max())
+        require(bool(torch.isfinite(torch.cat(got, -1)).all()) and err <= DEPLOY_TOL,
+                f"{what} vs StreamingEnhancer on the same weights: max-abs {err:.3g} <= {DEPLOY_TOL}")
+        leaves = pytree.tree_leaves(e_state.model_state)  # in init_state's order, as the program flattens it
+        state_err = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                        for a, b in zip(a_state.model_state, leaves))
+        norm_counts = [(a, b) for a, b in zip(a_state.model_state, leaves) if a.dim() == 1][1::2]  # (sum, count)s
+        require(len(a_state.model_state) == len(leaves) and state_err <= DEPLOY_TOL
+                and all(torch.equal(a, b) for a, b in norm_counts),
+                f"{what}: the carried state's {len(leaves)} leaves against eager's: max-abs {state_err:.3g} x "
+                f"max(1, max|leaf|) <= {DEPLOY_TOL}, the norms' {len(norm_counts)} counts equal")
+        print(f"{what}: file {path.stat().st_size / 1e6:.3f} MB; export and save {export_s:.1f} s", flush=True)
+        runs[quant] = (art, enh, a_state, e_state)
+    compare_hops("FullSubNet B=1 hop", {"fp32": runs[None], "int8": runs["int8"]}, hops, smi,
+                 "each int8 weight dequantized, and both routes' w_hh laid out again, every hop")
+    return launched
+
+
+def check_mc_artifacts(device, smi, tmp: Path) -> int:
+    """McCruse (``McCruseConfig()``, seeded) exported as the streaming step
+    at B=1, float32 and int8, saved and loaded: the hop [1, 4, 160], ``meta``
+    ``num_mics`` 4; primed and run DEPLOY_HOPS hops against
+    ``StreamingEnhancer`` within DEPLOY_TOL, 2 resident GRU launches a hop;
+    the hop's ms in turns with eager's; profiles of the eager, float32 and
+    int8 hops (the float32 hop's device launches no more than eager's); then
+    ``run_exported``'s main in this process on a 4-channel wav, each sample
+    as the float32 artifact streams it here. Returns the GRU launches."""
+    model = build_mc_cruse(device, SEED + 64)
+    state, report = int8_state_dict(model)
+    print(f"McCruse: {report_line(report)}")
+    cfg = StftConfig(**MC_STFT, center=False)
+    keep, hop = cfg.n_fft - cfg.hop_length, cfg.hop_length
+    wav = torch.from_numpy(mc_utterances(SEED + 65, 1, keep + DEPLOY_HOPS * hop)).to(device)
+    hops = [wav[..., keep + i * hop : keep + (i + 1) * hop] for i in range(DEPLOY_HOPS)]
+    launched, runs = 0, {}
+    for quant in (None, "int8"):
+        what = f"McCruse streaming artifact ({quant or 'fp32'}, B=1, {MC_MICS} mics, {DEPLOY_HOPS} hops)"
+        program, init = export_streaming(clone_model(model, device, state if quant else None, keep_int8=True), cfg,
+                                         1, device)
+        path = tmp / f"mc_{quant or 'fp32'}.zip"
+        artifact_lib.save_streaming(str(path), program, init, {"model": "McCruseConfig()", "sr": SR, **MC_STFT,
+                                                               "batch": 1, "quantized": quant, "num_mics": MC_MICS,
+                                                               "device": str(device)})
+        art = artifact_lib.load(str(path), device)
+        require(tuple(art.hop_shape) == (1, MC_MICS, hop), f"{what}: the hop is {tuple(art.hop_shape)}")
+        enh = StreamingEnhancer(clone_model(model, device, state if quant else None), cfg)
+        a_state, e_state = art.prime(art.init_state(), wav[..., :keep]), enh.prime(enh.init_state(1), wav[..., :keep])
+        reset_counts()
+        got = []
+        for h in hops:
+            out, a_state = art.step(a_state, h)
+            got.append(out)
+        require_launches(what, {"gru_sequence": MC_CALL_LAUNCHES["gru_sequence"] * DEPLOY_HOPS})
+        launched += MC_CALL_LAUNCHES["gru_sequence"] * DEPLOY_HOPS
+        want = []
+        for h in hops:
+            out, e_state = enh.step(e_state, h)
+            want.append(out)
+        got, want = torch.cat(got, -1), torch.cat(want, -1)
+        err = float((got - want).abs().max())
+        require(bool(torch.isfinite(got).all()) and err <= DEPLOY_TOL,
+                f"{what} vs StreamingEnhancer on the same weights: max-abs {err:.3g} <= {DEPLOY_TOL}")
+        print(f"{what}: file {path.stat().st_size / 1e6:.3f} MB", flush=True)
+        runs[quant] = (art, enh, a_state, e_state, path)
+    compare_hops("McCruse B=1 hop", {"fp32": runs[None][:4], "int8": runs["int8"][:4]}, hops, smi,
+                 "each int8 weight dequantized, and w_hh laid out again for the resident kernel, every hop")
+    art, path = runs[None][0], runs[None][4]
+    # run_exported on a 4-channel wav: primed, zero-padded to whole hops, trimmed to the wav
+    audio = wav[0, :, : keep + DEPLOY_HOPS * hop - 57].cpu().numpy()
+    write_wav(str(tmp / "mc_in" / "mc.wav"), audio, SR)
+    audio = read_wav(str(tmp / "mc_in" / "mc.wav"), mono=False)[0]
+    run_exported_main(["-A", str(path), "-I", str(tmp / "mc_in"), "-O", str(tmp / "mc_out"), "--device", str(device)])
+    x = torch.from_numpy(np.pad(audio, ((0, 0), (0, keep + DEPLOY_HOPS * hop - audio.shape[-1])))[None]).to(device)
+    a_state, outs = art.prime(art.init_state(), x[..., :keep]), []
+    for i in range(DEPLOY_HOPS):
+        out, a_state = art.step(a_state, x[..., keep + i * hop : keep + (i + 1) * hop])
+        outs.append(out)
+    want = to_int16_scaled(torch.cat(outs, -1)[0, : audio.shape[-1]].cpu().numpy()) / 32768.0
+    got = read_wav(str(tmp / "mc_out" / "mc.wav"))[0]
+    err = float(np.abs(got - want).max()) if got.shape == want.shape else math.inf
+    require(err <= WAV_STEP, f"run_exported on a {MC_MICS}-channel wav ({audio.shape[-1]} samples): each sample "
+            f"as the artifact streams it here, within one int16 step: max-abs {err:.3g}")
+    return launched
+
+
 def check_deployment(device, smi) -> dict:
     """The deployment path (``check_offline_artifacts``,
     ``check_streaming_artifacts``, ``check_deploy_clis``, then MTFAA's
     ``check_mtfaa_offline_artifacts``, ``check_mtfaa_streaming_artifacts``,
-    ``check_mtfaa_clis``) in one temporary directory; returns the kernel
+    ``check_mtfaa_clis``, then FullSubNet's ``check_fsn_offline_artifacts``
+    and ``check_fsn_streaming_artifacts`` and McCruse's
+    ``check_mc_artifacts``) in one temporary directory; returns the kernel
     launches its artifacts made."""
     import tempfile
 
@@ -3307,7 +3773,15 @@ def check_deployment(device, smi) -> dict:
         mtfaa_stream = check_mtfaa_streaming_artifacts(device, smi, tmp)
         torch.cuda.empty_cache()
         check_mtfaa_clis(device, smi, tmp)
-    return {"gru_sequence": gru_offline + gru_stream,
+        t0 = time.perf_counter()
+        fsn = check_fsn_offline_artifacts(device, smi, tmp) + check_fsn_streaming_artifacts(device, smi, tmp)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        mc = check_mc_artifacts(device, smi, tmp)
+        torch.cuda.empty_cache()
+        print(f"FullSubNet artifacts {t1 - t0:.1f} s, McCruse artifacts {time.perf_counter() - t1:.1f} s", flush=True)
+    return {"gru_sequence": gru_offline + gru_stream + fsn + mc, "fullsubnet_gru_sequence": fsn,
+            "mc_cruse_gru_sequence": mc,
             "deep_filter": df_stream + mtfaa_offline["deep_filter"] + mtfaa_stream["deep_filter"],
             "tfcm_stack": mtfaa_offline["tfcm_stack"], "tattn": mtfaa_offline["tattn"],
             "dw_stencil_fwd": mtfaa_stream["dw_stencil_fwd"]}
@@ -4447,6 +4921,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     fsn = check_fullsubnet(device, smi)
     lap("FullSubNet")
+    mc = check_mc_cruse(device, smi)
+    lap("McCruse")
     deploy_launches = check_deployment(device, smi)  # last: torch.export's tracing machinery after every profile
     lap("deployment")
 
@@ -4478,12 +4954,18 @@ def main() -> int:
         {**entry("gru_sequence", "gru_sequence", "gru_kernel.py:82",
                  launches + stream_gru + auto_gru + cruse_launches["gru_sequence"] + cruse_df_launches["gru_sequence"]
                  + server_launches["gru_sequence"] + deploy_launches["gru_sequence"]
-                 + trainer_launches["gru_sequence"] + feature_launches["gru_sequence"] + fsn["gru_sequence"],
+                 + trainer_launches["gru_sequence"] + feature_launches["gru_sequence"] + fsn["gru_sequence"]
+                 + mc["gru_sequence"] + mc["server_gru_sequence"],
                  max(gru_err, fsn["gru_err"]), (kernel_ms, plain_ms), gru_bound, lib["gru"]),
          "resident_ms": gru_times["f32"][0], "streamed_ms": gru_times["f32"][1],
          "server_launches": server_launches["gru_sequence"], "artifact_launches": deploy_launches["gru_sequence"],
          "trainer_launches": trainer_launches["gru_sequence"], "features_launches": feature_launches["gru_sequence"],
          "fullsubnet_launches": fsn["gru_sequence"], "fullsubnet_stages": fsn["forward_rows"],
+         # McCruse: offline, streamed and its server pool (all resident); config 3's pool beside it; the artifacts
+         "mc_cruse_launches": {key: mc[key] for key in ("offline", "stream", "server")},
+         "mc_server_cruse_df_launches": mc["server_gru_sequence"],
+         "fullsubnet_artifact_launches": deploy_launches["fullsubnet_gru_sequence"],
+         "mc_cruse_artifact_launches": deploy_launches["mc_cruse_gru_sequence"],
          # the forward's two routes at FullSubNet's offline shapes, launches in its phase
          "routes": [{"route": row["route"], "kernel": ROUTE_KERNELS[row["route"]],
                      "launches": fsn["gru_resident"] if row["route"] == "resident"
@@ -4506,7 +4988,7 @@ def main() -> int:
         {**entry("deep_filter", "deep_filter", "deep_filter_kernel.py:91",
                  stream_df + auto_df + mtfaa_df + train_launches["deep_filter"] + cruse_df_launches["deep_filter"]
                  + stream_df_5b + server_launches["deep_filter"] + deploy_launches["deep_filter"]
-                 + feature_launches["deep_filter"],
+                 + feature_launches["deep_filter"] + mc["server_deep_filter"],
                  df_err,
                  (df_fwd["wrapper_ms"], df_fwd["plain_ms"]), {key: df_fwd[key] for key in ("bound_ms", "bound_by")},
                  None),

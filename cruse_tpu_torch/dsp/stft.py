@@ -17,7 +17,8 @@ The numpy helpers ``_padded_window``, ``_analysis_kernel``,
 ``_synthesis_kernel`` and ``_ola_envelope`` are the JAX package's windowed
 DFT bases and envelope, which the streaming step multiplies by per frame.
 
-Spectra are time-major ``[B, T, F]`` complex, waveforms ``[B, L]``.
+Spectra are time-major ``[B, T, F]`` complex, waveforms ``[B, L]``;
+``mc_stft`` takes multi-channel waveforms ``[B, C, L]`` to ``[B, C, T, F]``.
 """
 from __future__ import annotations
 
@@ -137,6 +138,16 @@ def istft(spec, cfg: StftConfig, length: int | None = None) -> torch.Tensor:
 def istft_mag_phase(mag, phase, cfg: StftConfig, length: int | None = None) -> torch.Tensor:
     """iSTFT from magnitude and phase."""
     return istft((mag * torch.cos(phase), mag * torch.sin(phase)), cfg, length)
+
+
+def mc_stft(y: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
+    """Multi-channel STFT: ``[B, C, L] -> [B, C, T, F]``, the channels folded
+    into the batch."""
+    if y.dim() != 3:
+        raise ValueError(f"mc_stft takes [B, C, L], got {tuple(y.shape)}")
+    b, c, n = y.shape
+    spec = stft(y.reshape(b * c, n), cfg)
+    return spec.reshape(b, c, *spec.shape[1:])
 
 
 def mag_phase(spec: torch.Tensor):

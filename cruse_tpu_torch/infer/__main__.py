@@ -10,11 +10,14 @@ Weights come from a bridge ``.npz`` written by
 ``cruse_tpu_torch.utils.weights.save_flax_npz`` from cruse_tpu variables, or,
 without ``--weights``, are made from ``--seed``. The offline mode uses the
 config's ``[inferencer] type`` (``mag_to_mag``, ``complex_mask`` for
-FullSubNet's cIRM, or ``auto``, the default as in ``tools/infer.py``);
-``--batch N``
-(N > 1) enhances N utterances per forward, otherwise one per forward.
-``--postfilter sin|envelope`` overrides the config's ``[inferencer]
-postfilter`` (``mag_to_mag`` applies it to the mask; ``auto`` ignores it).
+FullSubNet's cIRM, ``multi_channel_directional`` for McCruse,
+``multi_channel_mag_to_mag``, or ``auto``, the default as in
+``tools/infer.py``); McCruse and the ``multi_channel_*`` strategies read each
+wav with all its channels (``[M, L]``), the others a mono downmix;
+``--batch N`` (N > 1) enhances N utterances per forward, otherwise one per
+forward. ``--postfilter sin|envelope`` overrides the config's ``[inferencer]
+postfilter`` (``mag_to_mag`` and ``multi_channel_directional`` apply it to
+the mask; the other strategies ignore it).
 ``--chunk_seconds S`` enhances each file, one per forward, as 50 %
 overlapping chunks of S seconds (``BatchInferencer.enhance_long``); it takes
 precedence over ``--batch``.
@@ -25,8 +28,9 @@ runs the int8 weights' values in float32, so the device holds float32.
 ``StreamingEnhancer`` with a ``center=False`` STFT, logging the per-hop
 real-time factor; ``--hops_per_step k`` feeds k hops per call. It streams
 CRUSE, CRUSE+DF, DFSMN (``configs/tiny_dfsmn.toml``), a windowed MTFAA
-(``configs/demo_mtfaa_windowed.toml``) and FullSubNet with
-``norm = "cumulative_laplace_norm"``; a full-causal MTFAA
+(``configs/demo_mtfaa_windowed.toml``), FullSubNet with
+``norm = "cumulative_laplace_norm"`` and McCruse (multi-mic wavs,
+``configs/tiny_mc.toml``; the output is the reference mic); a full-causal MTFAA
 (``configs/tiny_mtfaa.toml``) is refused, for it carries no attention state,
 and so is a FullSubNet with an offline norm or a look-ahead. The model runs
 on the card (``--device cuda``, the default) unless ``--device cpu`` asks for
@@ -74,7 +78,7 @@ def main(argv=None):
     from cruse_tpu_torch.data.wavio import read_wav
     from cruse_tpu_torch.dsp.stft import StftConfig
     from cruse_tpu_torch.infer.batch import BatchInferencer, InferencerConfig
-    from cruse_tpu_torch.models import build_from_config
+    from cruse_tpu_torch.models import McCruseNet, build_from_config
     from cruse_tpu_torch.nn.quantize import load_int8_for_serving
     from cruse_tpu_torch.utils.config import load_config, log
     from cruse_tpu_torch.utils.weights import load_flax_npz, state_dict_from_flax
@@ -100,12 +104,15 @@ def main(argv=None):
     if not files:
         raise SystemExit(f"no wavs found under {inp}")
 
+    strategy = config.get("inferencer", {}).get("type", "auto")
+    # McCruse and the multi-channel strategies take [M, L] wavs, not a mono downmix
+    mono = not (isinstance(model, McCruseNet) or strategy.startswith("multi_channel"))
     if args.streaming:
-        stream(model, files, args, ac, sr, device)
+        stream(model, files, args, ac, sr, device, mono)
         return
 
     icfg = InferencerConfig(
-        type=config.get("inferencer", {}).get("type", "auto"),
+        type=strategy,
         sr=sr,
         stft=StftConfig(n_fft=int(ac["n_fft"]), hop_length=int(ac["hop_length"])),
         output_dir=args.output_dir,
@@ -113,15 +120,15 @@ def main(argv=None):
     )
     inferencer = BatchInferencer(model, icfg, device)
     if args.chunk_seconds > 0:
-        long_audio(inferencer, files, args.chunk_seconds, sr)
+        long_audio(inferencer, files, args.chunk_seconds, sr, mono)
     elif args.batch > 1:
-        inferencer.run_batched([read_wav(str(f), sr=sr)[0] for f in files],
+        inferencer.run_batched([read_wav(str(f), sr=sr, mono=mono)[0] for f in files],
                                [f.stem for f in files], batch_size=args.batch)
     else:
-        inferencer({"noisy": read_wav(str(f), sr=sr)[0][None], "name": [f.stem]} for f in files)
+        inferencer({"noisy": read_wav(str(f), sr=sr, mono=mono)[0][None], "name": [f.stem]} for f in files)
 
 
-def long_audio(inferencer, files, chunk_seconds: float, sr: int) -> None:
+def long_audio(inferencer, files, chunk_seconds: float, sr: int, mono: bool = True) -> None:
     """Each file through ``enhance_long``, one file per forward."""
     import time
 
@@ -131,7 +138,7 @@ def long_audio(inferencer, files, chunk_seconds: float, sr: int) -> None:
     from cruse_tpu_torch.utils.config import log
 
     for f in files:
-        wav = torch.from_numpy(read_wav(str(f), sr=sr)[0][None])
+        wav = torch.from_numpy(read_wav(str(f), sr=sr, mono=mono)[0][None])
         t1 = time.perf_counter()
         out = inferencer.enhance_long(wav, chunk_seconds=chunk_seconds)[0].cpu().numpy()
         rtf = (time.perf_counter() - t1) / (len(out) / sr)
@@ -139,8 +146,9 @@ def long_audio(inferencer, files, chunk_seconds: float, sr: int) -> None:
         inferencer._emit(f.stem, out, rtf, write=True)
 
 
-def stream(model, files, args, ac: dict, sr: int, device) -> None:
-    """Each file as one stream (B=1): its per-hop rtf, then the enhanced wav."""
+def stream(model, files, args, ac: dict, sr: int, device, mono: bool = True) -> None:
+    """Each file as one stream (B=1): its per-hop rtf, then the enhanced wav
+    (``mono=False``: every channel in, ``[1, M, hop]`` a hop)."""
     import numpy as np
     import torch
 
@@ -156,18 +164,18 @@ def stream(model, files, args, ac: dict, sr: int, device) -> None:
     k = max(args.hops_per_step, 1)
     hop, keep = cfg.hop_length, cfg.n_fft - cfg.hop_length
     for f in files:
-        wav = read_wav(str(f), sr=sr)[0][None]
+        wav = read_wav(str(f), sr=sr, mono=mono)[0][None]
         rtf = enhancer.measure_rtf(wav, sr=sr, num_frames=20)
         x = torch.from_numpy(wav).to(device)
-        state = enhancer.prime(enhancer.init_state(1), x[:, :keep])
-        rest = x[:, keep:]
+        state = enhancer.prime(enhancer.init_state(1), x[..., :keep])
+        rest = x[..., keep:]
         whole = rest.shape[-1] // (k * hop) * k  # hops fed k at a time; the rest one by one
         outs = []
         for i in range(0, whole, k):
-            out, state = enhancer.step_multi(state, rest[:, i * hop : (i + k) * hop])
+            out, state = enhancer.step_multi(state, rest[..., i * hop : (i + k) * hop])
             outs.append(out)
         for i in range(whole, rest.shape[-1] // hop):
-            out, state = enhancer.step(state, rest[:, i * hop : (i + 1) * hop])
+            out, state = enhancer.step(state, rest[..., i * hop : (i + 1) * hop])
             outs.append(out)
         out = torch.cat(outs, dim=-1)[0].cpu().numpy() if outs else np.zeros(0, np.float32)
         log(f"{f.stem}, streaming rtf: {rtf}")

@@ -7,9 +7,11 @@ imported here) and this file: no model classes, no configs, no weight files.
 
   meta.json   {"format": "cruse-tpu-torch-artifact/1", "kind": "offline" |
                "streaming", "sr", "n_fft", "hop_length", "batch", "length"
-               (offline), "quantized", "device", "model"}
+               (offline), "num_mics" (streaming: M of a multi-mic model,
+               else null), "quantized", "device", "model"}
   graph.pt2   offline:   enhanced [B, L]        = graph(noisy [B, L])
-  step.pt2    streaming: (out [B, hop], state') = step(state, hop [B, hop])
+  step.pt2    streaming: (out [B, hop], state') = step(state, hop [B, hop]),
+              hop [B, M, hop] where "num_mics" is M
   init.pt     streaming: the initial state's tensors (``torch.save`` of a
               list), which ``init_state`` puts back into a ``StreamState``
 
@@ -48,7 +50,7 @@ class StreamState(NamedTuple):
     """Per-hop streaming carry (built by ``cruse_tpu_torch.infer.streaming``;
     in a streaming artifact its ``model_state`` is a flat tuple of tensors)."""
 
-    input_tail: Any  # [B, n_fft - hop] analysis-buffer samples
+    input_tail: Any  # [B(, M), n_fft - hop] analysis-buffer samples
     ola_tail: Any  # [B, n_fft - hop] synthesis overlap-add tail
     model_state: Any  # the model family's state
 
@@ -118,7 +120,8 @@ class OfflineArtifact:
 
 
 class StreamingArtifact:
-    """init_state() -> carry; step(carry, hop [B, hop]) -> (out, carry)."""
+    """init_state() -> carry; step(carry, hop [B, hop] or [B, M, hop]) -> (out
+    [B, hop], carry)."""
 
     kind = "streaming"
 
@@ -130,6 +133,7 @@ class StreamingArtifact:
 
     @property
     def hop_shape(self):
+        """(B, hop), or (B, M, hop) for a multi-mic artifact."""
         return _user_input_shapes(self.program)[-1]
 
     def init_state(self) -> StreamState:

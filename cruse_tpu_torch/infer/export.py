@@ -8,13 +8,19 @@ the model code or the weights.
         [--quantize int8] [--device cuda]
 
 Offline, the program is the whole enhancement of a ``[B, S * sr]`` batch:
-STFT, the model through the config's ``[inferencer] type`` (``mag_to_mag``,
-or ``auto``, the default, through the family's forward adapter), iSTFT. With
+STFT, the model, iSTFT. The body traced is ``mag_to_mag`` where the config's
+``[inferencer] type`` says so, else the family's forward adapter (``auto``),
+whatever the type names, as ``tools/export.py`` exports it: FullSubNet's
+``complex_mask`` config exports ``auto``'s body, the cIRM from
+``sqrt(|X|² + 1e-12)`` where ``complex_mask`` reads ``|X|``. With
 ``--streaming`` it is the per-hop step ``(state, hop [B, hop]) -> (out,
-state')`` of ``StreamingEnhancer``, shipped with its initial state. Both are
-traced under ``torch.no_grad()`` from the inferencers' bodies, in which every
-hand-written kernel on the path is a custom op: ``torch.ops.cruse_tpu_torch``
-``.gru_sequence`` (CRUSE, CRUSE+DF), ``deep_filter`` (CRUSE+DF, MTFAA),
+state')`` of ``StreamingEnhancer`` (``hop [B, M, hop]`` for the multi-mic
+McCruse, whose ``meta.json`` then holds ``num_mics``), shipped with its
+initial state. Both are traced under ``torch.no_grad()`` from the
+inferencers' bodies, in which every hand-written kernel on the path is a
+custom op: ``torch.ops.cruse_tpu_torch``
+``.gru_sequence`` (CRUSE, CRUSE+DF, FullSubNet's four GRUs, McCruse),
+``deep_filter`` (CRUSE+DF, MTFAA),
 ``tfcm_eval`` and ``tattn_fwd`` (MTFAA offline: a TFCM stack, a temporal
 attention) and ``dw_fwd`` (MTFAA streamed: the TFCM blocks' stencil). The
 saved program launches the hand-written kernels on the card, the plain
@@ -27,10 +33,13 @@ in the program, which dequantizes them on every call (``nn.quantize``,
 ``attach_int8``), and logs the quantization report. The export reloads the
 artifact through ``artifact.load`` and runs it once before it exits 0.
 
-Exported: CRUSE, CRUSE+DF, DFSMN and MTFAA (configs 5 and 5b offline, a
+Exported: CRUSE, CRUSE+DF, DFSMN, MTFAA (configs 5 and 5b offline, a
 windowed MTFAA also streamed; a full-causal one streamed raises
-``StreamingEnhancer``'s ``ValueError``). FullSubNet is not exported yet:
-both exports refuse it by name before they trace. The MTFAA offline program runs the
+``StreamingEnhancer``'s ``ValueError``), FullSubNet offline and, with the
+cumulative norm, streamed, and McCruse streamed. McCruse offline is refused
+by name before tracing: the JAX exporter cannot export it either, for it
+feeds the adapter a single-channel ``[B, L]`` STFT where McCruse's takes
+``[B, M, T, F, 2]``. The MTFAA offline program runs the
 model without its streaming state (``with_state=False``, as the ``auto``
 adapter does). Its TFCM parameters are folded once, before tracing
 (``models/mtfaa.py::frozen_folds``), and held as constants of a float32
@@ -40,6 +49,7 @@ the dequantize, as ``tools/export.py`` does.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 
 import torch
@@ -78,19 +88,20 @@ class _FlatStep(nn.Module):
         return out, new._replace(model_state=tuple(pytree.tree_leaves(new.model_state)))
 
 
-def _refuse_unexported(model: nn.Module) -> None:
-    from cruse_tpu_torch.models.fullsubnet import FullSubNet
-
-    if isinstance(model, FullSubNet):
-        raise NotImplementedError("exporting FullSubNet is not ported yet (offline complex_mask and the "
-                                  "streamed step); serve it eagerly with python -m cruse_tpu_torch.infer")
-
-
 def export_offline(model: nn.Module, icfg, batch: int, length: int, device):
-    """The ``torch.export`` program of enhanced [B, L] = graph(noisy [B, L])."""
+    """The ``torch.export`` program of enhanced [B, L] = graph(noisy [B, L]):
+    ``_mag_to_mag_impl`` for ``icfg.type == "mag_to_mag"``, else
+    ``_auto_impl``. McCruse is refused (see the module doc)."""
     from cruse_tpu_torch.infer.batch import BatchInferencer
+    from cruse_tpu_torch.models.mc_cruse import McCruseNet
 
-    _refuse_unexported(model)
+    if isinstance(model, McCruseNet):
+        raise NotImplementedError(
+            "exporting McCruse offline is not supported: the JAX exporter (tools/export.py) traces the "
+            "single-channel [B, L] program, whose STFT the multi-channel adapter refuses (it takes [B, M, T, F, "
+            "2]), so there is no reference program; export the streamed step with --streaming")
+    if icfg.type != "mag_to_mag":
+        icfg = dataclasses.replace(icfg, type="auto")
     inferencer = BatchInferencer(model, icfg, device)
     body = inferencer._mag_to_mag_impl if icfg.type == "mag_to_mag" else inferencer._auto_impl
     example = torch.zeros(batch, length, device=inferencer.device)
@@ -102,16 +113,16 @@ def export_offline(model: nn.Module, icfg, batch: int, length: int, device):
 
 def export_streaming(model: nn.Module, cfg, batch: int, device):
     """(the program of the per-hop step, its initial state): the state a
-    ``StreamState`` whose ``model_state`` is a flat tuple of tensors."""
+    ``StreamState`` whose ``model_state`` is a flat tuple of tensors. The
+    hop is ``[B, hop]``, or ``[B, M, hop]`` for a multi-mic model."""
     from cruse_tpu_torch.infer.artifact import StreamState
     from cruse_tpu_torch.infer.streaming import StreamingEnhancer
 
-    _refuse_unexported(model)
     enhancer = StreamingEnhancer(model.to(device), cfg)
     state = enhancer.init_state(batch)
     leaves, spec = pytree.tree_flatten(state.model_state)
     init = StreamState(state.input_tail, state.ola_tail, tuple(leaves))
-    hop = torch.zeros(batch, cfg.hop_length, device=enhancer.device)
+    hop = torch.zeros(*state.input_tail.shape[:-1], cfg.hop_length, device=enhancer.device)
     with torch.no_grad(), frozen_folds(enhancer.model):
         program = torch.export.export(_FlatStep(enhancer, spec), (init, hop))
     program.example_inputs = None  # the initial state ships once, as init.pt
@@ -174,9 +185,11 @@ def main(argv=None) -> None:
         cfg = StftConfig(n_fft=n_fft, hop_length=hop_length, center=False)
         program, init = export_streaming(model, cfg, args.batch, device)
         meta["device"] = str(init.input_tail.device)
+        meta["num_mics"] = init.input_tail.shape[1] if init.input_tail.dim() == 3 else None
         artifact_lib.save_streaming(args.output, program, init, meta)
         log(f"exported {os.path.getsize(args.output) / 1e6:.2f} MB streaming step (B={args.batch}, "
-            f"hop={hop_length}, {meta['device']}) -> {args.output}")
+            f"hop={hop_length}" + (f", mics={meta['num_mics']}" if meta["num_mics"] else "")
+            + f", {meta['device']}) -> {args.output}")
         art = artifact_lib.load(args.output, device)
         out, _ = art.step(art.init_state(), torch.zeros(art.hop_shape, device=meta["device"]))
         if tuple(out.shape) != (args.batch, hop_length):

@@ -13,9 +13,11 @@ through ``infer/artifact.py`` and serves audio through it.
                       exported step from the shipped initial state, primed
                       with the first n_fft - hop samples so that output
                       sample j is input sample j's; B files ride a step.
+                      A multi-mic artifact ("num_mics" M in its meta) reads
+                      [M, L] wavs and writes the enhanced reference mic.
 
 The artifact runs on the device it was exported on, which ``--device`` (the
-card by default) must name. Multi-mic artifacts wait for McCruse.
+card by default) must name.
 """
 from __future__ import annotations
 
@@ -49,11 +51,10 @@ def main(argv=None) -> None:
     art = artifact_lib.load(args.artifact, args.device)
     meta = art.meta
     sr = int(meta.get("sr", 16000))
-    if meta.get("num_mics"):
-        raise SystemExit(f"{args.artifact}: multi-mic artifacts are not ported (they wait for McCruse)")
+    num_mics = meta.get("num_mics")
     device = meta["device"]
-    log(f"loaded {art.kind} artifact ({meta.get('model', 'unknown model')}, sr={sr}, "
-        f"{meta.get('quantized') or 'fp32'} weights, {device})")
+    log(f"loaded {art.kind} artifact ({meta.get('model', 'unknown model')}, sr={sr}"
+        + (f", mics={num_mics}" if num_mics else "") + f", {meta.get('quantized') or 'fp32'} weights, {device})")
 
     inp = Path(args.input)
     files = load_manifest(str(inp)) if inp.is_file() else sorted(str(p) for p in inp.glob("*.wav"))
@@ -65,10 +66,16 @@ def main(argv=None) -> None:
     def write(f, y):
         write_wav(str(out_dir / f"{Path(f).stem}.wav"), to_int16_scaled(y), sr)
 
+    def read(f):
+        wav = read_wav(f, sr=sr, mono=not num_mics)[0]
+        if num_mics and (wav.ndim != 2 or wav.shape[0] != num_mics):
+            raise SystemExit(f"{f}: the artifact takes {num_mics}-mic wavs, got shape {wav.shape}")
+        return wav
+
     if art.kind == "offline":
         batch, length = art.input_shape
         for group in _groups(files, batch):
-            wavs = [read_wav(f, sr=sr)[0] for f in group]
+            wavs = [read(f) for f in group]
             for f, w in zip(group, wavs):
                 if w.shape[-1] > length:
                     raise SystemExit(
@@ -86,27 +93,27 @@ def main(argv=None) -> None:
             log(f"enhanced {len(group)} files, rtf: {dt / (batch * length / sr):.4f}")
         return
 
-    batch, hop = art.hop_shape
+    batch, hop = art.hop_shape[0], art.hop_shape[-1]
     # priming the analysis buffer with the first n_fft - hop samples makes output
     # sample j correspond to input sample j (the infer CLI's --streaming contract);
     # without it the stream is delayed by n_fft - hop samples
     prime_len = int(meta["n_fft"]) - hop
     for group in _groups(files, batch):
-        wavs = [read_wav(f, sr=sr)[0] for f in group]
+        wavs = [read(f) for f in group]
         max_len = max(w.shape[-1] for w in wavs)
         n_hops = max(-(-(max_len - prime_len) // hop), 1)  # ceil: the padded feed covers every sample
         feed_len = prime_len + n_hops * hop
-        x = np.zeros((batch, feed_len), np.float32)
+        x = np.zeros((*art.hop_shape[:-1], feed_len), np.float32)
         for i, w in enumerate(wavs):
             n = min(w.shape[-1], feed_len)
-            x[i, :n] = w[:n]
+            x[i, ..., :n] = w[..., :n]
         x = torch.from_numpy(x).to(device)
-        state = art.prime(art.init_state(), x[:, :prime_len])
+        state = art.prime(art.init_state(), x[..., :prime_len])
         outs = []
         t0 = time.perf_counter()
         for h in range(n_hops):
             lo = prime_len + h * hop
-            o, state = art.step(state, x[:, lo : lo + hop])
+            o, state = art.step(state, x[..., lo : lo + hop])
             outs.append(o)
         out = torch.cat(outs, dim=-1).cpu().numpy()  # [B, n_hops * hop]; the copy waits for the device
         dt = time.perf_counter() - t0

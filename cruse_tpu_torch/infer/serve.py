@@ -14,7 +14,8 @@ by default) at a priority (0 by default). Sessions are admitted as slots
 free up, fed ``--feed_chunk`` hops an iteration, stepped under an optional
 budget of pool dispatches an iteration (priority decides who keeps cadence),
 drained at the end of their input and written to ``-O`` at the input's
-length. The run ends with the aggregate x-realtime line; ``--realtime``
+length. A multi-mic model's (McCruse's) sessions read every channel of their
+wavs (``[M, L]``, M the model's mics) and write the enhanced reference mic. The run ends with the aggregate x-realtime line; ``--realtime``
 paces one iteration a hop period of the first model and reports the p50 and
 p99 of an iteration against that budget and the share of missed deadlines.
 
@@ -132,13 +133,14 @@ def main(argv=None) -> None:
         raise RuntimeError(f"--device {args.device}: no CUDA device is available")
 
     server = MultiModelServer()
-    hops, srs = {}, {}
+    hops, srs, mics = {}, {}, {}
     for spec in args.model:
         name, config_path, weights = parse_model(spec)
         model, cfg, sr = build_model(config_path, weights, args.seed, args.quantize)
         server.add_model(name, model, cfg, max_streams=args.max_streams, device=device)
-        hops[name], srs[name] = cfg.hop_length, sr
-        log(f"registered model {name!r} (hop {cfg.hop_length}, {sr} Hz, {args.max_streams} slots)")
+        hops[name], srs[name], mics[name] = cfg.hop_length, sr, server.pool(name).mics  # 0: one channel
+        log(f"registered model {name!r} (hop {cfg.hop_length}, {sr} Hz, {args.max_streams} slots"
+            + (f", {mics[name]} mics" if mics[name] else "") + ")")
 
     default_model = server.models[0]
     queue = []  # (wav path, model, priority)
@@ -163,7 +165,10 @@ def main(argv=None) -> None:
             except RuntimeError:
                 return  # the pool is full; wait for a drain
             queue.pop(0)
-            wav, _ = read_wav(path, sr=srs[model_name])
+            wav, _ = read_wav(path, sr=srs[model_name], mono=not mics[model_name])
+            if mics[model_name] and (wav.ndim != 2 or wav.shape[0] != mics[model_name]):
+                raise SystemExit(f"{path}: model {model_name!r} takes {mics[model_name]}-channel wavs, "
+                                 f"got shape {wav.shape}")
             live[handle] = {"name": Path(path).stem, "model": model_name, "wav": wav.astype(np.float32),
                             "pos": 0, "outs": [], "t": time.perf_counter(), "priority": priority}
 
@@ -183,7 +188,7 @@ def main(argv=None) -> None:
             next_tick = max(next_tick + hop_period, time.perf_counter() - hop_period)
             it0 = time.perf_counter()
         for handle, s in live.items():  # each live session's next chunk of input
-            nxt = s["wav"][s["pos"] : s["pos"] + args.feed_chunk * hops[s["model"]]]
+            nxt = s["wav"][..., s["pos"] : s["pos"] + args.feed_chunk * hops[s["model"]]]
             if nxt.shape[-1]:
                 server.feed(handle, nxt)
                 s["pos"] += nxt.shape[-1]

@@ -6,14 +6,16 @@ into one ``StreamingEnhancer.step`` a hop, at the batch of its slots:
 
 - a fixed slot layout: ``open`` claims the lowest free slot and resets its
   state, ``close`` frees it;
-- ``feed(sid, samples)`` buffers any number of samples on the host (numpy);
+- ``feed(sid, samples)`` buffers any number of samples on the host (numpy;
+  ``[M, samples]`` for a multi-mic McCruse pool, which emits the enhanced
+  reference mic);
 - ``step`` runs one hop for every session with a whole hop buffered; the
   other slots process zeros and keep their state;
 - ``drain`` zero-pads a session's last partial hop, steps that session
   alone and returns exactly the samples that were still buffered.
 
-A step makes one host-to-device copy (the hops and the active mask, packed
-into one pinned array on the card's host) and one device-to-host copy (the
+A step makes one host-to-device copy (the hops, every mic's of a multi-mic
+pool, and the active mask, packed into one pinned array on the card's host) and one device-to-host copy (the
 outputs), which is its only wait on the device. The state is masked out of
 place: every leaf of the new state is ``torch.where(active, new, old)``, so
 idle slots keep theirs bit for bit and no inference tensor is written in
@@ -25,9 +27,11 @@ into rows ``[sid·rep, (sid+1)·rep)`` of a new leaf (``index_copy``).
 
 ``MultiModelServer`` keeps one such pool a model. When dispatches are
 rationed it serves the pool with the most urgent ready session first and
-breaks ties by the pool served least recently.
+breaks ties by the pool served least recently. Pools of different widths
+(mono and multi-mic) sit side by side, each with its own staging array.
 
-On the card a CRUSE step launches the grouped-GRU kernel twice (one a bank),
+On the card a CRUSE or McCruse step launches the grouped-GRU kernel twice
+(one a bank),
 a CRUSE+DF step (config 3) also the deep-filter kernel once, and a windowed
 MTFAA step (config 5b) the stencil kernel once a TFCM block (24) and the
 deep filter once, a FullSubNet step the grouped-GRU kernel once a GRU layer
@@ -35,8 +39,7 @@ deep filter once, a FullSubNet step the grouped-GRU kernel once a GRU layer
 layers at slots · F rows); DFSMN has no kernel.
 
 Not ported: a device mesh (``mesh=`` raises; slots over several cards wait
-for torch.distributed) and multi-mic sessions (``StreamingEnhancer`` refuses
-McCruse, and the JAX package's ``[M, samples]`` buffers come with it).
+for torch.distributed).
 """
 from __future__ import annotations
 
@@ -94,6 +97,7 @@ class StreamingServer:
         self.device = self.enhancer.device
         self.max_streams = max_streams
         self.hop = cfg.hop_length
+        self.mics = self.enhancer.mics  # 0: one channel; else a session buffers [M, samples]
         with torch.inference_mode():
             self._state = self.enhancer.init_state(max_streams)
             self._fresh = self.enhancer.init_state(1)  # the template of a slot reset
@@ -103,8 +107,9 @@ class StreamingServer:
                 f"each of the {max_streams} slots")
         self._active = np.zeros(max_streams, bool)
         self._buffers: Dict[int, np.ndarray] = {}
-        # the step's hops, and the active mask in the last column: one copy to the card
-        self._staging = torch.zeros((max_streams, self.hop + 1), dtype=torch.float32,
+        # the step's hops (M x hop a slot multi-mic), and the active mask in the last column: one copy to the card
+        self._width = max(self.mics, 1) * self.hop
+        self._staging = torch.zeros((max_streams, self._width + 1), dtype=torch.float32,
                                     pin_memory=self.device.type == "cuda")
         self.steps = 0  # batched steps run, drains included
 
@@ -116,7 +121,7 @@ class StreamingServer:
             raise RuntimeError(f"all {self.max_streams} stream slots busy")
         sid = int(free[0])
         self._active[sid] = True
-        self._buffers[sid] = np.zeros(0, np.float32)
+        self._buffers[sid] = np.zeros((self.mics, 0) if self.mics else 0, np.float32)
         self._reset(sid)
         return sid
 
@@ -143,16 +148,21 @@ class StreamingServer:
             return np.zeros(0, np.float32)
         pad = (-pending) % self.hop
         if pad:
-            self.feed(sid, np.zeros(pad, np.float32))
+            self.feed(sid, np.zeros((self.mics, pad) if self.mics else pad, np.float32))
         outs = []
         while self.ready(sid):
             outs.append(self.step(only=(sid,))[sid])  # the other sessions' hops stay queued
         return np.concatenate(outs)[:pending]
 
     def feed(self, sid: int, samples: np.ndarray) -> None:
+        """Buffer samples: any shape of one channel, ``[M, k]`` multi-mic."""
         assert self._active[sid], f"stream {sid} is not open"
-        samples = np.asarray(samples, np.float32).ravel()
-        self._buffers[sid] = np.concatenate([self._buffers[sid], samples])
+        samples = np.asarray(samples, np.float32)
+        if not self.mics:
+            samples = samples.ravel()
+        elif samples.ndim != 2 or samples.shape[0] != self.mics:
+            raise ValueError(f"a {self.mics}-mic stream takes [{self.mics}, k] samples, got {samples.shape}")
+        self._buffers[sid] = np.concatenate([self._buffers[sid], samples], axis=-1)
 
     def ready(self, sid: int) -> bool:
         return bool(self._active[sid]) and self._buffers[sid].shape[-1] >= self.hop
@@ -175,18 +185,20 @@ class StreamingServer:
             if only is not None and sid not in only:
                 continue
             if buf.shape[-1] >= self.hop:
-                packed[sid, : self.hop] = buf[: self.hop]
-                self._buffers[sid] = buf[self.hop :]
+                packed[sid, : self._width] = buf[..., : self.hop].reshape(-1)
+                self._buffers[sid] = buf[..., self.hop :]
                 stepped.append(sid)
         if not stepped:
             return {}
-        packed[stepped, self.hop] = 1.0
+        packed[stepped, self._width] = 1.0
         out = self._step(self._staging.to(self.device, non_blocking=True))
         return {sid: out[sid] for sid in stepped}
 
     @torch.inference_mode()
     def _step(self, packed: torch.Tensor) -> np.ndarray:
-        hops, active = packed[:, : self.hop], packed[:, self.hop] > 0
+        hops, active = packed[:, : self._width], packed[:, self._width] > 0
+        if self.mics:
+            hops = hops.view(self.max_streams, self.mics, self.hop)
         out, new_state = self.enhancer.step(self._state, hops)
         self._state = tree_map(lambda new, old: torch.where(_rows(active, new), new, old),
                                new_state, self._state)
@@ -194,9 +206,9 @@ class StreamingServer:
         return out.cpu().numpy()  # the step's one wait on the device
 
     def run_session(self, wav: np.ndarray, sid: Optional[int] = None) -> np.ndarray:
-        """Push one utterance through a (new) session and return everything
-        enhanced so far (whole hops; ``drain`` gives the rest). Other
-        sessions step along unaffected."""
+        """Push one utterance ([L], or [M, L] multi-mic) through a (new)
+        session and return everything enhanced so far (whole hops; ``drain``
+        gives the rest). Other sessions step along unaffected."""
         own = sid is None
         if own:
             sid = self.open()

@@ -3,34 +3,38 @@
 
 Each hop carries:
 
-- the last ``n_fft - hop`` input samples (the analysis frame);
+- the last ``n_fft - hop`` input samples (the analysis frame; every mic's,
+  ``[B, M, n_fft - hop]``, for the multi-mic McCruse);
 - the model's state (CRUSE: conv histories and GRU states, and for CRUSE+DF
   the deep filter's last ``2*t_dim`` masked low-bin frames; DFSMN: each
   block's left context; windowed MTFAA: its conv and TFCM histories, rolling
   attention caches and deep-filter frames; FullSubNet: its GRU states, the
-  sub-band ones ``[B·F, H]``, and the cumulative norms' running sums);
+  sub-band ones ``[B·F, H]``, and the cumulative norms' running sums;
+  McCruse: CRUSE's);
 - the overlap-add tail of the synthesis frames.
 
 A step assembles the frame, takes its windowed DFT (one small matrix
 product), runs the model at T = 1, applies the mask (and, for CRUSE+DF, the
 deep filter over the carried frames; MTFAA takes the RI frame and returns
 the enhanced one itself; FullSubNet's decompressed cIRM multiplies the
-frame's spectrum), takes the windowed inverse DFT, overlap-adds, and
-emits ``hop`` samples divided by the steady-state window envelope. Primed
+frame's spectrum; McCruse takes every mic's frame, ``[B, M, hop]`` in, and
+its mask, from the frame's directional features, multiplies the reference
+mic's spectrum), takes the windowed inverse DFT, overlap-adds, and emits
+``hop`` samples (one channel) divided by the steady-state window envelope. Primed
 with the first ``n_fft - hop`` samples, the stream equals the offline
 ``center=False`` path after the overlap-add warm-up.
 
-On the card a hop launches, for CRUSE, the grouped-GRU kernel twice (one per
-bank) and, for CRUSE+DF, the deep-filter kernel once; for a windowed MTFAA
+On the card a hop launches, for CRUSE and McCruse, the grouped-GRU kernel
+twice (one per bank) and, for CRUSE+DF, the deep-filter kernel once; for a windowed MTFAA
 the stencil kernel once a TFCM block (24 at config 5b) and the deep-filter
 kernel once; for FullSubNet the grouped-GRU kernel four times at its
 published depth (one a GRU layer); DFSMN has no kernel of its own. The rest is PyTorch's own
 kernels. ``run`` is a host loop over hops (the JAX package runs it as one
 ``lax.scan`` dispatch, which eager PyTorch has no counterpart of).
 
-Ported for CruseNet, CruseDfNet, DfsmnNet, a windowed MtfaaNet and
-FullSubNet with the cumulative norm; the other families' streaming
-(multi-mic McCruse, BSRNN) comes with their models.
+Ported for CruseNet, CruseDfNet, DfsmnNet, a windowed MtfaaNet,
+FullSubNet with the cumulative norm and McCruseNet; BSRNN's streaming comes
+with its model.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ import time
 import numpy as np
 import torch
 
+from cruse_tpu_torch.dsp.features import directional_features_from_ri
 from cruse_tpu_torch.dsp.stft import StftConfig, _analysis_kernel, _padded_window, _synthesis_kernel
 # the carry's type lives with the artifact loader, which must read it without the models
 from cruse_tpu_torch.infer.artifact import StreamState
@@ -47,9 +52,10 @@ from cruse_tpu_torch.models.cruse_df import CruseDfNet, apply_cruse_df_streaming
 from cruse_tpu_torch.dsp.mask import complex_mul, decompress_cirm
 from cruse_tpu_torch.models.dfsmn import DfsmnNet
 from cruse_tpu_torch.models.fullsubnet import FullSubNet
+from cruse_tpu_torch.models.mc_cruse import McCruseNet
 from cruse_tpu_torch.models.mtfaa import MtfaaNet
 
-STREAMING_MODELS = (CruseNet, CruseDfNet, DfsmnNet, MtfaaNet, FullSubNet)
+STREAMING_MODELS = (CruseNet, CruseDfNet, DfsmnNet, MtfaaNet, FullSubNet, McCruseNet)
 
 
 def _steady_envelope(cfg: StftConfig) -> np.ndarray:
@@ -66,7 +72,8 @@ class StreamingEnhancer:
     rolling masked-spectrum history (config 3's streaming path); a windowed
     MtfaaNet (config 5b) enhances the RI spectrum through its own carried
     state; FullSubNet (cumulative norm, no look-ahead) applies its complex
-    mask per frame."""
+    mask per frame; McCruseNet takes ``[B, M, hop]`` hops and emits the
+    enhanced reference mic."""
 
     def __init__(self, model: torch.nn.Module, cfg: StftConfig):
         if cfg.center:
@@ -76,8 +83,8 @@ class StreamingEnhancer:
         if not isinstance(model, STREAMING_MODELS):
             raise NotImplementedError(
                 f"streaming {type(model).__name__} is not ported (ported: "
-                f"{', '.join(m.__name__ for m in STREAMING_MODELS)}); multi-mic McCruse "
-                "and BSRNN streaming come with their models")
+                f"{', '.join(m.__name__ for m in STREAMING_MODELS)}); BSRNN streaming comes "
+                "with its model")
         if isinstance(model, MtfaaNet) and model.config.attention_window is None:
             raise ValueError("MTFAA streaming needs a finite attention_window (the full-causal "
                              "configuration cannot carry ASA state)")
@@ -96,6 +103,7 @@ class StreamingEnhancer:
         self._is_df = isinstance(model, CruseDfNet)
         self._is_complex = isinstance(model, MtfaaNet)
         self._is_cirm = isinstance(model, FullSubNet)
+        self.mics = model.config.num_mics if isinstance(model, McCruseNet) else 0  # 0: one channel
         self._num_bins = cfg.num_bins
         self._ana = torch.from_numpy(_analysis_kernel(cfg).T.copy()).to(self.device)  # [N, 2F]
         self._syn = torch.from_numpy(_synthesis_kernel(cfg)).to(self.device)  # [2F, N]
@@ -110,13 +118,14 @@ class StreamingEnhancer:
             model_state = cruse_init_state(self.model.config, batch_size, self.device)
         else:
             model_state = self.model.init_state(batch_size, self.device)
-        return StreamState(input_tail=torch.zeros(batch_size, keep, device=self.device),
+        tail = (batch_size, self.mics, keep) if self.mics else (batch_size, keep)
+        return StreamState(input_tail=torch.zeros(tail, device=self.device),
                            ola_tail=torch.zeros(batch_size, keep, device=self.device),
                            model_state=model_state)
 
     def prime(self, state: StreamState, samples: torch.Tensor) -> StreamState:
         """Pre-fill the analysis buffer with the utterance's first
-        ``n_fft - hop`` samples. After priming, the stream equals the offline
+        ``n_fft - hop`` samples (``[B, M, n_fft - hop]`` multi-mic). After priming, the stream equals the offline
         center=False path (without it, the stream starts from a zero buffer
         and its output is one hop late, the usual real-time behaviour)."""
         keep = self.cfg.n_fft - self.cfg.hop_length
@@ -126,15 +135,24 @@ class StreamingEnhancer:
 
     @torch.inference_mode()
     def step(self, state: StreamState, hop_samples: torch.Tensor):
-        """One real-time hop: hop_samples [B, hop] -> ([B, hop], new state)."""
+        """One real-time hop: hop_samples [B, hop] ([B, M, hop] for McCruse)
+        -> ([B, hop], new state)."""
         return self._step_impl(state, hop_samples)
 
     def _step_impl(self, state: StreamState, hop_samples: torch.Tensor):
         """``step`` without its inference mode, for ``torch.export``
         (``infer/export.py`` traces it under ``torch.no_grad()``)."""
         f = self._num_bins
-        frame = torch.cat([state.input_tail, hop_samples.to(state.input_tail)], dim=-1)  # [B, n]
-        ri = frame @ self._ana  # [B, 2F] windowed DFT
+        frame = torch.cat([state.input_tail, hop_samples.to(state.input_tail)], dim=-1)  # [B(, M), n]
+        ri = frame @ self._ana  # [B(, M), 2F] windowed DFT
+        if self.mics:
+            cfg = self.model.config
+            # one frame's features: the layer norm runs over frequency, so they are the offline frame's
+            ri5 = torch.stack([ri[..., :f], ri[..., f:]], dim=-1)[:, :, None]  # [B, M, 1, F, 2]
+            feats = directional_features_from_ri(ri5, cfg.mic_pairs, cfg.reference_channel, cfg.use_sin_ipd)
+            mask, model_state = self.model(feats, state.model_state)
+            m, ref = mask[:, 0], ri[:, cfg.reference_channel]
+            return self._finish(state, frame, torch.cat([ref[:, :f] * m, ref[:, f:] * m], dim=-1), model_state)
         real, imag = ri[:, :f], ri[:, f:]
         if self._is_complex:
             cspec = torch.stack([real, imag], dim=-1)[:, None]  # [B, 1, F, 2]
@@ -163,16 +181,17 @@ class StreamingEnhancer:
         return self._finish(state, frame, enh_ri, model_state)
 
     def _finish(self, state, frame, enh_ri, model_state):
-        """Windowed inverse frame, overlap-add, and the hop's output."""
+        """Windowed inverse frame, overlap-add, and the hop's output; frame is
+        [B, n] or [B, M, n], the output and the overlap-add tail one channel."""
         hop = self.cfg.hop_length
         synth = enh_ri @ self._syn  # [B, n]
         ola = torch.nn.functional.pad(state.ola_tail, (0, hop)) + synth
         out = ola[:, :hop] / self._env_hop
-        return out, StreamState(input_tail=frame[:, hop:], ola_tail=ola[:, hop:],
+        return out, StreamState(input_tail=frame[..., hop:], ola_tail=ola[:, hop:],
                                 model_state=model_state)
 
     def step_multi(self, state: StreamState, samples: torch.Tensor):
-        """k consecutive hops, samples [B, k*hop] -> ([B, k*hop], new state):
+        """k consecutive hops, samples [B(, M), k*hop] -> ([B, k*hop], new state):
         the same as k ``step`` calls (the JAX package makes them one
         dispatch; here they are k steps)."""
         hop = self.cfg.hop_length
@@ -180,20 +199,20 @@ class StreamingEnhancer:
             raise ValueError(f"{samples.shape[-1]} samples are not whole {hop}-sample hops")
         outs = []
         for i in range(samples.shape[-1] // hop):
-            out, state = self.step(state, samples[:, i * hop : (i + 1) * hop])
+            out, state = self.step(state, samples[..., i * hop : (i + 1) * hop])
             outs.append(out)
         return torch.cat(outs, dim=-1), state
 
     def run(self, wav: torch.Tensor) -> torch.Tensor:
-        """Enhance whole utterances [B, L] hop by hop, primed with the first
+        """Enhance whole utterances [B, L] ([B, M, L] multi-mic) hop by hop, primed with the first
         ``n_fft - hop`` samples so that the output aligns with the offline
         center=False path. Returns [B, hop * num_hops], num_hops =
         (L - (n_fft - hop)) // hop."""
         keep = self.cfg.n_fft - self.cfg.hop_length
         wav = wav.to(self.device)
-        state = self.prime(self.init_state(wav.shape[0]), wav[:, :keep])
+        state = self.prime(self.init_state(wav.shape[0]), wav[..., :keep])
         num_hops = (wav.shape[-1] - keep) // self.cfg.hop_length
-        out, _ = self.step_multi(state, wav[:, keep : keep + num_hops * self.cfg.hop_length])
+        out, _ = self.step_multi(state, wav[..., keep : keep + num_hops * self.cfg.hop_length])
         return out
 
     def measure_rtf(self, wav: np.ndarray, sr: int = 16000, num_frames: int = 50) -> float:
@@ -203,12 +222,12 @@ class StreamingEnhancer:
         hop = self.cfg.hop_length
         x = torch.from_numpy(np.ascontiguousarray(wav, np.float32)).to(self.device)
         state = self.init_state(x.shape[0])
-        out, state = self.step(state, x[:, :hop])
+        out, state = self.step(state, x[..., :hop])
         self._synchronize()
         num = min(num_frames, x.shape[-1] // hop - 1)
         t0 = time.perf_counter()
         for i in range(1, num + 1):
-            out, state = self.step(state, x[:, i * hop : (i + 1) * hop])
+            out, state = self.step(state, x[..., i * hop : (i + 1) * hop])
         self._synchronize()
         return (time.perf_counter() - t0) / num / (hop / sr)
 

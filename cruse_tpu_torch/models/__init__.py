@@ -1,15 +1,17 @@
-"""Model zoo of the port. CRUSE, CRUSE+DF, DFSMN, MTFAA and FullSubNet are
-ported; the other families are not yet."""
+"""Model zoo of the port. CRUSE, CRUSE+DF, DFSMN, MTFAA, FullSubNet and the
+multi-channel McCruse are ported; the other families are not yet."""
 
 from cruse_tpu_torch.models.cruse import CruseConfig, CruseNet  # noqa: F401
 from cruse_tpu_torch.models.cruse_df import CruseDfConfig, CruseDfNet  # noqa: F401
 from cruse_tpu_torch.models.dfsmn import DfsmnBlock, DfsmnConfig, DfsmnNet  # noqa: F401
 from cruse_tpu_torch.models.deep_filter import DeepFilterHead, deep_filter_apply  # noqa: F401
 from cruse_tpu_torch.models.fullsubnet import FullSubNet, FullSubNetConfig  # noqa: F401
+from cruse_tpu_torch.models.mc_cruse import McCruseConfig, McCruseNet  # noqa: F401
 from cruse_tpu_torch.models.mtfaa import MtfaaConfig, MtfaaNet  # noqa: F401
 
 _NETWORKS = {"CruseConfig": (CruseConfig, CruseNet), "CruseDfConfig": (CruseDfConfig, CruseDfNet),
              "MtfaaConfig": (MtfaaConfig, MtfaaNet), "FullSubNetConfig": (FullSubNetConfig, FullSubNet),
+             "McCruseConfig": (McCruseConfig, McCruseNet),
              # the JAX DFSMN has no config dataclass: [model] names the network with its fields
              "DfsmnNet": (DfsmnConfig, DfsmnNet)}
 
@@ -21,7 +23,8 @@ def build_from_config(model_section: dict, generator=None):
     ``cruse_tpu.models.cruse.CruseConfig``, or ``cruse_tpu.models.dfsmn.DfsmnNet``,
     whose args are the network's own fields) selects the port's counterpart;
     the path itself is never imported. A nested table (CRUSE+DF's
-    ``[model.args.cruse]``) arrives as a dict, which the config coerces.
+    ``[model.args.cruse]``, McCruse's ``[model.args.cruse_args]``) arrives as
+    a dict, which the config coerces.
     ``generator`` seeds the weights.
     """
     name = model_section["path"].rsplit(".", 1)[-1]

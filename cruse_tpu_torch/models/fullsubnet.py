@@ -12,8 +12,10 @@
 
 Every recurrence is ``nn/gru.py::GRU``, so on the card the grouped-GRU
 kernels run it at G = 1 (``ops/gru_kernel.py::gru_sequence``); at the
-published widths (H = 512 full band, 384 sub band) no cluster holds the
-weight in f32 and the streamed kernels take them.
+published widths the full band (H = 512) runs route A, the resident kernel
+at a 16-block cluster (8 rows a block), and the sub band (H = 384, B·F rows)
+route B, the row-tiled kernel (``forward_plan``); under a gradient their
+backwards take the same two routes (``backward_plan``).
 
 Streaming: the GRU states thread through ``state`` (``fb_i [B, H_fb]``,
 ``sb_i [B·F, H_sb]``); with ``norm="cumulative_laplace_norm"`` the norms'

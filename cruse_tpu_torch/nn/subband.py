@@ -2,7 +2,8 @@
 the frequency unfold and the three-group complexity trick.
 
 The sub-band window is one gather with a precomputed reflect-index table
-(``_reflect_indices``, numpy, kept as an index tensor per device), not a
+(``_reflect_indices``, numpy, kept as an index tensor per device for eager
+calls), not a
 padded ``F.unfold``: torch's ``reflect`` padding refuses a pad of F bins or
 more, while the table reflects once at each edge whatever the width, as the
 JAX package's does. Layout is time-major ``[B, T, F(, S)]``.
@@ -26,23 +27,34 @@ def _reflect_indices(num_freqs: int, num_neighbors: int) -> np.ndarray:
     return idx
 
 
+def _gather_table(num_freqs: int, num_neighbors: int) -> np.ndarray:
+    """The table as the JAX package's gather reads it, flat: where a window is
+    wider than one reflection covers (n >= F), a negative index counts from
+    the end and the rest are clamped to [0, F - 1]."""
+    idx = _reflect_indices(num_freqs, num_neighbors)
+    return np.clip(np.where(idx < 0, idx + num_freqs, idx), 0, num_freqs - 1).reshape(-1)
+
+
 @functools.lru_cache(maxsize=None)
 def _index_tensor(num_freqs: int, num_neighbors: int, device: torch.device) -> torch.Tensor:
-    """The table as the JAX package's gather reads it: where a window is wider
-    than one reflection covers (n >= F), a negative index counts from the end
-    and the rest are clamped to [0, F - 1]."""
-    idx = _reflect_indices(num_freqs, num_neighbors)
-    idx = np.clip(np.where(idx < 0, idx + num_freqs, idx), 0, num_freqs - 1)
-    return torch.from_numpy(idx.reshape(-1)).to(device)
+    """``_gather_table`` as an index tensor on ``device``, made once (eager
+    calls only: see ``freq_unfold``)."""
+    return torch.from_numpy(_gather_table(num_freqs, num_neighbors)).to(device)
 
 
 def freq_unfold(x: torch.Tensor, num_neighbors: int) -> torch.Tensor:
     """``[..., F] -> [..., F, 2n+1]`` (``[..., F, 1]`` for n < 1): unit f holds
-    bins f-n .. f+n, reflect-padded at both edges."""
+    bins f-n .. f+n, reflect-padded at both edges. Under a trace
+    (``torch.export``) the table is made anew, a constant of the program, and
+    the eager cache is neither read nor written: a cached tensor made inside
+    a trace would be the trace's fake tensor."""
     if num_neighbors < 1:
         return x[..., None]
     num_freqs = x.shape[-1]
-    idx = _index_tensor(num_freqs, num_neighbors, x.device)
+    if torch.compiler.is_compiling():
+        idx = torch.from_numpy(_gather_table(num_freqs, num_neighbors)).to(x.device)
+    else:
+        idx = _index_tensor(num_freqs, num_neighbors, x.device)
     return x.index_select(-1, idx).reshape(*x.shape[:-1], num_freqs, 2 * num_neighbors + 1)
 
 

@@ -137,14 +137,37 @@ def fullsubnet_model_forward(model) -> Callable:
     return forward
 
 
+def mc_model_forward(model) -> Callable:
+    """Multi-channel models (McCruseNet): ``noisy_ri`` is the multi-channel RI
+    spectrum ``[B, M, T, F, 2]``; its directional features feed the model
+    and the mask multiplies the reference channel -> enhanced RI ``[B, T, F,
+    2]``."""
+    from cruse_tpu_torch.dsp.features import directional_features_from_ri
+
+    cfg = model.config
+
+    def forward(noisy_ri: torch.Tensor, train: bool = False) -> torch.Tensor:
+        _check_eval(model, train)
+        if noisy_ri.dim() != 5:
+            raise ValueError(f"the multi-channel adapter takes [B, M, T, F, 2], got {tuple(noisy_ri.shape)}")
+        feats = directional_features_from_ri(noisy_ri, cfg.mic_pairs, cfg.reference_channel, cfg.use_sin_ipd)
+        mask, _ = model(feats, None, train)
+        return noisy_ri[:, cfg.reference_channel] * mask[..., None]
+
+    return forward
+
+
 def forward_for_model(model) -> Callable:
     """The forward adapter for a ported model."""
     from cruse_tpu_torch.models.cruse import CruseNet
     from cruse_tpu_torch.models.cruse_df import CruseDfNet
     from cruse_tpu_torch.models.dfsmn import DfsmnNet
     from cruse_tpu_torch.models.fullsubnet import FullSubNet
+    from cruse_tpu_torch.models.mc_cruse import McCruseNet
     from cruse_tpu_torch.models.mtfaa import MtfaaNet
 
+    if isinstance(model, McCruseNet):
+        return mc_model_forward(model)
     if isinstance(model, MtfaaNet):
         return complex_model_forward(model)
     if isinstance(model, CruseDfNet):
@@ -154,7 +177,7 @@ def forward_for_model(model) -> Callable:
     if isinstance(model, DfsmnNet) or (isinstance(model, CruseNet) and not model.config.emit_features):
         return mask_model_forward(model)
     raise NotImplementedError(f"no forward adapter for {type(model).__name__} is ported "
-                              "(ported: CruseNet, CruseDfNet, DfsmnNet, MtfaaNet, FullSubNet)")
+                              "(ported: CruseNet, CruseDfNet, DfsmnNet, MtfaaNet, FullSubNet, McCruseNet)")
 
 
 # ---------------- the train step ----------------

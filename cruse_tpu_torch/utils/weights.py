@@ -1,12 +1,15 @@
 """Weight bridge: cruse_tpu flax variables -> the port's ``CruseNet``,
-``CruseDfNet``, ``DfsmnNet``, ``MtfaaNet`` and ``FullSubNet`` state_dicts.
+``CruseDfNet``, ``McCruseNet``, ``DfsmnNet``, ``MtfaaNet`` and
+``FullSubNet`` state_dicts.
 
 The JAX side's ``{"params", "batch_stats"}`` tree, as numpy arrays, maps onto
 the port by path, because the port names its submodules after the flax ones
 (``enc_0/conv/kernel`` -> ``enc_0.conv.weight``,
 ``cruse/enc_0/conv/kernel`` -> ``cruse.enc_0.conv.weight``). A kernel's
 layout follows the module nearest the leaf that names it (so the same rule
-holds at any depth), and four layouts differ:
+holds at any depth: CRUSE+DF's and McCruse's trunks under ``cruse/``, with
+McCruse's ``spatial_proj/kernel`` a Dense and its ``PReLU_0/negative_slope``
+a 0-d leaf), and four layouts differ:
 
 - the encoder conv is a ``(1, kf)`` flax conv over ``kt`` time taps stacked on
   channels (kernel ``[1, kf, kt*cin, out]``, older tap first); it becomes one
@@ -196,10 +199,11 @@ def mtfaa_flax_from_named(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
 
 def state_dict_from_flax(variables_np: Mapping[str, Any], model) -> Dict[str, torch.Tensor]:
     """cruse_tpu variables -> state_dict of the port's ``model``: an
-    MtfaaNet, a DfsmnNet, a FullSubNet, a CruseNet, or a CruseDfNet, whose
-    trunk is under ``cruse.`` and head is ``df_head``. The CRUSE trunk's
-    config (``config.cruse`` of a CruseDfNet) fixes the encoder kernels'
-    layout."""
+    MtfaaNet, a DfsmnNet, a FullSubNet, a CruseNet, a CruseDfNet, whose
+    trunk is under ``cruse.`` and head is ``df_head``, or a McCruseNet,
+    whose trunk is under ``cruse.`` behind ``spatial_proj`` and ``PReLU_0``.
+    The CRUSE trunk's config (``config.cruse`` of a CruseDfNet or a
+    McCruseNet) fixes the encoder kernels' layout."""
     family = _family(model)
     if family == "mtfaa":
         return mtfaa_state_dict_from_flax(variables_np)
@@ -247,6 +251,8 @@ def _flax_leaf(family: str, key: str, value: np.ndarray):
 
 
 def _family(model) -> str:
+    """The mapping of ``model``: "mtfaa", "dfsmn", "fullsubnet", or "cruse"
+    (CRUSE, CRUSE+DF and McCruse, whose leaves map by the CRUSE rules)."""
     from cruse_tpu_torch.models.dfsmn import DfsmnNet
     from cruse_tpu_torch.models.fullsubnet import FullSubNet
     from cruse_tpu_torch.models.mtfaa import MtfaaNet

@@ -1,8 +1,8 @@
 """Port parity: serving cruse_tpu_torch's FullSubNet against cruse_tpu, on the
 CPU: the offline ``complex_mask`` and ``auto`` strategies, streaming hop by
 hop, the concurrent-stream server, and the infer CLI offline and
-``--streaming``; and the refusals (``mag_to_mag``, the streaming guards, the
-export).
+``--streaming``; the export CLI's round trip, offline and streamed; and the
+refusals (``mag_to_mag``, the streaming guards).
 
 Weights are made by flax and carried across by the bridge. Tolerances:
 enhanced waveforms 1e-4 max-abs against JAX (the BASELINE contract); the
@@ -26,11 +26,14 @@ from cruse_tpu_torch.data.wavio import read_wav, to_int16_scaled, write_wav
 from cruse_tpu_torch.dsp.stft import StftConfig, istft, stft
 from cruse_tpu_torch.infer.__main__ import main as cli_main
 from cruse_tpu_torch.infer.batch import BatchInferencer, InferencerConfig
+from cruse_tpu_torch.infer import artifact as artifact_lib
+from cruse_tpu_torch.infer.export import build as export_build
 from cruse_tpu_torch.infer.export import main as export_main
 from cruse_tpu_torch.infer.server import StreamingServer, tree_leaves
 from cruse_tpu_torch.infer.streaming import StreamingEnhancer
 from cruse_tpu_torch.models import CruseConfig, CruseNet, FullSubNet, FullSubNetConfig
 from cruse_tpu_torch.train.step import forward_for_model
+from cruse_tpu_torch.utils.config import load_config
 from cruse_tpu_torch.utils.weights import save_flax_npz
 from tests.test_torch_cruse import noisy_batch
 from tests.test_torch_fullsubnet import make_fullsubnet_pair
@@ -227,8 +230,34 @@ def test_cli_matches_jax(cli_inputs, mode):
 
 @pytest.mark.parametrize("streaming", [False, True], ids=["offline", "streaming"])
 def test_export_refuses_fullsubnet_by_name(cli_inputs, streaming):
-    root = cli_inputs[0]
-    with pytest.raises(NotImplementedError, match="FullSubNet"):
-        export_main(["-C", str(root / "fsn.toml"), "-O", str(root / "a.zip"), "--device", "cpu",
-                     "--seconds", "0.5"] + (["--streaming"] if streaming else []))
-    assert not (root / "a.zip").exists()
+    """The export CLI on the TOML's FullSubNet, which it once refused by name:
+    now a round trip. Offline, the program (B=2, 0.5 s, the ``auto`` body)
+    against JAX's ``auto`` and within 1e-4 of the port's eager
+    ``complex_mask``; streamed, 6 hops against JAX's StreamingEnhancer."""
+    root, jax_model, variables = cli_inputs
+    path = root / f"fsn_{'stream' if streaming else 'offline'}.zip"
+    export_main(["-C", str(root / "fsn.toml"), "-O", str(path), "--weights", str(root / "w.npz"), "--batch", "2",
+                 "--device", "cpu", "--seconds", "0.5"] + (["--streaming"] if streaming else []))
+    art = artifact_lib.load(str(path), "cpu")
+    rng = np.random.default_rng(9)
+    if not streaming:
+        assert art.input_shape == (2, 8000) and art.meta["strategy"] == "complex_mask"
+        noisy = noisy_batch(rng, 2, 8000)
+        got = art.enhance(torch.from_numpy(noisy)).numpy()
+        ref = JaxBatchInferencer(jax_model, variables, JaxInferencerConfig(
+            type="auto", stft=JaxStftConfig(n_fft=128, hop_length=64), output_dir=str(root / "jax")))._strategy(
+            jnp.asarray(noisy))
+        assert np.abs(got - np.asarray(ref)).max() < 1e-4
+        model = export_build(load_config(str(root / "fsn.toml")), str(root / "w.npz"), 0, None)
+        eager = BatchInferencer(model, InferencerConfig(type="complex_mask", stft=StftConfig(n_fft=128, hop_length=64)),
+                                device="cpu").complex_mask(torch.from_numpy(noisy)).numpy()
+        assert np.abs(got - eager).max() < 1e-4
+        return
+    assert art.hop_shape == (2, 64) and art.meta["num_mics"] is None
+    jax_enh = JaxStreamingEnhancer(jax_model, variables, JaxStftConfig(n_fft=128, hop_length=64, center=False))
+    state, j_state = art.init_state(), jax_enh.init_state(2)
+    for _ in range(6):
+        hop = noisy_batch(rng, 2, 64)
+        out, state = art.step(state, torch.from_numpy(hop))
+        j_out, j_state = jax_enh.step(j_state, jnp.asarray(hop))
+        assert np.abs(out.numpy() - np.asarray(j_out)).max() < 1e-4

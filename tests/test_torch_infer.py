@@ -128,14 +128,15 @@ def test_inferencer_defaults_to_the_card(monkeypatch, rng):
 
 @pytest.mark.parametrize("cfg,error", [
     (dict(type="auto"), NotImplementedError), (dict(type="complex_mask"), ValueError),
-    (dict(type="multi_channel_mag_to_mag"), NotImplementedError), (dict(postfilter="wiener"), ValueError),
+    (dict(type="multi_channel_directional"), ValueError), (dict(postfilter="wiener"), ValueError),
 ], ids=["auto", "complex_mask", "multi_channel", "postfilter"])
 def test_unported_strategies_are_refused(cfg, error):
     """``auto`` is ported for CRUSE and CRUSE+DF (tests/test_torch_cruse_df.py);
     for a model family whose forward adapter is not ported it is refused.
     ``complex_mask`` is ported for FullSubNet's cIRM
-    (tests/test_torch_fullsubnet_serve.py) and refused for a mask model. The
-    post-filters ``sin`` and ``envelope`` are ported
+    (tests/test_torch_fullsubnet_serve.py) and refused for a mask model, and
+    so is ``multi_channel_directional``, which takes McCruse
+    (tests/test_torch_mc_cruse.py). The post-filters ``sin`` and ``envelope`` are ported
     (tests/test_torch_infer_long.py); any other name is refused, as the JAX
     package refuses it."""
     model = CruseNet(CruseConfig(**SMALL))
