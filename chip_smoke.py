@@ -298,6 +298,21 @@ needed). In order, and any failure exits non-zero:
     CUDA events and at its hop shape from a profile, and the backward's at
     its shapes, with its plain version, its bound and cuDNN's ``nn.GRU``
     (forward, or ``autograd.grad``) at the same shape;
+23b. trains the multi-mic McCruse at ``McCruseConfig()``'s width and config
+    2's published batch, B=32 x 3 s, on a synthetic corpus and 8 synthetic
+    4-channel RIRs: the dataset's three mixers (free field, the image-source
+    room at ``RoomConfig()``'s defaults, measured RIRs) on the card, each
+    batch within 1e-4 of the same function on the CPU fed the same draws,
+    with ms a batch and peak memory; 3 steps of ``make_train_step`` (si_snr
+    + spec) on room-mixed batches, each first against the plain recurrence
+    (losses 1e-5 relative, gradient leaves relative 2e-3 or 3e-3 of the
+    largest + 1e-3), exactly 2 + 2 resident GRU launches a step, ms a step
+    and peak memory; then the train CLI in this process on
+    ``configs/tiny_mc.toml`` and ``tiny_mc_rir.toml`` widened to
+    ``McCruseConfig()``, 4 mics and B=32 x 3 s (1 epoch of 4 steps,
+    validation on 2 batches): the launches, finite epoch means, ``latest``
+    and ``model_0001.npz``, the trainer's ms a step against the bare step's,
+    a profiled epoch of 8 steps (the device's idle share);
 23. drives the multi-mic McCruse at ``McCruseConfig()``'s width (4 mics,
     pairs (0, 1), (0, 2), (0, 3), the CRUSE trunk (8, 16, 32, 64) at 161
     bins with 4 GRU groups; seeded weights, BatchNorm statistics and PReLU
@@ -393,6 +408,7 @@ import cruse_tpu_torch.ops.dw_kernel as dw_kernel
 import cruse_tpu_torch.ops.gru_kernel as gru_kernel
 import cruse_tpu_torch.ops.tfcm_kernel as tfcm_kernel
 from cruse_tpu_torch.data import native as native_io
+from cruse_tpu_torch.data.dataset import SynMixConfig, SynMixDataset
 from cruse_tpu_torch.data.manifest import write_manifest
 from cruse_tpu_torch.data.mixer import draw_mix, mix_batch
 from cruse_tpu_torch.data.wavio import read_wav, to_int16_scaled, write_wav
@@ -666,6 +682,17 @@ MC_CALL_LAUNCHES = {"gru_sequence": 2}  # a forward, a hop, a server step: one a
 MC_SERVER_SLOTS = 8
 MC_SERVER_SESSIONS = {"mc": (9, 0.5, 1.5), "cruse_df": (9, 0.5, 1.5)}  # (count, shortest, longest seconds)
 MC_SERVER_LAUNCHES = {"mc": {"gru_sequence": 2}, "cruse_df": {"gru_sequence": 2, "deep_filter": 1}}  # a step
+# McCruse training at McCruseConfig()'s width and config 2's published batch (configs/cruse_base.toml:51-53):
+# the three mixers on the card against the CPU, TRAIN_STEPS steps on room-mixed batches (the tiny MC configs'
+# losses), the train CLI on configs/tiny_mc.toml and tiny_mc_rir.toml widened to it
+MC_TRAIN_BATCH, MC_TRAIN_SECONDS = 32, 3
+MC_TRAIN_LOSSES = (("si_snr", 1.0), ("spec", 1.0))
+MC_STEP_LAUNCHES = {"gru_sequence": 2, "gru_sequence_bwd": 2}  # a step: one a GRU bank each way, all resident
+MC_MIX_TOL = 1e-4  # a mixer on the card against the same function and draws on the CPU
+MC_RIRS, MC_RIR_SECONDS = 8, 0.15  # the synthetic 4-channel RIRs the phase writes (tiny_mc_rir's length)
+MC_PROFILE_STEPS = 8  # the profiled trainer epoch of each tiny MC config
+MC_BARE_STEPS = 8  # the bare step timed in a row
+MC_MIXERS = {"free field": {}, "room": {"mc_room": True}, "measured RIRs": {"mc_rir_manifest": "mc_rir.txt"}}
 
 
 def require(ok: bool, what: str) -> None:
@@ -3528,6 +3555,235 @@ def check_mc_cruse(device, smi) -> dict:
             "server_deep_filter": server["deep_filter"], "offline": offline, "stream": stream, "server": mc_server}
 
 
+def draws_to(draws, device):
+    """A mixer's draws (dataclasses of tensors, nested) on ``device``."""
+    if isinstance(draws, torch.Tensor):
+        return draws.to(device)
+    if dataclasses.is_dataclass(draws):
+        return dataclasses.replace(draws, **{f.name: draws_to(getattr(draws, f.name), device)
+                                             for f in dataclasses.fields(draws)})
+    return draws
+
+
+def write_mc_rirs(root: Path) -> Path:
+    """MC_RIRS synthetic 4-channel RIRs of MC_RIR_SECONDS (a direct tap a mic
+    3 samples apart and three decaying reflections, as
+    examples/make_tiny_corpus.py makes its 3-mic ones) and their manifest."""
+    rng = np.random.default_rng(SEED + 60)
+    paths = []
+    for i in range(MC_RIRS):
+        r = np.zeros((MC_MICS, int(MC_RIR_SECONDS * SR)), np.float32)
+        base = 25 + int(rng.integers(30))
+        for m in range(MC_MICS):
+            d = base + 3 * m
+            r[m, d] = 0.95
+            for j, (off, amp) in enumerate(((250, 0.4), (610, 0.22), (1300, 0.1))):
+                r[m, d + off + 7 * m + 11 * j] = amp * (1 - 0.1 * m)
+        paths.append(str(root / f"mc_rir_{i}.wav"))
+        write_wav(paths[-1], r, SR)
+    write_manifest(paths, str(root / "mc_rir.txt"))
+    return root / "mc_rir.txt"
+
+
+def mc_dataset_config(root: Path, mixer: str) -> SynMixConfig:
+    return SynMixConfig(clean_manifest=str(root / "clean_train.txt"), noise_manifest=str(root / "noise_train.txt"),
+                        sub_sample_seconds=MC_TRAIN_SECONDS, batch_size=MC_TRAIN_BATCH, num_mics=MC_MICS,
+                        rir_max_seconds=MC_RIR_SECONDS, seed=SEED + 61,
+                        **{k: str(root / v) if k.endswith("manifest") else v for k, v in MC_MIXERS[mixer].items()})
+
+
+def check_mc_mixers(root: Path, device, smi) -> dict:
+    """Part (a): each mixer of the dataset on the card at B=32 x 3 s x 4 mics,
+    held within MC_MIX_TOL of the same function on the CPU fed the same host
+    arrays and draws (cuFFT against pocketfft, the card's sin and cos
+    against the CPU's); ms a batch on the card and its peak memory. Returns
+    the room mixer's ms."""
+    times = {}
+    for mixer in MC_MIXERS:
+        cfg = mc_dataset_config(root, mixer)
+        card, host = SynMixDataset(cfg, device), SynMixDataset(cfg, "cpu")
+        arrays = card.host_arrays()
+        on_card = card.to_device(arrays)
+        draws = card.draw(torch.Generator(device=device).manual_seed(SEED + 62))
+        noisy, target = card.mix(on_card, draws)
+        want = host.mix(host.to_device(arrays), draws_to(draws, "cpu"))
+        err = max(float((noisy.cpu() - want[0]).abs().max()), float((target.cpu() - want[1]).abs().max()))
+        require(tuple(noisy.shape) == (MC_TRAIN_BATCH, MC_MICS, MC_TRAIN_SECONDS * SR)
+                and tuple(target.shape) == (MC_TRAIN_BATCH, MC_TRAIN_SECONDS * SR)
+                and bool(torch.isfinite(noisy).all()) and err <= MC_MIX_TOL,
+                f"{mixer} mixer on the card, B={MC_TRAIN_BATCH} x {MC_TRAIN_SECONDS} s x {MC_MICS} mics: "
+                f"{tuple(noisy.shape)}, against the CPU: max-abs {err:.3g} <= {MC_MIX_TOL}")
+        del noisy, target, want
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times[mixer] = cuda_ms(lambda: card.mix(on_card, draws), 3)
+        print(f"{mixer} mixer on {smi}: {times[mixer]:.2f} ms a batch of {MC_TRAIN_BATCH} x {MC_TRAIN_SECONDS} s x "
+              f"{MC_MICS} mics (the draws apart), peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+              f"against the CPU max-abs {err:.3g}", flush=True)
+    return times
+
+
+def check_mc_train_steps(root: Path, device, smi) -> tuple[dict, float]:
+    """Part (b): TRAIN_STEPS steps of ``make_train_step`` with MC_TRAIN_LOSSES
+    on room-mixed batches; before each, its forward and backward with the
+    kernels against the same with the plain recurrence (losses 1e-5
+    relative; each gradient leaf relative 2e-3, or 3e-3 of the largest +
+    1e-3); each step exactly MC_STEP_LAUNCHES, all resident; ms a step and
+    peak memory; then MC_BARE_STEPS steps in a row timed. Returns the checked
+    steps' launches and the ms a step in a row."""
+    model = build_mc_cruse(device, SEED + 63)
+    cfg = StepConfig(stft=StftConfig(**MC_STFT), loss_weights=MC_TRAIN_LOSSES)
+    state = init_train_state(model, cfg, device)
+    step = make_train_step(model, cfg)
+    ds = SynMixDataset(mc_dataset_config(root, "room"), device)
+    launched = {name: 0 for name in COUNTERS}
+    times, peaks = [], []
+    batches = list(ds.batches(num_batches=TRAIN_STEPS))
+    for i, data in enumerate(batches):
+        what = f"McCruse train step {i + 1} B={MC_TRAIN_BATCH} x {MC_TRAIN_SECONDS} s x {MC_MICS} mics"
+        runs = {}
+        for name, fn in (("kernels", gru_sequence), ("plain", gru_sequence_reference)):
+            set_recurrence(model, fn)
+            grads, losses, _ = make_loss_gradients(model, cfg)(state.balancer_state, data)
+            runs[name] = ([g.detach().clone() for g in grads], {k: float(v) for k, v in losses.items()})
+        set_recurrence(model, gru_sequence)
+        (grads, losses), (plain_grads, plain_losses) = runs["kernels"], runs["plain"]
+        for name, value in plain_losses.items():
+            require(abs(losses[name] - value) <= 1e-5 * abs(value),
+                    f"{what}: loss {name} {losses[name]:.7g}, kernels vs plain recurrence within 1e-5 relative")
+        gscale = max(float(g.abs().max()) for g in plain_grads)
+        bad = [(name, float((got - want).abs().max()))
+               for (name, _), got, want in zip(model.named_parameters(), grads, plain_grads)
+               if not (float((got - want).abs().max()) <= 2e-3 * float(want.abs().max())
+                       or float((got - want).abs().max()) <= 3e-3 * gscale + 1e-3)]
+        require(not bad, f"{what}: {len(grads)} gradient leaves, kernels vs plain recurrence (relative 2e-3, or "
+                f"3e-3 x {gscale:.3g} + 1e-3); failing {bad[:5]}")
+        del runs, grads, plain_grads
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, data)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        got = counts()
+        require(got == {**{k: 0 for k in got}, **MC_STEP_LAUNCHES}
+                and gru_sequence.resident_launches == MC_STEP_LAUNCHES["gru_sequence"]
+                and gru_sequence_bwd.resident_launches == MC_STEP_LAUNCHES["gru_sequence_bwd"],
+                f"{what}: launches {({k: v for k, v in got.items() if v})} = {MC_STEP_LAUNCHES}, all resident")
+        require(all(math.isfinite(float(v)) for v in metrics.values()) and float(metrics["nonfinite_skipped"]) == 0,
+                f"{what}: finite losses and gradient norm")
+        for name, v in got.items():
+            launched[name] += v
+    # the bare step's time: MC_BARE_STEPS steps in a row on the checked batches, one wait at the end
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(MC_BARE_STEPS):
+        state, _ = step(state, batches[i % len(batches)])
+    torch.cuda.synchronize()
+    bare_ms = (time.perf_counter() - t0) / MC_BARE_STEPS * 1e3
+    print(f"McCruse train step B={MC_TRAIN_BATCH} x {MC_TRAIN_SECONDS} s x {MC_MICS} mics (si_snr + spec, f32, "
+          f"room-mixed) on {smi}: the checked steps " + ", ".join(f"{ms:.1f}" for ms in times) + f" ms, each "
+          f"synchronised; {bare_ms:.2f} ms a step over {MC_BARE_STEPS} in a row = "
+          f"{MC_TRAIN_BATCH * MC_TRAIN_SECONDS / bare_ms * 1e3:.1f} s of audio a second; peak memory "
+          f"{max(peaks):.2f} GiB", flush=True)
+    return launched, bare_ms
+
+
+def mc_trainer_config(root: Path, name: str, rirs: Path) -> Path:
+    """configs/<name>.toml with ``[model.args]`` made McCruseConfig()'s, 4
+    mics, B=32 x 3 s training batches (validation: 2 batches of the tiny
+    config's 2 rows, 3 s), 1 epoch of TRAINER_STEPS steps, the manifests on
+    the phase's corpus and RIRs, its runs written under root."""
+    text = (ROOT / "configs" / f"{name}.toml").read_text()
+    for old, new in (('save_dir = "/tmp/corpus/runs"', f'save_dir = "{root / "runs"}"'),
+                     ("mic_pairs = [[0, 1], [0, 2]]\n[model.args.cruse_args]\nin_freq = 161\n"
+                      "channels = [4, 8, 8, 16]\nrnn_groups = 4\n", "mic_pairs = [[0, 1], [0, 2], [0, 3]]\n"),
+                     ("steps_per_epoch = 2", f"steps_per_epoch = {TRAINER_STEPS}"),
+                     ("batch_size = 4", f"batch_size = {MC_TRAIN_BATCH}"),
+                     ("sub_sample_seconds = 1.0", f"sub_sample_seconds = {float(MC_TRAIN_SECONDS)}"),
+                     ("num_mics = 3", f"num_mics = {MC_MICS}"),
+                     ("/tmp/corpus/mc_rir_train.txt", str(rirs)), ("/tmp/corpus/mc_rir_valid.txt", str(rirs)),
+                     ("/tmp/corpus/", f"{root}/")):
+        if old not in text and not (old.startswith("/tmp/corpus/mc_rir") and name == "tiny_mc"):
+            raise RuntimeError(f"check failed: configs/{name}.toml has no {old!r}")
+        text = text.replace(old, new)
+    path = root / f"{name}_wide.toml"
+    path.write_text(text)
+    return path
+
+
+def check_mc_trainer(root: Path, rirs: Path, device, smi, bare_ms: float) -> dict:
+    """Part (c): the train CLI's main in this process on both tiny MC configs
+    widened by ``mc_trainer_config``: its launches (2 + 2 resident a step, 2
+    a validation batch), finite epoch means, ``latest`` and
+    ``model_0001.npz``; the trainer's ms a step against part (b)'s bare
+    step; a profiled epoch of MC_PROFILE_STEPS steps. Returns the launches
+    of the CLI runs."""
+    launched = {name: 0 for name in COUNTERS}
+    for name in ("tiny_mc", "tiny_mc_rir"):
+        config = mc_trainer_config(root, name, rirs)
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer = train_main(["-C", str(config)])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        what = f"train CLI, {name} at McCruseConfig() x B={MC_TRAIN_BATCH} x {MC_TRAIN_SECONDS} s"
+        require_launches(what, {"gru_sequence": 2 * TRAINER_STEPS + 2 * TRAINER_VALID_BATCHES,
+                                "gru_sequence_bwd": 2 * TRAINER_STEPS})
+        require(gru_sequence_bwd.resident_launches == 2 * TRAINER_STEPS,
+                f"{what}: every backward launch the resident kernel's")
+        for key, value in counts().items():
+            launched[key] += value
+        runs = root / "runs" / name
+        log_text = (runs / "train.log").read_text()
+        means = epoch_lines(log_text, 1)
+        require(isinstance(trainer.state.model, McCruseNet) and trainer.state.step == TRAINER_STEPS
+                and set(means) >= {"loss_si_snr", "loss_spec", "grad_norm"}
+                and all(math.isfinite(v) for v in means.values()) and means["nonfinite_skipped"] == 0
+                and log_text.count("composite score") == 1 and "NON-FINITE" not in log_text,
+                f"{what}: {trainer.state.step} McCruse steps, finite epoch means {means}, one validation scored")
+        ckpt = runs / "checkpoints"
+        require(all((ckpt / n).is_file() for n in ("latest", "model_0001.npz")),
+                f"{what}: latest and model_0001.npz written")
+        step_ms = float(np.mean(trainer.timings["step"][1:])) * 1e3
+        trainer.cfg.steps_per_epoch = MC_PROFILE_STEPS
+        epoch = iter(range(100, 200))
+        profile_calls(lambda: trainer._train_epoch(next(epoch)), 1,
+                      f"trainer epoch of {MC_PROFILE_STEPS} steps, {name} at McCruseConfig() x B={MC_TRAIN_BATCH} x "
+                      f"{MC_TRAIN_SECONDS} s, on {smi}")
+        print(f"{what} on {smi}: the run {run_s:.1f} s; {step_ms:.2f} ms a trainer step after the first "
+              f"({np.mean(trainer.timings['data_wait'][1:]) * 1e3:.2f} ms of it waiting for data) against the bare "
+              f"step's {bare_ms:.2f} ms (x{step_ms / bare_ms:.3f}); validation "
+              + ", ".join(f"{s * 1e3:.1f}" for s in trainer.timings["validation_enhance"]) + " ms on the card; "
+              + "; ".join(line.strip() for line in log_text.splitlines() if "composite score" in line), flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+    return launched
+
+
+def check_mc_training(device, smi) -> dict:
+    """McCruse training at ``McCruseConfig()``'s width (parts a to c, see the
+    module doc). Returns its launches and the room mixer's and the step's
+    ms."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_trainer_corpus(root)
+        rirs = write_mc_rirs(root)
+        mix_ms = check_mc_mixers(root, device, smi)
+        torch.cuda.empty_cache()
+        steps, step_ms = check_mc_train_steps(root, device, smi)
+        torch.cuda.empty_cache()
+        cli = check_mc_trainer(root, rirs, device, smi, step_ms)
+    print(f"McCruse training phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"steps": steps, "cli": cli, "mix_ms": mix_ms, "step_ms": step_ms,
+            **{name: steps[name] + cli[name] for name in ("gru_sequence", "gru_sequence_bwd")}}
+
+
 def require_fsn_launches(what: str, calls: int) -> None:
     """The counters since ``reset_counts``: ``calls`` FullSubNet calls or
     hops' GRU launches (4 each, 2 of them resident) and nothing else."""
@@ -4923,6 +5179,8 @@ def main() -> int:
     lap("FullSubNet")
     mc = check_mc_cruse(device, smi)
     lap("McCruse")
+    mc_train = check_mc_training(device, smi)
+    lap("McCruse training")
     deploy_launches = check_deployment(device, smi)  # last: torch.export's tracing machinery after every profile
     lap("deployment")
 
@@ -4955,7 +5213,7 @@ def main() -> int:
                  launches + stream_gru + auto_gru + cruse_launches["gru_sequence"] + cruse_df_launches["gru_sequence"]
                  + server_launches["gru_sequence"] + deploy_launches["gru_sequence"]
                  + trainer_launches["gru_sequence"] + feature_launches["gru_sequence"] + fsn["gru_sequence"]
-                 + mc["gru_sequence"] + mc["server_gru_sequence"],
+                 + mc["gru_sequence"] + mc["server_gru_sequence"] + mc_train["gru_sequence"],
                  max(gru_err, fsn["gru_err"]), (kernel_ms, plain_ms), gru_bound, lib["gru"]),
          "resident_ms": gru_times["f32"][0], "streamed_ms": gru_times["f32"][1],
          "server_launches": server_launches["gru_sequence"], "artifact_launches": deploy_launches["gru_sequence"],
@@ -4964,6 +5222,9 @@ def main() -> int:
          # McCruse: offline, streamed and its server pool (all resident); config 3's pool beside it; the artifacts
          "mc_cruse_launches": {key: mc[key] for key in ("offline", "stream", "server")},
          "mc_server_cruse_df_launches": mc["server_gru_sequence"],
+         # McCruse training: its steps, then the train CLI on both tiny MC configs (steps and validation)
+         "mc_cruse_train_launches": {"steps": mc_train["steps"]["gru_sequence"],
+                                     "cli": mc_train["cli"]["gru_sequence"]},
          "fullsubnet_artifact_launches": deploy_launches["fullsubnet_gru_sequence"],
          "mc_cruse_artifact_launches": deploy_launches["mc_cruse_gru_sequence"],
          # the forward's two routes at FullSubNet's offline shapes, launches in its phase
@@ -4975,10 +5236,13 @@ def main() -> int:
         {"name": "gru_sequence_bwd", "route": "cuda", "source": "cruse_tpu_torch/ops/csrc/gru_bwd.cu",
          "replaces": "cruse_tpu/nn/gru.py:30 (no TPU kernel: the JAX step differentiates gru_scan)",
          "launches": cruse_launches["gru_sequence_bwd"] + cruse_df_launches["gru_sequence_bwd"]
-         + trainer_launches["gru_sequence_bwd"] + feature_launches["gru_sequence_bwd"] + fsn["gru_sequence_bwd"],
+         + trainer_launches["gru_sequence_bwd"] + feature_launches["gru_sequence_bwd"] + fsn["gru_sequence_bwd"]
+         + mc_train["gru_sequence_bwd"],
          "max_abs_err": gru_bwd_err, **gru_bwd_times, "trainer_launches": trainer_launches["gru_sequence_bwd"],
          "features_launches": feature_launches["gru_sequence_bwd"], "fullsubnet_launches": fsn["gru_sequence_bwd"],
          "fullsubnet_stages": fsn["backward_rows"],
+         "mc_cruse_train_launches": {"steps": mc_train["steps"]["gru_sequence_bwd"],
+                                     "cli": mc_train["cli"]["gru_sequence_bwd"]},
          # the backward's two routes at FullSubNet's training shapes, launches in its train steps
          "routes": [{"route": row["route"], "kernel": BWD_ROUTE_KERNELS[row["route"]],
                      "launches": fsn["gru_bwd_resident"] if row["route"] == "resident"

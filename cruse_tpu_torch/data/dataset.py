@@ -10,8 +10,16 @@ A batch then crosses to the device in one pinned host-to-device copy and is
 mixed there by ``data/mixer.py::mix_batch``, with draws from a
 ``torch.Generator`` on the device seeded from ``(seed, epoch)``.
 
-Multi-channel batches (``num_mics > 1`` and the ``mc_*`` fields, for
-McCruse) are refused by name.
+With ``num_mics > 1`` the batches are multi-channel, ``{"noisy": [B, M, L],
+"clean": [B, L]}`` (McCruse): through measured array RIRs
+(``mix_batch_mc_rir``) when ``mc_rir_manifest`` lists any, else through the
+image-source room (``mix_batch_mc_room``) with ``mc_room``, else through
+free-field delays (``mix_batch_mc``, ``mc_max_delay``). As in the JAX
+package, that path ignores ``reverb_proportion``, the single-channel RIR
+manifests (whose draws ``host_batch`` still makes, call for call) and
+``eq_proportion``. The measured RIRs are drawn after the batch's audio, the
+speech's for all B rows and then the noise's, and travel in the same pinned
+copy.
 """
 from __future__ import annotations
 
@@ -23,12 +31,11 @@ import torch
 
 from cruse_tpu_torch.data import native
 from cruse_tpu_torch.data.manifest import load_manifest, offset_and_limit, parse_snr_range
-from cruse_tpu_torch.data.mixer import MixerConfig, draw_mix, mix_batch
+from cruse_tpu_torch.data.mixer import (MixerConfig, RoomConfig, draw_mc, draw_mc_rir, draw_mc_room, draw_mix,
+                                         mix_batch, mix_batch_mc, mix_batch_mc_rir, mix_batch_mc_room)
 from cruse_tpu_torch.data.wavio import read_wav
 
-_MC_FIELDS = ("mc_max_delay", "mc_room", "mc_rir_manifest", "mc_rir_noise_manifest", "mc_room_t60",
-              "mc_room_max_order", "mc_mic_spacing", "mc_array_geometry", "mc_array_radius",
-              "mc_mic_positions")
+RIR_CACHE_BYTES = 512 * 1024 * 1024  # the decoded measured RIRs kept, per dataset
 
 
 @dataclasses.dataclass
@@ -55,36 +62,23 @@ class SynMixConfig:
     batch_size: int = 32
     rir_max_seconds: float = 0.5  # RIRs padded or cut to one length for device batching
     eq_proportion: float = 0.0
-    # multi-channel (McCruse): accepted so that one config builds both
-    # packages; setting one raises
-    num_mics: int = 1
-    mc_max_delay: float = 8.0
-    mc_room: bool = False
+    num_mics: int = 1  # > 1: multi-channel batches, noisy [B, M, L] (McCruse)
+    mc_max_delay: float = 8.0  # the free-field mixer's largest delay, samples
+    mc_room: bool = False  # the image-source room instead of free-field delays
+    # measured array RIRs ([num_mics, R] wavs, extra channels dropped); the
+    # noise's manifest defaults to the speech's; they take precedence over mc_room
     mc_rir_manifest: str = ""
     mc_rir_noise_manifest: str = ""
     mc_room_t60: tuple = (0.2, 0.6)
     mc_room_max_order: int = 1
     mc_mic_spacing: float = 0.05
-    mc_array_geometry: str = "linear"
+    mc_array_geometry: str = "linear"  # "linear" | "circular" | "custom"
     mc_array_radius: float = 0.05
-    mc_mic_positions: tuple = ()
+    mc_mic_positions: tuple = ()  # custom: ((x, y, z), ...) from the array's centre, metres
     seed: int = 0
     valid_mode: bool = False
     use_native_io: bool = True  # the threaded C++ decode/resample/crop
     native_threads: int = 8
-
-    def __post_init__(self):
-        defaults = SynMixConfig.__dataclass_fields__
-        changed = [name for name in ("num_mics",) + _MC_FIELDS
-                   if _normalised(getattr(self, name)) != _normalised(defaults[name].default)]
-        if changed:
-            raise NotImplementedError(
-                f"SynMixConfig: {', '.join(changed)} select multi-channel mixing (McCruse), "
-                "which is not ported")
-
-
-def _normalised(value):
-    return tuple(_normalised(v) for v in value) if isinstance(value, (list, tuple)) else value
 
 
 def mixing_seed(seed: int, epoch: int) -> int:
@@ -93,9 +87,10 @@ def mixing_seed(seed: int, epoch: int) -> int:
 
 
 class SynMixDataset:
-    """Iterable over device batches {"noisy", "clean"} ([B, L] float32 on
-    ``device``; "name" too in valid mode). ``device`` is the card unless the
-    caller asks for the CPU."""
+    """Iterable over device batches {"noisy", "clean"} (float32 on
+    ``device``: [B, L] each, or noisy [B, M, L] with ``num_mics > 1``; "name"
+    too in valid mode). ``device`` is the card unless the caller asks for
+    the CPU."""
 
     def __init__(self, config: SynMixConfig, device: torch.device | str = "cuda"):
         self.device = torch.device(device)
@@ -120,6 +115,16 @@ class SynMixDataset:
             sr=c.sr, snr_range=tuple(c.snr_range), target_db_fs=c.target_db_fs,
             target_db_fs_floating=c.target_db_fs_floating, reverb_proportion=c.reverb_proportion,
             reverb_noise_proportion=c.reverb_noise_proportion, eq_proportion=c.eq_proportion)
+        self.mc_rir_list = load_manifest(c.mc_rir_manifest) if c.mc_rir_manifest else []
+        self.mc_rir_noise_list = (load_manifest(c.mc_rir_noise_manifest) if c.mc_rir_noise_manifest
+                                  else self.mc_rir_list)
+        self._mc_measured = bool(self.mc_rir_list) and c.num_mics > 1
+        self._rir_cache: dict = {}  # path -> decoded [num_mics, rir_len], read-only
+        self._rir_cache_bytes = 0
+        self.room = RoomConfig(sr=c.sr, t60=tuple(c.mc_room_t60), max_order=int(c.mc_room_max_order),
+                               mic_spacing=c.mc_mic_spacing, array_geometry=c.mc_array_geometry,
+                               array_radius=c.mc_array_radius,
+                               mic_positions=tuple(tuple(p) for p in c.mc_mic_positions))
 
     def set_snr_range(self, snr_range) -> None:
         """Point-in-training SNR override (curriculum learning)."""
@@ -165,6 +170,31 @@ class SynMixDataset:
             rir[:n] = wav[:n]
         return rir
 
+    def _select_rir_mc(self, rir_list: List[str]) -> np.ndarray:
+        """A random measured array RIR, padded or cut to [num_mics, rir_len];
+        the file must hold at least num_mics channels, and extra ones are
+        dropped. Decoded RIRs are cached by path up to RIR_CACHE_BYTES (every
+        batch draws 2 B of them from a small corpus); the draw comes first,
+        so that the cache leaves the generator's sequence as it is."""
+        path = rir_list[self.rng.integers(len(rir_list))]
+        cached = self._rir_cache.get(path)
+        if cached is not None:
+            return cached
+        m = self.cfg.num_mics
+        out = np.zeros((m, self.rir_len), np.float32)
+        wav, _ = read_wav(path, sr=self.cfg.sr, mono=False)
+        if wav.ndim == 1:
+            wav = wav[None, :]
+        if wav.shape[0] < m:
+            raise ValueError(f"measured RIR {path} has {wav.shape[0]} channels < num_mics={m}")
+        n = min(wav.shape[1], self.rir_len)
+        out[:, :n] = wav[:m, :n]
+        out.setflags(write=False)
+        if self._rir_cache_bytes + out.nbytes <= RIR_CACHE_BYTES:
+            self._rir_cache[path] = out
+            self._rir_cache_bytes += out.nbytes
+        return out
+
     def _native_select(self, file_list: List[str], b: int):
         """The C++ assembler does the whole selection (random files, silence
         gaps, random crop) on its thread pool; a row it could not read at all
@@ -194,6 +224,45 @@ class SynMixDataset:
                      if self.rir_noise_list and self.cfg.reverb_noise_proportion > 0 else None)
         return clean, noise, rir, rir_noise
 
+    def host_arrays(self):
+        """One batch's host arrays as the mixing takes them, drawn in the JAX
+        package's order: (clean, noise, rir, rir_noise) single-channel;
+        (clean, noise, rir_c, rir_n) [B, M, R] through measured array RIRs,
+        the single-channel RIRs drawn and dropped; (clean, noise, None,
+        None) through the room or free field."""
+        clean, noise, rir, rir_noise = self.host_batch()
+        if self.cfg.num_mics == 1:
+            return clean, noise, rir, rir_noise
+        if not self._mc_measured:
+            return clean, noise, None, None
+        b = self.cfg.batch_size
+        rir_c = np.stack([self._select_rir_mc(self.mc_rir_list) for _ in range(b)])
+        return clean, noise, rir_c, np.stack([self._select_rir_mc(self.mc_rir_noise_list) for _ in range(b)])
+
+    def draw(self, generator: torch.Generator):
+        """One batch's mixing draws from ``generator``, for the configured mixer."""
+        c, b = self.cfg, self.cfg.batch_size
+        if c.num_mics == 1:
+            return draw_mix(generator, b, self.mixer_cfg)
+        if self._mc_measured:
+            return draw_mc_rir(generator, b, self.mixer_cfg)
+        if c.mc_room:
+            return draw_mc_room(generator, b, c.num_mics, self.room, self.mixer_cfg)
+        return draw_mc(generator, b, c.num_mics, self.mixer_cfg, c.mc_max_delay)
+
+    def mix(self, arrays, draws):
+        """Device arrays (``host_arrays``'s, on the device) and ``draws`` ->
+        (noisy, target)."""
+        clean, noise, rir, rir_noise = arrays
+        c = self.cfg
+        if c.num_mics == 1:
+            return mix_batch(clean, noise, self.mixer_cfg, draws, rir, rir_noise)
+        if self._mc_measured:
+            return mix_batch_mc_rir(clean, noise, self.mixer_cfg, draws, rir, rir_noise)
+        if c.mc_room:
+            return mix_batch_mc_room(clean, noise, self.mixer_cfg, self.room, c.num_mics, draws)
+        return mix_batch_mc(clean, noise, self.mixer_cfg, draws)
+
     def to_device(self, arrays):
         """Host arrays (None passes through) -> tensors on the device, in one
         host-to-device copy from pinned memory on the card's path."""
@@ -219,9 +288,8 @@ class SynMixDataset:
                 mixing_seed(self.cfg.seed, self._epoch))
             self._epoch += 1
         for i in range(steps):
-            clean, noise, rir, rir_noise = self.to_device(self.host_batch())
-            draws = draw_mix(generator, self.cfg.batch_size, self.mixer_cfg)
-            noisy, target = mix_batch(clean, noise, self.mixer_cfg, draws, rir, rir_noise)
+            arrays = self.to_device(self.host_arrays())
+            noisy, target = self.mix(arrays, self.draw(generator))
             batch = {"noisy": noisy, "clean": target}
             if self.cfg.valid_mode:
                 batch["name"] = [f"synth_{i:05d}_{j:03d}" for j in range(self.cfg.batch_size)]

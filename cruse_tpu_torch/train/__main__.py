@@ -7,7 +7,9 @@ Config layout (TOML, see ``configs/cruse_base.toml``): ``[meta]`` seed,
 save_dir, experiment_name; ``[acoustics]``; ``[model]`` path + args (the
 class named by the path's last component); ``[train_dataset]`` /
 ``[validation_dataset]`` path + args of ``SynMixConfig`` (``path`` names the
-dataset class by its last component; ``SynMixDataset`` is ported), and
+dataset class by its last component; ``SynMixDataset`` is ported; with
+``num_mics`` > 1 and the ``mc_*`` fields it makes McCruse's multi-channel
+batches, as ``configs/tiny_mc.toml`` and ``tiny_mc_rir.toml`` ask), and
 ``[train_dataset.curriculum]``; ``[optimizer]`` (lr, betas, ``weight_decay``
 for AdamW, ``freeze`` patterns, ``ema_decay``, the schedule);
 ``[trainer.train]`` (``grad_accum_steps`` among its fields),
@@ -82,15 +84,21 @@ def step_config_from(config: dict):
     )
 
 
+def _tuples(value):
+    """A TOML value with its lists made tuples, nested ones too."""
+    return tuple(_tuples(v) for v in value) if isinstance(value, list) else value
+
+
 def dataset_from(section: dict, device, **overrides):
     """A ``[*_dataset]`` table -> the port's dataset; ``path`` names the
-    class by its last component and is never imported."""
+    class by its last component and is never imported. Lists become tuples
+    (``mc_mic_positions``, a list of lists, a tuple of tuples)."""
     from cruse_tpu_torch.data.dataset import SynMixConfig, SynMixDataset
 
     name = section.get("path", "SynMixDataset").rsplit(".", 1)[-1]
     if name != "SynMixDataset":
         raise NotImplementedError(f"dataset {name!r} is not ported (ported: SynMixDataset)")
-    args = {k: tuple(v) if isinstance(v, list) else v for k, v in section.get("args", {}).items()}
+    args = {k: _tuples(v) for k, v in section.get("args", {}).items()}
     return SynMixDataset(SynMixConfig(**{**args, **overrides}), device=device)
 
 

@@ -19,7 +19,13 @@ and ``multi_res`` through the differentiable iSTFT, ``spec``, ``wo_male``,
 ``sdnr``, ``cirm``, ``pmsqe``, and ``distill`` against the teacher's
 spectrum) -> the balancer's combined cotangent -> one backward through the
 model -> the optimiser -> the EMA of the parameters, with the non-finite
-guard.
+guard. A multi-channel batch (noisy ``[B, M, L]``, clean ``[B, L]``, the
+reference mic's target) goes to a multi-channel adapter as the RI of
+``mc_stft`` ``[B, M, T, F, 2]``, the teacher's input too; the losses read
+the reference mic's (``model.config.reference_channel``) noisy spectrum and
+waveform. There ``sdnr`` takes noise = the reference mic's noisy waveform -
+clean, where the JAX step subtracts ``[B, L]`` from ``[B, M, L]`` (which
+raises unless M = B, and is wrong when M = B).
 
 Where it differs from the JAX step, which is a pure function of an immutable
 state: the model's parameters, its BatchNorm statistics, the optimiser's
@@ -47,8 +53,7 @@ flax_param_paths``), so that a pattern freezes the same tensors in both.
 parameters moved or not. Everything is float32.
 
 Accepted for config compatibility and refused by name when set: ``remat``,
-``compute_dtype`` and ``flatten_optimizer``; multi-channel batches are
-refused too.
+``compute_dtype`` and ``flatten_optimizer``.
 """
 from __future__ import annotations
 
@@ -58,7 +63,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from cruse_tpu_torch.dsp.stft import StftConfig, istft, stft
+from cruse_tpu_torch.dsp.stft import StftConfig, istft, mc_stft, stft
 from cruse_tpu_torch.losses.balancer import Balancer, BalancerState
 from cruse_tpu_torch.losses.pmsqe import pmsqe_loss
 from cruse_tpu_torch.losses.sisnr import si_snr_loss
@@ -154,6 +159,7 @@ def mc_model_forward(model) -> Callable:
         mask, _ = model(feats, None, train)
         return noisy_ri[:, cfg.reference_channel] * mask[..., None]
 
+    forward.multi_channel = True  # the step hands it [B, M, L] batches
     return forward
 
 
@@ -359,8 +365,10 @@ def step_losses(cfg: StepConfig, noisy: torch.Tensor, clean: torch.Tensor, noisy
                 clean_spec: torch.Tensor, teacher_ri: torch.Tensor | None = None) -> Dict[str, Callable]:
     """The step's losses as functions of the enhanced RI spectrum ``[B, T, F,
     2]`` alone (the balancer's form), given the batch's waveforms ``[B, L]``
-    and their complex spectra ``[B, T, F]``: every loss of ``STEP_LOSSES``,
-    ``distill`` only with the teacher's enhanced spectrum."""
+    and their complex spectra ``[B, T, F]`` (of a multi-channel batch, the
+    reference mic's noisy waveform and spectrum): every loss of
+    ``STEP_LOSSES``, ``distill`` only with the teacher's enhanced
+    spectrum."""
     scfg, length = cfg.stft, noisy.shape[-1]
     noisy_ri, clean_ri = _ri(noisy_spec), _ri(clean_spec)
     norm = clean_ri.shape[0] * clean_ri.shape[1] * clean_ri.shape[2]
@@ -411,25 +419,38 @@ def make_loss_gradients(model, cfg: StepConfig, forward: Callable | None = None,
     balancer = _balancer(cfg)
     scfg = cfg.stft
 
+    multi_channel = getattr(forward, "multi_channel", False)
+    reference = getattr(getattr(model, "config", None), "reference_channel", 0)
+
     def loss_gradients(balancer_state: BalancerState, batch: Dict[str, torch.Tensor]):
         noisy, clean = batch["noisy"], batch["clean"]
-        if noisy.dim() != 2 or clean.shape != noisy.shape:
-            raise NotImplementedError(
-                f"the train step takes single-channel [B, L] noisy and clean of one shape, got "
-                f"{tuple(noisy.shape)} and {tuple(clean.shape)} (multi-channel is not ported)")
+        if noisy.dim() == 3 and multi_channel:
+            if clean.shape != (noisy.shape[0], noisy.shape[2]):
+                raise ValueError(f"a multi-channel batch takes noisy [B, M, L] and clean [B, L], got "
+                                 f"{tuple(noisy.shape)} and {tuple(clean.shape)}")
+        elif noisy.dim() != 2 or clean.shape != noisy.shape:
+            raise ValueError(
+                f"noisy {tuple(noisy.shape)} and clean {tuple(clean.shape)}: the step takes [B, L] noisy and "
+                f"clean of one shape, or [B, M, L] and [B, L] for a multi-channel model, which "
+                f"{type(model).__name__} is not")
         model.train()
         params = _trainable(model)
         with torch.no_grad():
-            noisy_spec, clean_spec = stft(noisy, scfg), stft(clean, scfg)
-            noisy_ri = _ri(noisy_spec)
+            clean_spec = stft(clean, scfg)
+            if noisy.dim() == 3:
+                spec = mc_stft(noisy, scfg)
+                model_ri, noisy_spec, noisy = _ri(spec), spec[:, reference], noisy[:, reference]
+            else:
+                noisy_spec = stft(noisy, scfg)
+                model_ri = _ri(noisy_spec)
         teacher_ri = None
         if teacher is not None:
             # the frozen teacher on the same input, once a step: a constant of the student's graph
             teacher_forward, teacher_model = teacher
             teacher_model.eval()
             with torch.no_grad():
-                teacher_ri = teacher_forward(noisy_ri, train=False)
-        enhanced_ri = forward(noisy_ri, train=True)
+                teacher_ri = teacher_forward(model_ri, train=False)
+        enhanced_ri = forward(model_ri, train=True)
         available = step_losses(cfg, noisy, clean, noisy_spec, clean_spec, teacher_ri)
         loss_fns = {name: available[name] for name, _ in cfg.loss_weights}
         out_grad, losses, new_balancer_state, _ = balancer.output_cotangent(
@@ -450,7 +471,8 @@ def make_train_step(model, cfg: StepConfig, forward: Callable | None = None,
     """Build the train step for ``model``.
 
     ``train_step(state, batch)`` takes ``batch = {"noisy": [B, L], "clean":
-    [B, L]}`` waveforms on the model's device and returns ``(state, metrics)``
+    [B, L]}`` waveforms on the model's device (for a multi-channel model
+    noisy ``[B, M, L]``) and returns ``(state, metrics)``
     with ``loss_<name>`` per loss, ``grad_norm`` (the step's own gradients,
     before the freeze, the accumulation and the clip) and, with the guard on,
     ``nonfinite_skipped`` (0-d tensors). ``forward`` adapts the model

@@ -19,6 +19,10 @@ copy of the model, so that the trained weights are never swapped in place.
 ``distill`` loss (knowledge distillation). SIGTERM or SIGINT during
 training ends the epoch early and saves ``latest`` (resume with ``-R``).
 
+A multi-channel batch (noisy ``[B, M, L]``, clean ``[B, L]``, for McCruse)
+is enhanced through ``mc_stft``, and validation scores and shows the
+reference mic's noisy signal (``model.config.reference_channel``).
+
 ``timings`` keeps, for the run, the wall seconds of each step (the batch's
 wait in ``data_wait``), of each validation's enhancement on the card and host
 scoring, and of each checkpoint save.
@@ -45,7 +49,7 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
-from cruse_tpu_torch.dsp.stft import istft, stft
+from cruse_tpu_torch.dsp.stft import istft, mc_stft, stft
 from cruse_tpu_torch.metrics.registry import available_metrics, composite_score, compute_metric
 from cruse_tpu_torch.train.checkpoint import (preload_params, restore_checkpoint, save_checkpoint,
                                               state_to_host)
@@ -105,7 +109,8 @@ class Trainer:
     """``train_batches``: a factory called each epoch (``epoch=`` when it
     takes it), or an iterable read across epochs; ``validation_batches``: an
     iterable (or factory) of batches read at each validation. A batch is
-    {"noisy", "clean"} [B, L] (numpy or tensors; "name" optional). The model
+    {"noisy", "clean"} [B, L] (numpy or tensors; "name" optional), or for a
+    multi-channel model noisy [B, M, L] and clean [B, L]. The model
     trains on ``device``, the card unless the caller asks for the CPU.
     ``writer``: None makes a TensorBoard writer when the package is there,
     False none, anything else is used. ``teacher``: a model with its
@@ -155,6 +160,7 @@ class Trainer:
         # the EMA weights and the current statistics before each use
         self._eval_model = copy.deepcopy(model) if self.state.ema is not None else model
         self._forward = forward_for_model(self._eval_model)
+        self.reference_channel = getattr(getattr(model, "config", None), "reference_channel", 0)
 
         if writer is None:
             try:
@@ -267,16 +273,17 @@ class Trainer:
             torch._foreach_copy_(list(self._eval_model.buffers()), list(self.state.model.buffers()))
 
     def enhance(self, noisy: torch.Tensor) -> torch.Tensor:
-        """[B, L] -> [B, L] on the device with the current weights (the EMA
-        weights when there is an EMA): STFT, the model's forward adapter in
-        eval mode (BatchNorm on its running statistics), iSTFT; the trained
-        model is in training mode after."""
+        """[B, L] (or [B, M, L] for a multi-channel model) -> [B, L] on the
+        device with the current weights (the EMA weights when there is an
+        EMA): STFT, the model's forward adapter in eval mode (BatchNorm on
+        its running statistics), iSTFT; the trained model is in training
+        mode after."""
         self._sync_eval_model()
         model = self._eval_model
         model.eval()
         try:
             with torch.inference_mode():
-                spec = stft(noisy, self.scfg)
+                spec = mc_stft(noisy, self.scfg) if noisy.dim() == 3 else stft(noisy, self.scfg)
                 out = self._forward(torch.stack([spec.real, spec.imag], dim=-1), train=False)
                 return istft((out[..., 0], out[..., 1]), self.scfg, length=noisy.shape[-1])
         finally:
@@ -284,7 +291,8 @@ class Trainer:
 
     def _validation_enhance(self):
         """The device half of validation: enhance every batch and bring the
-        audio to the host."""
+        audio to the host; of a multi-channel batch the reference mic's noisy
+        signal is kept."""
         if self.validation_batches is None:
             raise ValueError("no validation data configured")
         t0 = time.perf_counter()
@@ -293,6 +301,8 @@ class Trainer:
         for batch in vbatches:
             enh_np = _numpy(self.enhance(self._put(batch["noisy"])))
             noisy_np, clean_np = _numpy(batch["noisy"]), _numpy(batch["clean"])
+            if noisy_np.ndim == 3:
+                noisy_np = noisy_np[:, self.reference_channel]
             default_names = [f"v{len(names) + k}" for k in range(noisy_np.shape[0])]
             batch_names = batch.get("name", default_names)
             for j in range(noisy_np.shape[0]):
@@ -372,6 +382,8 @@ class Trainer:
     def spec_audio_visualization(self, noisy, enhanced, clean, name, epoch, mark="") -> None:
         if self.writer is None:
             return
+        if np.ndim(noisy) == 2:  # a multi-channel item: its reference mic
+            noisy = noisy[self.reference_channel]
         sr = self.cfg.sr
         self.writer.add_audio(f"{mark}Speech/{name}_Noisy", noisy[None], epoch, sample_rate=sr)
         self.writer.add_audio(f"{mark}Speech/{name}_Enhanced", enhanced[None], epoch, sample_rate=sr)

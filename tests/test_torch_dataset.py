@@ -7,7 +7,7 @@ cruse_tpu.data on the CPU.
   directory, and its ``assemble_batch`` equals the JAX package's copy.
 - ``batches`` yields mixed [B, L] tensors, the same for the same seed and
   other mixing for another epoch; ``set_snr_range`` moves the mixer's range.
-- Multi-channel configs are refused by name.
+  (Multi-channel batches: tests/test_torch_mc_train.py.)
 - ``prefetch``: order kept, a producer's exception raised in the consumer,
   the producer thread stopped when the consumer breaks off, and the epoch
   passed to a factory that takes it.
@@ -129,12 +129,6 @@ def test_set_snr_range(corpus):
     np.testing.assert_allclose(snr.numpy(), 15.0, atol=1e-3)
     with pytest.raises(ValueError, match="low snr"):
         ds.set_snr_range((10, 5))
-
-
-@pytest.mark.parametrize("field", [{"num_mics": 2}, {"mc_room": True}, {"mc_rir_manifest": "x.txt"}])
-def test_multichannel_is_refused_by_name(field):
-    with pytest.raises(NotImplementedError, match=f"{next(iter(field))}.*McCruse"):
-        SynMixConfig(**field)
 
 
 def test_prefetch_keeps_order_and_reiterates():

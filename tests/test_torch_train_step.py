@@ -270,7 +270,7 @@ def test_unported_entry_points_raise_by_name(monkeypatch):
     with pytest.raises(ValueError, match="decay_steps"):
         StepConfig(lr_schedule="cosine")
     state = init_train_state(model, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-channel"):
+    with pytest.raises(ValueError, match=r"noisy \(1, 2, 2048\) and clean \(1, 2048\).*MtfaaNet is not"):
         make_train_step(model, cfg)(state, {"noisy": torch.zeros(1, 2, 2048), "clean": torch.zeros(1, 2048)})
     other = MtfaaNet(MtfaaConfig(**TINY))
     with pytest.raises(ValueError, match="another model"):
