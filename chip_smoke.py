@@ -328,6 +328,27 @@ needed). In order, and any failure exits non-zero:
     beside an 8-slot config-3 pool in one ``MultiModelServer``, 9 sessions
     each, every step's launches exactly its pool's, each session within 1e-4
     of itself streamed alone;
+23c. drives BSRNN at its published widths (``BSRNN()``: 128 channels, 6
+    time and 6 band LSTM blocks over the 31 bands; n_fft 512, hop 256;
+    seeded weights and norm affine; every LSTM cuDNN's, so no hand-written
+    kernel launches anywhere in it, which every part checks): (a) offline,
+    ``BatchInferencer(type="auto").run_batched`` on the six 2-10 s
+    utterances in batches of 4, the first batch's waveform against the same
+    model on the plain ``lstm_scan`` within 1e-4, one B=16 x 10 s call timed
+    (ms, x-realtime, peak memory) and profiled; (b) the causal model
+    streamed on B=8 x 4 s (``check_stream``: against its offline causal
+    forward + iSTFT past n_fft samples, row 0 alone, ``step_multi``), the
+    B=1 hop's latency against 16 ms and a profile of its launches; (c) an
+    8-slot BSRNN pool beside an 8-slot config-3 pool in one
+    ``MultiModelServer``, 9 sessions each, each session within 1e-4 of
+    itself streamed through the plain versions; (d) ``check_train_steps``
+    on ``BSRNN()`` at B=8 x 3 s with si_snr + spec (losses against the
+    plain-LSTM step, gradients against it in float64, 3 steps, a NaN batch
+    skipped), then 3 steps timed and their peak memory; (e) the train CLI
+    on ``configs/tiny_bsrnn.toml`` and ``tiny_bsrnn_causal.toml`` widened to
+    ``BSRNN()`` and B=8 x 3 s (1 epoch of 4 steps, validation scored), and
+    the infer CLI on one 0.5 s wav with a causal ``BSRNN()`` TOML, offline
+    and ``--streaming``, each within one int16 step of the same model here;
 24. drives the deployment path: config 1 (``configs/cruse_base.toml``, seeded
     weights and BatchNorm statistics) exported offline at B=16 x 10 s on the
     card in float32 and int8 (``infer/export.py``, ``nn/quantize.py``),
@@ -335,7 +356,7 @@ needed). In order, and any failure exits non-zero:
     and nothing else, within 1e-5 of eager ``mag_to_mag`` on the same
     (dequantized) weights, float32 within 1e-4 of the plain recurrence, int8
     against float32 above 25 dB; config 3 (``CruseDfConfig()``) exported as
-    the streaming step at B=1 and B=16 (and int8 at B=1), primed and run 100
+    the streaming step at B=1, float32 and int8, primed and run 30
     hops against ``StreamingEnhancer`` within 1e-5, exactly 2 GRU and 1
     deep-filter launch a hop; times a call and a B=1 hop (the eager hop with
     and without the custom ops' dispatch, in turns), file sizes, and profiles
@@ -352,7 +373,7 @@ needed). In order, and any failure exits non-zero:
     above 25 dB, each call timed in turns with eager and profiled (device
     launches a call against eager's); config 5 (``MtfaaConfig()``, full
     causal) offline at B=4 x 4 s with the eager forward's launches; config
-    5b as the streaming step at B=1 and B=8 (and int8 at B=1), 100 hops
+    5b as the streaming step at B=1, float32 and int8, 30 hops
     against ``StreamingEnhancer`` within 1e-5, 24 stencil and 1 deep-filter
     launches a hop, the B=1 hop's latency (each hop synchronised) in turns
     with the eager hop with and without the five custom ops' dispatch, the
@@ -363,7 +384,7 @@ needed). In order, and any failure exits non-zero:
     ``infer --streaming`` CLI on the same seeded weights, within one int16
     step. Then FullSubNet (``FullSubNetConfig()``): offline (the ``auto``
     body, as the JAX exporter traces it) at B=16 x 10 s and streamed (the
-    cumulative norm) at B=1 over 100 hops, float32 and int8, each call or hop
+    cumulative norm) at B=1 over 50 hops, float32 and int8, each call or hop
     4 GRU launches, 2 of them on route A, within 1e-5 of eager ``auto`` / the
     eager hop and, offline, within 1e-4 of eager ``complex_mask``; the
     streamed state after the hops against eager's leaf for leaf (the norms'
@@ -421,12 +442,13 @@ from cruse_tpu_torch.infer.serve import build_model as serve_build_model
 from cruse_tpu_torch.infer.server import MultiModelServer, StreamingServer, tree_leaves
 from cruse_tpu_torch.infer.streaming import StreamingEnhancer
 from cruse_tpu_torch.models import (
-    CruseDfConfig, CruseDfNet, CruseNet, DfsmnConfig, DfsmnNet, FullSubNet, FullSubNetConfig, McCruseConfig,
-    McCruseNet, MtfaaConfig, MtfaaNet, build_from_config)
+    BSRNN, BsrnnConfig, CruseDfConfig, CruseDfNet, CruseNet, DfsmnConfig, DfsmnNet, FullSubNet, FullSubNetConfig,
+    McCruseConfig, McCruseNet, MtfaaConfig, MtfaaNet, build_from_config)
 from cruse_tpu_torch.models.cruse_df import apply_cruse_df
 from cruse_tpu_torch.models.mtfaa import (
     AxialSelfAttention, BatchNormC, PReLUc, TFCM, TFCMBlock)
 from cruse_tpu_torch.nn.gru import GroupedGRULayer
+from cruse_tpu_torch.nn.lstm import LSTM
 from cruse_tpu_torch.nn.quantize import (
     attach_int8, dequantize_tree, int8_state_dict, load_dequantized, quantize_variables, report_line)
 from cruse_tpu_torch.ops import _build
@@ -604,9 +626,9 @@ SERVER_LAUNCHES = {"cruse_df": {"gru_sequence": 2, "deep_filter": 1},  # a step 
 SERVER_RTF_SLOTS, SERVER_RTF_SECONDS = 256, 4  # config 3's pool timed
 SERVE_CLI_SESSIONS, SERVE_CLI_SECONDS = 10, 1  # the serve CLI's run, half on each model
 # the deployment path: config 1's offline artifact (float32 and int8) at B=16 x 10 s; config 3's streaming
-# artifact at B=1 and B=16 over 100 hops (and int8 at B=1); the CLIs' runs on utterances of 1 s
+# artifact at B=1 over 30 hops, float32 and int8; the CLIs' runs on utterances of 1 s
 DEPLOY_BATCH, DEPLOY_SECONDS = 16, 10
-DEPLOY_STREAM_BATCHES, DEPLOY_HOPS = (1, 16), 100
+DEPLOY_STREAM_BATCHES, DEPLOY_HOPS = (1,), 30
 DEPLOY_TOL = 1e-5  # an artifact against the eager path on the same weights
 INT8_SNR_DB = 25.0  # int8 against float32 waveforms (the JAX package's tests/test_quantize.py bound)
 CLI_TOL = 1e-6  # --quantize int8 against the same run on the dequantized weights, in floats
@@ -616,7 +638,7 @@ CLI_FILES, CLI_SECONDS = 4, 1
 # streamed (24 blocks' stencils, the deep filter); the streams' batches
 MTFAA_CALL_LAUNCHES = {"tfcm_stack": 6, "tattn": 3, "deep_filter": 1}
 MTFAA_HOP_LAUNCHES = {"dw_stencil_fwd": 24, "deep_filter": 1}
-MTFAA_DEPLOY_BATCHES = (1, MTFAA_STREAM_BATCH)
+MTFAA_DEPLOY_BATCHES = (1,)
 TRAINER_CLIPS, TRAINER_VALID_CLIPS, TRAINER_CLIP_SECONDS = 24, 4, 4  # the trainer phase's corpus
 TRAINER_EPOCHS, TRAINER_STEPS = 2, 4  # the train CLI's run (then -R for one more epoch)
 TRAINER_VALID_BATCHES = 2  # the CLI validates on two batches, as tools/train.py does
@@ -668,7 +690,7 @@ FSN_BWD_RESIDENT = 2  # a step's backward launches on route A: the full band's t
 BWD_ROUTE_KERNELS = {"resident": "gru_bwd_scatter_kernel", "row-tiled": "gru_bwd_rows_kernel"}
 # FullSubNet's artifacts: offline (the offline norm) at B=16 x 10 s and streamed (the cumulative norm) at B=1 over
 # FSN_DEPLOY_HOPS hops, each in float32 and int8; a call or a hop launches its 4 GRUs, 2 of them on route A
-FSN_DEPLOY_HOPS = 100
+FSN_DEPLOY_HOPS = 50
 # McCruse at McCruseConfig()'s width: 4 mics, pairs (0, 1), (0, 2), (0, 3), directional features of 644 per
 # frame, the CRUSE trunk (8, 16, 32, 64) at 161 bins with 4 GRU groups; n_fft 320, hop 160. Its inputs: one
 # synthetic utterance on every mic, delayed MC_DELAY samples a mic, with independent noise. Offline at B=4 x 4 s
@@ -693,6 +715,16 @@ MC_RIRS, MC_RIR_SECONDS = 8, 0.15  # the synthetic 4-channel RIRs the phase writ
 MC_PROFILE_STEPS = 8  # the profiled trainer epoch of each tiny MC config
 MC_BARE_STEPS = 8  # the bare step timed in a row
 MC_MIXERS = {"free field": {}, "room": {"mc_room": True}, "measured RIRs": {"mc_rir_manifest": "mc_rir.txt"}}
+# BSRNN at its published widths (BSRNN(): 128 channels, 6 + 6 LSTM blocks, 31 bands; n_fft 512, hop 256):
+# offline timed at B=16 x 10 s; the causal variant streamed at B=8 x 4 s; an 8-slot pool; 3 train steps
+# and the train CLI at B=8 x 3 s. Its LSTMs are cuDNN's: no hand-written kernel launches on its path
+BSRNN_STFT = dict(n_fft=512, hop_length=256)
+BSRNN_BATCH, BSRNN_SECONDS = 16, 10
+# the pool: 9 sessions a model (one slot reused), short, for a BSRNN hop is ~2,800 launches (host-bound)
+BSRNN_SLOTS, BSRNN_SESSIONS = 8, {"bsrnn": (9, 0.3, 0.6), "cruse_df": (9, 0.3, 0.6)}  # (count, seconds)
+BSRNN_TRAIN_BATCH, BSRNN_TRAIN_SECONDS = 8, 3
+BSRNN_LOSSES = (("si_snr", 1.0), ("spec", 1.0))
+BSRNN_HOPS = 20  # the B=1 hops timed, each synchronised
 
 
 def require(ok: bool, what: str) -> None:
@@ -1926,7 +1958,7 @@ def check_offline_artifacts(device, smi, tmp: Path) -> tuple[int, Path]:
 
 def check_streaming_artifacts(device, smi, tmp: Path) -> tuple[int, int]:
     """Config 3 (``CruseDfConfig()``, seeded) exported as the streaming step on
-    the card at B=1 and B=16, saved and loaded, primed and run DEPLOY_HOPS
+    the card at B=1, saved and loaded, primed and run DEPLOY_HOPS
     hops against ``StreamingEnhancer`` on the same hops (within DEPLOY_TOL),
     exactly 2 resident GRU and 1 deep-filter launch a hop; the same for an
     int8 artifact at B=1 against the eager path on the dequantized weights.
@@ -2183,8 +2215,8 @@ def check_mtfaa_offline_artifacts(device, smi, tmp: Path) -> dict:
 
 
 def check_mtfaa_streaming_artifacts(device, smi, tmp: Path) -> dict:
-    """Config 5b exported as the streaming step on the card at B=1 and B=8
-    (and int8 at B=1), saved and loaded, primed and run DEPLOY_HOPS hops
+    """Config 5b exported as the streaming step on the card at B=1 (float32
+    and int8), saved and loaded, primed and run DEPLOY_HOPS hops
     against ``StreamingEnhancer`` on the same hops (within DEPLOY_TOL), each
     hop MTFAA_HOP_LAUNCHES and nothing else. The B=1 hop's latency (each hop
     synchronised) of the eager path with and without the custom ops'
@@ -2255,49 +2287,56 @@ def check_mtfaa_streaming_artifacts(device, smi, tmp: Path) -> dict:
             _, carry["state"] = step(carry["state"], hops[carry["i"] % len(hops)])
             carry["i"] += 1
 
-        kernels[key] = profile_calls(one_hop, 20, f"config-5b B=1 {key} streaming hop").kernels
-    require(kernels["fp32"] <= kernels["eager"],
-            f"config-5b B=1 hop: the float32 artifact makes {kernels['fp32']:.1f} device launches a hop <= the eager "
-            f"hop's {kernels['eager']:.1f} (it folds nothing per call)")
+        kernels[key] = profile_calls(one_hop, 20, f"config-5b B=1 {key} streaming hop")
+    whole = {key: prof.whole for key, prof in kernels.items()}
+    kernels = {key: prof.kernels for key, prof in kernels.items()}
+    require(whole["fp32"] <= whole["eager"],
+            f"config-5b B=1 hop: the float32 artifact makes {whole['fp32']} device launches in most hops <= the "
+            f"eager hop's {whole['eager']} (it folds nothing per call)")
     print(f"config-5b B=1 hop on {smi}: the int8 artifact makes {kernels['int8']:.1f} device launches a hop, the "
           f"float32 one {kernels['fp32']:.1f}: {kernels['int8'] - kernels['fp32']:.1f} more (each int8 weight "
           f"dequantized, and stage 2's TFCM parameters folded, every hop)")
     return launched
 
 
-def check_mtfaa_clis(device, smi, tmp: Path) -> None:
-    """``export --streaming`` of config 5b (``configs/mtfaa_windowed.toml``,
+def start_mtfaa_clis(device, tmp: Path) -> dict:
+    """Start ``export --streaming`` of config 5b (``configs/mtfaa_windowed.toml``,
     seeded weights) at B=CLI_FILES and the eager ``infer --streaming`` CLI on
-    the same seed, at once, then ``run_exported`` on the artifact, all fresh
-    processes on the card, over CLI_FILES utterances of about CLI_SECONDS
-    (whole hops past the prime, so both write every hop): wav by wav within
-    WAV_STEP."""
+    the same seed, fresh processes on the card, over CLI_FILES utterances of
+    about CLI_SECONDS (whole hops past the prime, so both write every hop).
+    They run beside the config-1 CLIs; ``check_mtfaa_clis`` collects them."""
     names = [f"m{i}" for i in range(CLI_FILES)]
     hop = 256  # config 5b's, and its prime n_fft - hop
     length = hop + (CLI_SECONDS * SR - hop) // hop * hop
     for name, w in zip(names, noisy_utterances(SEED + 56, (length,) * CLI_FILES)):
         write_wav(str(tmp / "in_mtfaa" / f"{name}.wav"), w, SR)
     config, seed, artifact = ROOT / "configs/mtfaa_windowed.toml", SEED + 57, tmp / "m5b_stream.zip"
-    t0 = time.perf_counter()
     procs = {"export --streaming": run_cli(["cruse_tpu_torch.infer.export", "-C", config, "-O", artifact,
                                             "--seed", seed, "--batch", CLI_FILES, "--streaming", "--device", device]),
              "infer --streaming": run_cli(["cruse_tpu_torch.infer", "-C", config, "-I", tmp / "in_mtfaa",
                                            "-O", tmp / "m5b_infer", "--streaming", "--seed", seed, "--device", device])}
+    return {"procs": procs, "names": names, "artifact": artifact, "t0": time.perf_counter()}
+
+
+def check_mtfaa_clis(device, smi, tmp: Path, started: dict) -> None:
+    """The two CLIs of ``start_mtfaa_clis`` exit 0, then ``run_exported`` on
+    the artifact, a fresh process on the card: wav by wav within WAV_STEP of
+    the eager ``infer --streaming``."""
     logs = {}
-    for key, proc in procs.items():
+    for key, proc in started["procs"].items():
         out, err = proc.communicate(timeout=600)
         failed = f" ({proc.returncode}; {err[-1500:]})" if proc.returncode else ""
         require(proc.returncode == 0, f"{key} CLI on config 5b exits 0{failed}")
         logs[key] = out
     require("reload check OK" in logs["export --streaming"], "export --streaming reloaded and ran its artifact")
-    proc = run_cli(["cruse_tpu_torch.infer.run_exported", "-A", artifact, "-I", tmp / "in_mtfaa",
+    proc = run_cli(["cruse_tpu_torch.infer.run_exported", "-A", started["artifact"], "-I", tmp / "in_mtfaa",
                     "-O", tmp / "m5b_run_exported", "--device", device])
     out, err = proc.communicate(timeout=600)
     failed = f" ({proc.returncode}; {err[-1500:]})" if proc.returncode else ""
     require(proc.returncode == 0, f"run_exported on the config-5b stream exits 0{failed}")
-    print(f"the config-5b CLI runs on {smi} took {time.perf_counter() - t0:.1f} s, start-up included; run_exported: "
-          f"{out.strip().splitlines()[-1]}")
-    err = wav_dir_err(tmp / "m5b_run_exported", tmp / "m5b_infer", names)
+    print(f"the config-5b CLI runs on {smi} took {time.perf_counter() - started['t0']:.1f} s from their start, "
+          f"start-up included; run_exported: {out.strip().splitlines()[-1]}")
+    err = wav_dir_err(tmp / "m5b_run_exported", tmp / "m5b_infer", started["names"])
     require(err <= WAV_STEP, f"run_exported on the config-5b stream (B={CLI_FILES}) vs infer --streaming (B=1) on the "
             f"same seed: max-abs {err:.3g} <= one int16 step")
 
@@ -3784,6 +3823,311 @@ def check_mc_training(device, smi) -> dict:
             **{name: steps[name] + cli[name] for name in ("gru_sequence", "gru_sequence_bwd")}}
 
 
+def build_bsrnn(causal: bool, device, seed: int, plain: bool = False):
+    """``BSRNN(causal=causal)`` at its published widths on the card, seeded
+    weights and a seeded norm affine (so the norms' scale and bias matter);
+    every LSTM on cuDNN, or with ``plain`` on ``lstm_scan``."""
+    gen = torch.Generator().manual_seed(seed)
+    model = BSRNN(BsrnnConfig(causal=causal), generator=gen)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith((".scale", ".bias")) and p.dim() == 1 and ".norm" in f".{name}":
+                p.add_(torch.randn(p.shape, generator=gen) * 0.1)
+    set_plain_lstm(model, plain)
+    return model.to(device)
+
+
+def set_plain_lstm(model, plain: bool) -> None:
+    """Every LSTM of the model on ``lstm_scan`` (True) or cuDNN (False)."""
+    for m in model.modules():
+        if isinstance(m, LSTM):
+            m.plain = plain
+
+
+def check_bsrnn_offline(device, smi) -> None:
+    """Part (a): ``BSRNN()`` through ``BatchInferencer(type="auto").run_batched``
+    on the six 2-10 s utterances in batches of 4, no hand-written kernel
+    launched, every utterance back at its length; the first batch's waveform
+    against the same model on ``lstm_scan`` within WAV_TOL; one B=16 x 10 s
+    call timed (ms, x-realtime, peak memory) and profiled."""
+    model = build_bsrnn(False, device, SEED + 70).eval()
+    inferencer = BatchInferencer(model, InferencerConfig(type="auto", sr=SR, stft=StftConfig(**BSRNN_STFT)), device)
+    wavs = noisy_utterances(SEED + 71)
+    names = [f"b{i}" for i in range(len(wavs))]
+    reset_counts()
+    results = inferencer.run_batched(wavs, names, batch_size=BATCH, write=False)
+    require_launches("BSRNN() auto run_batched", {})
+    require([r[0] for r in results] == names and all(r[1].shape == w.shape for r, w in zip(results, wavs))
+            and all(0 < np.abs(r[1]).max() <= 32767 for r in results),
+            "BSRNN() run_batched returned every utterance at its length")
+    hop = BSRNN_STFT["hop_length"]
+    padded = -(-max(len(w) for w in wavs) // hop) * hop
+    x = torch.from_numpy(np.stack([np.pad(w, (0, padded - len(w))) for w in wavs[:BATCH]])).to(device)
+    out = inferencer.auto(x)
+    set_plain_lstm(model, True)
+    plain = inferencer.auto(x)
+    set_plain_lstm(model, False)
+    err = float((out - plain).abs().max())
+    require(tuple(out.shape) == tuple(x.shape) and bool(torch.isfinite(out).all()) and err <= WAV_TOL,
+            f"BSRNN() auto B={BATCH} x {padded / SR:.1f} s, cuDNN's LSTM vs lstm_scan: max-abs {err:.3g} <= {WAV_TOL}")
+    del out, plain
+    x = torch.from_numpy(np.random.default_rng(SEED).standard_normal((BSRNN_BATCH, BSRNN_SECONDS * SR))
+                         .astype(np.float32) * 0.1).to(device)
+    what = f"BSRNN() auto B={BSRNN_BATCH} x {BSRNN_SECONDS} s"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    seconds = enhancement_seconds(inferencer.auto, x, reps=2)
+    print(f"{what} on {smi}: {seconds * 1e3:.1f} ms a call = {BSRNN_BATCH * BSRNN_SECONDS / seconds:.1f}x realtime; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    profile_calls(lambda: inferencer.auto(x), 1, what)
+    del x, inferencer, model
+    torch.cuda.empty_cache()
+
+
+def check_bsrnn_stream(model, device, smi) -> None:
+    """Part (b): the causal model streamed hop by hop (primed) on B=8 x 4 s
+    (``check_stream``: no hand-written kernel launched, against its own
+    offline causal forward + iSTFT past the first n_fft samples, row 0
+    alone, ``step_multi``); the B=1 hop's latency against the 16 ms budget
+    and a profile of its launches."""
+    cfg = StftConfig(**BSRNN_STFT, center=False)
+    enh = StreamingEnhancer(model, cfg)
+    adapter = forward_for_model(model)
+
+    def offline(x):
+        spec = stft(x, cfg)
+        out = adapter(torch.stack([spec.real, spec.imag], dim=-1))
+        return istft((out[..., 0], out[..., 1]), cfg)
+
+    wav = torch.from_numpy(np.stack(noisy_utterances(SEED + 72, (STREAM_SECONDS * SR,) * STREAM_BATCH))).to(device)
+    check_stream(enh, wav, offline, f"BSRNN(causal=True) stream B={STREAM_BATCH} x {STREAM_SECONDS} s", {})
+    hop = cfg.hop_length
+    hops = [wav[:1, i * hop : (i + 1) * hop] for i in range(BSRNN_HOPS)]
+    times = hop_latencies_ms(enh.step, enh.init_state(1), hops)
+    median = sorted(times)[len(times) // 2]
+    print(f"BSRNN(causal=True) stream B=1 on {smi}: {median_range(times)} a {hop}-sample hop (each synchronised); "
+          f"the budget {FSN_HOP_BUDGET_MS} ms: {'met' if median < FSN_HOP_BUDGET_MS else 'MISSED'}", flush=True)
+    profile_stream(enh, wav[:1], hops=5)
+
+
+def check_bsrnn_server(model, device, smi) -> None:
+    """Part (c): one MultiModelServer with an 8-slot causal BSRNN pool (the
+    time LSTMs' state at 8 x 31 rows, the norms' at 8) beside an 8-slot
+    config-3 pool, 9 sessions each of 0.3 to 0.6 s opened as slots free, fed
+    a hop an iteration, drained and closed; every config-3 step launches its
+    2 GRU + 1 deep filter and a BSRNN step nothing; each session within
+    WAV_TOL of itself streamed from zero through the plain versions (one
+    batch of its pool's sessions, zero-padded)."""
+    t0 = time.perf_counter()
+    configs = {"bsrnn": (model, StftConfig(**BSRNN_STFT, center=False)),
+               "cruse_df": (build_cruse_df(device), StftConfig(n_fft=320, hop_length=160, center=False))}
+    server = MultiModelServer()
+    for name, (m, cfg) in configs.items():
+        server.add_model(name, m, cfg, max_streams=BSRNN_SLOTS, device=device)
+    lstm_rows = server.pool("bsrnn")._state.model_state["time_lstm"][0][0].shape[0]
+    require(lstm_rows == BSRNN_SLOTS * 31, f"BSRNN server: the time LSTMs' state has {lstm_rows} = 8 x 31 rows")
+    rng = np.random.default_rng(SEED + 73)
+    queue = []
+    for p, (name, (count, shortest, longest)) in enumerate(BSRNN_SESSIONS.items()):
+        lengths = (rng.uniform(shortest, longest, count) * SR).astype(int)
+        queue += [(name, i % 2, w) for i, w in enumerate(noisy_utterances(SEED + 74 + p, lengths))]
+    queue.sort(key=lambda q: rng.uniform())
+    sessions, live = [], {}
+
+    def admit():
+        while queue:
+            name, priority, wav = queue[0]
+            try:
+                handle = server.open(name, priority)
+            except RuntimeError:
+                return  # the pool is full
+            queue.pop(0)
+            live[handle] = {"name": name, "wav": wav, "pos": 0, "outs": []}
+            sessions.append(live[handle])
+
+    reset_counts()
+    admit()
+    iteration = 0
+    while live or queue:
+        for handle, s in live.items():
+            hop = configs[s["name"]][1].hop_length
+            server.feed(handle, s["wav"][s["pos"] : s["pos"] + hop])
+            s["pos"] = min(s["pos"] + hop, len(s["wav"]))
+        for handle, out in server.step().items():
+            live[handle]["outs"].append(out)
+        for handle, s in list(live.items()):
+            if s["pos"] == len(s["wav"]) and not server.ready(handle):
+                s["outs"].append(server.drain(handle))
+                server.close(handle)
+                del live[handle]
+        iteration += 1
+        admit()
+    torch.cuda.synchronize()
+    steps = {name: server.pool(name).steps for name in configs}
+    require_launches(f"BSRNN server: {steps} steps", {"gru_sequence": 2 * steps["cruse_df"],
+                                                      "deep_filter": steps["cruse_df"]})
+    for name, (m, cfg) in configs.items():
+        mine = [s for s in sessions if s["name"] == name]
+        alone = plain_streams(StreamingEnhancer(m, cfg), [s["wav"] for s in mine],
+                              set_plain if name == "cruse_df" else set_plain_lstm)
+        worst, whole = 0.0, True
+        for s, want in zip(mine, alone):
+            got = np.concatenate(s["outs"])
+            whole &= got.shape == s["wav"].shape and bool(np.isfinite(got).all())
+            worst = max(worst, float(np.abs(got - want).max()))
+        require(whole and worst <= WAV_TOL, f"BSRNN server, pool {name}: {len(mine)} sessions in {BSRNN_SLOTS} slots, "
+                f"each its input's length and within WAV_TOL of itself streamed through the plain versions: "
+                f"max-abs {worst:.3g}")
+    print(f"BSRNN server on {smi}: {len(sessions)} sessions, {steps} steps in {iteration} iterations, "
+          f"{len(tree_leaves(server.pool('bsrnn')._state))} masked state leaves in the BSRNN pool; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def check_bsrnn_training(device, smi) -> None:
+    """Part (d): ``check_train_steps`` on ``BSRNN()`` at B=8 x 3 s with si_snr +
+    spec (losses against the plain-LSTM step, gradients against it in
+    float64, TRAIN_STEPS steps, a NaN batch skipped; no hand-written kernel
+    launched), then TRAIN_STEPS steps timed one by one (ms a step, peak
+    memory)."""
+    cfg = StepConfig(stft=StftConfig(**BSRNN_STFT), loss_weights=BSRNN_LOSSES)
+    what = f"BSRNN() train step B={BSRNN_TRAIN_BATCH} x {BSRNN_TRAIN_SECONDS} s"
+    check_train_steps(lambda plain: build_bsrnn(False, device, SEED + 75, plain), cfg, BSRNN_TRAIN_BATCH,
+                      BSRNN_TRAIN_SECONDS, SEED + 75, device, what, {name: 0 for name in COUNTERS})
+    torch.cuda.empty_cache()
+    model = build_bsrnn(False, device, SEED + 76)
+    state = init_train_state(model, cfg, device)
+    step = make_train_step(model, cfg)
+    batches = [noisy_clean_pairs(SEED + 77 + i, BSRNN_TRAIN_BATCH, BSRNN_TRAIN_SECONDS, device)
+               for i in range(TRAIN_STEPS + 1)]
+    state, _ = step(state, batches[0])  # warm-up: cuDNN's plans
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for data in batches[1:]:
+        t0 = time.perf_counter()
+        state, metrics = step(state, data)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    require(all(math.isfinite(float(v)) for v in metrics.values()), f"{what}: finite losses after the timed steps")
+    print(f"{what} (si_snr + spec, f32) on {smi}: " + ", ".join(f"{ms:.1f}" for ms in times)
+          + f" ms ({BSRNN_TRAIN_BATCH * BSRNN_TRAIN_SECONDS / times[-1] * 1e3:.1f} s of audio a second at the last); "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    del model, state, step, batches
+    torch.cuda.empty_cache()
+
+
+def bsrnn_trainer_config(root: Path, name: str) -> Path:
+    """configs/<name>.toml with ``[model.args]`` made ``BSRNN()``'s widths
+    (the causal flag kept), B=8 x 3 s training batches (validation as the
+    tiny config has it: 2 batches of 2 rows, 1 s, which keeps its host
+    scoring short), 1 epoch of TRAINER_STEPS steps, the manifests on the
+    trainer phase's corpus, its runs written under root."""
+    text = (ROOT / "configs" / f"{name}.toml").read_text()
+    for old, new in (('save_dir = "/tmp/corpus/runs"', f'save_dir = "{root / "runs"}"'),
+                     ("num_channel = 8\nnum_layer = 1\n", ""),
+                     ("steps_per_epoch = 2", f"steps_per_epoch = {TRAINER_STEPS}"),
+                     ("/tmp/corpus/", f"{root}/")):
+        if old not in text:
+            raise RuntimeError(f"check failed: configs/{name}.toml has no {old!r}")
+        text = text.replace(old, new)
+    # the first of each is the training set's
+    text = text.replace("batch_size = 2", f"batch_size = {BSRNN_TRAIN_BATCH}", 1)
+    text = text.replace("sub_sample_seconds = 1.0", f"sub_sample_seconds = {float(BSRNN_TRAIN_SECONDS)}", 1)
+    path = root / f"{name}_wide.toml"
+    path.write_text(text)
+    return path
+
+
+def check_bsrnn_cli(device, smi, root: Path) -> None:
+    """Part (e): the train CLI's main in this process on
+    ``configs/tiny_bsrnn.toml`` and ``tiny_bsrnn_causal.toml`` widened by
+    ``bsrnn_trainer_config`` (1 epoch of TRAINER_STEPS steps, validation
+    scored; no hand-written kernel launched; finite epoch means; ``latest``
+    and ``model_0001.npz``); then the infer CLI's main on one 0.5 s wav with
+    the causal config, offline (``auto``) and ``--streaming``, each wav
+    within one int16 step of the same model here."""
+    from cruse_tpu_torch.infer.__main__ import main as infer_main
+
+    write_trainer_corpus(root)
+    for name in ("tiny_bsrnn", "tiny_bsrnn_causal"):
+        config = bsrnn_trainer_config(root, name)
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer = train_main(["-C", str(config)])
+        run_s = time.perf_counter() - t0
+        what = f"train CLI, {name} at BSRNN()'s widths x B={BSRNN_TRAIN_BATCH} x {BSRNN_TRAIN_SECONDS} s"
+        require_launches(what, {})
+        runs = root / "runs" / name
+        log_text = (runs / "train.log").read_text()
+        means = epoch_lines(log_text, 1)
+        model = trainer.state.model
+        require(isinstance(model, BSRNN) and model.config == BsrnnConfig(causal=name.endswith("causal"))
+                and trainer.state.step == TRAINER_STEPS and set(means) >= {"loss_si_snr", "loss_spec", "grad_norm"}
+                and all(math.isfinite(v) for v in means.values()) and means["nonfinite_skipped"] == 0
+                and log_text.count("composite score") == 1 and "NON-FINITE" not in log_text,
+                f"{what}: {trainer.state.step} steps of {model.config}, finite epoch means {means}, one validation")
+        require(all((runs / "checkpoints" / n).is_file() for n in ("latest", "model_0001.npz")),
+                f"{what}: latest and model_0001.npz written")
+        step_ms = float(np.mean(trainer.timings["step"][1:])) * 1e3
+        print(f"{what} on {smi}: the run {run_s:.1f} s; {step_ms:.1f} ms a trainer step after the first; validation "
+              + ", ".join(f"{s * 1e3:.1f}" for s in trainer.timings["validation_enhance"]) + " ms on the card; "
+              + "; ".join(line.strip() for line in log_text.splitlines() if "composite score" in line), flush=True)
+        del trainer, model
+        torch.cuda.empty_cache()
+
+    toml = root / "bsrnn_causal.toml"
+    toml.write_text(f'[meta]\nseed = 0\n[acoustics]\nn_fft = {BSRNN_STFT["n_fft"]}\nhop_length = '
+                    f'{BSRNN_STFT["hop_length"]}\nsr = {SR}\n[model]\npath = "cruse_tpu.models.bsrnn.BSRNN"\n'
+                    '[model.args]\ncausal = true\n[inferencer]\ntype = "auto"\n')
+    (root / "in_bsrnn").mkdir()
+    write_wav(str(root / "in_bsrnn" / "b.wav"), noisy_utterances(SEED + 78, (SR // 2,))[0], SR)
+    reset_counts()
+    for mode, extra in (("offline", []), ("streaming", ["--streaming"])):
+        infer_main(["-C", str(toml), "-I", str(root / "in_bsrnn"), "-O", str(root / f"bsrnn_{mode}"), "--seed", "5",
+                    "--device", str(device), *extra])
+    require_launches("infer CLI on the causal BSRNN(), offline and --streaming", {})
+    model = build_from_config(load_config(str(toml))["model"], generator=torch.Generator().manual_seed(5))
+    model = model.to(device).eval()
+    runs = {"offline": BatchInferencer(model, InferencerConfig(type="auto", sr=SR, stft=StftConfig(**BSRNN_STFT)),
+                                       device).auto,
+            "streaming": StreamingEnhancer(model, StftConfig(**BSRNN_STFT, center=False)).run}
+    x = torch.from_numpy(read_wav(str(root / "in_bsrnn" / "b.wav"))[0][None]).to(device)
+    worst = {}
+    for mode, fn in runs.items():
+        own = to_int16_scaled(fn(x)[0].cpu().numpy()) / 32768.0
+        served = read_wav(str(root / f"bsrnn_{mode}" / "b.wav"))[0]
+        require(served.shape == own.shape, f"infer CLI on BSRNN {mode}: the wav has the run's length")
+        worst[mode] = float(np.abs(served - own).max())
+    require(max(worst.values()) <= WAV_STEP, f"infer CLI on the causal BSRNN(), offline (auto) and --streaming, "
+            f"against the same model in this process: max-abs {worst} <= one int16 step")
+
+
+def check_bsrnn(device, smi) -> None:
+    """BSRNN at its published widths (parts a to e, see the module doc); no
+    hand-written kernel is on its path."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    check_bsrnn_offline(device, smi)
+    lap = [time.perf_counter()]
+    model = build_bsrnn(True, device, SEED + 79).eval()
+    check_bsrnn_stream(model, device, smi)
+    lap.append(time.perf_counter())
+    check_bsrnn_server(model, device, smi)
+    lap.append(time.perf_counter())
+    del model
+    torch.cuda.empty_cache()
+    check_bsrnn_training(device, smi)
+    lap.append(time.perf_counter())
+    with tempfile.TemporaryDirectory() as tmp:
+        check_bsrnn_cli(device, smi, Path(tmp))
+    torch.cuda.empty_cache()
+    lap.append(time.perf_counter())
+    parts = [b - a for a, b in zip([t0] + lap[:-1], lap)]
+    print(f"BSRNN phase: {time.perf_counter() - t0:.1f} s (offline {parts[0]:.1f}, stream {parts[1]:.1f}, server "
+          f"{parts[2]:.1f}, training {parts[3]:.1f}, CLIs {parts[4]:.1f})", flush=True)
+
+
 def require_fsn_launches(what: str, calls: int) -> None:
     """The counters since ``reset_counts``: ``calls`` FullSubNet calls or
     hops' GRU launches (4 each, 2 of them resident) and nothing else."""
@@ -3800,8 +4144,8 @@ def compare_hops(what: str, runs: dict, hops: list, smi, int8_cost: str) -> None
     """A B=1 hop of the eager path and of the float32 and int8 artifacts
     (``runs``: "fp32" and "int8" -> (artifact, its eager enhancer, the
     artifact's state, the eager state)): wall ms a hop in turns, then device
-    launches a hop from profiles of 20 hops, the float32 artifact's no more
-    than eager's; prints what the int8 hop's extra launches cost
+    launches a hop from profiles of 20 hops, the float32 artifact's in most
+    hops no more than eager's; prints what the int8 hop's extra launches cost
     (``int8_cost``)."""
     art, enh, a_state, e_state = runs["fp32"]
     int8, _, int8_state, _ = runs["int8"]
@@ -3817,9 +4161,11 @@ def compare_hops(what: str, runs: dict, hops: list, smi, int8_cost: str) -> None
             _, carry["state"] = step(carry["state"], hops[carry["i"] % len(hops)])
             carry["i"] += 1
 
-        kernels[key] = profile_calls(one_hop, 20, f"{what}, {key}").kernels
-    require(kernels["fp32"] <= kernels["eager"], f"{what}: the float32 artifact's {kernels['fp32']:.1f} device "
-            f"launches <= eager's {kernels['eager']:.1f}")
+        kernels[key] = profile_calls(one_hop, 20, f"{what}, {key}")
+    whole = {key: prof.whole for key, prof in kernels.items()}
+    kernels = {key: prof.kernels for key, prof in kernels.items()}
+    require(whole["fp32"] <= whole["eager"], f"{what}: the float32 artifact's {whole['fp32']} device launches in "
+            f"most hops <= eager's {whole['eager']}")
     print(f"{what} on {smi}: device launches a hop: eager {kernels['eager']:.1f}, float32 artifact "
           f"{kernels['fp32']:.1f}, int8 artifact {kernels['int8']:.1f}, {kernels['int8'] - kernels['fp32']:.1f} more "
           f"({int8_cost})", flush=True)
@@ -4023,12 +4369,18 @@ def check_deployment(device, smi) -> dict:
         torch.cuda.empty_cache()
         gru_stream, df_stream = check_streaming_artifacts(device, smi, tmp)
         torch.cuda.empty_cache()
-        check_deploy_clis(device, smi, tmp, artifact)
-        mtfaa_offline = check_mtfaa_offline_artifacts(device, smi, tmp)
-        torch.cuda.empty_cache()
-        mtfaa_stream = check_mtfaa_streaming_artifacts(device, smi, tmp)
-        torch.cuda.empty_cache()
-        check_mtfaa_clis(device, smi, tmp)
+        mtfaa_clis = start_mtfaa_clis(device, tmp)  # fresh processes, beside the config-1 CLIs below
+        try:
+            check_deploy_clis(device, smi, tmp, artifact)
+            mtfaa_offline = check_mtfaa_offline_artifacts(device, smi, tmp)
+            torch.cuda.empty_cache()
+            mtfaa_stream = check_mtfaa_streaming_artifacts(device, smi, tmp)
+            torch.cuda.empty_cache()
+            check_mtfaa_clis(device, smi, tmp, mtfaa_clis)
+        finally:  # a failed check leaves no process behind
+            for proc in mtfaa_clis["procs"].values():
+                if proc.poll() is None:
+                    proc.kill()
         t0 = time.perf_counter()
         fsn = check_fsn_offline_artifacts(device, smi, tmp) + check_fsn_streaming_artifacts(device, smi, tmp)
         torch.cuda.empty_cache()
@@ -4479,8 +4831,8 @@ def check_train_steps(build, cfg: StepConfig, b: int, seconds: int, seed: int, d
             f"{worst_noise / gscale:.3g}; {by_noise} leaves beyond relative {GRAD_REL_TOL} and "
             f"{GRAD_ABS_TOL} of the largest, each held to {GRAD_NOISE_FACTOR} x the same leaf's plain "
             f"float32 error (worst ratio {worst_ratio:.3g}); failing {bad[:10]}")
-    err = max(float((stats[k] - ref_stats[k]).abs().max() / max(1.0, float(ref_stats[k].abs().max())))
-              for k in ref_stats if k.endswith((".mean", ".var", ".running_mean", ".running_var")))
+    err = max((float((stats[k] - ref_stats[k]).abs().max() / max(1.0, float(ref_stats[k].abs().max())))
+               for k in ref_stats if k.endswith((".mean", ".var", ".running_mean", ".running_var"))), default=0.0)
     require(err <= 1e-4, f"{what}: BatchNorm running statistics, kernels vs plain versions {err:.3g} <= 1e-4")
     del runs, grads, plain_grads, exact, first
 
@@ -4917,6 +5269,7 @@ class Profile(NamedTuple):
     launches: dict  # *_kernel function -> launches a call
     device_ms: dict  # *_kernel function -> device ms a call
     kernels: float  # device launches a call, all kernels
+    whole: int  # the device launches most traced calls made
 
 
 def profile_calls(fn, calls: int, label: str) -> Profile:
@@ -4935,19 +5288,31 @@ def profile_calls(fn, calls: int, label: str) -> Profile:
     and different between two runs of the same calls. The device finishes
     the warm-up before the traced calls start: an unfinished one adds its
     kernels to theirs. The calls timed without the profiler come after the
-    traced ones: fn is called 2 * calls + 1 times in all."""
+    traced ones: fn is called 2 * calls + 1 times in all.
+
+    The trace still lost launches of the first one or two traced calls, the
+    runtime's records with the kernels', when they were made as the traced
+    window opened (on an H100, in some traces of 20 FullSubNet hops, from a
+    few launches to two whole hops); the calls start 10 ms after it opens,
+    and each kernel is counted to the traced call whose range holds its
+    launch (by the launch's correlation id): ``whole`` is the launches most
+    calls made, which one short or stray call does not move."""
     import tempfile
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from collections import Counter
+    from torch.profiler import ProfilerActivity, profile, record_function, schedule
 
     with tempfile.TemporaryDirectory() as tmp:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=calls, repeat=1),
                      on_trace_ready=lambda p: p.export_chrome_trace(f"{tmp}/trace.json")) as prof:
             for i in range(calls + 1):
-                fn()
+                with record_function(f"profiled call {i}"):
+                    fn()
                 if i in (0, calls):  # none of the warm-up's kernels runs in the traced window
                     torch.cuda.synchronize()
                 prof.step()
+                if i == 0:
+                    time.sleep(0.01)  # no traced launch as the window opens
         with open(f"{tmp}/trace.json") as fh:
             events = json.load(fh)["traceEvents"]
     t0 = time.perf_counter()
@@ -4956,6 +5321,18 @@ def profile_calls(fn, calls: int, label: str) -> Profile:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / calls * 1e3
     kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    launched_at = {e["args"]["correlation"]: e["ts"] for e in events
+                   if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})}
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") == "user_annotation" and e.get("name", "").startswith("profiled call "))
+    per_call = [0] * len(spans)
+    for e in kernels:
+        at = launched_at.get(e.get("args", {}).get("correlation"), -math.inf)
+        for j, (start, stop) in enumerate(spans):
+            if start <= at <= stop:
+                per_call[j] += 1
+                break
+    whole = Counter(per_call).most_common(1)[0][0] if per_call else 0
     by_name: dict = {}
     for e in kernels:
         total, n = by_name.get(e["name"], (0.0, 0))
@@ -4965,7 +5342,7 @@ def profile_calls(fn, calls: int, label: str) -> Profile:
         busy += max(0.0, start + dur - max(start, end))
         end = max(end, start + dur)
     busy_ms = busy / calls / 1e3
-    print(f"profile, {label}: {len(kernels) / calls:.1f} kernels per call, device busy "
+    print(f"profile, {label}: {len(kernels) / calls:.1f} kernels per call ({whole} in most), device busy "
           f"{busy_ms:.4f} ms per call of {wall_ms:.4f} ms wall (without the profiler): "
           f"idle {1 - busy_ms / wall_ms:.1%}")
     for name, (total, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]:
@@ -4982,7 +5359,7 @@ def profile_calls(fn, calls: int, label: str) -> Profile:
     for name, (total, n) in sorted(own.items(), key=lambda kv: -kv[1][0]):
         print(f"  {total / calls:10.2f} us/call  {n / calls:5.1f}/call  {total / n:9.2f} us each  {name}")
     return Profile({name: n / calls for name, (_, n) in named.items()},
-                   {name: total / calls / 1e3 for name, (total, _) in named.items()}, len(kernels) / calls)
+                   {name: total / calls / 1e3 for name, (total, _) in named.items()}, len(kernels) / calls, whole)
 
 
 def main() -> int:
@@ -5181,6 +5558,8 @@ def main() -> int:
     lap("McCruse")
     mc_train = check_mc_training(device, smi)
     lap("McCruse training")
+    check_bsrnn(device, smi)
+    lap("BSRNN")
     deploy_launches = check_deployment(device, smi)  # last: torch.export's tracing machinery after every profile
     lap("deployment")
 

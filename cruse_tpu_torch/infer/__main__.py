@@ -29,10 +29,13 @@ runs the int8 weights' values in float32, so the device holds float32.
 real-time factor; ``--hops_per_step k`` feeds k hops per call. It streams
 CRUSE, CRUSE+DF, DFSMN (``configs/tiny_dfsmn.toml``), a windowed MTFAA
 (``configs/demo_mtfaa_windowed.toml``), FullSubNet with
-``norm = "cumulative_laplace_norm"`` and McCruse (multi-mic wavs,
-``configs/tiny_mc.toml``; the output is the reference mic); a full-causal MTFAA
+``norm = "cumulative_laplace_norm"``, McCruse (multi-mic wavs,
+``configs/tiny_mc.toml``; the output is the reference mic) and a causal
+BSRNN (``configs/tiny_bsrnn_causal.toml``); a full-causal MTFAA
 (``configs/tiny_mtfaa.toml``) is refused, for it carries no attention state,
-and so is a FullSubNet with an offline norm or a look-ahead. The model runs
+and so are a FullSubNet with an offline norm or a look-ahead and the
+offline BSRNN (``configs/tiny_bsrnn.toml``, whose GroupNorm reads the whole
+utterance; it runs offline through ``auto``). The model runs
 on the card (``--device cuda``, the default) unless ``--device cpu`` asks for
 the CPU; a CUDA device that is not there is an error, never a quiet fall back
 to the CPU.

@@ -10,8 +10,8 @@ Enhances (noisy, name) pairs with one of five strategies:
 - ``auto``: STFT -> the model family's forward adapter
   (``train.step.forward_for_model``) on the RI spectrum -> iSTFT (CRUSE and
   DFSMN, whose mask multiplies the noisy spectrum;
-  CRUSE+DF, whose deep filter runs on the low bins; MTFAA, which emits the
-  enhanced complex spectrum; FullSubNet, whose cIRM multiplies it; McCruse,
+  CRUSE+DF, whose deep filter runs on the low bins; MTFAA and BSRNN, which
+  emit the enhanced complex spectrum; FullSubNet, whose cIRM multiplies it; McCruse,
   on ``[B, M, L]``, through the multi-channel adapter);
 - ``multi_channel_directional``: ``[B, M, L]`` -> the multi-channel STFT ->
   the directional features (``dsp/features.py``) -> McCruse's mask on the
@@ -49,6 +49,7 @@ from cruse_tpu_torch.dsp.features import overlap_cat
 from cruse_tpu_torch.dsp.mask import complex_mul, decompress_cirm, envelope_postfilter, postfilter_sin
 from cruse_tpu_torch.dsp.features import directional_features_from_ri
 from cruse_tpu_torch.dsp.stft import StftConfig, istft, istft_mag_phase, mc_stft, stft
+from cruse_tpu_torch.models.bsrnn import BSRNN
 from cruse_tpu_torch.models.cruse_df import CruseDfNet
 from cruse_tpu_torch.models.fullsubnet import FullSubNet
 from cruse_tpu_torch.models.mc_cruse import McCruseNet
@@ -87,7 +88,7 @@ class BatchInferencer:
         if config.postfilter is not None and config.type not in MASK_STRATEGIES:
             log(f"postfilter {config.postfilter!r} is ignored by the {config.type} strategy "
                 f"({' and '.join(MASK_STRATEGIES)} apply it)")
-        if config.type == "mag_to_mag" and isinstance(model, (CruseDfNet, MtfaaNet, FullSubNet, McCruseNet)):
+        if config.type == "mag_to_mag" and isinstance(model, (CruseDfNet, MtfaaNet, BSRNN, FullSubNet, McCruseNet)):
             raise ValueError(f"mag_to_mag takes a mask model; {type(model).__name__} runs with type='"
                              + {FullSubNet: "complex_mask", McCruseNet: "multi_channel_directional"}.get(
                                  type(model), "auto") + "'")

@@ -36,8 +36,10 @@ artifact through ``artifact.load`` and runs it once before it exits 0.
 Exported: CRUSE, CRUSE+DF, DFSMN, MTFAA (configs 5 and 5b offline, a
 windowed MTFAA also streamed; a full-causal one streamed raises
 ``StreamingEnhancer``'s ``ValueError``), FullSubNet offline and, with the
-cumulative norm, streamed, and McCruse streamed. McCruse offline is refused
-by name before tracing: the JAX exporter cannot export it either, for it
+cumulative norm, streamed, and McCruse streamed. BSRNN is refused by name,
+offline and streamed, before tracing: its export comes with MetricGAN+
+(ROADMAP.md queue 1 item 6). McCruse offline is refused by name before
+tracing: the JAX exporter cannot export it either, for it
 feeds the adapter a single-channel ``[B, L]`` STFT where McCruse's takes
 ``[B, M, T, F, 2]``. The MTFAA offline program runs the
 model without its streaming state (``with_state=False``, as the ``auto``
@@ -88,13 +90,23 @@ class _FlatStep(nn.Module):
         return out, new._replace(model_state=tuple(pytree.tree_leaves(new.model_state)))
 
 
+def _refuse_bsrnn(model: nn.Module) -> None:
+    from cruse_tpu_torch.models.bsrnn import BSRNN
+
+    if isinstance(model, BSRNN):
+        raise NotImplementedError("exporting BSRNN (offline or streamed) is not ported yet: it comes with "
+                                  "MetricGAN+ (ROADMAP.md queue 1 item 6); serve it eagerly with "
+                                  "python -m cruse_tpu_torch.infer or .serve")
+
+
 def export_offline(model: nn.Module, icfg, batch: int, length: int, device):
     """The ``torch.export`` program of enhanced [B, L] = graph(noisy [B, L]):
     ``_mag_to_mag_impl`` for ``icfg.type == "mag_to_mag"``, else
-    ``_auto_impl``. McCruse is refused (see the module doc)."""
+    ``_auto_impl``. McCruse and BSRNN are refused (see the module doc)."""
     from cruse_tpu_torch.infer.batch import BatchInferencer
     from cruse_tpu_torch.models.mc_cruse import McCruseNet
 
+    _refuse_bsrnn(model)
     if isinstance(model, McCruseNet):
         raise NotImplementedError(
             "exporting McCruse offline is not supported: the JAX exporter (tools/export.py) traces the "
@@ -114,10 +126,12 @@ def export_offline(model: nn.Module, icfg, batch: int, length: int, device):
 def export_streaming(model: nn.Module, cfg, batch: int, device):
     """(the program of the per-hop step, its initial state): the state a
     ``StreamState`` whose ``model_state`` is a flat tuple of tensors. The
-    hop is ``[B, hop]``, or ``[B, M, hop]`` for a multi-mic model."""
+    hop is ``[B, hop]``, or ``[B, M, hop]`` for a multi-mic model. BSRNN is
+    refused (see the module doc)."""
     from cruse_tpu_torch.infer.artifact import StreamState
     from cruse_tpu_torch.infer.streaming import StreamingEnhancer
 
+    _refuse_bsrnn(model)
     enhancer = StreamingEnhancer(model.to(device), cfg)
     state = enhancer.init_state(batch)
     leaves, spec = pytree.tree_flatten(state.model_state)

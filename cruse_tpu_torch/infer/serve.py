@@ -15,7 +15,10 @@ free up, fed ``--feed_chunk`` hops an iteration, stepped under an optional
 budget of pool dispatches an iteration (priority decides who keeps cadence),
 drained at the end of their input and written to ``-O`` at the input's
 length. A multi-mic model's (McCruse's) sessions read every channel of their
-wavs (``[M, L]``, M the model's mics) and write the enhanced reference mic. The run ends with the aggregate x-realtime line; ``--realtime``
+wavs (``[M, L]``, M the model's mics) and write the enhanced reference mic.
+Every streaming family serves, a causal BSRNN (``configs/tiny_bsrnn_causal.toml``)
+included; an offline BSRNN is refused by the streaming guard. The run ends
+with the aggregate x-realtime line; ``--realtime``
 paces one iteration a hop period of the first model and reports the p50 and
 p99 of an iteration against that budget and the share of missed deadlines.
 

@@ -21,7 +21,9 @@ place: every leaf of the new state is ``torch.where(active, new, old)``, so
 idle slots keep theirs bit for bit and no inference tensor is written in
 place. A leaf leads with ``slots · rep`` rows, a slot owning ``rep``
 consecutive ones (FullSubNet folds its F sub-band units into the batch:
-``[slots·F, H]``), so the mask repeats each slot's flag ``rep`` times. A slot
+``[slots·F, H]``; a causal BSRNN its 31 bands into its time LSTMs' state,
+``[slots·31, 1, 2N]``, beside its norms' ``[slots]`` carries), so the mask
+repeats each slot's flag ``rep`` times. A slot
 is reset out of place too: a fresh one-slot state's ``rep`` rows are copied
 into rows ``[sid·rep, (sid+1)·rep)`` of a new leaf (``index_copy``).
 
@@ -36,7 +38,8 @@ a CRUSE+DF step (config 3) also the deep-filter kernel once, and a windowed
 MTFAA step (config 5b) the stencil kernel once a TFCM block (24) and the
 deep filter once, a FullSubNet step the grouped-GRU kernel once a GRU layer
 (4 at its published depth), all at the batch of the slots (the sub-band
-layers at slots · F rows); DFSMN has no kernel.
+layers at slots · F rows); DFSMN has no kernel, and a BSRNN step runs
+cuDNN's LSTM and PyTorch's own kernels only.
 
 Not ported: a device mesh (``mesh=`` raises; slots over several cards wait
 for torch.distributed).

@@ -10,31 +10,32 @@ Each hop carries:
   block's left context; windowed MTFAA: its conv and TFCM histories, rolling
   attention caches and deep-filter frames; FullSubNet: its GRU states, the
   sub-band ones ``[B·F, H]``, and the cumulative norms' running sums;
-  McCruse: CRUSE's);
+  McCruse: CRUSE's; a causal BSRNN: its 74 cumulative norms' running
+  sums ``[B]`` and its time LSTMs' ``(h, c)``, ``[B·31, 1, 2N]``);
 - the overlap-add tail of the synthesis frames.
 
 A step assembles the frame, takes its windowed DFT (one small matrix
 product), runs the model at T = 1, applies the mask (and, for CRUSE+DF, the
 deep filter over the carried frames; MTFAA takes the RI frame and returns
-the enhanced one itself; FullSubNet's decompressed cIRM multiplies the
-frame's spectrum; McCruse takes every mic's frame, ``[B, M, hop]`` in, and
-its mask, from the frame's directional features, multiplies the reference
-mic's spectrum), takes the windowed inverse DFT, overlap-adds, and emits
-``hop`` samples (one channel) divided by the steady-state window envelope. Primed
-with the first ``n_fft - hop`` samples, the stream equals the offline
-``center=False`` path after the overlap-add warm-up.
+the enhanced one itself, and so does BSRNN; FullSubNet's decompressed cIRM
+multiplies the frame's spectrum; McCruse takes every mic's frame, ``[B, M,
+hop]`` in, and its mask, from the frame's directional features, multiplies
+the reference mic's spectrum), takes the windowed inverse DFT, overlap-adds,
+and emits ``hop`` samples (one channel) divided by the steady-state window
+envelope. Primed with the first ``n_fft - hop`` samples, the stream equals
+the offline ``center=False`` path after the overlap-add warm-up.
 
 On the card a hop launches, for CRUSE and McCruse, the grouped-GRU kernel
 twice (one per bank) and, for CRUSE+DF, the deep-filter kernel once; for a windowed MTFAA
 the stencil kernel once a TFCM block (24 at config 5b) and the deep-filter
 kernel once; for FullSubNet the grouped-GRU kernel four times at its
-published depth (one a GRU layer); DFSMN has no kernel of its own. The rest is PyTorch's own
-kernels. ``run`` is a host loop over hops (the JAX package runs it as one
-``lax.scan`` dispatch, which eager PyTorch has no counterpart of).
+published depth (one a GRU layer); DFSMN has no kernel of its own, and
+BSRNN's LSTMs are cuDNN's. The rest is PyTorch's own kernels. ``run`` is a
+host loop over hops (the JAX package runs it as one ``lax.scan`` dispatch,
+which eager PyTorch has no counterpart of).
 
 Ported for CruseNet, CruseDfNet, DfsmnNet, a windowed MtfaaNet,
-FullSubNet with the cumulative norm and McCruseNet; BSRNN's streaming comes
-with its model.
+FullSubNet with the cumulative norm, McCruseNet and a causal BSRNN.
 """
 from __future__ import annotations
 
@@ -47,6 +48,7 @@ from cruse_tpu_torch.dsp.features import directional_features_from_ri
 from cruse_tpu_torch.dsp.stft import StftConfig, _analysis_kernel, _padded_window, _synthesis_kernel
 # the carry's type lives with the artifact loader, which must read it without the models
 from cruse_tpu_torch.infer.artifact import StreamState
+from cruse_tpu_torch.models.bsrnn import BSRNN, NUM_BINS as BSRNN_BINS
 from cruse_tpu_torch.models.cruse import CruseNet, cruse_init_state
 from cruse_tpu_torch.models.cruse_df import CruseDfNet, apply_cruse_df_streaming, df_stream_init
 from cruse_tpu_torch.dsp.mask import complex_mul, decompress_cirm
@@ -55,7 +57,7 @@ from cruse_tpu_torch.models.fullsubnet import FullSubNet
 from cruse_tpu_torch.models.mc_cruse import McCruseNet
 from cruse_tpu_torch.models.mtfaa import MtfaaNet
 
-STREAMING_MODELS = (CruseNet, CruseDfNet, DfsmnNet, MtfaaNet, FullSubNet, McCruseNet)
+STREAMING_MODELS = (CruseNet, CruseDfNet, DfsmnNet, MtfaaNet, FullSubNet, McCruseNet, BSRNN)
 
 
 def _steady_envelope(cfg: StftConfig) -> np.ndarray:
@@ -73,7 +75,8 @@ class StreamingEnhancer:
     MtfaaNet (config 5b) enhances the RI spectrum through its own carried
     state; FullSubNet (cumulative norm, no look-ahead) applies its complex
     mask per frame; McCruseNet takes ``[B, M, hop]`` hops and emits the
-    enhanced reference mic."""
+    enhanced reference mic; a causal BSRNN (cumulative norms, carried time
+    LSTMs) takes the RI frame and returns the enhanced one."""
 
     def __init__(self, model: torch.nn.Module, cfg: StftConfig):
         if cfg.center:
@@ -83,8 +86,7 @@ class StreamingEnhancer:
         if not isinstance(model, STREAMING_MODELS):
             raise NotImplementedError(
                 f"streaming {type(model).__name__} is not ported (ported: "
-                f"{', '.join(m.__name__ for m in STREAMING_MODELS)}); BSRNN streaming comes "
-                "with its model")
+                f"{', '.join(m.__name__ for m in STREAMING_MODELS)})")
         if isinstance(model, MtfaaNet) and model.config.attention_window is None:
             raise ValueError("MTFAA streaming needs a finite attention_window (the full-causal "
                              "configuration cannot carry ASA state)")
@@ -94,6 +96,12 @@ class StreamingEnhancer:
         if isinstance(model, FullSubNet) and model.config.look_ahead != 0:
             raise ValueError("FullSubNet streaming needs look_ahead=0 (the look-ahead "
                              "variant delays the output by future frames)")
+        if isinstance(model, BSRNN) and not model.config.causal:
+            raise ValueError("BSRNN streaming needs causal=True (the offline variant's GroupNorm(1, C) "
+                             "layers read the whole time axis)")
+        if isinstance(model, BSRNN) and cfg.num_bins != BSRNN_BINS:
+            raise ValueError(f"BSRNN's band table covers {BSRNN_BINS} bins; the STFT config has "
+                             f"{cfg.num_bins} (use n_fft={2 * (BSRNN_BINS - 1)})")
         if isinstance(model, DfsmnNet) and model.config.right_frames > 0:
             raise ValueError("DFSMN streaming needs right_frames=0 (a look-ahead DfsmnNet reads "
                              "future frames)")
@@ -102,6 +110,7 @@ class StreamingEnhancer:
         self.device = next(model.parameters()).device
         self._is_df = isinstance(model, CruseDfNet)
         self._is_complex = isinstance(model, MtfaaNet)
+        self._is_bsrnn = isinstance(model, BSRNN)
         self._is_cirm = isinstance(model, FullSubNet)
         self.mics = model.config.num_mics if isinstance(model, McCruseNet) else 0  # 0: one channel
         self._num_bins = cfg.num_bins
@@ -157,6 +166,10 @@ class StreamingEnhancer:
         if self._is_complex:
             cspec = torch.stack([real, imag], dim=-1)[:, None]  # [B, 1, F, 2]
             (enhanced, _mask), model_state = self.model(cspec, state.model_state)
+            enh_ri = torch.cat([enhanced[:, 0].real, enhanced[:, 0].imag], dim=-1)
+            return self._finish(state, frame, enh_ri, model_state)
+        if self._is_bsrnn:
+            enhanced, model_state = self.model(torch.stack([real, imag], dim=-1)[:, None], state.model_state)
             enh_ri = torch.cat([enhanced[:, 0].real, enhanced[:, 0].imag], dim=-1)
             return self._finish(state, frame, enh_ri, model_state)
         mag = torch.sqrt(real ** 2 + imag ** 2 + 1e-12)

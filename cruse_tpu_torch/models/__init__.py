@@ -1,6 +1,8 @@
-"""Model zoo of the port. CRUSE, CRUSE+DF, DFSMN, MTFAA, FullSubNet and the
-multi-channel McCruse are ported; the other families are not yet."""
+"""Model zoo of the port. CRUSE, CRUSE+DF, DFSMN, MTFAA, FullSubNet, the
+multi-channel McCruse and BSRNN are ported; MetricGAN+'s discriminator is
+not yet."""
 
+from cruse_tpu_torch.models.bsrnn import BSRNN, BsrnnConfig  # noqa: F401
 from cruse_tpu_torch.models.cruse import CruseConfig, CruseNet  # noqa: F401
 from cruse_tpu_torch.models.cruse_df import CruseDfConfig, CruseDfNet  # noqa: F401
 from cruse_tpu_torch.models.dfsmn import DfsmnBlock, DfsmnConfig, DfsmnNet  # noqa: F401
@@ -12,16 +14,16 @@ from cruse_tpu_torch.models.mtfaa import MtfaaConfig, MtfaaNet  # noqa: F401
 _NETWORKS = {"CruseConfig": (CruseConfig, CruseNet), "CruseDfConfig": (CruseDfConfig, CruseDfNet),
              "MtfaaConfig": (MtfaaConfig, MtfaaNet), "FullSubNetConfig": (FullSubNetConfig, FullSubNet),
              "McCruseConfig": (McCruseConfig, McCruseNet),
-             # the JAX DFSMN has no config dataclass: [model] names the network with its fields
-             "DfsmnNet": (DfsmnConfig, DfsmnNet)}
+             # the JAX DFSMN and BSRNN have no config dataclass: [model] names the network with its fields
+             "DfsmnNet": (DfsmnConfig, DfsmnNet), "BSRNN": (BsrnnConfig, BSRNN)}
 
 
 def build_from_config(model_section: dict, generator=None):
     """The ``[model]`` table of a config (``path`` + ``args``) -> network.
 
     The class named by the last component of ``path`` (for example
-    ``cruse_tpu.models.cruse.CruseConfig``, or ``cruse_tpu.models.dfsmn.DfsmnNet``,
-    whose args are the network's own fields) selects the port's counterpart;
+    ``cruse_tpu.models.cruse.CruseConfig``, or ``cruse_tpu.models.dfsmn.DfsmnNet``
+    and ``cruse_tpu.models.bsrnn.BSRNN``, whose args are the network's own fields) selects the port's counterpart;
     the path itself is never imported. A nested table (CRUSE+DF's
     ``[model.args.cruse]``, McCruse's ``[model.args.cruse_args]``) arrives as
     a dict, which the config coerces.

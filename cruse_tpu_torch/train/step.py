@@ -2,15 +2,16 @@
 ``cruse_tpu/train/step.py``).
 
 **Forward adapters**: noisy RI spectrum ``[B, T, F, 2]`` -> enhanced RI
-spectrum, one per model family (CRUSE and DFSMN, CRUSE+DF, MTFAA, FullSubNet),
-shared by the ``auto`` inference strategy and the train step. The JAX adapters take and return ``(params, batch_stats)``;
+spectrum, one per model family (CRUSE and DFSMN, CRUSE+DF, MTFAA and BSRNN,
+FullSubNet, McCruse), shared by the ``auto`` inference strategy and the
+train step. The JAX adapters take and return ``(params, batch_stats)``;
 here the weights and statistics live in the module, so an adapter takes the
 spectrum alone and returns the enhanced one. ``train`` must agree with the
 module's mode. With ``train=True`` every adapter runs the model's training
 forward (BatchNorm on the batch's statistics, which it records in place),
 and the result carries the gradient: for CRUSE, CRUSE+DF and FullSubNet
 through the GRU recurrence's backward kernel, for CRUSE+DF and MTFAA through
-the deep filter's.
+the deep filter's, for BSRNN through cuDNN's LSTM backward.
 
 **The train step** (``make_train_step``): STFT of noisy and clean -> (with
 a teacher) the teacher's eval forward under ``torch.no_grad`` -> the
@@ -113,13 +114,21 @@ def cruse_df_model_forward(model) -> Callable:
 
 def complex_model_forward(model) -> Callable:
     """Models that take the RI spectrum and emit the enhanced complex
-    spectrum directly (MtfaaNet): enhanced RI [B, T, F, 2]. With
-    ``train=True`` the model runs its training forward (batch statistics,
-    which it records in place) and the result carries the gradient. A
-    windowed model's streaming state is not asked for."""
+    spectrum directly (MtfaaNet, whose model returns ``((enhanced, mask),
+    state)``, and BSRNN, ``(enhanced, state)``): enhanced RI [B, T, F, 2].
+    With ``train=True`` the model runs its training forward (MTFAA's batch
+    statistics, which it records in place) and the result carries the
+    gradient. A windowed MTFAA's streaming state is not asked for; a causal
+    BSRNN's is returned and dropped."""
+    from cruse_tpu_torch.models.bsrnn import BSRNN
+
+    bsrnn = isinstance(model, BSRNN)
 
     def forward(noisy_ri: torch.Tensor, train: bool = False) -> torch.Tensor:
-        (enhanced, _mask), _ = model(noisy_ri, None, train, with_state=False)
+        if bsrnn:
+            enhanced, _ = model(noisy_ri, None, train)
+        else:
+            (enhanced, _mask), _ = model(noisy_ri, None, train, with_state=False)
         return torch.stack([enhanced.real, enhanced.imag], dim=-1)
 
     return forward
@@ -165,6 +174,7 @@ def mc_model_forward(model) -> Callable:
 
 def forward_for_model(model) -> Callable:
     """The forward adapter for a ported model."""
+    from cruse_tpu_torch.models.bsrnn import BSRNN
     from cruse_tpu_torch.models.cruse import CruseNet
     from cruse_tpu_torch.models.cruse_df import CruseDfNet
     from cruse_tpu_torch.models.dfsmn import DfsmnNet
@@ -174,7 +184,7 @@ def forward_for_model(model) -> Callable:
 
     if isinstance(model, McCruseNet):
         return mc_model_forward(model)
-    if isinstance(model, MtfaaNet):
+    if isinstance(model, (MtfaaNet, BSRNN)):
         return complex_model_forward(model)
     if isinstance(model, CruseDfNet):
         return cruse_df_model_forward(model)
@@ -183,7 +193,7 @@ def forward_for_model(model) -> Callable:
     if isinstance(model, DfsmnNet) or (isinstance(model, CruseNet) and not model.config.emit_features):
         return mask_model_forward(model)
     raise NotImplementedError(f"no forward adapter for {type(model).__name__} is ported "
-                              "(ported: CruseNet, CruseDfNet, DfsmnNet, MtfaaNet, FullSubNet, McCruseNet)")
+                              "(ported: CruseNet, CruseDfNet, DfsmnNet, MtfaaNet, FullSubNet, McCruseNet, BSRNN)")
 
 
 # ---------------- the train step ----------------

@@ -1,6 +1,6 @@
 """Weight bridge: cruse_tpu flax variables -> the port's ``CruseNet``,
-``CruseDfNet``, ``McCruseNet``, ``DfsmnNet``, ``MtfaaNet`` and
-``FullSubNet`` state_dicts.
+``CruseDfNet``, ``McCruseNet``, ``DfsmnNet``, ``MtfaaNet``, ``FullSubNet``
+and ``BSRNN`` state_dicts.
 
 The JAX side's ``{"params", "batch_stats"}`` tree, as numpy arrays, maps onto
 the port by path, because the port names its submodules after the flax ones
@@ -27,6 +27,13 @@ DFSMN and FullSubNet (``dense_state_dict_from_flax``) keep every leaf in
 its flax shape too (DFSMN's memory kernels and skip weights, FullSubNet's
 GRU leaves ``…/layer/{w_ih, w_hh, b_ih, b_hh}``, ``[1, 3H, ·]``); only their
 Dense kernels ``[in, out]`` become ``Linear`` weights ``[out, in]``.
+
+BSRNN (``bsrnn_state_dict_from_flax``) keeps every leaf in its flax shape
+under its path but for two renames: a Dense kernel becomes a transposed
+``Linear`` weight, and an LSTM's leaves (``lstm_t_0/w_ih``, ``…/b_hh_reverse``,
+already in torch's layout) become ``nn.LSTM``'s flat ones
+(``lstm_t_0.rnn.weight_ih_l0``, ``….rnn.bias_hh_l0_reverse``); the norms'
+``scale`` / ``bias`` keep their names.
 
 ``mtfaa_flax_from_named`` is MTFAA's mapping's inverse, for the parameters, their
 gradients or the statistics of a trained port model, so that tests compare
@@ -184,6 +191,27 @@ def dense_state_dict_from_flax(variables_np: Mapping[str, Any]) -> Dict[str, Any
     return state
 
 
+# the JAX LSTM's leaves -> nn.LSTM's (nn/lstm.py keeps it under ``rnn``)
+_LSTM_LEAVES = {f"{jax_name}{sfx}": f"rnn.{torch_name}_l0{sfx}" for sfx in ("", "_reverse")
+                for jax_name, torch_name in (("w_ih", "weight_ih"), ("w_hh", "weight_hh"),
+                                             ("b_ih", "bias_ih"), ("b_hh", "bias_hh"))}
+_LSTM_NAMES = {torch_name: jax_name for jax_name, torch_name in _LSTM_LEAVES.items()}
+
+
+def bsrnn_state_dict_from_flax(variables_np: Mapping[str, Any]) -> Dict[str, Any]:
+    """cruse_tpu ``BSRNN`` variables -> state_dict of the port's ``BSRNN``:
+    the Dense kernels transposed to ``Linear`` weights, the LSTM leaves
+    renamed to ``nn.LSTM``'s, every other leaf as it is under its path."""
+    state = {}
+    for path, value in flatten_tree(variables_np.get("params", {}), keep_quantized=True).items():
+        *modules, leaf = path.split("/")
+        if leaf == "kernel":  # Dense [in, out] -> Linear [out, in]
+            state[".".join(modules + ["weight"])] = _to_port(value, lambda v: np.ascontiguousarray(v.T))
+        else:
+            state[".".join(modules + [_LSTM_LEAVES.get(leaf, leaf)])] = _to_port(value, lambda v: v)
+    return state
+
+
 def mtfaa_flax_from_named(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """The inverse of ``mtfaa_state_dict_from_flax``: tensors by the port's
     dotted names (a ``state_dict``, or gradients by parameter name) -> a
@@ -199,7 +227,7 @@ def mtfaa_flax_from_named(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
 
 def state_dict_from_flax(variables_np: Mapping[str, Any], model) -> Dict[str, torch.Tensor]:
     """cruse_tpu variables -> state_dict of the port's ``model``: an
-    MtfaaNet, a DfsmnNet, a FullSubNet, a CruseNet, a CruseDfNet, whose
+    MtfaaNet, a DfsmnNet, a FullSubNet, a BSRNN, a CruseNet, a CruseDfNet, whose
     trunk is under ``cruse.`` and head is ``df_head``, or a McCruseNet,
     whose trunk is under ``cruse.`` behind ``spatial_proj`` and ``PReLU_0``.
     The CRUSE trunk's config (``config.cruse`` of a CruseDfNet or a
@@ -209,6 +237,8 @@ def state_dict_from_flax(variables_np: Mapping[str, Any], model) -> Dict[str, to
         return mtfaa_state_dict_from_flax(variables_np)
     if family in ("dfsmn", "fullsubnet"):
         return dense_state_dict_from_flax(variables_np)
+    if family == "bsrnn":
+        return bsrnn_state_dict_from_flax(variables_np)
     return cruse_state_dict_from_flax(variables_np, getattr(model.config, "cruse", model.config))
 
 
@@ -231,10 +261,17 @@ def _unconvert(flax_path: str, value: np.ndarray) -> np.ndarray:
 def _flax_leaf(family: str, key: str, value: np.ndarray):
     """One port tensor -> (collection, flax path, array in the flax layout),
     or None for a tensor flax does not hold; ``family`` is "mtfaa", "dfsmn",
-    "fullsubnet" or "cruse" (CRUSE and CRUSE+DF)."""
+    "fullsubnet", "bsrnn" or "cruse" (CRUSE and CRUSE+DF)."""
     if family == "mtfaa":
         collection = "batch_stats" if key.rsplit(".", 1)[-1] in ("mean", "var") else "params"
         return collection, key.replace(".", "/"), value
+    if family == "bsrnn":
+        module, rnn, name = key.rpartition(".rnn.")
+        if rnn:  # an nn.LSTM leaf
+            return "params", f"{module}/{_LSTM_NAMES['rnn.' + name]}".replace(".", "/"), value
+        if key.endswith(".weight"):  # Linear [out, in] -> Dense [in, out]
+            key, value = key[: -len("weight")] + "kernel", np.ascontiguousarray(value.T)
+        return "params", key.replace(".", "/"), value
     if family in ("dfsmn", "fullsubnet"):
         if key.endswith(".weight"):  # Linear [out, in] -> Dense [in, out]
             key, value = key[: -len("weight")] + "kernel", np.ascontiguousarray(value.T)
@@ -251,13 +288,14 @@ def _flax_leaf(family: str, key: str, value: np.ndarray):
 
 
 def _family(model) -> str:
-    """The mapping of ``model``: "mtfaa", "dfsmn", "fullsubnet", or "cruse"
-    (CRUSE, CRUSE+DF and McCruse, whose leaves map by the CRUSE rules)."""
+    """The mapping of ``model``: "mtfaa", "dfsmn", "fullsubnet", "bsrnn", or
+    "cruse" (CRUSE, CRUSE+DF and McCruse, whose leaves map by the CRUSE rules)."""
+    from cruse_tpu_torch.models.bsrnn import BSRNN
     from cruse_tpu_torch.models.dfsmn import DfsmnNet
     from cruse_tpu_torch.models.fullsubnet import FullSubNet
     from cruse_tpu_torch.models.mtfaa import MtfaaNet
 
-    families = ((MtfaaNet, "mtfaa"), (DfsmnNet, "dfsmn"), (FullSubNet, "fullsubnet"))
+    families = ((MtfaaNet, "mtfaa"), (DfsmnNet, "dfsmn"), (FullSubNet, "fullsubnet"), (BSRNN, "bsrnn"))
     return next((name for cls, name in families if isinstance(model, cls)), "cruse")
 
 

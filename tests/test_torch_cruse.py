@@ -146,4 +146,4 @@ def test_build_from_config_maps_the_class_name():
     for a, b in zip(model.state_dict().values(), again.state_dict().values()):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_from_config({"path": "cruse_tpu.models.bsrnn.BSRNN", "args": {}})
+        build_from_config({"path": "cruse_tpu.nn.gru.SqueezedGRU", "args": {}})
