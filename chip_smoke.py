@@ -349,6 +349,24 @@ needed). In order, and any failure exits non-zero:
     ``BSRNN()`` and B=8 x 3 s (1 epoch of 4 steps, validation scored), and
     the infer CLI on one 0.5 s wav with a causal ``BSRNN()`` TOML, offline
     and ``--streaming``, each within one int16 step of the same model here;
+23d. drives MetricGAN+ (``train/metricgan.py``): (a) ``Discriminator(ndf=16)``
+    on BSRNN's STFT of B=8 x 3 s (``[8, 188, 257]``), its output, stored
+    ``u`` and ``sigma`` (1e-5) and gradients against the same module in
+    float64; (b) on ``BSRNN()`` at B=8 x 3 s one D step on injected scores
+    and one G step against the same steps in float64 on the plain LSTM
+    (losses 1e-4 x max(1, |loss|), D's and G's gradient leaves within the
+    train steps' bounds), then 2 pretraining batches and 3 alternations with
+    replay (finite, both nets moved, no hand-written kernel launched), the
+    ms of the enhance, the host scoring, the D and the G step and an
+    alternation, and a profile of one (its idle share); (c) config 2's CRUSE
+    as the generator at B=8 x 3 s: 2 alternations, each enhance 2 resident
+    GRU launches, each G step 2 + 2 (forward, backward), D none, the G
+    losses against the plain recurrence's step, a profile of a G step; (d)
+    the train CLI on ``configs/tiny_bsrnn_gan.toml`` widened to ``BSRNN()``,
+    B=8 x 3 s and ``ndf = 16`` (1 epoch of 4 alternations after 2
+    pretraining batches: finite G and D means, ``disc_latest`` beside
+    ``latest``), then ``-R`` for a second epoch (D restored, no
+    pretraining);
 24. drives the deployment path: config 1 (``configs/cruse_base.toml``, seeded
     weights and BatchNorm statistics) exported offline at B=16 x 10 s on the
     card in float32 and int8 (``infer/export.py``, ``nn/quantize.py``),
@@ -394,7 +412,14 @@ needed). In order, and any failure exits non-zero:
     (``[1, 4, 160]`` hops, ``num_mics`` 4 in the meta), float32 and int8, 100
     hops within 1e-5 of the eager hop, 2 resident GRU launches a hop, the
     hop's ms and device launches against eager's, and ``run_exported`` on a
-    4-channel wav as the artifact streams it here;
+    4-channel wav as the artifact streams it here. Then BSRNN: ``BSRNN()``
+    offline at B=4 x 10 s and the causal ``BSRNN()`` streamed at B=1 over 30
+    hops, float32 (saved and loaded) and int8: 12 ``aten.lstm`` nodes a
+    program (none decomposed), no hand-written kernel launched, within 1e-4
+    of eager ``auto`` / the eager hop (the carried state leaf for leaf, the
+    74 norms' counts equal), int8 against float32 above 25 dB, ms a call or
+    a hop in turns with eager's and device launches against eager's (float32
+    no more);
 25. prints a JSON line of the kernels (each with its launches on the main
     paths, its error, its time, the plain version's, the least time the card
     could take for its bytes or its multiply-adds, and the library call's time
@@ -442,8 +467,9 @@ from cruse_tpu_torch.infer.serve import build_model as serve_build_model
 from cruse_tpu_torch.infer.server import MultiModelServer, StreamingServer, tree_leaves
 from cruse_tpu_torch.infer.streaming import StreamingEnhancer
 from cruse_tpu_torch.models import (
-    BSRNN, BsrnnConfig, CruseDfConfig, CruseDfNet, CruseNet, DfsmnConfig, DfsmnNet, FullSubNet, FullSubNetConfig,
-    McCruseConfig, McCruseNet, MtfaaConfig, MtfaaNet, build_from_config)
+    BSRNN, BsrnnConfig, CruseDfConfig, CruseDfNet, CruseNet, DfsmnConfig, DfsmnNet, Discriminator, FullSubNet,
+    FullSubNetConfig, McCruseConfig, McCruseNet, MtfaaConfig, MtfaaNet, build_from_config)
+from cruse_tpu_torch.models.bsrnn import batch_quality_scores
 from cruse_tpu_torch.models.cruse_df import apply_cruse_df
 from cruse_tpu_torch.models.mtfaa import (
     AxialSelfAttention, BatchNormC, PReLUc, TFCM, TFCMBlock)
@@ -488,6 +514,9 @@ from cruse_tpu_torch.train import checkpoint as checkpoint_lib
 from cruse_tpu_torch.train import step as step_lib
 from cruse_tpu_torch.train.__main__ import build_trainer, dataset_from, parse_args
 from cruse_tpu_torch.train.__main__ import main as train_main
+from cruse_tpu_torch.train.metricgan import (
+    MetricGanConfig, ReplayBuffer, init_metricgan_state, make_metricgan_steps, metricgan_train_batch,
+    pretrain_discriminator)
 from cruse_tpu_torch.train.step import (
     StepConfig, forward_for_model, init_train_state, make_loss_gradients, make_train_step, param_masks, step_losses)
 from cruse_tpu_torch.utils.config import load_config
@@ -725,6 +754,13 @@ BSRNN_SLOTS, BSRNN_SESSIONS = 8, {"bsrnn": (9, 0.3, 0.6), "cruse_df": (9, 0.3, 0
 BSRNN_TRAIN_BATCH, BSRNN_TRAIN_SECONDS = 8, 3
 BSRNN_LOSSES = (("si_snr", 1.0), ("spec", 1.0))
 BSRNN_HOPS = 20  # the B=1 hops timed, each synchronised
+BSRNN_DEPLOY_BATCH, BSRNN_DEPLOY_SECONDS, BSRNN_DEPLOY_HOPS = 4, 10, 30
+BSRNN_DEPLOY_TOL = 1e-4  # a BSRNN artifact against the eager path on the same weights
+BSRNN_TIMED_HOPS, BSRNN_PROFILED_HOPS = 8, 5  # the B=1 hops timed in turns and profiled, each way
+MG_NDF, MG_BATCH, MG_SECONDS = 16, 8, 3  # MetricGAN+: D's width; the steps' batch, BSRNN's training one
+MG_PRETRAIN, MG_ALTERNATIONS, MG_CRUSE_ALTERNATIONS = 2, 3, 2
+MG_LOSS_TOL = 1e-4  # a D or G loss, float32 against float64 on the plain versions, x max(1, |loss|)
+MG_D_TOL = 1e-5  # D's output and its stored u and sigma, float32 against float64
 
 
 def require(ok: bool, what: str) -> None:
@@ -4128,6 +4164,414 @@ def check_bsrnn(device, smi) -> None:
           f"{parts[2]:.1f}, training {parts[3]:.1f}, CLIs {parts[4]:.1f})", flush=True)
 
 
+# ---------------- MetricGAN+ ----------------
+
+
+@contextlib.contextmanager
+def recorded_grads():
+    """Every ``torch.autograd.grad`` result while the block runs, in order (a
+    D step's and a G step's gradients, read without changing either)."""
+    grad, got = torch.autograd.grad, []
+
+    def recording(*args, **kwargs):
+        out = grad(*args, **kwargs)
+        got.append([None if g is None else g.detach().to(torch.float64, copy=True) for g in out])  # the step clips in place
+        return out
+
+    torch.autograd.grad = recording
+    try:
+        yield got
+    finally:
+        torch.autograd.grad = grad
+
+
+def check_discriminator(device) -> None:
+    """Part (a): ``Discriminator(ndf=16)`` on BSRNN's STFT of B=8 x 3 s
+    (``[8, 188, 257]`` magnitudes) with ``update_stats``: its output, every
+    stored ``u`` and ``sigma`` and its gradients against the same module in
+    float64."""
+    data = noisy_clean_pairs(SEED + 90, MG_BATCH, MG_SECONDS, device)
+    scfg = StftConfig(**BSRNN_STFT)
+    clean_mag, noisy_mag = stft(data["clean"], scfg).abs(), stft(data["noisy"], scfg).abs()
+    frames = 1 + MG_SECONDS * SR // BSRNN_STFT["hop_length"]
+    require(tuple(clean_mag.shape) == (MG_BATCH, frames, 257), f"D's input {tuple(clean_mag.shape)}")
+    runs = {}
+    for dtype in (torch.float64, torch.float32):
+        disc = Discriminator(MG_NDF, generator=torch.Generator().manual_seed(SEED + 91)).to(device, dtype)
+        out = disc(clean_mag.to(dtype), noisy_mag.to(dtype), update_stats=True)
+        grads = torch.autograd.grad(torch.mean(torch.square(out - 0.5)), list(disc.parameters()))
+        runs[dtype] = (out.detach().double(), {k: v.double() for k, v in disc.state_dict().items()},
+                       [g.double() for g in grads])
+    (out, stats, grads), (ref, ref_stats, ref_grads) = runs[torch.float32], runs[torch.float64]
+    out_err = float((out - ref).abs().max())
+    stat_err = max(float((stats[k] - ref_stats[k]).abs().max()) / max(1.0, float(ref_stats[k].abs().max()))
+                   for k in stats if k.endswith((".u", ".sigma")))
+    gscale = max(float(g.abs().max()) for g in ref_grads)
+    errs = [gradient_close(g, r, gscale) for g, r in zip(grads, ref_grads)]
+    require(tuple(out.shape) == (MG_BATCH, 1) and out_err <= MG_D_TOL and stat_err <= MG_D_TOL
+            and all(ok for ok, _ in errs),
+            f"Discriminator(ndf={MG_NDF}) on [{MG_BATCH}, {frames}, 257], float32 against float64: output {out_err:.3g}, "
+            f"stored u and sigma {stat_err:.3g} <= {MG_D_TOL}; {len(grads)} gradient leaves, worst "
+            f"{max(e for _, e in errs) / gscale:.3g} of the largest")
+
+
+def check_mg_steps(build, step_cfg: StepConfig, data: dict, device, what: str) -> None:
+    """One D step on injected scores (the noisy mixture as the degraded
+    signal) and one G step from the same weights, in float32 (``build(False)``:
+    cuDNN's LSTM or the GRU kernels) and in float64 on the plain versions
+    (``build(True)``): the four losses within MG_LOSS_TOL x max(1, |loss|),
+    D's and G's gradients leaf by leaf within the train steps' bounds
+    (relative GRAD_REL_TOL, or GRAD_ABS_TOL of the largest)."""
+    scores = torch.linspace(0.3, 0.8, MG_BATCH, device=device)
+    cfg = MetricGanConfig(step=step_cfg, ndf=MG_NDF)
+    runs = {}
+    for name, dtype in (("float64", torch.float64), ("float32", torch.float32)):
+        gen = build(name == "float64").to(dtype)
+        disc = Discriminator(MG_NDF, generator=torch.Generator().manual_seed(SEED + 92)).to(device, dtype)
+        state = init_metricgan_state(gen, disc, cfg, device)
+        _, disc_step, gen_step = make_metricgan_steps(gen, disc, cfg)
+        batch = {k: v.to(dtype) for k, v in data.items()}
+        with recorded_grads() as grads:
+            _, d_metrics = disc_step(state, batch["clean"], batch["noisy"], scores.to(dtype))
+            _, g_metrics = gen_step(state, batch)
+        torch.cuda.synchronize()
+        runs[name] = ({k: float(v) for k, v in {**d_metrics, **g_metrics}.items()}, grads)
+        del gen, disc, state
+        torch.cuda.empty_cache()
+    (losses, grads), (ref_losses, ref_grads) = runs["float32"], runs["float64"]
+    bad = {k: (losses[k], ref_losses[k]) for k in ref_losses
+           if abs(losses[k] - ref_losses[k]) > MG_LOSS_TOL * max(1.0, abs(ref_losses[k]))}
+    require(not bad and len(grads) == len(ref_grads) == 2,
+            f"{what}: D and G losses against float64 on the plain versions: {losses} vs {ref_losses}")
+    worst = []
+    for step_name, got, want in zip(("D", "G"), grads, ref_grads):
+        gscale = max(float(g.abs().max()) for g in want if g is not None)
+        errs = [gradient_close(g, r, gscale) for g, r in zip(got, want) if r is not None]
+        require(all(ok for ok, _ in errs), f"{what}, the {step_name} step: {len(errs)} gradient leaves against "
+                f"float64 on the plain versions, worst {max(e for _, e in errs) / gscale:.3g} of the largest")
+        worst.append(f"{step_name} {len(errs)} leaves, worst {max(e for _, e in errs) / gscale:.3g} of the largest")
+    print(f"{what} against float64 on the plain versions: losses " + ", ".join(
+        f"{k} {losses[k]:.6g} ({abs(losses[k] - ref_losses[k]):.2g})" for k in losses) + "; gradients " + "; ".join(worst),
+        flush=True)
+
+
+def synced_ms(fn) -> tuple:
+    """(fn's result, its wall ms, synchronised)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def check_mg_bsrnn(device, smi) -> None:
+    """Part (b): the steps on ``BSRNN()`` at B=8 x 3 s against float64
+    (``check_mg_steps``); then D pretraining on MG_PRETRAIN scored batches
+    and MG_ALTERNATIONS alternations with replay (finite losses, D and G
+    moved, no hand-written kernel launched); the ms of the enhance, the host
+    scoring, the D step and the G step, an alternation's wall ms and a
+    profile of one (its idle share)."""
+    step_cfg = StepConfig(stft=StftConfig(**BSRNN_STFT))
+    what = f"MetricGAN+ on BSRNN() B={MG_BATCH} x {MG_SECONDS} s"
+    check_mg_steps(lambda plain: build_bsrnn(False, device, SEED + 93, plain), step_cfg,
+                   noisy_clean_pairs(SEED + 94, MG_BATCH, MG_SECONDS, device), device, what)
+    gen = build_bsrnn(False, device, SEED + 93)
+    disc = Discriminator(MG_NDF, generator=torch.Generator().manual_seed(SEED + 92))
+    cfg = MetricGanConfig(step=step_cfg, ndf=MG_NDF)
+    state = init_metricgan_state(gen, disc, cfg, device)
+    steps = make_metricgan_steps(gen, disc, cfg)
+    replay = ReplayBuffer(capacity=8)
+    g0, d0 = named_state(gen), named_state(disc)
+    reset_counts()
+    state, pre_loss = pretrain_discriminator(
+        state, steps, [noisy_clean_pairs(SEED + 95 + i, MG_BATCH, MG_SECONDS, device) for i in range(MG_PRETRAIN)],
+        replay=replay)
+    metrics = []
+    batches = [noisy_clean_pairs(SEED + 97 + i, MG_BATCH, MG_SECONDS, device) for i in range(MG_ALTERNATIONS)]
+    for batch in batches:
+        state, m = metricgan_train_batch(state, batch, steps, replay=replay)
+        metrics.append({k: float(v) for k, v in m.items()})
+    require_launches(f"{what}: pretraining and {MG_ALTERNATIONS} alternations", {})
+    g_still = [k for k, v in g0.items() if torch.equal(v, gen.state_dict()[k])]
+    # every D tensor moves but two: fc2's u, a [1, 1] u normalized to 1 whatever the iteration, and the last
+    # conv's PReLU slope, whose gradient is zero (the max over T and F that follows it picks a channel's
+    # largest value, which its instance norm makes positive)
+    fixed = ("fc2.norm.u", "PReLU_3.negative_slope")
+    d_still = [k for k, v in d0.items() if k not in fixed and torch.equal(v, disc.state_dict()[k])]
+    require(math.isfinite(pre_loss) and all(math.isfinite(v) for m in metrics for v in m.values())
+            and not g_still and not d_still and state.gen.step == MG_ALTERNATIONS
+            and state.disc_opt.count == MG_PRETRAIN + 2 * MG_ALTERNATIONS and len(replay) == MG_PRETRAIN + MG_ALTERNATIONS,
+            f"{what}: pretraining (mean D loss {pre_loss:.5f}) and {MG_ALTERNATIONS} alternations with replay: finite "
+            f"{metrics}; every G tensor moved (unmoved: {g_still}), D's all but {fixed} (unmoved: {d_still})")
+    batch = batches[0]
+    enhance, disc_step, gen_step = steps
+    enhanced, enhance_ms = synced_ms(lambda: enhance(state, batch["noisy"]))
+    rows = (list(batch["clean"].cpu().numpy()), list(enhanced.cpu().numpy()))
+    scores, scoring_ms = synced_ms(lambda: batch_quality_scores(*rows))
+    scores = torch.from_numpy(scores).to(device)
+    _, disc_ms = synced_ms(lambda: disc_step(state, batch["clean"], enhanced, scores))
+    _, gen_ms = synced_ms(lambda: gen_step(state, batch))
+    _, alt_ms = synced_ms(lambda: metricgan_train_batch(state, batch, steps, replay=replay))
+    print(f"{what} on {smi}: enhance {enhance_ms:.1f} ms, host scoring of {MG_BATCH} clips {scoring_ms:.1f} ms, "
+          f"D step {disc_ms:.1f} ms, G step {gen_ms:.1f} ms, an alternation (with replay) {alt_ms:.1f} ms",
+          flush=True)
+    profile_calls(lambda: metricgan_train_batch(state, batch, steps, replay=replay), 1,
+                  f"{what}: one alternation (enhance, host scoring, D fresh + replayed, G)")
+    del gen, disc, state, steps
+    torch.cuda.empty_cache()
+
+
+def check_mg_cruse(device, smi) -> dict:
+    """Part (c): config 2's CRUSE as the generator at B=8 x 3 s:
+    MG_CRUSE_ALTERNATIONS alternations, the enhance launching 2 resident GRU
+    kernels, the G step 2 + 2 (forward, backward) and D nothing, by the
+    counters; each G step's losses against the same step on the plain
+    recurrence (both from the same weights, D stepped alike); a profile of
+    one G step. Returns the GRU launches of the alternations."""
+    step_cfg = train_config("cruse_base.toml")
+    what = f"MetricGAN+ on config 2's CRUSE B={MG_BATCH} x {MG_SECONDS} s"
+    build = cruse_factory(False, device, SEED + 96)
+    cfg = MetricGanConfig(step=step_cfg, ndf=MG_NDF)
+    runs = {}
+    for plain in (True, False):
+        gen = build(plain)
+        disc = Discriminator(MG_NDF, generator=torch.Generator().manual_seed(SEED + 92))
+        runs[plain] = (init_metricgan_state(gen, disc, cfg, device), make_metricgan_steps(gen, disc, cfg))
+    replay = ReplayBuffer(capacity=8)
+    launched = {"gru_sequence": 0, "gru_sequence_bwd": 0}
+    for i in range(MG_CRUSE_ALTERNATIONS):
+        batch = noisy_clean_pairs(SEED + 100 + i, MG_BATCH, MG_SECONDS, device)
+        state, (enhance, disc_step, gen_step) = runs[False]
+        reset_counts()
+        enhanced = enhance(state, batch["noisy"])
+        require_launches(f"{what}: enhance", {"gru_sequence": 2})
+        scores = batch_quality_scores(list(batch["clean"].cpu().numpy()), list(enhanced.cpu().numpy()))
+        reset_counts()
+        disc_step(state, batch["clean"], enhanced, torch.from_numpy(scores).to(device))
+        require_launches(f"{what}: D step", {})
+        reset_counts()
+        _, metrics = gen_step(state, batch)
+        torch.cuda.synchronize()
+        got = counts()
+        require(got == {**{k: 0 for k in got}, "gru_sequence": 2, "gru_sequence_bwd": 2},
+                f"{what}: the G step launched {({k: v for k, v in got.items() if v})} = 2 + 2 GRU (forward, backward)")
+        plain_state, (_, plain_disc_step, plain_gen_step) = runs[True]
+        plain_disc_step(plain_state, batch["clean"], enhanced, torch.from_numpy(scores).to(device))
+        _, plain_metrics = plain_gen_step(plain_state, batch)
+        errs = {k: abs(float(metrics[k]) - float(plain_metrics[k])) for k in metrics}
+        require(all(e <= MG_LOSS_TOL * max(1.0, abs(float(plain_metrics[k]))) for k, e in errs.items()),
+                f"{what}, alternation {i + 1}: G losses against the plain recurrence's step {errs}")
+        launched["gru_sequence"] += 4
+        launched["gru_sequence_bwd"] += 2
+    print(f"{what}: {MG_CRUSE_ALTERNATIONS} alternations, {launched} GRU launches, the G losses within {MG_LOSS_TOL} "
+          "of the plain recurrence's", flush=True)
+    state, (_, _, gen_step) = runs[False]
+    batch = noisy_clean_pairs(SEED + 102, MG_BATCH, MG_SECONDS, device)
+    profile = profile_calls(lambda: gen_step(state, batch), 1, f"{what}: one G step")
+    require(profile.launches.get("gru_resident_kernel") == 2 and sum(
+        n for k, n in profile.launches.items() if k.startswith("gru_bwd")) == 2,
+            f"{what}: the G step's profile shows 2 resident GRU forward and 2 GRU backward kernels: "
+            f"{({k: v for k, v in profile.launches.items() if k.startswith('gru')})}")
+    del runs, state
+    torch.cuda.empty_cache()
+    return launched
+
+
+def check_mg_cli(device, smi, root: Path) -> None:
+    """Part (d): the train CLI's main in this process on
+    ``configs/tiny_bsrnn_gan.toml`` widened as ``bsrnn_trainer_config``
+    widens the BSRNN configs (``BSRNN()``, B=8 x 3 s, 1 epoch of
+    TRAINER_STEPS steps) with ``ndf = 16``: D pretrains, the epoch's G and D
+    means are finite, ``disc_latest`` is written beside ``latest``; then
+    ``-R`` with 2 epochs: D restored, no pretraining logged, one more
+    epoch."""
+    write_trainer_corpus(root)
+    config = bsrnn_trainer_config(root, "tiny_bsrnn_gan")
+    text = config.read_text()
+    require("ndf = 4\n" in text, "configs/tiny_bsrnn_gan.toml sets ndf = 4")
+    config.write_text(text.replace("ndf = 4\n", f"ndf = {MG_NDF}\n"))
+    what = f"train CLI, tiny_bsrnn_gan at BSRNN()'s widths, ndf {MG_NDF}, B={BSRNN_TRAIN_BATCH} x {BSRNN_TRAIN_SECONDS} s"
+    runs = root / "runs" / "tiny_bsrnn_gan"
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = train_main(["-C", str(config), "--device", str(device)])
+    first_s = time.perf_counter() - t0
+    log_text = (runs / "train.log").read_text()
+    means = epoch_lines(log_text, 1)
+    require(trainer.state.step == TRAINER_STEPS and set(means) >= {"disc_loss", "gen_loss", "task_loss", "adv_loss"}
+            and all(math.isfinite(v) for v in means.values()) and "NON-FINITE" not in log_text
+            and log_text.count("D pretraining (2 metric-scored batches)") == 1
+            and all((runs / "checkpoints" / n).is_file() for n in ("latest", "disc_latest", "model_0001.npz")),
+            f"{what}: {trainer.state.step} alternations, finite epoch means {means}, D pretrained once, "
+            "disc_latest beside latest")
+    step_ms = float(np.mean(trainer.timings["step"][1:])) * 1e3
+    del trainer
+    torch.cuda.empty_cache()
+    config.write_text(config.read_text().replace("epochs = 1\n", "epochs = 2\n", 1))
+    t0 = time.perf_counter()
+    trainer = train_main(["-C", str(config), "-R", "--device", str(device)])
+    second_s = time.perf_counter() - t0
+    log_text = (runs / "train.log").read_text()
+    require(trainer.state.step == 2 * TRAINER_STEPS and log_text.count("D pretraining") == 1
+            and log_text.count("discriminator checkpoint restored.") == 1 and math.isfinite(
+                epoch_lines(log_text, 2).get("gen_loss", math.nan)),
+            f"{what}: -R restored D, logged no pretraining and trained epoch 2")
+    require_launches(f"{what}: both runs", {})
+    print(f"{what} on {smi}: the first run {first_s:.1f} s ({step_ms:.1f} ms an alternation after the first), "
+          f"-R {second_s:.1f} s", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def check_metricgan(device, smi) -> dict:
+    """MetricGAN+ (parts a to d, see the module doc); returns the GRU
+    launches of part (c)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    check_discriminator(device)
+    lap = [time.perf_counter()]
+    check_mg_bsrnn(device, smi)
+    lap.append(time.perf_counter())
+    launched = check_mg_cruse(device, smi)
+    lap.append(time.perf_counter())
+    with tempfile.TemporaryDirectory() as tmp:
+        check_mg_cli(device, smi, Path(tmp))
+    lap.append(time.perf_counter())
+    parts = [b - a for a, b in zip([t0] + lap[:-1], lap)]
+    print(f"MetricGAN+ phase: {time.perf_counter() - t0:.1f} s (D {parts[0]:.1f}, BSRNN {parts[1]:.1f}, CRUSE "
+          f"{parts[2]:.1f}, CLI {parts[3]:.1f})", flush=True)
+    return launched
+
+
+def bsrnn_lstm_nodes(program) -> int:
+    """The program's ``aten.lstm`` nodes; any other node of an LSTM's
+    decomposition fails the check."""
+    targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function" and "lstm" in str(n.target)]
+    require(set(targets) <= {"aten.lstm.input"}, f"BSRNN program: LSTM nodes {sorted(set(targets))}")
+    return len(targets)
+
+
+def check_bsrnn_artifacts(device, smi, tmp: Path) -> None:
+    """``BSRNN()`` exported offline at B=4 x 10 s and the causal ``BSRNN()``
+    as the streaming step at B=1, each in float32 (saved and loaded) and in
+    int8 (as exported): every program one ``aten.lstm`` node an LSTM (12); no hand-written kernel
+    launched; offline against eager ``auto`` on the same (dequantized)
+    weights within BSRNN_DEPLOY_TOL, int8 against float32 in dB, ms a call in
+    turns with eager's and device launches a call against eager's (float32
+    no more); streamed BSRNN_DEPLOY_HOPS hops against the eager hop within
+    BSRNN_DEPLOY_TOL, the carried state leaf for leaf (the norms' counts
+    equal), then ``compare_hops`` over BSRNN_TIMED_HOPS timed and
+    BSRNN_PROFILED_HOPS profiled hops."""
+    lstms = 2 * BsrnnConfig().num_layer
+    for causal in (False, True):
+        model = build_bsrnn(causal, device, SEED + 110 + causal).eval()
+        state, report = int8_state_dict(model)
+        print(f"BSRNN(causal={causal}): {report_line(report)}")
+        kind = "streaming" if causal else "offline"
+        runs, outs = {}, {}
+        for quant in (None, "int8"):
+            what = f"BSRNN {kind} artifact ({quant or 'fp32'}, " + (
+                f"B=1, {BSRNN_DEPLOY_HOPS} hops)" if causal else f"B={BSRNN_DEPLOY_BATCH} x {BSRNN_DEPLOY_SECONDS} s)")
+            t0 = time.perf_counter()
+            exporting = clone_model(model, device, state if quant else None, keep_int8=True)
+            meta = {"model": f"BSRNN(causal={causal})", "sr": SR, **BSRNN_STFT, "quantized": quant,
+                    "device": str(device)}
+            path = tmp / f"bsrnn_{kind}.zip"
+            # the float32 program is saved and loaded; the int8 one runs as exported (its container is
+            # the tests' and run_exported's on the CPU), which keeps the phase inside its budget
+            if causal:
+                cfg = StftConfig(**BSRNN_STFT, center=False)
+                program, init = export_streaming(exporting, cfg, 1, device)
+                if quant is None:
+                    artifact_lib.save_streaming(str(path), program, init, {**meta, "batch": 1})
+                else:
+                    art = artifact_lib.StreamingArtifact(program, list(pytree.tree_leaves(init)), meta)
+            else:
+                length = BSRNN_DEPLOY_SECONDS * SR
+                icfg = InferencerConfig(type="auto", sr=SR, stft=StftConfig(**BSRNN_STFT))
+                program = export_offline(exporting, icfg, BSRNN_DEPLOY_BATCH, length, device)
+                if quant is None:
+                    artifact_lib.save_offline(str(path), program,
+                                              {**meta, "batch": BSRNN_DEPLOY_BATCH, "length": length})
+                else:
+                    art = artifact_lib.OfflineArtifact(program, meta)
+            export_s = time.perf_counter() - t0
+            if quant is None:
+                art = artifact_lib.load(str(path), device)
+            load_s = time.perf_counter() - t0 - export_s
+            nodes = bsrnn_lstm_nodes(art.program)
+            require(nodes == lstms, f"{what}: {nodes} aten.lstm nodes = one an LSTM ({lstms})")
+            eager_model = clone_model(model, device, state if quant else None)
+            if causal:
+                enh = StreamingEnhancer(eager_model, cfg)
+                keep, hop = cfg.n_fft - cfg.hop_length, cfg.hop_length
+                wav = torch.from_numpy(noisy_utterances(SEED + 112, (keep + BSRNN_DEPLOY_HOPS * hop,))[0][None]).to(device)
+                hops = [wav[:, keep + i * hop : keep + (i + 1) * hop] for i in range(BSRNN_DEPLOY_HOPS)]
+                a_state, e_state = art.prime(art.init_state(), wav[:, :keep]), enh.prime(enh.init_state(1), wav[:, :keep])
+                reset_counts()
+                got = []
+                for h in hops:
+                    out, a_state = art.step(a_state, h)
+                    got.append(out)
+                require_launches(what, {})
+                want = []
+                for h in hops:
+                    out, e_state = enh.step(e_state, h)
+                    want.append(out)
+                got, want = torch.cat(got, -1), torch.cat(want, -1)
+                err = float((got - want).abs().max())
+                leaves = pytree.tree_leaves(e_state.model_state)
+                state_err = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                                for a, b in zip(a_state.model_state, leaves))
+                norm_counts = [(a, b) for a, b in zip(a_state.model_state, leaves) if a.dim() == 1][2::3]
+                norms = 2 * 31 + 2 * model.config.num_layer  # the band split's, the decoder's, two a layer
+                require(bool(torch.isfinite(got).all()) and err <= BSRNN_DEPLOY_TOL and len(leaves) == len(
+                    a_state.model_state) and state_err <= BSRNN_DEPLOY_TOL and len(norm_counts) == norms
+                        and all(torch.equal(a, b) for a, b in norm_counts),
+                        f"{what} vs the eager hop on the same weights: max-abs {err:.3g}, the carried state's "
+                        f"{len(leaves)} leaves {state_err:.3g} x max(1, max|leaf|) <= {BSRNN_DEPLOY_TOL}, the "
+                        f"{norms} norms' counts equal")
+                runs[quant or "fp32"] = (art, enh, a_state, e_state)
+            else:
+                x = torch.from_numpy(np.stack(noisy_utterances(SEED + 113, (length,) * BSRNN_DEPLOY_BATCH))).to(device)
+                reset_counts()
+                got = art.enhance(x)
+                require_launches(what, {})
+                eager = BatchInferencer(eager_model, icfg, device)
+                err = float((got - eager.auto(x)).abs().max())
+                require(bool(torch.isfinite(got).all()) and tuple(got.shape) == tuple(x.shape)
+                        and err <= BSRNN_DEPLOY_TOL,
+                        f"{what} vs eager auto on the same weights: max-abs {err:.3g} <= {BSRNN_DEPLOY_TOL}")
+                times = in_turns({"artifact": lambda: [enhancement_seconds(art.enhance, x, reps=1)],
+                                  "eager auto": lambda: [enhancement_seconds(eager.auto, x, reps=1)]}, 1)
+                kernels = {key: profile_calls(fn, 1, f"{what}: {key}")
+                           for key, fn in (("eager auto", lambda: eager.auto(x)), ("artifact", lambda: art.enhance(x)))}
+                if quant is None:  # int8 dequantizes its leaves and cuDNN copies them, every call
+                    require(kernels["artifact"].whole <= kernels["eager auto"].whole,
+                            f"{what}: {kernels['artifact'].whole} device launches a call <= eager auto's "
+                            f"{kernels['eager auto'].whole}")
+                print(f"{what} on {smi}: " + "; ".join(f"{k} " + ", ".join(f"{t * 1e3:.1f}" for t in v) + " ms a call"
+                                                       for k, v in times.items())
+                      + f"; device launches a call: artifact {kernels['artifact'].kernels:.1f}, eager "
+                      f"{kernels['eager auto'].kernels:.1f}", flush=True)
+                outs[quant] = got
+                del eager, x
+            print(f"{what}: max-abs {err:.3g} against eager; {nodes} aten.lstm nodes; " + (
+                f"file {path.stat().st_size / 1e6:.3f} MB; export and save {export_s:.1f} s, load {load_s:.1f} s"
+                if quant is None else f"export {export_s:.1f} s"), flush=True)
+        if causal:
+            compare_hops("BSRNN(causal=True) B=1 hop", runs, hops, smi,
+                         "each int8 weight dequantized, and cuDNN's weights copied, every hop",
+                         timed=BSRNN_TIMED_HOPS, profiled=BSRNN_PROFILED_HOPS, rounds=1)
+        else:
+            snr = snr_db(outs[None], outs["int8"])
+            require(snr > INT8_SNR_DB, f"BSRNN int8 offline artifact against float32: {snr:.2f} dB > {INT8_SNR_DB} dB")
+            print(f"BSRNN offline artifacts on {smi}: int8 against float32 {snr:.2f} dB", flush=True)
+        del model, runs, outs
+        torch.cuda.empty_cache()
+
+
 def require_fsn_launches(what: str, calls: int) -> None:
     """The counters since ``reset_counts``: ``calls`` FullSubNet calls or
     hops' GRU launches (4 each, 2 of them resident) and nothing else."""
@@ -4140,17 +4584,20 @@ def require_fsn_launches(what: str, calls: int) -> None:
             "sub band's on route B)")
 
 
-def compare_hops(what: str, runs: dict, hops: list, smi, int8_cost: str) -> None:
+def compare_hops(what: str, runs: dict, hops: list, smi, int8_cost: str, timed: int | None = None,
+                 profiled: int = 20, rounds: int = 2) -> None:
     """A B=1 hop of the eager path and of the float32 and int8 artifacts
     (``runs``: "fp32" and "int8" -> (artifact, its eager enhancer, the
-    artifact's state, the eager state)): wall ms a hop in turns, then device
-    launches a hop from profiles of 20 hops, the float32 artifact's in most
+    artifact's state, the eager state)): wall ms a hop over the first
+    ``timed`` hops (all by default) in ``rounds`` turns, then device launches
+    a hop from profiles of ``profiled`` hops, the float32 artifact's in most
     hops no more than eager's; prints what the int8 hop's extra launches cost
     (``int8_cost``)."""
     art, enh, a_state, e_state = runs["fp32"]
     int8, _, int8_state, _ = runs["int8"]
     steps = {"eager": (enh.step, e_state), "fp32": (art.step, a_state), "int8": (int8.step, int8_state)}
-    times = in_turns({key: lambda step=step, st=st: [hop_ms(step, st, hops)] for key, (step, st) in steps.items()})
+    times = in_turns({key: lambda step=step, st=st: [hop_ms(step, st, hops[:timed])]
+                      for key, (step, st) in steps.items()}, rounds)
     print(f"{what} on {smi}: " + "; ".join(f"{key} " + ", ".join(f"{t:.4f}" for t in ts) + " ms"
                                          for key, ts in times.items()), flush=True)
     kernels = {}
@@ -4161,7 +4608,7 @@ def compare_hops(what: str, runs: dict, hops: list, smi, int8_cost: str) -> None
             _, carry["state"] = step(carry["state"], hops[carry["i"] % len(hops)])
             carry["i"] += 1
 
-        kernels[key] = profile_calls(one_hop, 20, f"{what}, {key}")
+        kernels[key] = profile_calls(one_hop, profiled, f"{what}, {key}")
     whole = {key: prof.whole for key, prof in kernels.items()}
     kernels = {key: prof.kernels for key, prof in kernels.items()}
     require(whole["fp32"] <= whole["eager"], f"{what}: the float32 artifact's {whole['fp32']} device launches in "
@@ -4358,8 +4805,8 @@ def check_deployment(device, smi) -> dict:
     ``check_streaming_artifacts``, ``check_deploy_clis``, then MTFAA's
     ``check_mtfaa_offline_artifacts``, ``check_mtfaa_streaming_artifacts``,
     ``check_mtfaa_clis``, then FullSubNet's ``check_fsn_offline_artifacts``
-    and ``check_fsn_streaming_artifacts`` and McCruse's
-    ``check_mc_artifacts``) in one temporary directory; returns the kernel
+    and ``check_fsn_streaming_artifacts``, McCruse's
+    ``check_mc_artifacts`` and BSRNN's ``check_bsrnn_artifacts``) in one temporary directory; returns the kernel
     launches its artifacts made."""
     import tempfile
 
@@ -4387,7 +4834,11 @@ def check_deployment(device, smi) -> dict:
         t1 = time.perf_counter()
         mc = check_mc_artifacts(device, smi, tmp)
         torch.cuda.empty_cache()
-        print(f"FullSubNet artifacts {t1 - t0:.1f} s, McCruse artifacts {time.perf_counter() - t1:.1f} s", flush=True)
+        t2 = time.perf_counter()
+        check_bsrnn_artifacts(device, smi, tmp)
+        torch.cuda.empty_cache()
+        print(f"FullSubNet artifacts {t1 - t0:.1f} s, McCruse artifacts {t2 - t1:.1f} s, BSRNN artifacts "
+              f"{time.perf_counter() - t2:.1f} s", flush=True)
     return {"gru_sequence": gru_offline + gru_stream + fsn + mc, "fullsubnet_gru_sequence": fsn,
             "mc_cruse_gru_sequence": mc,
             "deep_filter": df_stream + mtfaa_offline["deep_filter"] + mtfaa_stream["deep_filter"],
@@ -5560,6 +6011,8 @@ def main() -> int:
     lap("McCruse training")
     check_bsrnn(device, smi)
     lap("BSRNN")
+    mg = check_metricgan(device, smi)
+    lap("MetricGAN+")
     deploy_launches = check_deployment(device, smi)  # last: torch.export's tracing machinery after every profile
     lap("deployment")
 
@@ -5592,7 +6045,7 @@ def main() -> int:
                  launches + stream_gru + auto_gru + cruse_launches["gru_sequence"] + cruse_df_launches["gru_sequence"]
                  + server_launches["gru_sequence"] + deploy_launches["gru_sequence"]
                  + trainer_launches["gru_sequence"] + feature_launches["gru_sequence"] + fsn["gru_sequence"]
-                 + mc["gru_sequence"] + mc["server_gru_sequence"] + mc_train["gru_sequence"],
+                 + mc["gru_sequence"] + mc["server_gru_sequence"] + mc_train["gru_sequence"] + mg["gru_sequence"],
                  max(gru_err, fsn["gru_err"]), (kernel_ms, plain_ms), gru_bound, lib["gru"]),
          "resident_ms": gru_times["f32"][0], "streamed_ms": gru_times["f32"][1],
          "server_launches": server_launches["gru_sequence"], "artifact_launches": deploy_launches["gru_sequence"],
@@ -5606,6 +6059,8 @@ def main() -> int:
                                      "cli": mc_train["cli"]["gru_sequence"]},
          "fullsubnet_artifact_launches": deploy_launches["fullsubnet_gru_sequence"],
          "mc_cruse_artifact_launches": deploy_launches["mc_cruse_gru_sequence"],
+         # MetricGAN+ with config 2's CRUSE as the generator: 2 a G step's forward, 2 an enhance
+         "metricgan_launches": mg["gru_sequence"],
          # the forward's two routes at FullSubNet's offline shapes, launches in its phase
          "routes": [{"route": row["route"], "kernel": ROUTE_KERNELS[row["route"]],
                      "launches": fsn["gru_resident"] if row["route"] == "resident"
@@ -5616,12 +6071,13 @@ def main() -> int:
          "replaces": "cruse_tpu/nn/gru.py:30 (no TPU kernel: the JAX step differentiates gru_scan)",
          "launches": cruse_launches["gru_sequence_bwd"] + cruse_df_launches["gru_sequence_bwd"]
          + trainer_launches["gru_sequence_bwd"] + feature_launches["gru_sequence_bwd"] + fsn["gru_sequence_bwd"]
-         + mc_train["gru_sequence_bwd"],
+         + mc_train["gru_sequence_bwd"] + mg["gru_sequence_bwd"],
          "max_abs_err": gru_bwd_err, **gru_bwd_times, "trainer_launches": trainer_launches["gru_sequence_bwd"],
          "features_launches": feature_launches["gru_sequence_bwd"], "fullsubnet_launches": fsn["gru_sequence_bwd"],
          "fullsubnet_stages": fsn["backward_rows"],
          "mc_cruse_train_launches": {"steps": mc_train["steps"]["gru_sequence_bwd"],
                                      "cli": mc_train["cli"]["gru_sequence_bwd"]},
+         "metricgan_launches": mg["gru_sequence_bwd"],  # 2 a MetricGAN+ G step on config 2's CRUSE
          # the backward's two routes at FullSubNet's training shapes, launches in its train steps
          "routes": [{"route": row["route"], "kernel": BWD_ROUTE_KERNELS[row["route"]],
                      "launches": fsn["gru_bwd_resident"] if row["route"] == "resident"

@@ -36,9 +36,15 @@ artifact through ``artifact.load`` and runs it once before it exits 0.
 Exported: CRUSE, CRUSE+DF, DFSMN, MTFAA (configs 5 and 5b offline, a
 windowed MTFAA also streamed; a full-causal one streamed raises
 ``StreamingEnhancer``'s ``ValueError``), FullSubNet offline and, with the
-cumulative norm, streamed, and McCruse streamed. BSRNN is refused by name,
-offline and streamed, before tracing: its export comes with MetricGAN+
-(ROADMAP.md queue 1 item 6). McCruse offline is refused by name before
+cumulative norm, streamed, McCruse streamed, and BSRNN offline and, causal,
+streamed (a non-causal one streamed raises ``StreamingEnhancer``'s
+``ValueError``). BSRNN's program keeps each LSTM as one ``aten.lstm`` node,
+cuDNN's RNN on the card: this path never calls ``run_decompositions()``,
+which would unroll it frame by frame. Its streamed state is flat like the
+others: the cumulative norms' running sums and float32 counts, each time
+LSTM's ``(h, c)`` as ``[B·31, 1, 2N]``. In int8 the LSTMs' ``weight_ih_l0`` /
+``weight_hh_l0`` (and their ``_reverse``) and the band Linears hold int8
+codes, dequantized in the program before each ``aten.lstm``. McCruse offline is refused by name before
 tracing: the JAX exporter cannot export it either, for it
 feeds the adapter a single-channel ``[B, L]`` STFT where McCruse's takes
 ``[B, M, T, F, 2]``. The MTFAA offline program runs the
@@ -90,23 +96,13 @@ class _FlatStep(nn.Module):
         return out, new._replace(model_state=tuple(pytree.tree_leaves(new.model_state)))
 
 
-def _refuse_bsrnn(model: nn.Module) -> None:
-    from cruse_tpu_torch.models.bsrnn import BSRNN
-
-    if isinstance(model, BSRNN):
-        raise NotImplementedError("exporting BSRNN (offline or streamed) is not ported yet: it comes with "
-                                  "MetricGAN+ (ROADMAP.md queue 1 item 6); serve it eagerly with "
-                                  "python -m cruse_tpu_torch.infer or .serve")
-
-
 def export_offline(model: nn.Module, icfg, batch: int, length: int, device):
     """The ``torch.export`` program of enhanced [B, L] = graph(noisy [B, L]):
     ``_mag_to_mag_impl`` for ``icfg.type == "mag_to_mag"``, else
-    ``_auto_impl``. McCruse and BSRNN are refused (see the module doc)."""
+    ``_auto_impl``. McCruse is refused (see the module doc)."""
     from cruse_tpu_torch.infer.batch import BatchInferencer
     from cruse_tpu_torch.models.mc_cruse import McCruseNet
 
-    _refuse_bsrnn(model)
     if isinstance(model, McCruseNet):
         raise NotImplementedError(
             "exporting McCruse offline is not supported: the JAX exporter (tools/export.py) traces the "
@@ -126,12 +122,10 @@ def export_offline(model: nn.Module, icfg, batch: int, length: int, device):
 def export_streaming(model: nn.Module, cfg, batch: int, device):
     """(the program of the per-hop step, its initial state): the state a
     ``StreamState`` whose ``model_state`` is a flat tuple of tensors. The
-    hop is ``[B, hop]``, or ``[B, M, hop]`` for a multi-mic model. BSRNN is
-    refused (see the module doc)."""
+    hop is ``[B, hop]``, or ``[B, M, hop]`` for a multi-mic model."""
     from cruse_tpu_torch.infer.artifact import StreamState
     from cruse_tpu_torch.infer.streaming import StreamingEnhancer
 
-    _refuse_bsrnn(model)
     enhancer = StreamingEnhancer(model.to(device), cfg)
     state = enhancer.init_state(batch)
     leaves, spec = pytree.tree_flatten(state.model_state)
@@ -162,7 +156,8 @@ def build(config: dict, weights: str | None, seed: int, quantize: str | None):
     return model.eval()
 
 
-def main(argv=None) -> None:
+def main(argv=None):
+    """The export CLI; returns the artifact as its reload check loaded it."""
     parser = argparse.ArgumentParser(prog="python -m cruse_tpu_torch.infer.export",
                                      description="export an enhancement artifact")
     parser.add_argument("-C", "--configuration", required=True, help="Config (*.toml).")
@@ -222,6 +217,7 @@ def main(argv=None) -> None:
         if tuple(out.shape) != (args.batch, length):
             raise RuntimeError(f"reload check: the output came back {tuple(out.shape)}")
     log("reload check OK")
+    return art
 
 
 if __name__ == "__main__":

@@ -1,8 +1,7 @@
 """Model zoo of the port. CRUSE, CRUSE+DF, DFSMN, MTFAA, FullSubNet, the
-multi-channel McCruse and BSRNN are ported; MetricGAN+'s discriminator is
-not yet."""
+multi-channel McCruse, BSRNN and MetricGAN+'s discriminator are ported."""
 
-from cruse_tpu_torch.models.bsrnn import BSRNN, BsrnnConfig  # noqa: F401
+from cruse_tpu_torch.models.bsrnn import BSRNN, BsrnnConfig, Discriminator  # noqa: F401
 from cruse_tpu_torch.models.cruse import CruseConfig, CruseNet  # noqa: F401
 from cruse_tpu_torch.models.cruse_df import CruseDfConfig, CruseDfNet  # noqa: F401
 from cruse_tpu_torch.models.dfsmn import DfsmnBlock, DfsmnConfig, DfsmnNet  # noqa: F401

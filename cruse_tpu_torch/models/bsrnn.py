@@ -24,13 +24,21 @@ for ``CausalNorm1``, a cumulative layer norm with the same affine, so the
 model streams: its state carries the norms' running (sum, power, count)
 ``[B]`` (31 + L + L + 31 of them) and the time LSTMs' ``(h, c)``, each
 ``[B·31, 1, 2N]``; a chunked call continues where the last one stopped.
+
+MetricGAN+'s pieces (``cruse_tpu/models/bsrnn.py:248-308``) live here too:
+``Discriminator``, which regresses a quality score from a (clean, estimate)
+magnitude pair, with its ``SpectralNorm`` (flax's, not torch's) and
+``LearnableSigmoid``, and ``batch_quality_scores``, the normalized PESQ it
+learns. ``train/metricgan.py`` trains the two nets in turn.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from cruse_tpu_torch.models.dfsmn import _linear
@@ -244,3 +252,152 @@ class BSRNN(nn.Module):
                 "time_lstm": tuple(lstm_state() for _ in range(cfg.num_layer)),
                 "band_norm": tuple(norm_carry() for _ in range(cfg.num_layer)),
                 "dec": tuple(norm_carry() for _ in BAND_WIDTHS)}
+
+
+# ---------------- MetricGAN+'s discriminator ----------------
+
+
+def _l2_normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """flax's ``_l2_normalize``: ``x / sqrt(sum(x^2) + eps)`` over every entry."""
+    return x * torch.rsqrt((x * x).sum() + eps)
+
+
+class SpectralNorm(nn.Module):
+    """flax's ``linen.SpectralNorm`` (one power iteration, eps 1e-12) for the
+    weight of one layer with ``out`` output channels: the weight divided by
+    its largest singular value, estimated by one power-iteration step from
+    the stored ``u`` ``[1, out]`` at every call, training or not. With
+    ``update_stats`` the call stores its ``u`` and ``sigma``; ``u`` and the
+    iteration's ``v`` take no gradient, ``sigma`` does (through the weight).
+
+    It is not ``torch.nn.utils.parametrizations.spectral_norm``, which skips
+    the iteration in eval mode, runs 15 when it is registered, and divides by
+    ``max(norm, eps)`` where flax multiplies by ``rsqrt(norm^2 + eps)``. The
+    weight is taken as ``[out, -1]`` in torch's layout: flax's ``[-1, out]``
+    transposed, its rows in another order, which moves no singular value."""
+
+    EPS = 1e-12
+
+    def __init__(self, out: int, generator: torch.Generator):
+        super().__init__()
+        self.register_buffer("u", torch.randn(1, out, generator=generator))
+        self.register_buffer("sigma", torch.ones(()))
+
+    def forward(self, weight: torch.Tensor, update_stats: bool) -> torch.Tensor:
+        w = weight.reshape(weight.shape[0], -1)
+        with torch.no_grad():
+            v = _l2_normalize(self.u @ w, self.EPS)
+            u = _l2_normalize(v @ w.T, self.EPS)
+        sigma = (v @ w.T @ u.T)[0, 0]
+        if update_stats:
+            with torch.no_grad():
+                self.u.copy_(u)
+                self.sigma.copy_(sigma)
+        return weight / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
+
+
+class PReLU(nn.Module):
+    """flax's ``PReLU``: one slope for every channel, 0.01 at first."""
+
+    def __init__(self):
+        super().__init__()
+        self.negative_slope = nn.Parameter(torch.tensor(0.01))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.negative_slope * x)
+
+
+class LearnableSigmoid(nn.Module):
+    """``beta * sigmoid(slope * x)``, ``slope`` learnable (``[features]``, 1 at first)."""
+
+    def __init__(self, features: int = 1, beta: float = 1.2):
+        super().__init__()
+        self.beta = beta
+        self.slope = nn.Parameter(torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.beta * torch.sigmoid(self.slope * x)
+
+
+class _SpectralConv(nn.Module):
+    """A spectral-normed 4x4 convolution, stride 2, padding 1, no bias
+    (flax's ``SpectralNorm(Conv(...))``); ``weight`` ``[out, in, 4, 4]``."""
+
+    def __init__(self, cin: int, cout: int, generator: torch.Generator):
+        super().__init__()
+        self.weight = nn.Parameter(torch.randn(cout, cin, 4, 4, generator=generator) * (16 * cin) ** -0.5)
+        self.norm = SpectralNorm(cout, generator)
+
+    def forward(self, x: torch.Tensor, update_stats: bool) -> torch.Tensor:
+        return F.conv2d(x, self.norm(self.weight, update_stats), stride=2, padding=1)
+
+
+class _SpectralLinear(nn.Module):
+    """A spectral-normed Dense layer (its bias is not normed); ``weight``
+    ``[out, in]``."""
+
+    def __init__(self, cin: int, cout: int, generator: torch.Generator):
+        super().__init__()
+        self.weight = nn.Parameter(torch.randn(cout, cin, generator=generator) * cin ** -0.5)
+        self.bias = nn.Parameter(torch.zeros(cout))
+        self.norm = SpectralNorm(cout, generator)
+
+    def forward(self, x: torch.Tensor, update_stats: bool) -> torch.Tensor:
+        return F.linear(x, self.norm(self.weight, update_stats), self.bias)
+
+
+class Discriminator(nn.Module):
+    """MetricGAN+'s discriminator on (clean, estimate) magnitude pairs: two
+    ``[B, T, F]`` magnitudes -> a quality in ``[0, 1.2]``, ``[B, 1]``. Four
+    spectral-normed stride-2 convolutions (``ndf`` x 1, 2, 4, 8 channels),
+    each followed by an instance norm (per channel over T and F, the
+    population variance, eps 1e-5) and a PReLU; a max over T and F; then
+    ``fc1`` (4 ``ndf``), a PReLU, ``fc2`` (1) and ``LearnableSigmoid``.
+    ``update_stats`` stores each spectral norm's ``u`` and ``sigma`` (the
+    flax call's ``train``). Weights made from ``generator``: lecun-normal
+    kernels, zero biases, ``u`` standard normal."""
+
+    def __init__(self, ndf: int = 16, generator: torch.Generator | None = None):
+        super().__init__()
+        gen = generator or torch.Generator().manual_seed(0)
+        self.ndf = ndf
+        cin = 2
+        for i, mult in enumerate((1, 2, 4, 8)):
+            setattr(self, f"conv_{i}", _SpectralConv(cin, ndf * mult, gen))
+            setattr(self, f"PReLU_{i}", PReLU())
+            cin = ndf * mult
+        self.fc1 = _SpectralLinear(cin, 4 * ndf, gen)
+        self.PReLU_4 = PReLU()
+        self.fc2 = _SpectralLinear(4 * ndf, 1, gen)
+        self.lsig = LearnableSigmoid(1)
+
+    def forward(self, x_mag: torch.Tensor, y_mag: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
+        x = torch.stack([x_mag, y_mag], dim=1)  # [B, 2, T, F]
+        for i in range(4):
+            x = getattr(self, f"conv_{i}")(x, update_stats)
+            mu = x.mean(dim=(2, 3), keepdim=True)
+            var = torch.square(x - mu).mean(dim=(2, 3), keepdim=True)
+            x = getattr(self, f"PReLU_{i}")((x - mu) / torch.sqrt(var + 1e-5))
+        x = x.amax(dim=(2, 3))  # [B, C]
+        x = self.PReLU_4(self.fc1(x, update_stats))
+        return self.lsig(self.fc2(x, update_stats))
+
+
+def batch_quality_scores(clean_list, est_list, sr: int = 16000):
+    """MetricGAN's target scores, ``(wideband PESQ + 0.5) / 5`` a pair, as a
+    float32 array: the ``pesq`` package's when it imports (None when it
+    refuses a pair, as on silence), else ``metrics/pesq_native.py``'s."""
+    try:
+        from pesq import pesq as _pesq
+    except ImportError:
+        from cruse_tpu_torch.metrics.pesq_native import wb_pesq_native
+
+        return np.asarray([(wb_pesq_native(c, e, sr) + 0.5) / 5.0 for c, e in zip(clean_list, est_list)],
+                          np.float32)
+    scores = []
+    for c, e in zip(clean_list, est_list):
+        try:
+            scores.append((_pesq(sr, np.asarray(c), np.asarray(e), "wb") + 0.5) / 5.0)
+        except Exception:
+            return None
+    return np.asarray(scores, np.float32)

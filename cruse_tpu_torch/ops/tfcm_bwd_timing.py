@@ -24,6 +24,7 @@ import json
 import re
 import subprocess
 import tempfile
+import time
 
 import torch
 
@@ -89,11 +90,17 @@ def kernel_events(fn, calls: int) -> list:
     disagrees with the device's nor kernels an earlier trace left behind can
     move a kernel in or out of the calls. The trace holds host activity too:
     inside chip_smoke.py, traces of the device alone came back empty now and
-    then."""
+    then. A trace may lose what is launched as it opens (inside
+    chip_smoke.py on an H100, six traces in a row lost the opening markers
+    and every hand-written launch), so one call, finished, and 10 ms pass
+    before the opening markers; the markers keep that call out."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.01)
         for _ in range(MARKERS):
             torch.cuda._sleep(MARKER_CYCLES)
         for _ in range(calls):

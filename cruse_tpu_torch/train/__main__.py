@@ -14,7 +14,7 @@ batches, as ``configs/tiny_mc.toml`` and ``tiny_mc_rir.toml`` ask), and
 for AdamW, ``freeze`` patterns, ``ema_decay``, the schedule);
 ``[trainer.train]`` (``grad_accum_steps`` among its fields),
 ``[trainer.validation]``, ``[trainer.profiling]``,
-``[trainer.distillation]``; ``[loss.weights]``.
+``[trainer.distillation]``, ``[trainer.adversarial]``; ``[loss.weights]``.
 
 The model's weights are made from ``[meta] seed``. Training batches are
 assembled on the host and mixed on the device, two batches ahead of the
@@ -24,12 +24,16 @@ a snapshot (a checkpoint file or a flax-layout ``.npz``); ``-V`` only
 validates. ``[trainer.distillation]`` loads a frozen teacher for the
 ``distill`` loss: ``config`` names the teacher's TOML (its ``[model]``),
 ``checkpoint`` its weights -- a port checkpoint or a flax-layout ``.npz``,
-the EMA weights where it holds them -- with its BatchNorm statistics. The
-run trains on the card (``--device cuda``, the default) unless ``--device
-cpu`` asks for the CPU; a CUDA device that is not there is an error. ``-N``
-/ ``-M`` above 1 (a device mesh), ``[trainer.adversarial]`` and the step
-options the port refuses (bf16 via ``use_amp``, ``flatten_optimizer``)
-stop the run with their names.
+the EMA weights where it holds them -- with its BatchNorm statistics.
+``[trainer.adversarial]`` (``adv_weight``, ``disc_lr``, ``ndf``,
+``replay_capacity``, ``pretrain_steps``) trains by MetricGAN+ (a
+discriminator, its pretraining and the D/G alternation with replay; D's
+state in ``disc_latest`` beside ``latest``), as ``configs/tiny_bsrnn_gan.toml``
+asks. The run trains on the card (``--device cuda``, the default) unless
+``--device cpu`` asks for the CPU; a CUDA device that is not there is an
+error. ``-N`` / ``-M`` above 1 (a device mesh) and the step options the
+port refuses (bf16 via ``use_amp``, ``flatten_optimizer``) stop the run
+with their names.
 """
 from __future__ import annotations
 
@@ -145,8 +149,6 @@ def build_trainer(args: argparse.Namespace):
     exp_name = config["meta"].get("experiment_name",
                                   os.path.splitext(os.path.basename(args.configuration))[0])
     trainer_section = config.get("trainer", {})
-    if trainer_section.get("adversarial"):
-        raise NotImplementedError("[trainer.adversarial]: MetricGAN+ is not ported")
     seed = int(config["meta"].get("seed", 0))
     random.seed(seed)
     np.random.seed(seed)
@@ -172,6 +174,8 @@ def build_trainer(args: argparse.Namespace):
         save_dir=config["meta"].get("save_dir", "runs"),
         experiment_name=exp_name,
         only_validation=args.only_validation,
+        # [trainer.adversarial]: the MetricGAN+ alternation (replay, D pretraining, D checkpoints)
+        adversarial=trainer_section.get("adversarial"),
         profiling=trainer_section.get("profiling"),
     )
     train_ds = dataset_from(config["train_dataset"], device)

@@ -18,6 +18,11 @@ Under a run's ``checkpoints/`` directory:
   where they are;
 - ``best``: the whole state, overwritten on a new best composite score.
 
+- ``disc_latest`` (MetricGAN+ training): the discriminator's ``state_dict``
+  (its parameters and its spectral norms' ``u`` and ``sigma``) and its
+  Adam state, written beside ``latest`` (``save_discriminator``) and read
+  back on resume (``restore_discriminator``).
+
 A file is written to a temporary name and renamed, so that a run stopped in
 the middle of a save leaves the previous file whole. ``restore_checkpoint``
 loads ``latest`` into a train state in place; ``preload_params`` warm-starts
@@ -94,6 +99,28 @@ def save_checkpoint(ckpt_dir: str | Path, state: TrainState | Dict[str, Any], ep
     os.replace(partial, npz)
     if is_best_epoch:
         _write(tree, ckpt_dir / "best")
+
+
+def save_discriminator(ckpt_dir: str | Path, disc, disc_opt) -> None:
+    """Write ``disc_latest``: ``disc``'s state_dict and ``disc_opt`` (an
+    ``AdamState``), on the host."""
+    ckpt_dir = Path(ckpt_dir).expanduser().absolute()
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    _write({"disc": {k: _host(v) for k, v in disc.state_dict().items()}, "opt_count": int(disc_opt.count),
+            "opt_mu": [_host(m) for m in disc_opt.mu], "opt_nu": [_host(v) for v in disc_opt.nu]},
+           ckpt_dir / "disc_latest")
+
+
+def restore_discriminator(ckpt_dir: str | Path, disc, disc_opt) -> None:
+    """Load ``disc_latest`` into ``disc`` and ``disc_opt`` in place."""
+    tree = load_checkpoint(Path(ckpt_dir).expanduser() / "disc_latest")
+    disc.load_state_dict(tree["disc"], strict=True)
+    if len(tree["opt_mu"]) != len(disc_opt.mu):
+        raise ValueError(f"disc_latest: {len(tree['opt_mu'])} Adam moments for a discriminator with "
+                         f"{len(disc_opt.mu)} parameters")
+    with torch.no_grad():
+        torch._foreach_copy_(disc_opt.mu + disc_opt.nu, tree["opt_mu"] + tree["opt_nu"])
+    disc_opt.count = int(tree["opt_count"])
 
 
 def load_checkpoint(path: str | Path) -> Dict[str, Any]:

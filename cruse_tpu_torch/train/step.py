@@ -476,6 +476,64 @@ def _global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
+class OptimizerChain:
+    """The step's optimiser as the JAX package's ``make_optimizer`` composes it
+    (see the module doc), on ``model``'s trainable parameters, in two halves
+    around the step's one host read: ``prepare(opt, grads)`` -> ``(grad_norm,
+    clip_norm, direction, emit)``, the tensors whose values the host reads
+    and the direction the update takes (the running mean under accumulation,
+    the frozen leaves zeroed); ``apply(state, direction, clip_value, emit)``
+    clips by the host value, updates Adam / AdamW, the accumulator, the
+    mini-step count and the EMA in place. MetricGAN+'s generator step
+    (``train/metricgan.py``) runs the same chain on its own gradients."""
+
+    def __init__(self, model, cfg: StepConfig):
+        self.model, self.cfg = model, cfg
+        self.lr_at = make_lr(cfg)
+        self.frozen, self.decayed = param_masks(model, cfg)
+
+    def prepare(self, opt: AdamState, grads: List[torch.Tensor]):
+        cfg, frozen, k = self.cfg, self.frozen, self.cfg.grad_accum_steps
+        grad_norm = _global_norm(grads)
+        emit = opt.mini_step == k - 1
+        with torch.no_grad():
+            if k > 1:  # optax's MultiSteps: a running mean, acc + (g - acc) / (n + 1)
+                mean = torch._foreach_add(opt.acc, torch._foreach_div(torch._foreach_sub(grads, opt.acc),
+                                                                      float(opt.mini_step + 1)))
+            else:
+                mean = grads
+            if emit and any(frozen):  # the frozen leaves' gradients are zero before the clip
+                mean = [torch.zeros_like(g) if f else g for g, f in zip(mean, frozen)]
+            clip_norm = _global_norm(mean) if emit and (k > 1 or any(frozen)) else grad_norm
+        return grad_norm, clip_norm, mean, emit
+
+    def apply(self, state: TrainState, mean: List[torch.Tensor], clip_value: float, emit: bool) -> None:
+        cfg, opt, k = self.cfg, state.opt_state, self.cfg.grad_accum_steps
+        params = _trainable(self.model)
+        with torch.no_grad():
+            if emit:
+                if clip_value >= cfg.clip_grad_norm:
+                    torch._foreach_mul_(mean, cfg.clip_grad_norm / clip_value)
+                _adam_update(params, mean, opt, cfg, self.lr_at(opt.count), self.frozen, self.decayed)
+                if k > 1:
+                    torch._foreach_zero_(opt.acc)
+            else:
+                torch._foreach_copy_(opt.acc, mean)
+            opt.mini_step = 0 if emit else opt.mini_step + 1
+            if state.ema is not None:
+                torch._foreach_mul_(state.ema, cfg.ema_decay)
+                torch._foreach_add_(state.ema, params, alpha=1.0 - cfg.ema_decay)
+
+
+def check_state(state: TrainState, model, cfg: StepConfig) -> None:
+    """Raise unless ``state`` is ``model``'s and made from ``cfg``."""
+    if state.model is not model:
+        raise ValueError("the state belongs to another model than this step was made for")
+    if (state.ema is None) != (cfg.ema_decay is None) or (state.opt_state.acc is None) != (cfg.grad_accum_steps == 1):
+        raise ValueError("the state's EMA or accumulator does not match the step config "
+                         "(make the state with init_train_state from the same config)")
+
+
 def make_train_step(model, cfg: StepConfig, forward: Callable | None = None,
                     teacher: tuple | None = None) -> Callable:
     """Build the train step for ``model``.
@@ -491,35 +549,17 @@ def make_train_step(model, cfg: StepConfig, forward: Callable | None = None,
     compressed spectral distance to the frozen teacher's enhanced spectrum,
     e.g. a large offline model teaching a small streaming one)."""
     loss_gradients = make_loss_gradients(model, cfg, forward, teacher)
-    lr_at = make_lr(cfg)
-    frozen, decayed = param_masks(model, cfg)
-    k = cfg.grad_accum_steps
+    chain = OptimizerChain(model, cfg)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        if state.model is not model:
-            raise ValueError("the state belongs to another model than this step was made for")
-        opt = state.opt_state
-        if (state.ema is None) != (cfg.ema_decay is None) or (opt.acc is None) != (k == 1):
-            raise ValueError("the state's EMA or accumulator does not match the step config "
-                             "(make the state with init_train_state from the same config)")
+        check_state(state, model, cfg)
         # the forward moves the BatchNorm statistics in place: keep what a skipped step restores
         buffers = list(model.buffers())
         kept = [b.clone() for b in buffers] if cfg.skip_nonfinite_updates else None
         grads, losses, new_balancer_state = loss_gradients(state.balancer_state, batch)
-        grad_norm = _global_norm(grads)
+        grad_norm, clip_norm, mean, emit = chain.prepare(state.opt_state, grads)
         metrics = {f"loss_{name}": value for name, value in losses.items()}
         metrics["grad_norm"] = grad_norm
-
-        emit = opt.mini_step == k - 1
-        with torch.no_grad():
-            if k > 1:  # optax's MultiSteps: a running mean, acc + (g - acc) / (n + 1)
-                mean = torch._foreach_add(opt.acc, torch._foreach_div(torch._foreach_sub(grads, opt.acc),
-                                                                      float(opt.mini_step + 1)))
-            else:
-                mean = grads
-            if emit and any(frozen):  # the frozen leaves' gradients are zero before the clip
-                mean = [torch.zeros_like(g) if f else g for g, f in zip(mean, frozen)]
-            clip_norm = _global_norm(mean) if emit and (k > 1 or any(frozen)) else grad_norm
 
         # the one wait for the device: the norms decide the clip, and with the
         # losses whether anything of this step may be kept
@@ -532,21 +572,8 @@ def make_train_step(model, cfg: StepConfig, forward: Callable | None = None,
                     for buffer, old in zip(buffers, kept):
                         buffer.copy_(old)
                 return dataclasses.replace(state, step=state.step + 1), metrics
-        params = _trainable(model)
-        with torch.no_grad():
-            if emit:
-                if clip_value >= cfg.clip_grad_norm:
-                    torch._foreach_mul_(mean, cfg.clip_grad_norm / clip_value)
-                _adam_update(params, mean, opt, cfg, lr_at(opt.count), frozen, decayed)
-                if k > 1:
-                    torch._foreach_zero_(opt.acc)
-            else:
-                torch._foreach_copy_(opt.acc, mean)
-            opt.mini_step = 0 if emit else opt.mini_step + 1
-            if state.ema is not None:
-                torch._foreach_mul_(state.ema, cfg.ema_decay)
-                torch._foreach_add_(state.ema, params, alpha=1.0 - cfg.ema_decay)
-        return TrainState(model=model, opt_state=opt, balancer_state=new_balancer_state,
+        chain.apply(state, mean, clip_value, emit)
+        return TrainState(model=model, opt_state=state.opt_state, balancer_state=new_balancer_state,
                           step=state.step + 1, ema=state.ema), metrics
 
     return train_step

@@ -27,7 +27,16 @@ reference mic's noisy signal (``model.config.reference_channel``).
 wait in ``data_wait``), of each validation's enhancement on the card and host
 scoring, and of each checkpoint save.
 
-Refused by name: MetricGAN+ (``adversarial``), a device mesh, and the
+``adversarial`` (``[trainer.adversarial]``: ``adv_weight``, ``disc_lr``,
+``ndf``, ``replay_capacity``, ``pretrain_steps``) trains by MetricGAN+
+(``train/metricgan.py``): a discriminator made from seed 1, pretrained on
+``pretrain_steps`` metric-scored batches before the first epoch, then an
+alternation a batch (enhance, host PESQ, D on the fresh and one replayed
+batch, the G step) in place of the train step; ``disc_latest`` is saved with
+``latest`` and at preemption, and a resumed run restores D and skips the
+pretraining.
+
+Refused by name: a device mesh (with or without ``adversarial``), and the
 spectrogram figure of the TensorBoard samples (which needs the JAX package's
 ``utils/plot.py``; the audio is written).
 """
@@ -51,8 +60,8 @@ import torch
 
 from cruse_tpu_torch.dsp.stft import istft, mc_stft, stft
 from cruse_tpu_torch.metrics.registry import available_metrics, composite_score, compute_metric
-from cruse_tpu_torch.train.checkpoint import (preload_params, restore_checkpoint, save_checkpoint,
-                                              state_to_host)
+from cruse_tpu_torch.train.checkpoint import (preload_params, restore_checkpoint, restore_discriminator,
+                                              save_checkpoint, save_discriminator, state_to_host)
 from cruse_tpu_torch.train.step import StepConfig, forward_for_model, init_train_state, make_train_step
 from cruse_tpu_torch.utils.logger import log
 from cruse_tpu_torch.utils.timing import ExecutionTime, trace
@@ -76,7 +85,9 @@ class TrainerConfig:
     # processes score config 2's validation set in under a second on an
     # 8-core host and leave the train step its core
     num_metric_workers: int = 4
-    adversarial: Optional[dict] = None  # MetricGAN+: refused
+    # [trainer.adversarial]: MetricGAN+ -- adv_weight, disc_lr, ndf,
+    # replay_capacity, pretrain_steps; None trains without a discriminator
+    adversarial: Optional[dict] = None
     # [trainer.profiling]: a torch.profiler trace over a window of train
     # steps -- epoch (default 1), start_step (default 1), num_steps (default
     # 3), trace_dir (default <logs_dir>/profile); a Chrome trace
@@ -122,10 +133,9 @@ class Trainer:
                  resume: bool = False, preload_path: str | None = None,
                  device: torch.device | str = "cuda", writer=None, mesh=None, teacher=None):
         if mesh is not None:
-            raise NotImplementedError("training on a device mesh is not ported (one device; "
-                                      "torch.distributed is ROADMAP.md queue 1 item 9)")
-        if trainer_config.adversarial:
-            raise NotImplementedError("[trainer.adversarial] (MetricGAN+) is not ported")
+            raise NotImplementedError("training on a device mesh is not ported"
+                                      + (", with [trainer.adversarial] or without" if trainer_config.adversarial
+                                         else "") + " (one device; torch.distributed is ROADMAP.md queue 1 item 9)")
         self.model = model
         self.step_cfg = step_config
         self.cfg = trainer_config
@@ -161,6 +171,9 @@ class Trainer:
         self._eval_model = copy.deepcopy(model) if self.state.ema is not None else model
         self._forward = forward_for_model(self._eval_model)
         self.reference_channel = getattr(getattr(model, "config", None), "reference_channel", 0)
+        self._adv = None
+        if trainer_config.adversarial:
+            self._init_adversarial(dict(trainer_config.adversarial), resume)
 
         if writer is None:
             try:
@@ -178,6 +191,80 @@ class Trainer:
 
         n_params = sum(p.numel() for p in model.parameters())
         log(f"Model parameters: {n_params / 1e6:.3f} million.")
+
+    # ---- MetricGAN+ ----
+
+    def _init_adversarial(self, adv: dict, resume: bool) -> None:
+        """The discriminator and its Adam state, the steps, the replay buffer
+        and the pretraining budget; with ``resume`` and a ``disc_latest``, D
+        as it was saved, past its pretraining."""
+        from cruse_tpu_torch.models.bsrnn import Discriminator
+        from cruse_tpu_torch.train.metricgan import (MetricGanConfig, ReplayBuffer, disc_adam_state,
+                                                     make_metricgan_steps)
+
+        mgcfg = MetricGanConfig(step=self.step_cfg, disc_lr=float(adv.get("disc_lr", 1e-4)),
+                                adv_weight=float(adv.get("adv_weight", 1.0)), ndf=int(adv.get("ndf", 16)))
+        disc = Discriminator(mgcfg.ndf, generator=torch.Generator().manual_seed(1)).to(self.device).train()
+        self._adv = {"disc": disc, "disc_opt": disc_adam_state(disc),
+                     "steps": make_metricgan_steps(self.model, disc, mgcfg),
+                     "replay": ReplayBuffer(capacity=int(adv.get("replay_capacity", 32))),
+                     "pretrain_steps": int(adv.get("pretrain_steps", 0)), "pretrained": False}
+        log(f"adversarial (MetricGAN+): adv_weight={mgcfg.adv_weight}, disc_lr={mgcfg.disc_lr}, ndf={mgcfg.ndf}, "
+            f"replay={self._adv['replay'].capacity}, pretrain_steps={self._adv['pretrain_steps']}")
+        if resume and (self.checkpoints_dir / "disc_latest").exists():
+            restore_discriminator(self.checkpoints_dir, disc, self._adv["disc_opt"])
+            self._adv["pretrained"] = True  # a resumed D is past its pretraining
+            log("discriminator checkpoint restored.")
+
+    def _mg_state(self):
+        from cruse_tpu_torch.train.metricgan import MetricGanState
+
+        return MetricGanState(gen=self.state, disc=self._adv["disc"], disc_opt=self._adv["disc_opt"])
+
+    def _mg_sync(self, mg) -> None:
+        self.state = mg.gen
+        self._adv.update(disc=mg.disc, disc_opt=mg.disc_opt)
+
+    def _save_disc(self) -> None:
+        if self._adv is not None:
+            save_discriminator(self.checkpoints_dir, self._adv["disc"], self._adv["disc_opt"])
+
+    def _pretrain_discriminator(self) -> None:
+        """D pretraining on the first ``pretrain_steps`` training batches
+        (once, before the first epoch; a resumed run skips it)."""
+        import itertools
+
+        from cruse_tpu_torch.train.metricgan import pretrain_discriminator
+
+        n = self._adv["pretrain_steps"]
+        self._adv["pretrained"] = True
+        if n <= 0:
+            return
+        batches = self.train_batches() if callable(self.train_batches) else self.train_batches
+        batch_iter = iter(batches)
+        try:
+            mg, loss = pretrain_discriminator(
+                self._mg_state(), self._adv["steps"],
+                ({"noisy": self._put(b["noisy"]), "clean": self._put(b["clean"])}
+                 for b in itertools.islice(batch_iter, n)),
+                sr=self.cfg.sr, replay=self._adv["replay"])
+        finally:
+            if callable(self.train_batches) and hasattr(batch_iter, "close"):
+                batch_iter.close()  # stops a prefetching producer that is ahead
+        self._mg_sync(mg)
+        log(f"D pretraining ({n} metric-scored batches): mean loss {loss:.5f}")
+
+    def _train_batch(self, batch):
+        """One train step, or with ``adversarial`` one MetricGAN+ alternation."""
+        if self._adv is None:
+            self.state, metrics = self._train_step(self.state, batch)
+            return metrics
+        from cruse_tpu_torch.train.metricgan import metricgan_train_batch
+
+        mg, metrics = metricgan_train_batch(self._mg_state(), batch, self._adv["steps"], sr=self.cfg.sr,
+                                            replay=self._adv["replay"])
+        self._mg_sync(mg)
+        return metrics
 
     # ---- epochs ----
 
@@ -226,7 +313,7 @@ class Trainer:
                     break
                 t1 = time.perf_counter()
                 batch = {"noisy": self._put(batch["noisy"]), "clean": self._put(batch["clean"])}
-                self.state, metrics = self._train_step(self.state, batch)
+                metrics = self._train_batch(batch)
                 for k, v in metrics.items():
                     v = float(v)
                     tot, n, bad = running.get(k, (0.0, 0, 0))
@@ -458,6 +545,8 @@ class Trainer:
                     f"(patience {self.cfg.patience})")
 
     def _train_loop(self, preempted) -> None:
+        if self._adv is not None and not self._adv["pretrained"] and not self.cfg.only_validation:
+            self._pretrain_discriminator()
         self._pending_val = None
         self._since_best = 0
         self._stop_early = False
@@ -483,6 +572,7 @@ class Trainer:
 
                 if self.cfg.save_checkpoint_interval and epoch % self.cfg.save_checkpoint_interval == 0:
                     self._save(epoch)
+                    self._save_disc()
 
                 if epoch % self.cfg.validation_interval == 0:
                     log(f"[{timer.duration()} seconds] Training finished, validation in progress...")
@@ -498,6 +588,7 @@ class Trainer:
                 if preempted["flag"]:
                     self._harvest_validation()
                     self._save(epoch)
+                    self._save_disc()
                     log(f"preemption checkpoint written at epoch {epoch}; resume with -R.")
                     return
         finally:

@@ -35,6 +35,14 @@ already in torch's layout) become ``nn.LSTM``'s flat ones
 (``lstm_t_0.rnn.weight_ih_l0``, ``….rnn.bias_hh_l0_reverse``); the norms'
 ``scale`` / ``bias`` keep their names.
 
+MetricGAN+'s ``Discriminator`` (``discriminator_state_dict_from_flax`` and
+its inverse) maps flax's ``Conv_i/kernel`` (HWIO) to ``conv_i.weight``
+(OIHW), ``Dense_0`` / ``Dense_1`` to ``fc1`` / ``fc2``, the PReLU slopes and
+``lsig/slope`` by name, and the spectral norms' statistics, which flax keeps
+under ``batch_stats/conv_i/'Conv_i/kernel/u'`` (and ``…/sigma``; ``fc1`` /
+``'Dense_0/kernel/u'`` for the Dense layers), to ``conv_i.norm.u`` and
+``.sigma``.
+
 ``mtfaa_flax_from_named`` is MTFAA's mapping's inverse, for the parameters, their
 gradients or the statistics of a trained port model, so that tests compare
 the two packages leaf by leaf; ``flax_from_state_dict`` inverts every
@@ -210,6 +218,53 @@ def bsrnn_state_dict_from_flax(variables_np: Mapping[str, Any]) -> Dict[str, Any
         else:
             state[".".join(modules + [_LSTM_LEAVES.get(leaf, leaf)])] = _to_port(value, lambda v: v)
     return state
+
+
+# MetricGAN+'s discriminator: the port's spectral-normed layer -> (flax's wrapper, the flax layer inside it)
+_DISC_LAYERS = {**{f"conv_{i}": (f"conv_{i}", f"Conv_{i}") for i in range(4)},
+                "fc1": ("fc1", "Dense_0"), "fc2": ("fc2", "Dense_1")}
+_DISC_SLOPES = ("PReLU_0", "PReLU_1", "PReLU_2", "PReLU_3", "PReLU_4")
+
+
+def discriminator_state_dict_from_flax(variables_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """cruse_tpu ``Discriminator`` variables (``params`` and the spectral
+    norms' ``batch_stats``) -> state_dict of the port's ``Discriminator``."""
+    params, stats = variables_np["params"], variables_np["batch_stats"]
+    state = {}
+    for name, (wrapper, layer) in _DISC_LAYERS.items():
+        kernel = np.asarray(params[layer]["kernel"], np.float32)
+        # Conv HWIO -> OIHW; Dense [in, out] -> Linear [out, in]
+        state[f"{name}.weight"] = np.transpose(kernel, (3, 2, 0, 1)) if kernel.ndim == 4 else kernel.T
+        if "bias" in params[layer]:
+            state[f"{name}.bias"] = params[layer]["bias"]
+        state[f"{name}.norm.u"] = stats[wrapper][f"{layer}/kernel/u"]
+        state[f"{name}.norm.sigma"] = stats[wrapper][f"{layer}/kernel/sigma"]
+    for name in _DISC_SLOPES:
+        state[f"{name}.negative_slope"] = params[name]["negative_slope"]
+    state["lsig.slope"] = params["lsig"]["slope"]
+    return {k: torch.from_numpy(np.array(v, np.float32, order="C")) for k, v in state.items()}
+
+
+def discriminator_flax_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse: the port's ``Discriminator`` state_dict (or its
+    gradients by parameter name, which fill ``params`` alone) -> the
+    cruse_tpu ``{"params", "batch_stats"}`` tree of numpy arrays."""
+    value = {k: np.array(v.detach().cpu()) for k, v in state_dict.items()}  # copies: the module moves in place
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for name, (wrapper, layer) in _DISC_LAYERS.items():
+        weight = value[f"{name}.weight"]
+        params[layer] = {"kernel": np.ascontiguousarray(np.transpose(weight, (2, 3, 1, 0)) if weight.ndim == 4
+                                                        else weight.T)}
+        if f"{name}.bias" in value:
+            params[layer]["bias"] = value[f"{name}.bias"]
+        if f"{name}.norm.u" in value:
+            stats[wrapper] = {f"{layer}/kernel/u": value[f"{name}.norm.u"],
+                              f"{layer}/kernel/sigma": value[f"{name}.norm.sigma"]}
+    for name in _DISC_SLOPES:
+        params[name] = {"negative_slope": value[f"{name}.negative_slope"]}
+    params["lsig"] = {"slope": value["lsig.slope"]}
+    return {"params": params, "batch_stats": stats}
 
 
 def mtfaa_flax_from_named(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:

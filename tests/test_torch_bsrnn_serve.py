@@ -4,7 +4,7 @@ at ``configs/tiny_bsrnn*.toml``'s widths (16 kHz, n_fft 512, hop 256,
 causal, ``enhance_long``, the causal stream hop by hop, the server (alone
 and beside a CRUSE+DF pool in a ``MultiModelServer``), the infer and serve
 CLIs (``--quantize int8`` too), and the refusals (the mask strategies, the
-streaming guards, export).
+streaming guards). Its export is tests/test_torch_bsrnn_artifact.py's.
 
 The port's seeded weights cross the bridge to JAX. Tolerances: waveforms
 1e-4 max-abs against JAX (the BASELINE contract); the stream against the
@@ -26,7 +26,6 @@ from cruse_tpu_torch.data.wavio import read_wav, to_int16_scaled, write_wav
 from cruse_tpu_torch.dsp.stft import StftConfig, istft, stft
 from cruse_tpu_torch.infer.__main__ import main as infer_main
 from cruse_tpu_torch.infer.batch import BatchInferencer, InferencerConfig
-from cruse_tpu_torch.infer.export import main as export_main
 from cruse_tpu_torch.infer.serve import build_model
 from cruse_tpu_torch.infer.serve import main as serve_main
 from cruse_tpu_torch.infer.server import MultiModelServer, StreamingServer, tree_leaves
@@ -268,15 +267,6 @@ def test_serve_cli_int8(cli_inputs):
         want = _int16(StreamingServer(model, cfg, 1, device="cpu").run_session(padded)[: len(noisy)])
         out = read_wav(str(root / "served" / f"utt{i}.wav"))[0]
         assert out.shape == want.shape and np.abs(out - want).max() <= 1.5 / 32768.0, i
-
-
-@pytest.mark.parametrize("streaming", [False, True], ids=["offline", "streaming"])
-def test_export_refuses_bsrnn_by_name(cli_inputs, streaming):
-    root = cli_inputs
-    with pytest.raises(NotImplementedError, match="exporting BSRNN .* MetricGAN"):
-        export_main(["-C", str(root / "bsrnn.toml"), "-O", str(root / "x.zip"), "--seconds", "0.5",
-                     "--device", "cpu"] + (["--streaming"] if streaming else []))
-    assert not (root / "x.zip").exists()
 
 
 def test_offline_bsrnn_config_streams_nothing(tmp_path):

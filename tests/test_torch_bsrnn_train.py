@@ -2,7 +2,8 @@
 CPU: the step's losses (``si_snr`` + ``spec``, configs/tiny_bsrnn*.toml's)
 and every gradient leaf through the complex forward adapter and cuDNN's
 (here: PyTorch's CPU) LSTM backward, offline and causal; the train CLI on
-both tiny configs; MetricGAN+ refused by name.
+both tiny configs. MetricGAN+ (``configs/tiny_bsrnn_gan.toml``) is
+tests/test_torch_metricgan.py's.
 
 The port's seeded weights cross the bridge to JAX; the JAX step's pieces
 (the adapter, the balancer's cotangent, the losses) run jitted once a
@@ -30,7 +31,6 @@ from cruse_tpu.train import step as jstep
 from cruse_tpu_torch.dsp.stft import StftConfig
 from cruse_tpu_torch.models import BSRNN
 from cruse_tpu_torch.train.step import StepConfig, init_train_state, make_loss_gradients, make_train_step
-from cruse_tpu_torch.train.trainer import Trainer, TrainerConfig
 from cruse_tpu_torch.utils.weights import flax_from_state_dict
 from tests.test_torch_bsrnn import ROOT, make_pair
 from tests.test_torch_train_step import batch
@@ -152,16 +152,3 @@ def test_train_cli_runs_the_tiny_configs(tmp_path, monkeypatch, name):
     log = (run / "train.log").read_text()
     assert log.count("composite score") == 1 and "epoch 1 loss_si_snr" in log and "epoch 1 loss_spec" in log
     assert np.isfinite(trainer.best_score)
-
-
-def test_metricgan_stays_refused(tmp_path):
-    """``[trainer.adversarial]`` (configs/tiny_bsrnn_gan.toml) is refused by
-    name, by the train CLI and by the Trainer."""
-    from cruse_tpu_torch.train.__main__ import main
-
-    with pytest.raises(NotImplementedError, match="MetricGAN"):
-        main(["-C", str(write_config(tmp_path, "tiny_bsrnn_gan.toml")), "--device", "cpu"])
-    model = make_pair(False, 1)[2]
-    with pytest.raises(NotImplementedError, match="MetricGAN"):
-        Trainer(model, StepConfig(stft=StftConfig(**STFT)), TrainerConfig(adversarial={"adv_weight": 0.5}),
-                device="cpu")
